@@ -1,0 +1,433 @@
+"""Fused banded block-coordinate-descent sweep: plain PyTorch and its kernel.
+
+Counterpart of :mod:`flashdeconv_tpu.ops.bcd` for the fused banded tier:
+the same transposed, block-padded carry ``(K, n_solve + 2*h*block)``, the
+same uint8 band masks, the same Gauss-Seidel pass (Jacobi across spots,
+Gauss-Seidel over the K coordinates of each spot) and the same stop rule.
+
+Every function here is plain PyTorch on tensors of an explicit device,
+except :func:`fused_banded_sweep`, the wrapper of the hand-written CUDA
+kernel ``csrc/fused_banded_sweep.cu``: a CUDA carry launches the kernel,
+a CPU carry runs :func:`fused_banded_sweep_reference`. The solve has no
+gradient; none of its tensors requires one.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+from typing import Callable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+# Gauss-Seidel pass dispatch, as in flashdeconv_tpu/ops/bcd.py: the classic
+# pass at K <= 8, panels of 8 through K = 64, panels of 16 above.
+_GS_PANEL_ENGAGE_K = 8
+_GS_PANEL_P_SMALL = 8
+_GS_PANEL_P = 16
+_GS_PANEL_WIDE_K = 64
+
+#: Largest K the CUDA kernel takes (its register arrays are templated on
+#: 8, 16, 32 and 64); the wrapper raises above it.
+KERNEL_MAX_K = 64
+#: Largest band count the CUDA kernel takes (one bit per band per spot).
+KERNEL_MAX_BANDS = 32
+
+
+@contextlib.contextmanager
+def full_f32_matmul() -> Iterator[None]:
+    """Pin full-f32 matmuls (TF32 off) for the block, restoring after.
+
+    Mirrors ``_PREC = HIGHEST`` of the JAX solver: the residual subtracts
+    quantities of similar size (Xty - XtX @ beta), so TF32's ~3 decimal
+    digits would inject visible noise into the iterate path.
+    """
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
+def f32(x) -> float:
+    """``x`` rounded to float32, as a Python float (exact in f32 ops)."""
+    return float(np.float32(x))
+
+
+def _gs_panel_width(n_types: int) -> Optional[int]:
+    """Panel width :func:`gs_pass` uses at this K — None = classic pass."""
+    if n_types <= _GS_PANEL_ENGAGE_K:
+        return None
+    return _GS_PANEL_P_SMALL if n_types <= _GS_PANEL_WIDE_K else _GS_PANEL_P
+
+
+def gs_inv_den(XtX: torch.Tensor, n_nbrs: torch.Tensor, lam) -> torch.Tensor:
+    """Per-solve reciprocal denominator ``1 / (diag(XtX) + lam * degree)``.
+
+    ``den <= 1e-10`` maps to 0, so ``num * inv_den`` gives the guarded 0.0
+    without a branch. ``n_nbrs``: (B,) or (1, B) degrees. Returns (K, B).
+    """
+    diag = torch.diagonal(XtX)[:, None]
+    den = diag + f32(lam) * n_nbrs.reshape(1, -1).to(XtX.dtype)
+    return torch.where(den > 1e-10, 1.0 / den, torch.zeros_like(den))
+
+
+def _gs_prologue(beta_old, xty, xtx, ns, lam, rho):
+    """``C = xty + lam*ns - XtX @ beta_old + diag(XtX)*beta_old - rho``,
+    the coordinate-order-independent part of every numerator, (K, B)."""
+    r0 = xtx @ beta_old
+    diag = torch.diagonal(xtx)[:, None]
+    return (xty + f32(lam) * ns - r0 + diag * beta_old) - f32(rho)
+
+
+def _gs_pass_kb(beta_old, xty, xtx, ns, inv_den, lam, rho):
+    """Classic (K, B) Gauss-Seidel pass: a rank-1 refresh of the whole
+    accumulator after every coordinate. Returns the updated (K, B) beta."""
+    K = beta_old.shape[0]
+    C = _gs_prologue(beta_old, xty, xtx, ns, lam, rho)
+    acc = torch.zeros_like(beta_old)
+    deltas = []
+    for k in range(K):
+        num = torch.clamp_min(C[k:k + 1] - acc[k:k + 1], 0.0)
+        delta = num * inv_den[k:k + 1] - beta_old[k:k + 1]
+        acc = acc + xtx[:, k:k + 1] * delta
+        deltas.append(delta)
+    return torch.cat(deltas, dim=0) + beta_old
+
+
+def _gs_pass_kb_panel(beta_old, xty, xtx, ns, inv_den, lam, rho,
+                      panel: int = _GS_PANEL_P):
+    """Panel Gauss-Seidel pass — the classic pass's iterate, with each
+    panel's corrections from all finished coordinates as one matmul."""
+    K, B = beta_old.shape
+    C = _gs_prologue(beta_old, xty, xtx, ns, lam, rho)
+    delta_panels = []
+    a = 0
+    while a < K:
+        b = min(a + panel, K)
+        if delta_panels:
+            acc_p = xtx[a:b, :a] @ torch.cat(delta_panels, dim=0)
+        else:
+            acc_p = beta_old.new_zeros((b - a, B))
+        pdeltas = []
+        for i in range(b - a):
+            k = a + i
+            num = torch.clamp_min(C[k:k + 1] - acc_p[i:i + 1], 0.0)
+            delta = num * inv_den[k:k + 1] - beta_old[k:k + 1]
+            acc_p = acc_p + xtx[a:b, k:k + 1] * delta
+            pdeltas.append(delta)
+        delta_panels.append(torch.cat(pdeltas, dim=0))
+        a = b
+    return torch.cat(delta_panels, dim=0) + beta_old
+
+
+def gs_pass(beta_old, xty, xtx, ns, inv_den, lam, rho):
+    """The Gauss-Seidel coordinate pass, dispatched on K as the JAX
+    package's ``gs_pass`` is: classic at K <= 8, panel 8 through K = 64,
+    panel 16 above."""
+    p = _gs_panel_width(beta_old.shape[0])
+    if p is not None:
+        return _gs_pass_kb_panel(beta_old, xty, xtx, ns, inv_den, lam, rho,
+                                 panel=p)
+    return _gs_pass_kb(beta_old, xty, xtx, ns, inv_den, lam, rho)
+
+
+def uniform_beta0(Xty_t: torch.Tensor, n_spots: int) -> torch.Tensor:
+    """The cold start: (n_solve, K) with 1/K on the first ``n_spots`` rows
+    and zero padding rows."""
+    K, n_solve = Xty_t.shape
+    beta0 = Xty_t.new_zeros((n_solve, K))
+    beta0[:n_spots] = 1.0 / K
+    return beta0
+
+
+def to_fused_carry(beta0: torch.Tensor, h: int, block: int) -> torch.Tensor:
+    """(n_solve, K) beta -> the transposed carry with ``h`` zero pad blocks
+    on each side, (K, n_solve + 2*h*block)."""
+    n_solve, K = beta0.shape
+    pad = h * block
+    carry = beta0.new_zeros((K, n_solve + 2 * pad))
+    carry[:, pad:pad + n_solve] = beta0.T
+    return carry
+
+
+def from_fused_carry(beta_ext_t: torch.Tensor, h: int, block: int
+                     ) -> torch.Tensor:
+    """Transposed padded carry -> (n_solve, K) beta (a view)."""
+    pad = h * block
+    return beta_ext_t[:, pad:beta_ext_t.shape[1] - pad].T
+
+
+def _banded_ns(beta_ext_t, masksf, offsets, pad: int, n_solve: int):
+    """Banded neighbour sum, bands accumulated in ``offsets`` order."""
+    ns = beta_ext_t.new_zeros((beta_ext_t.shape[0], n_solve))
+    for u, off in enumerate(offsets):
+        ns = ns + masksf[u:u + 1] * beta_ext_t[:, pad + off:pad + off + n_solve]
+    return ns
+
+
+def fused_banded_sweep_reference(
+    beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_, rho,
+    offsets: Tuple[int, ...], h: int, block: int,
+    out: Optional[torch.Tensor] = None,
+):
+    """Plain PyTorch version of the fused banded sweep kernel.
+
+    Same operands and results as :func:`fused_banded_sweep`: reads the
+    carry ``beta_ext_t`` (K, n_solve + 2*h*block), writes the new carry
+    (into ``out`` when given) with its pad slabs zeroed, and returns
+    ``(carry, max|beta - beta_old|, max|beta_old|)`` with the statistics
+    as 0-d tensors on the carry's device.
+    """
+    K, n_ext = beta_ext_t.shape
+    pad = h * block
+    n_solve = n_ext - 2 * pad
+    ns = _banded_ns(beta_ext_t, masks.to(beta_ext_t.dtype), offsets, pad,
+                    n_solve)
+    beta_old = beta_ext_t[:, pad:pad + n_solve]
+    beta = gs_pass(beta_old, Xty_t, XtX, ns, inv_den_t, lambda_, rho)
+    if out is None:
+        out = torch.empty_like(beta_ext_t)
+    out[:, :pad] = 0.0
+    out[:, pad + n_solve:] = 0.0
+    out[:, pad:pad + n_solve] = beta
+    return (out, torch.amax(torch.abs(beta - beta_old)),
+            torch.amax(torch.abs(beta_old)))
+
+
+def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
+                          offsets, h, block, out):
+    K, n_ext = beta_ext_t.shape
+    n_solve = n_ext - 2 * h * block
+    if n_solve <= 0:
+        raise ValueError(f"carry width {n_ext} leaves no data columns "
+                         f"after 2 * h * block = {2 * h * block} pad")
+    if K > KERNEL_MAX_K:
+        raise ValueError(f"the fused kernel takes K <= {KERNEL_MAX_K}, "
+                         f"got K = {K}")
+    if not 0 < len(offsets) <= KERNEL_MAX_BANDS:
+        raise ValueError(f"the fused kernel takes 1..{KERNEL_MAX_BANDS} "
+                         f"bands, got {len(offsets)}")
+    if max(abs(int(o)) for o in offsets) > h * block:
+        raise ValueError("a band offset exceeds the carry's pad h * block")
+    expect = {
+        "Xty_t": (Xty_t, (K, n_solve), torch.float32),
+        "XtX": (XtX, (K, K), torch.float32),
+        "masks": (masks, (len(offsets), n_solve), torch.uint8),
+        "inv_den_t": (inv_den_t, (K, n_solve), torch.float32),
+        "beta_ext_t": (beta_ext_t, (K, n_ext), torch.float32),
+        "out": (out, (K, n_ext), torch.float32),
+    }
+    for name, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != beta_ext_t.device:
+            raise ValueError(f"{name} is on {t.device}, the carry on "
+                             f"{beta_ext_t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out.data_ptr() == beta_ext_t.data_ptr():
+        raise ValueError("the sweep is Jacobi across spots: out must not "
+                         "be the input carry")
+
+
+def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
+                             lambda_, rho, offsets, h, block, out):
+    from flashdeconv_tpu_torch.ops import _build
+
+    lib = _build.load()
+    K, n_ext = beta_ext_t.shape
+    pad = h * block
+    partials = torch.empty((2, lib.fdt_fused_banded_sweep_blocks(n_ext)),
+                           dtype=torch.float32,
+                           device=beta_ext_t.device)
+    offs = (ctypes.c_int * len(offsets))(*(int(o) for o in offsets))
+    stream = torch.cuda.current_stream(beta_ext_t.device).cuda_stream
+    err = lib.fdt_fused_banded_sweep(
+        beta_ext_t.data_ptr(), out.data_ptr(), Xty_t.data_ptr(),
+        masks.data_ptr(), inv_den_t.data_ptr(), XtX.data_ptr(), offs,
+        len(offsets), K, n_ext, pad, n_ext - 2 * pad, f32(lambda_), f32(rho),
+        partials.data_ptr(), stream,
+    )
+    if err:
+        raise RuntimeError(
+            "fused_banded_sweep kernel launch failed: CUDA error "
+            f"{err} ({lib.fdt_error_string(err).decode()})"
+        )
+    fused_banded_sweep.launches += 1
+    stats = torch.amax(partials, dim=1)
+    return out, stats[0], stats[1]
+
+
+def fused_banded_sweep(
+    beta_ext_t: torch.Tensor,
+    Xty_t: torch.Tensor,
+    XtX: torch.Tensor,
+    masks: torch.Tensor,
+    inv_den_t: torch.Tensor,
+    lambda_,
+    rho,
+    offsets: Tuple[int, ...],
+    h: int,
+    block: int,
+    out: Optional[torch.Tensor] = None,
+):
+    """One fused banded BCD sweep on the transposed padded carry.
+
+    Parameters
+    ----------
+    beta_ext_t : (K, n_solve + 2*h*block) f32 carry, pad slabs zero.
+    Xty_t, inv_den_t : (K, n_solve) f32; XtX : (K, K) f32.
+    masks : (U, n_solve) uint8 0/1 band masks, one row per offset.
+    offsets : band offsets, each ``|o| <= h * block``.
+    out : optional (K, n_ext) f32 buffer for the new carry, distinct from
+        ``beta_ext_t`` (Jacobi: every spot reads the pre-sweep carry).
+        Solve loops pass a second carry allocated once and ping-pong.
+
+    Returns ``(new carry, max_diff, max_abs)``, the statistics as 0-d f32
+    tensors on the carry's device. On a CUDA carry this launches the
+    hand-written kernel (and raises if it cannot); on a CPU carry it runs
+    :func:`fused_banded_sweep_reference`. ``fused_banded_sweep.launches``
+    counts the kernel's launches.
+    """
+    if out is None:
+        out = torch.empty_like(beta_ext_t)
+    _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
+                          offsets, h, block, out)
+    if beta_ext_t.device.type == "cuda":
+        return _fused_banded_sweep_cuda(
+            beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_, rho,
+            offsets, h, block, out,
+        )
+    if beta_ext_t.device.type == "cpu":
+        return fused_banded_sweep_reference(
+            beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_, rho,
+            offsets, h, block, out=out,
+        )
+    raise ValueError(f"no fused sweep for device {beta_ext_t.device}")
+
+
+fused_banded_sweep.launches = 0
+
+
+def objective_terms_banded_fused(
+    beta_ext_t, Xty_t, XtX, YtY, offsets: Tuple[int, ...], masks,
+    lambda_, rho, h: int, block: int, nnb: torch.Tensor,
+):
+    """Objective on the fused carry, as a 0-d f32 tensor:
+    ``0.5*(YtY - 2<beta, Xty> + <beta^T beta, XtX>)
+    + 0.5*lambda*(sum deg*|beta|^2 - <beta, ns>) + rho*|beta|_1``,
+    with the degree ``nnb`` (n_solve,).
+    """
+    pad = h * block
+    n_solve = Xty_t.shape[1]
+    beta_t = beta_ext_t[:, pad:pad + n_solve]
+    cross = torch.sum(beta_t * Xty_t)
+    quad = torch.sum((beta_t @ beta_t.T) * XtX)
+    YtY = torch.as_tensor(YtY, dtype=beta_t.dtype, device=beta_t.device)
+    fidelity = 0.5 * (YtY - 2.0 * cross + quad)
+
+    masksf = masks.to(beta_t.dtype)
+    nnb_row = nnb.reshape(1, -1).to(beta_t.dtype)
+    ns_t = _banded_ns(beta_ext_t, masksf, offsets, pad, n_solve)
+    deg_term = torch.sum(nnb_row * torch.sum(beta_t * beta_t, dim=0,
+                                             keepdim=True))
+    adj_term = torch.sum(beta_t * ns_t)
+    spatial = 0.5 * f32(lambda_) * (deg_term - adj_term)
+    return fidelity + spatial + f32(rho) * torch.sum(torch.abs(beta_t))
+
+
+def converge_loop(
+    sweep_fn: Callable, carry: torch.Tensor, tol: float, max_iter: int,
+) -> Tuple[torch.Tensor, int, float]:
+    """Host loop of sweeps until ``max_diff / (max_abs + 1e-10) < tol``.
+
+    ``sweep_fn(carry, out) -> (new carry, max_diff, max_abs)``. The sweep
+    that meets the rule is still applied. The loop ping-pongs between
+    ``carry`` and one second buffer allocated here, so ``carry`` is
+    overwritten from the second sweep on (it saves a (K, n_ext) buffer).
+    The ratio is formed in f32 and compared with f32 ``tol``, as the JAX
+    loop does. Returns ``(carry, n_iterations, rel_change)``.
+    """
+    tol32 = np.float32(tol)
+    spare = torch.empty_like(carry)
+    it, rel = 0, np.float32(np.inf)
+    while it < max_iter and rel >= tol32:
+        new, max_diff, max_abs = sweep_fn(carry, spare)
+        rel = np.float32((max_diff / (max_abs + 1e-10)).item())
+        carry, spare = new, carry
+        it += 1
+    return carry, it, float(rel)
+
+
+def bcd_iterate_banded_fused(
+    carry0, Xty_t, XtX, masks, nnb, lambda_, rho, tol, max_iter: int,
+    offsets: Tuple[int, ...], h: int, block: int,
+):
+    """Fused solve loop on the transposed padded carry; the reciprocal
+    denominator is computed once per solve from the degree vector ``nnb``.
+    ``carry0`` is overwritten (see :func:`converge_loop`). Returns
+    ``(carry, n_iterations, rel_change)``."""
+    inv_den_t = gs_inv_den(XtX, nnb, lambda_)
+    return converge_loop(
+        lambda c, out: fused_banded_sweep(
+            c, Xty_t, XtX, masks, inv_den_t, lambda_, rho, offsets, h,
+            block, out=out,
+        ),
+        carry0, tol, max_iter,
+    )
+
+
+def fused_solve(
+    beta0, Xty_t, XtX, masks, nnb, YtY, inv_perm, lambda_, rho, tol,
+    max_iter: int, offsets: Tuple[int, ...], h: int, block: int,
+    n_spots: int, verbose: bool = False,
+):
+    """The whole fused banded solve: init, converge loop, objective,
+    un-pad and un-permute — the counterpart of the JAX
+    ``fused_solve_program`` and, with ``verbose``, of its chunked verbose
+    loop.
+
+    The sweeps run as one chunk of ``max_iter``; with ``verbose`` they run
+    in chunks that end after sweeps 0, 10, 20, ... (the reference's
+    cadence) and at the converged sweep, and the objective after each
+    chunk is printed. ``beta0`` is None (uniform 1/K over the first
+    ``n_spots`` columns) or an (n_solve, K) tensor; ``inv_perm`` is None
+    (identity) or an (n_spots,) index tensor. Returns ``(beta (n_spots,
+    K), n_iterations, rel_change, converged, objectives)``, beta on the
+    operands' device and ``objectives[-1]`` the final objective.
+    """
+    tol32 = np.float32(tol)
+    objectives, n_iter, rel = [], 0, float("inf")
+    chunk = 1 if verbose else max_iter
+    with full_f32_matmul():
+        if beta0 is None:
+            beta0 = uniform_beta0(Xty_t, n_spots)
+        carry = to_fused_carry(beta0, h, block)
+        while n_iter < max_iter and not rel < tol32:
+            carry, done, rel = bcd_iterate_banded_fused(
+                carry, Xty_t, XtX, masks, nnb, lambda_, rho, tol,
+                min(chunk, max_iter - n_iter), offsets, h, block,
+            )
+            n_iter += done
+            chunk = 10
+            objectives.append(float(objective_terms_banded_fused(
+                carry, Xty_t, XtX, YtY, offsets, masks, lambda_, rho, h,
+                block, nnb=nnb,
+            )))
+            if verbose:
+                print(f"Iteration {n_iter - 1}: objective = "
+                      f"{objectives[-1]:.6f}, rel_change = {rel:.6e}")
+    converged = bool(rel < tol32)
+    if verbose and converged:
+        print(f"Converged at iteration {n_iter - 1}")
+    beta = from_fused_carry(carry, h, block)[:n_spots]
+    if inv_perm is not None:
+        beta = beta.index_select(0, inv_perm)
+    return beta, n_iter, rel, converged, objectives
