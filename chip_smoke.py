@@ -1,28 +1,39 @@
 """Smoke run of flashdeconv_tpu_torch on one NVIDIA card.
 
     python3 chip_smoke.py            # the smoke run
-    python3 chip_smoke.py --profile  # where the warm 1M solve's time goes
+    python3 chip_smoke.py --profile  # where the warm 1M solves' time goes
 
-Builds the CUDA kernel from the sources in this checkout, holds it against
-its plain PyTorch version at the main path's shapes, then drives the main
-path: a 1M-spot (1000 x 1000 grid, K = 20, sketch 512, kNN-6) prepare and
-solve through the fused banded tier, and a 262,144-spot ``fit_transform``
-of synthetic Poisson counts. Any failed phase raises, so the exit code is
-non-zero; without a card the script fails before it prints any result. The
-last two lines are one JSON object per kernel and the result line
-``{"ok": true, "device": {...}}``. Needs no JAX and no network.
+Builds both CUDA kernels from the sources in this checkout (one ``nvcc``
+each, in parallel), holds each against its plain PyTorch version at the
+main paths' shapes, holds the fused and unfused banded solves bitwise
+equal, then drives the two main paths, each with the launch counts set to
+0 just before it and read just after:
 
-``--profile`` builds, prepares the 1M problem and runs three warm solves
-under ``torch.profiler``, each split by the host clock into the device
-solve and the fetch of beta; it prints that split and the profiler's
-table, and no result line.
+1. the fused banded tier: a 1M-spot (1000 x 1000 grid, K = 20, sketch
+   512, kNN-6) prepare and solve, and a 262,144-spot ``fit_transform`` of
+   synthetic Poisson counts;
+2. the gather tier: a 1M-spot irregular problem (uniform random
+   coordinates, kNN-6, as Xenium and CosMx sections look) through
+   ``prepare_bcd`` and ``solve``, and two ``fit_transform`` runs: a
+   Visium-like section of 4,992 spots on a hex lattice and a 100,000-cell
+   irregular section (2,000 genes, K = 20).
+
+Any failed phase raises, so the exit code is non-zero; without a card the
+script fails before it prints any result. The last three lines are one
+JSON object per kernel, the card's name and power limit, and the result
+line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
+
+``--profile`` builds, prepares the 1M grid and the 1M irregular problems
+and, for each, runs three warm solves under ``torch.profiler``, each split
+by the host clock into the device solve and the fetch of beta; it prints
+that split and the profiler's table, and no result line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
+import re
 import subprocess
 import sys
 import time
@@ -33,21 +44,23 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
-# The native host kernels (log-CPM, CountSketch) build into the checkout.
-os.environ.setdefault(
-    "FLASHDECONV_NATIVE_CACHE",
-    str(ROOT / "flashdeconv_tpu_torch" / "ops" / "build" / "native"),
-)
 
 SPOTS = 1_000_000
 TYPES = 20
 SKETCH = 512
 FIT_SIDE, FIT_GENES = 512, 2000
+VISIUM_COLS, VISIUM_ROWS = 78, 64   # 4,992 spots, as a Visium capture area
+CELLS = 100_000
 SWEEPS = 20
 # Kernel against plain: atol / rtol on beta, rtol on the statistics. The
-# kernel contracts multiply-adds into FMAs and sums XtX @ beta in its own
-# order, so it is held to tolerances, not bitwise.
+# kernels contract multiply-adds into FMAs and sum XtX @ beta in their own
+# order, so they are held to tolerances, not bitwise.
 ATOL, RTOL, STATS_RTOL = 5e-5, 1e-4, 1e-4
+# The card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
+# operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SOLVE = dict(lambda_=0.1, rho=0.01, max_iter=100, tol=1e-4)
 
 
 def log(*parts) -> None:
@@ -75,22 +88,78 @@ def phase_build() -> None:
     from flashdeconv_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    so = _build.build()
-    _build.load()
-    log(f"[build] {so.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.3f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build] {line.strip()}")
+    libs = _build.build()
+    for name in libs:
+        _build.load(name)
+    log(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.3f} s "
+        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for name, so in libs.items():
+        log(f"[build] {so.relative_to(ROOT)}")
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build] {name}: {line.strip()}")
+            spills = re.findall(r"(\d+) bytes spill", line)
+            if any(int(s) for s in spills):
+                raise AssertionError(f"{name} spills registers: {line}")
 
 
-def prepare(n_spots: int, n_types: int):
-    """The port's prepare on a bench problem: (problem, prepare seconds)."""
-    from bench import make_problem
+# -- problems -----------------------------------------------------------------
+
+def make_problem(n_spots: int, n_types: int, d: int, seed: int = 0,
+                 coords=None):
+    """Synthetic sketch-space problem with spatially smooth ground truth.
+
+    With ``coords`` None, the same numbers from the same seed as
+    ``bench.make_problem`` (a grid of n_spots); otherwise the same recipe
+    over the given (n_spots, 2) coordinates."""
+    from flashdeconv_tpu_torch.utils.graph import grid_coords
+
+    rng = np.random.default_rng(seed)  # PCG64: fast f32 draws at 1M x 512
+    side = int(np.ceil(np.sqrt(n_spots)))
+    if coords is None:
+        coords = grid_coords(n_spots)
+
+    X_sketch = rng.standard_normal((n_types, d), dtype=np.float32)
+
+    # Smooth ground-truth abundances: soft assignment to K spatial centers.
+    centers = rng.random((n_types, 2)) * side
+    beta_true = np.empty((n_spots, n_types), dtype=np.float32)
+    scale = 2.0 * (0.25 * side) ** 2
+    for k in range(n_types):  # per-type pass keeps peak memory O(N)
+        d2 = ((coords - centers[k]) ** 2).sum(axis=1)
+        beta_true[:, k] = np.exp(-d2 / scale)
+    beta_true /= beta_true.sum(axis=1, keepdims=True)
+
+    Y_sketch = beta_true @ X_sketch
+    # Chunked noise add: the same stream as one call, a smaller temporary.
+    step = 1 << 17
+    for s in range(0, n_spots, step):
+        e = min(n_spots, s + step)
+        noise = rng.standard_normal((e - s, d), dtype=np.float32)
+        noise *= 0.05
+        Y_sketch[s:e] += noise
+    return Y_sketch, X_sketch, coords
+
+
+def irregular_coords(n_spots: int, seed: int = 1) -> np.ndarray:
+    """Uniform random coordinates at one spot per unit area."""
+    side = np.sqrt(n_spots)
+    return np.random.default_rng(seed).random((n_spots, 2)) * side
+
+
+def hex_coords(cols: int, rows: int) -> np.ndarray:
+    """A hexagonal lattice (odd rows shifted half a spot), as Visium's."""
+    r, c = np.divmod(np.arange(cols * rows), cols)
+    return np.column_stack([c + 0.5 * (r % 2), r * np.sqrt(3) / 2])
+
+
+def prepare(n_spots: int, n_types: int, irregular: bool = False):
+    """The port's prepare on a synthetic problem: (problem, seconds)."""
     from flashdeconv_tpu_torch.core.solver import prepare_bcd
     from flashdeconv_tpu_torch.utils import build_knn_graph
 
-    Y, X, coords = make_problem(n_spots, n_types, SKETCH)
+    coords = irregular_coords(n_spots) if irregular else None
+    Y, X, coords = make_problem(n_spots, n_types, SKETCH, coords=coords)
     A = build_knn_graph(coords, k=6)
     t0 = time.perf_counter()
     prob = prepare_bcd(Y, X, A, coords=coords, device="cuda")
@@ -98,130 +167,248 @@ def prepare(n_spots: int, n_types: int):
     return prob, time.perf_counter() - t0
 
 
-def sweep_args(prob, lam=0.1, rho=0.01):
-    """Operands of one sweep of ``prob`` from a seeded non-negative carry
-    (pads and padded spots zero, as in a solve)."""
-    from flashdeconv_tpu_torch.ops import bcd
+def synthetic_counts(coords, extent: float, n_genes: int, n_types: int,
+                     seed: int = 0, chunk: int = 16384):
+    """Seeded Poisson CSR counts with spatially smooth proportions over
+    ``coords`` (the recipe of tests/conftest.make_synthetic), generated in
+    row chunks. Returns (Y, X, true proportions)."""
+    from scipy import sparse
 
-    rng = np.random.default_rng(prob.n_types)
-    beta = np.abs(rng.standard_normal((prob.n_solve, prob.n_types),
-                                      dtype=np.float32))
-    beta[prob.n_spots:] = 0.0
-    carry = bcd.to_fused_carry(torch.from_numpy(beta).cuda(),
-                               prob.h_blocks, prob.fused_block)
-    inv = bcd.gs_inv_den(prob.XtX_d, prob.nnb_d, lam).contiguous()
-    return (carry, prob.Xty_t_d, prob.XtX_d, prob.masks_d, inv, lam,
-            rho * prob.mean_diag, prob.offsets, prob.h_blocks,
-            prob.fused_block)
+    rng = np.random.default_rng(seed)
+    X = rng.gamma(2.0, 1.0, (n_types, n_genes))
+    X *= rng.random((n_types, n_genes)) < 0.3
+    m = max(3, n_genes // (n_types * 10))
+    marks = rng.choice(n_genes, m * n_types, replace=False)
+    for k in range(n_types):
+        cols = marks[k * m:(k + 1) * m]
+        X[:, cols] = 0.0
+        X[k, cols] = rng.gamma(5.0, 2.0, m)
+    centers = rng.random((n_types, 2)) * extent
+    parts, props = [], []
+    for s in range(0, coords.shape[0], chunk):
+        d2 = ((coords[s:s + chunk, None, :] - centers[None]) ** 2).sum(-1)
+        p = np.exp(-d2 / (2 * (0.25 * extent) ** 2)
+                   + rng.gumbel(0.0, 0.3, d2.shape))
+        p /= p.sum(axis=1, keepdims=True)
+        mean = p @ X
+        mean /= mean.sum(axis=1, keepdims=True)
+        depth = rng.gamma(3.0, 1500.0, (len(p), 1))
+        parts.append(sparse.csr_matrix(
+            rng.poisson(mean * depth).astype(np.float64)))
+        props.append(p)
+    return sparse.vstack(parts, format="csr"), X, np.concatenate(props)
 
 
-def time_sweeps(fn, args) -> float:
-    """Warm per-sweep ms over SWEEPS launches, by CUDA events."""
-    spare = torch.empty_like(args[0])
+# -- kernels against their plain versions ---------------------------------------
+
+def time_sweeps(fn, args, out) -> float:
+    """Warm per-launch ms over SWEEPS launches, by CUDA events."""
     for _ in range(3):
-        fn(*args, out=spare)
+        fn(*args, out=out)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(SWEEPS):
-        fn(*args, out=spare)
+        fn(*args, out=out)
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / SWEEPS
 
 
-def phase_kernel(prob, label: str) -> dict:
-    """One sweep, kernel against plain, then timings in turns."""
+def in_turns(plain, kern, args, out) -> dict:
+    """CUDA-event times in turns plain, kernel, kernel, plain."""
+    ms = {"plain": [], "kernel": []}
+    for name, fn in (("plain", plain), ("kernel", kern), ("kernel", kern),
+                     ("plain", plain)):
+        ms[name].append(time_sweeps(fn, args, out))
+    return ms
+
+
+def seeded_beta(prob) -> torch.Tensor:
+    """A seeded non-negative (n_solve, K) beta, padded spots zero."""
+    rng = np.random.default_rng(prob.n_types)
+    beta = np.abs(rng.standard_normal((prob.n_solve, prob.n_types),
+                                      dtype=np.float32))
+    beta[prob.n_spots:] = 0.0
+    return torch.from_numpy(beta).cuda()
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    if by_bytes >= by_ops:
+        return by_bytes * 1e3, "bytes"
+    return by_ops * 1e3, "operations"
+
+
+def gs_ops(K: int, n: int) -> float:
+    """f32 operations of the Gauss-Seidel pass over n spots: the XtX @ beta
+    product (2K^2), the rank-1 refreshes (K(K-1)) and ~8 per coordinate."""
+    return n * (2.0 * K * K + K * (K - 1) + 8.0 * K)
+
+
+def check_close(got, ref, d, rd, a, ra, label):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(d, rd, atol=0.0, rtol=STATS_RTOL)
+    torch.testing.assert_close(a, ra, atol=0.0, rtol=STATS_RTOL)
+    if not (got >= 0).all():
+        raise AssertionError(f"{label}: negative beta")
+    return float((got - ref).abs().max())
+
+
+def phase_fused_kernel(prob, label: str) -> dict:
+    """One fused sweep, kernel against plain, then timings in turns."""
     from flashdeconv_tpu_torch.ops import bcd
 
-    args = sweep_args(prob)
+    t = prob.tier
+    lam, rho = 0.1, 0.01 * prob.mean_diag
+    carry = bcd.to_fused_carry(seeded_beta(prob), t.h, t.block)
+    inv = bcd.gs_inv_den(t.XtX, t.nnb, lam).contiguous()
+    args = (carry, t.Xty_t, t.XtX, t.masks, inv, lam, rho, t.offsets, t.h,
+            t.block)
     with bcd.full_f32_matmul():
         ref, rd, ra = bcd.fused_banded_sweep_reference(*args)
         got, d, a = bcd.fused_banded_sweep(*args)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
-        torch.testing.assert_close(d, rd, atol=0.0, rtol=STATS_RTOL)
-        torch.testing.assert_close(a, ra, atol=0.0, rtol=STATS_RTOL)
-        pad = prob.h_blocks * prob.fused_block
+        err = check_close(got, ref, d, rd, a, ra, label)
+        pad = t.h * t.block
         if not ((got[:, :pad] == 0).all() and (got[:, -pad:] == 0).all()):
             raise AssertionError("pad slabs are not zero")
-        if not (got >= 0).all():
-            raise AssertionError("negative beta")
-        plain, kern = bcd.fused_banded_sweep_reference, bcd.fused_banded_sweep
-        ms = {"plain": [], "kernel": []}
-        for name, fn in (("plain", plain), ("kernel", kern),
-                         ("kernel", kern), ("plain", plain)):
-            ms[name].append(time_sweeps(fn, args))
-    row = {
-        "K": prob.n_types, "U": len(prob.offsets), "n_spots": prob.n_spots,
-        "max_abs_err": err, "ms": float(np.mean(ms["kernel"])),
-        "plain_ms": float(np.mean(ms["plain"])),
-    }
-    log(f"[kernel] {label}: K={row['K']} U={row['U']} block="
-        f"{prob.fused_block} h={prob.h_blocks} max_abs_err={err:.3e} "
-        f"stats ({float(d):.6g}, {float(a):.6g}) vs plain ({float(rd):.6g}, "
-        f"{float(ra):.6g}); per sweep kernel {ms['kernel']} ms, plain "
-        f"{ms['plain']} ms (plain, kernel, kernel, plain)")
+        ms = in_turns(bcd.fused_banded_sweep_reference, bcd.fused_banded_sweep,
+                      args, torch.empty_like(carry))
+    K, n_ext = carry.shape
+    n_bytes = (4.0 * K * (2 * n_ext + 2 * prob.n_solve) + t.masks.numel()
+               + 4.0 * K * K)
+    bound, by = bound_ms(n_bytes, gs_ops(K, prob.n_solve)
+                         + K * float(t.masks.sum()))
+    row = {"K": K, "U": len(t.offsets), "n_spots": prob.n_spots,
+           "max_abs_err": err, "ms": float(np.mean(ms["kernel"])),
+           "plain_ms": float(np.mean(ms["plain"])), "bound_ms": bound,
+           "bound_by": by}
+    log(f"[kernel] fused_banded_sweep {label}: K={K} U={row['U']} block="
+        f"{t.block} h={t.h} max_abs_err={err:.3e} stats ({float(d):.6g}, "
+        f"{float(a):.6g}) vs plain ({float(rd):.6g}, {float(ra):.6g}); per "
+        f"sweep kernel {ms['kernel']} ms, plain {ms['plain']} ms (plain, "
+        f"kernel, kernel, plain); bound {bound:.4f} ms ({by})")
     return row
 
 
-def phase_solve(prob, prepare_s: float) -> int:
-    """Two solves of the 1M problem through the kernel, and one through
-    the plain version on the card as the reference."""
+def phase_cd_kernel(prob, label: str) -> dict:
+    """One coordinate-descent pass on the gather tier's neighbour sums of a
+    seeded beta, kernel against plain, then timings in turns."""
     from flashdeconv_tpu_torch.ops import bcd
 
-    if not prob.use_fused_banded:
-        raise AssertionError("the 1M problem did not take the fused tier")
-    kw = dict(lambda_=0.1, rho=0.01, max_iter=100, tol=1e-4)
-    sweeps = 0
+    t = prob.tier
+    lam, rho = 0.1, 0.01 * prob.mean_diag
+    beta_t = seeded_beta(prob).T.contiguous()
+    ext = bcd.with_sentinel(beta_t)
+    ns = bcd.add_overflow(bcd.neighbor_sum(ext, t.nbr), ext, t.overflow)
+    inv = bcd.gs_inv_den(t.XtX, t.nnb, lam).contiguous()
+    args = (beta_t, t.Xty_t, t.XtX, ns, inv, lam, rho)
+    with bcd.full_f32_matmul():
+        ref, rd, ra = bcd.coordinate_descent_block_reference(*args)
+        got, d, a = bcd.coordinate_descent_block(*args)
+        err = check_close(got, ref, d, rd, a, ra, label)
+        ms = in_turns(bcd.coordinate_descent_block_reference,
+                      bcd.coordinate_descent_block, args,
+                      torch.empty_like(beta_t))
+    K, n = beta_t.shape
+    bound, by = bound_ms(4.0 * K * 5 * n + 4.0 * K * K, gs_ops(K, n))
+    row = {"K": K, "D": int(t.nbr.shape[0]), "n_spots": n,
+           "max_abs_err": err, "ms": float(np.mean(ms["kernel"])),
+           "plain_ms": float(np.mean(ms["plain"])), "bound_ms": bound,
+           "bound_by": by}
+    log(f"[kernel] coordinate_descent_block {label}: K={K} n={n} "
+        f"max_abs_err={err:.3e} stats ({float(d):.6g}, {float(a):.6g}) vs "
+        f"plain ({float(rd):.6g}, {float(ra):.6g}); per pass kernel "
+        f"{ms['kernel']} ms, plain {ms['plain']} ms (plain, kernel, kernel, "
+        f"plain); bound {bound:.4f} ms ({by})")
+    return row
+
+
+def phase_fused_vs_unfused(prob) -> None:
+    """The 1M grid operands solved through the fused tier and through the
+    unfused banded tier: the same sweeps and beta, bit for bit."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    t = prob.tier
+    banded = bcd.BandedTier(
+        Xty_t=t.Xty_t, XtX=t.XtX, nnb=t.nnb, YtY=t.YtY,
+        masks=t.masks.float(), offsets=t.offsets,
+        rest=torch.zeros((0, prob.n_solve), dtype=torch.int32,
+                         device=t.Xty_t.device),
+    )
+    lam, rho = bcd.f32(SOLVE["lambda_"]), bcd.f32(SOLVE["rho"]
+                                                  * prob.mean_diag)
+    out = {}
+    for name, tier in (("fused", t), ("unfused", banded)):
+        beta, it, rel, conv, _ = bcd.fused_solve(
+            None, tier, None, lam, rho, SOLVE["tol"], SOLVE["max_iter"],
+            prob.n_spots)
+        torch.cuda.synchronize()
+        out[name] = (beta, it, conv)
+    same = torch.equal(out["fused"][0], out["unfused"][0])
+    log(f"[bitwise] fused {out['fused'][1]} sweeps, unfused banded "
+        f"{out['unfused'][1]} sweeps, beta bitwise equal: {same}")
+    if not (same and out["fused"][1] == out["unfused"][1]
+            and out["fused"][2]):
+        raise AssertionError("fused and unfused banded solves differ")
+
+
+# -- the main paths ---------------------------------------------------------------
+
+def plain_solve(prob):
+    """The solve's loop over the plain version of its kernel, on the card:
+    (beta (n_spots, K) f64 on the host, sweeps)."""
+    from unittest import mock
+
+    from flashdeconv_tpu_torch.ops import bcd
+
+    kern = {bcd.FusedBandedTier: "fused_banded_sweep",
+            bcd.GatherTier: "coordinate_descent_block"}[type(prob.tier)]
+    lam, rho = bcd.f32(SOLVE["lambda_"]), bcd.f32(SOLVE["rho"]
+                                                  * prob.mean_diag)
+    with mock.patch.object(bcd, kern, getattr(bcd, f"{kern}_reference")):
+        beta, it, _, _, _ = bcd.fused_solve(
+            None, prob.tier, prob._inv_perm_d, lam, rho, SOLVE["tol"],
+            SOLVE["max_iter"], prob.n_spots)
+    return beta.double().cpu().numpy(), it
+
+
+def phase_solve(prob, prepare_s: float, label: str) -> int:
+    """Two solves through the kernel (bitwise equal), and one through the
+    plain version on the card as the reference. Returns the sweeps."""
+    sweeps, betas = 0, []
     for name in ("cold", "warm"):
-        before = bcd.fused_banded_sweep.launches
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        beta, info = prob.solve(**kw)
+        beta, info = prob.solve(**SOLVE)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launched = bcd.fused_banded_sweep.launches - before
-        if launched != info["n_iterations"]:
-            raise AssertionError(f"{launched} launches for "
-                                 f"{info['n_iterations']} sweeps")
         if not (info["converged"] and np.isfinite(info["final_objective"])
                 and np.isfinite(beta).all() and (beta >= 0).all()):
             raise AssertionError(f"bad solve: {info}")
         sweeps += info["n_iterations"]
-        log(f"[solve] {name}: {dt:.4f} s, {prob.n_spots / dt:.1f} spots/s, "
-            f"{info['n_iterations']} sweeps, objective "
+        betas.append(beta)
+        log(f"[solve] {label} {name}: {dt:.4f} s, {prob.n_spots / dt:.1f} "
+            f"spots/s, {info['n_iterations']} sweeps, objective "
             f"{info['final_objective']:.6g}, rel {info['final_change']:.3e}, "
             f"peak {torch.cuda.max_memory_allocated()} B allocated")
-    log(f"[solve] prepare {prepare_s:.3f} s (host precompute + copy)")
+    log(f"[solve] {label} prepare {prepare_s:.3f} s (host precompute + copy)")
+    if not np.array_equal(betas[0], betas[1]):
+        raise AssertionError("two kernel solves are not bitwise equal")
 
-    # Reference: the same loop over the plain version, on the card.
-    carry = bcd.to_fused_carry(bcd.uniform_beta0(prob.Xty_t_d, prob.n_spots),
-                               prob.h_blocks, prob.fused_block)
-    lam, rho = bcd.f32(kw["lambda_"]), bcd.f32(kw["rho"] * prob.mean_diag)
-    inv = bcd.gs_inv_den(prob.XtX_d, prob.nnb_d, lam)
-    with bcd.full_f32_matmul():
-        carry, it, _ = bcd.converge_loop(
-            lambda c, out: bcd.fused_banded_sweep_reference(
-                c, prob.Xty_t_d, prob.XtX_d, prob.masks_d, inv, lam, rho,
-                prob.offsets, prob.h_blocks, prob.fused_block, out=out),
-            carry, kw["tol"], kw["max_iter"],
-        )
-    ref = bcd.from_fused_carry(carry, prob.h_blocks,
-                               prob.fused_block)[: prob.n_spots]
-    if prob._inv_perm_d is not None:
-        ref = ref.index_select(0, prob._inv_perm_d)
-    diff = float(np.abs(beta - ref.double().cpu().numpy()).max())
-    log(f"[solve] plain-version solve: {it} sweeps, max |beta - beta_plain| "
-        f"= {diff:.3e}")
+    ref, it = plain_solve(prob)
+    diff = float(np.abs(betas[1] - ref).max())
+    log(f"[solve] {label} plain-version solve: {it} sweeps, max |beta - "
+        f"beta_plain| = {diff:.3e}; two kernel solves bitwise equal")
     if it != info["n_iterations"] or diff > 1e-4:
         raise AssertionError("kernel solve disagrees with the plain solve")
     return sweeps
 
 
-def phase_profile(prob, reps: int = 3) -> None:
+def phase_profile(prob, label: str, reps: int = 3) -> None:
     """Warm solves of ``prob``, split as ``BCDProblem.solve`` is:
     ``fused_solve`` (ended by a synchronize) and the fetch of beta to host
     f64; beside them the f32 copy of the same beta made contiguous first.
@@ -233,12 +420,11 @@ def phase_profile(prob, reps: int = 3) -> None:
 
     lam, rho = bcd.f32(0.1), bcd.f32(0.01 * prob.mean_diag)
 
-    def timed_solve(label):
+    def timed_solve(run):
         t0 = time.perf_counter()
         beta_d, n_iter = bcd.fused_solve(
-            None, prob.Xty_t_d, prob.XtX_d, prob.masks_d, prob.nnb_d,
-            prob.YtY, prob._inv_perm_d, lam, rho, 1e-4, 100, prob.offsets,
-            prob.h_blocks, prob.fused_block, prob.n_spots,
+            None, prob.tier, prob._inv_perm_d, lam, rho, 1e-4, 100,
+            prob.n_spots,
         )[:2]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -249,7 +435,7 @@ def phase_profile(prob, reps: int = 3) -> None:
         t3 = time.perf_counter()
         flat.cpu()
         t4 = time.perf_counter()
-        log(f"[profile] {label}: {n_iter} sweeps; fused_solve "
+        log(f"[profile] {label} {run}: {n_iter} sweeps; fused_solve "
             f"{(t1 - t0) * 1e3:.3f} ms; fetch of beta to host f64 "
             f"{(t2 - t1) * 1e3:.3f} ms; f32 copy of beta made contiguous "
             f"{(t4 - t3) * 1e3:.3f} ms")
@@ -265,124 +451,129 @@ def phase_profile(prob, reps: int = 3) -> None:
                                   row_limit=25))
 
 
-def synthetic_counts(side: int, n_genes: int, n_types: int, seed: int = 0,
-                     chunk: int = 16384):
-    """Seeded Poisson CSR counts on a side x side grid with spatially
-    smooth proportions (the recipe of tests/conftest.make_synthetic),
-    generated in row chunks. Returns (Y, X, coords, true proportions)."""
-    from scipy import sparse
-
-    from flashdeconv_tpu_torch.utils import grid_coords
-
-    rng = np.random.default_rng(seed)
-    X = rng.gamma(2.0, 1.0, (n_types, n_genes))
-    X *= rng.random((n_types, n_genes)) < 0.3
-    m = max(3, n_genes // (n_types * 10))
-    marks = rng.choice(n_genes, m * n_types, replace=False)
-    for k in range(n_types):
-        cols = marks[k * m:(k + 1) * m]
-        X[:, cols] = 0.0
-        X[k, cols] = rng.gamma(5.0, 2.0, m)
-    coords = grid_coords(side=side)
-    centers = rng.random((n_types, 2)) * side
-    parts, props = [], []
-    for s in range(0, coords.shape[0], chunk):
-        d2 = ((coords[s:s + chunk, None, :] - centers[None]) ** 2).sum(-1)
-        p = np.exp(-d2 / (2 * (0.25 * side) ** 2)
-                   + rng.gumbel(0.0, 0.3, d2.shape))
-        p /= p.sum(axis=1, keepdims=True)
-        mean = p @ X
-        mean /= mean.sum(axis=1, keepdims=True)
-        depth = rng.gamma(3.0, 1500.0, (len(p), 1))
-        parts.append(sparse.csr_matrix(
-            rng.poisson(mean * depth).astype(np.float64)))
-        props.append(p)
-    return (sparse.vstack(parts, format="csr"), X, coords,
-            np.concatenate(props))
-
-
-def phase_fit() -> int:
+def phase_fit(label: str, coords, extent: float, n_genes: int,
+              runs=("cold", "warm")) -> int:
+    """``fit_transform`` of synthetic counts over ``coords``; Pearson
+    against the generating proportions must pass 0.9. Returns sweeps."""
     from flashdeconv_tpu_torch import FlashDeconv
-    from flashdeconv_tpu_torch.ops import bcd
     from flashdeconv_tpu_torch.utils import compute_correlation
 
     t0 = time.perf_counter()
-    Y, X, coords, truth = synthetic_counts(FIT_SIDE, FIT_GENES, TYPES)
-    log(f"[fit] counts {Y.shape} nnz {Y.nnz} made in "
+    Y, X, truth = synthetic_counts(coords, extent, n_genes, TYPES)
+    log(f"[fit] {label}: counts {Y.shape} nnz {Y.nnz} made in "
         f"{time.perf_counter() - t0:.1f} s")
     sweeps = 0
-    for name in ("cold", "warm"):  # cold includes first-use host builds
-        before = bcd.fused_banded_sweep.launches
+    for name in runs:  # the first includes first-use host builds
         model = FlashDeconv(sketch_dim=SKETCH)
         t0 = time.perf_counter()
         props = model.fit_transform(Y, X, coords)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launched = bcd.fused_banded_sweep.launches - before
         info = model.info_
         pearson = float(compute_correlation(props, truth))
-        log(f"[fit] {name} fit_transform {dt:.3f} s, {info['n_iterations']} "
-            f"sweeps, converged {info['converged']}, pearson vs truth "
-            f"{pearson:.4f}, lambda {model.lambda_used_:.6g}")
+        log(f"[fit] {label} {name} fit_transform {dt:.3f} s, "
+            f"{info['n_iterations']} sweeps, converged {info['converged']}, "
+            f"pearson vs truth {pearson:.4f}, lambda "
+            f"{model.lambda_used_:.6g}")
         log("[fit] stages " + ", ".join(
             f"{k} {v:.3f} s" for k, v in model.timings_.items()))
-        if launched != info["n_iterations"]:
-            raise AssertionError(f"{launched} launches for "
-                                 f"{info['n_iterations']} sweeps")
         if not np.allclose(props.sum(axis=1), 1.0, atol=1e-9):
             raise AssertionError("proportion rows do not sum to 1")
         if not pearson > 0.9:
-            raise AssertionError(f"pearson {pearson} <= 0.9")
+            raise AssertionError(f"{label}: pearson {pearson} <= 0.9")
         sweeps += info["n_iterations"]
     return sweeps
+
+
+def counted(kernels, path):
+    """Run ``path()`` (which returns its sweeps) with every kernel's count
+    set to 0 just before; the path's kernel must have launched once per
+    sweep, and the other kernels not at all. Returns the launches."""
+    for k in kernels.values():
+        k.launches = 0
+    sweeps, used = path()
+    launches = {name: k.launches for name, k in kernels.items()}
+    for name, n in launches.items():
+        want = sweeps if name == used else 0
+        if n != want or (name == used and n == 0):
+            raise AssertionError(f"{name}: {n} launches, expected {want}")
+    log(f"[launches] {launches} for {sweeps} sweeps")
+    return launches[used]
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile the warm 1M solve instead of the "
+                        help="profile the warm 1M solves instead of the "
                              "smoke run")
     args = parser.parse_args()
     phase_device()
-    import flashdeconv_tpu_torch  # noqa: F401  (before any host module)
     from flashdeconv_tpu_torch.ops import bcd
+    from flashdeconv_tpu_torch.utils import grid_coords
 
     phase_build()
     if args.profile:
-        phase_profile(prepare(SPOTS, TYPES)[0])
+        for label, irregular in (("1M grid", False), ("1M irregular", True)):
+            phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)
         return
-    rows = []
+    kernels = {"fused_banded_sweep": bcd.fused_banded_sweep,
+               "coordinate_descent_block": bcd.coordinate_descent_block}
+
+    # Kernel 1, the fused banded tier.
     for K in (6, 64):
         prob, _ = prepare(256 * 256, K)
-        rows.append(phase_kernel(prob, "256x256"))
+        phase_fused_kernel(prob, "256x256")
         del prob
-    main_prob, prepare_s = prepare(SPOTS, TYPES)
-    main_row = phase_kernel(main_prob, "1000x1000 (main path)")
+    grid, grid_s = prepare(SPOTS, TYPES)
+    if not grid.use_fused_banded:
+        raise AssertionError("the 1M grid did not take the fused tier")
+    fused_row = phase_fused_kernel(grid, "1000x1000 (main path)")
+    phase_fused_vs_unfused(grid)
+    fused_launches = counted(kernels, lambda: (
+        phase_solve(grid, grid_s, "1M grid")
+        + phase_fit("262k grid", grid_coords(side=FIT_SIDE),
+                    float(FIT_SIDE), FIT_GENES),
+        "fused_banded_sweep"))
+    del grid
 
-    # The main path: launches are counted from here on only.
-    bcd.fused_banded_sweep.launches = 0
-    sweeps = phase_solve(main_prob, prepare_s)
-    del main_prob
-    sweeps += phase_fit()
-    launches = bcd.fused_banded_sweep.launches
-    if launches != sweeps or launches == 0:
-        raise AssertionError(f"{launches} kernel launches for {sweeps} sweeps")
-    if "jax" in sys.modules:
-        raise AssertionError("JAX was imported")
+    # Kernel 2, the gather tier.
+    for K in (6, 64):
+        prob, _ = prepare(4096, K, irregular=True)
+        phase_cd_kernel(prob, "4096 irregular")
+        del prob
+    irr, irr_s = prepare(SPOTS, TYPES, irregular=True)
+    if type(irr.tier).__name__ != "GatherTier":
+        raise AssertionError("the 1M irregular problem did not take the "
+                             "gather tier")
+    cd_row = phase_cd_kernel(irr, "1M irregular (main path)")
+    cd_launches = counted(kernels, lambda: (
+        phase_solve(irr, irr_s, "1M irregular")
+        + phase_fit("Visium-like hex", hex_coords(VISIUM_COLS, VISIUM_ROWS),
+                    float(VISIUM_COLS), FIT_GENES)
+        + phase_fit("100k irregular", irregular_coords(CELLS),
+                    float(np.sqrt(CELLS)), FIT_GENES, runs=("once",)),
+        "coordinate_descent_block"))
+    del irr
+    if "jax" in sys.modules or "flashdeconv_tpu" in sys.modules:
+        raise AssertionError("JAX or the JAX package was imported")
 
-    for row in rows:
-        log(f"[kernel] K={row['K']}: {json.dumps(row)}")
+    def entry(name, source, replaces, launches, row):
+        return {
+            "name": name, "route": "cuda",
+            "source": f"flashdeconv_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        }
+
+    print(json.dumps({"kernels": [
+        entry("fused_banded_sweep", "fused_banded_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:650", fused_launches, fused_row),
+        entry("coordinate_descent_block", "cd_block_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:449", cd_launches, cd_row),
+    ]}), flush=True)
     log(card())
-    print(json.dumps({"kernels": [{
-        "name": "fused_banded_sweep",
-        "route": "cuda",
-        "source": "flashdeconv_tpu_torch/ops/csrc/fused_banded_sweep.cu",
-        "replaces": "flashdeconv_tpu/ops/bcd.py:650",
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

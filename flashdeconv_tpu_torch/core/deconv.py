@@ -1,11 +1,12 @@
 """FlashDeconv orchestrator of the port — the array-level API on a torch device.
 
 Counterpart of :class:`flashdeconv_tpu.core.deconv.FlashDeconv` for a
-single-device fit on a banded (grid) spatial graph. Stages 1-5 — gene
-selection, normalisation, CountSketch (through the native fused Xty pass
-for CSR counts), the spatial graph and the lambda auto-tune — are the JAX
-package's host functions, imported; stage 6 is the fused banded solve of
-:mod:`flashdeconv_tpu_torch.core.solver` on ``device``.
+single-device fit on any spatial graph. Stages 1-5 — gene selection,
+normalisation, CountSketch (through the native fused Xty pass for CSR
+counts), the spatial graph and the lambda auto-tune — are the port's own
+copies of the JAX package's host functions; stage 6 is the solve of
+:mod:`flashdeconv_tpu_torch.core.solver` on ``device``, on whichever of its
+three tiers the graph takes (fused banded, unfused banded, gather).
 
 Not ported (``ROADMAP.md``): sharded meshes and ``fit_distributed``,
 ``fit_lambda_path``, ``save``/``load``, warm start, and the device-output
@@ -20,8 +21,8 @@ from typing import Optional, Union
 import numpy as np
 from scipy import sparse
 
-from flashdeconv_tpu import native
-from flashdeconv_tpu.core.deconv import (
+from flashdeconv_tpu_torch import native
+from flashdeconv_tpu_torch.core.preprocess import (
     _PREPROCESS_METHODS,
     _log_cpm_dense,
     _pearson_dense,
@@ -29,13 +30,20 @@ from flashdeconv_tpu.core.deconv import (
     _zero_poisoned_csr_rows,
     preprocess_data,
 )
-from flashdeconv_tpu.core.sketching import make_countsketch_op, sketch_data
-from flashdeconv_tpu.core.solver import GraphDecomposition, normalize_proportions
-from flashdeconv_tpu.core.spatial import auto_tune_lambda
-from flashdeconv_tpu.utils.genes import select_informative_genes
-from flashdeconv_tpu.utils.graph import coords_to_adjacency
-from flashdeconv_tpu.utils.timing import StageTimer
-from flashdeconv_tpu_torch.core.solver import bcd_solve, resolve_device
+from flashdeconv_tpu_torch.core.sketching import (
+    make_countsketch_op,
+    sketch_data,
+)
+from flashdeconv_tpu_torch.core.solver import (
+    GraphDecomposition,
+    bcd_solve,
+    normalize_proportions,
+    resolve_device,
+)
+from flashdeconv_tpu_torch.core.spatial import auto_tune_lambda
+from flashdeconv_tpu_torch.utils.genes import select_informative_genes
+from flashdeconv_tpu_torch.utils.graph import coords_to_adjacency
+from flashdeconv_tpu_torch.utils.timing import StageTimer
 
 ArrayLike = Union[np.ndarray, sparse.spmatrix]
 
@@ -46,7 +54,7 @@ class FlashDeconv:
 
     Parameters are those of :class:`flashdeconv_tpu.FlashDeconv` that the
     single-device fit uses, plus ``device`` ("cuda" by default; raises
-    without a card, "cpu" runs the plain PyTorch sweep).
+    without a card, "cpu" runs the plain PyTorch sweeps).
 
     Attributes (after fit): ``beta_``, ``proportions_``, ``gene_idx_``,
     ``info_``, ``lambda_used_``, ``adjacency_`` and ``timings_``.

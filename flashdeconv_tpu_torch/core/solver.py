@@ -1,17 +1,25 @@
 """BCD solver of the port: prepare once on the host, solve on the card.
 
-Counterpart of :mod:`flashdeconv_tpu.core.solver` for the fused banded
-tier: the same ``bcd_solve`` / ``prepare_bcd`` / :class:`BCDProblem`
-contract (rho rescaled by mean(diag(XtX)), warm start, the ``info`` dict),
-with the solve in :func:`flashdeconv_tpu_torch.ops.bcd.fused_solve` on an
-explicit torch device. The host passes (Gram matrix, graph decomposition,
-YtY) are the JAX package's own functions, imported, so they agree by
-construction.
+Counterpart of :mod:`flashdeconv_tpu.core.solver`: the same ``bcd_solve`` /
+``prepare_bcd`` / :class:`BCDProblem` contract (rho rescaled by
+mean(diag(XtX)), warm start, the ``info`` dict) and the same choice among
+three tiers, with the solve in :func:`flashdeconv_tpu_torch.ops.bcd.fused_solve`
+on an explicit torch device:
 
-Only the fused banded tier is ported: f32, a graph that is wholly banded
-(no remainder edges), a halo of at most 8 blocks of 4096 spots, and
-K <= 64. Every other problem raises ``NotImplementedError`` naming the
-``ROADMAP.md`` entry that will port it.
+- **fused banded**: the graph is wholly banded (no remainder edges), at
+  most 32 bands within a halo of 8 blocks of 4096 spots, at least 8,192
+  spots — one fused kernel launch per sweep;
+- **unfused banded**: a banded graph the fused tier does not take (rest
+  edges, or a wider halo) — banded neighbour sums plus a rest table in
+  plain PyTorch, then the coordinate-descent kernel;
+- **gather**: any other graph (not banded, or under 8,192 spots) — a
+  degree-capped padded neighbour table with an overflow list for hubs,
+  then the coordinate-descent kernel.
+
+Every tier takes f32 and K <= 64; f64 and larger K raise
+``NotImplementedError`` naming the ``ROADMAP.md`` entry that will port
+them. The host passes (Gram matrix, graph decomposition, YtY) are the
+port's own copies of the JAX package's functions.
 """
 
 from __future__ import annotations
@@ -22,17 +30,22 @@ import numpy as np
 import torch
 from scipy import sparse
 
-from flashdeconv_tpu.core.solver import (
-    GraphDecomposition,
-    _degenerate_result,
-    precompute_gram_matrix,
-    sanitize_yty,
-)
+from flashdeconv_tpu_torch import native
 from flashdeconv_tpu_torch.ops.bcd import (
     KERNEL_MAX_BANDS,
     KERNEL_MAX_K,
+    BandedTier,
+    FusedBandedTier,
+    GatherTier,
+    Tier,
     f32,
     fused_solve,
+    overflow_table,
+)
+from flashdeconv_tpu_torch.utils.graph import (
+    adjacency_to_padded,
+    adjacency_to_padded_capped,
+    banded_split,
 )
 
 #: Spot-axis block of the fused tier: the carry's pad slabs are h blocks
@@ -40,8 +53,145 @@ from flashdeconv_tpu_torch.ops.bcd import (
 FUSED_BLOCK = 4096
 #: Largest halo, in blocks, the fused tier takes (as in the JAX planner).
 FUSED_MAX_H = 8
-#: Smallest problem GraphDecomposition analyses for bands.
-BANDED_MIN_SPOTS = 8192
+
+
+def precompute_gram_matrix(X_sketch: np.ndarray) -> np.ndarray:
+    """Gram matrix XtX = X_sketch @ X_sketch.T, shape (K, K).
+
+    Raises ``ValueError`` when the Gram matrix comes out non-finite (NaN /
+    Inf signatures, or f32 overflow): a poisoned XtX silently drives EVERY
+    spot to the uniform fallback, which the reference returns without
+    complaint (its clipped Numba update maps NaN to 0) — failing loudly
+    here is deliberate; see docs/migration.md.
+    """
+    XtX = X_sketch @ X_sketch.T
+    if not np.all(np.isfinite(XtX)):
+        raise ValueError(
+            "X_sketch produced a non-finite Gram matrix (NaN/Inf in the "
+            "signature matrix, or overflow) — every proportion would "
+            "degenerate to uniform. Check the reference signatures and "
+            "preprocessing."
+        )
+    return XtX
+
+
+def sanitize_yty(
+    yty: Optional[float], Y_sketch: Optional[np.ndarray]
+) -> float:
+    """Best-effort YtY of the *sanitized* problem (poisoned rows as zeros).
+
+    Pass ``yty=None`` to compute the Frobenius constant from ``Y_sketch``
+    (:func:`flashdeconv_tpu_torch.native.yty_f64`), or a precomputed value
+    to sanitize only.
+
+    The row guard makes the SOLVE treat a poisoned spot as a zero
+    observation, but the objective's Frobenius constant is reduced from the
+    raw sketch — one NaN count would leave ``info["final_objective"]`` NaN
+    even though beta and the proportions are finite. When the reduction
+    came out non-finite and the sketch rows are available, recompute it
+    with the non-finite rows zeroed — the same shape and block-ordered
+    reduction as the clean path, so the result is bit-identical to solving
+    the explicitly-zeroed input. Bad rows are found with a chunked scan (no
+    (N, d) boolean temp) and zeroed in a copy: the caller's array is never
+    written. Exact pass-through for finite ``yty``; with no sketch to
+    attribute against (precomputed ``yty`` + ``Y_sketch=None``) the caller
+    must repair upstream (see ``FlashDeconv._fused_xty_feed``'s
+    poisoned-row re-run).
+    """
+    if yty is None:
+        yty = native.yty_f64(Y_sketch)
+    if np.isfinite(yty) or Y_sketch is None:
+        return float(yty)
+    Y_sketch = np.asarray(Y_sketch)
+    n, d = Y_sketch.shape
+    step = max(1, (1 << 22) // max(d, 1))  # ~4M elements per scan chunk
+    bad_parts = [
+        np.flatnonzero(~np.isfinite(Y_sketch[a: a + step]).all(axis=1)) + a
+        for a in range(0, n, step)
+    ]
+    bad = (
+        np.concatenate(bad_parts) if bad_parts
+        else np.zeros(0, dtype=np.int64)
+    )
+    if bad.size == 0:
+        return float(yty)  # reduction overflow, not row poison: keep honest
+    Yz = np.array(Y_sketch, copy=True)
+    Yz[bad] = 0.0
+    return native.yty_f64(Yz)
+
+
+class GraphDecomposition:
+    """Precomputed banded-vs-gather analysis of one adjacency matrix.
+
+    Everything :class:`BCDProblem` derives from ``(A, coords, n_spots)``
+    alone — the banded split, the optional scrambled-grid re-sort
+    permutation, and the solve-order adjacency. Computing it is a pure
+    host pass, so a pipeline can run it on a background thread as soon as
+    the spatial graph exists (it depends on neither the sketch nor any
+    device state) and hand it to :func:`prepare_bcd` via ``graph_plan=``.
+    """
+
+    __slots__ = ("use_banded", "perm", "A_solve", "offsets", "masks",
+                 "A_rest")
+
+    def __init__(self, A: sparse.spmatrix, n_spots: int,
+                 coords: Optional[np.ndarray] = None):
+        self.use_banded = False
+        self.perm = None
+        self.A_solve = A
+        self.offsets = self.masks = self.A_rest = None
+        if n_spots < 8192:
+            return
+        # 32 offsets: grid kNN graphs have ~18 distinct diagonals; capping
+        # at 16 strands a few corner edges in the gather remainder, which
+        # both adds a gather pass and disqualifies the fully fused kernel.
+        offsets_np, masks_np, A_rest = banded_split(
+            A, max_offsets=32, min_coverage=0.9
+        )
+        if (
+            offsets_np.size == 0
+            and coords is not None
+            and np.asarray(coords).ndim == 2
+            and np.asarray(coords).shape[1] >= 2
+        ):
+            cand = np.lexsort(
+                (np.asarray(coords)[:, 0], np.asarray(coords)[:, 1])
+            )
+            A_cand = A.tocsr()[cand][:, cand]
+            off_c, masks_c, rest_c = banded_split(
+                A_cand, max_offsets=32, min_coverage=0.9
+            )
+            if off_c.size:
+                self.perm = cand
+                self.A_solve = A_cand
+                offsets_np, masks_np, A_rest = off_c, masks_c, rest_c
+        self.offsets, self.masks, self.A_rest = offsets_np, masks_np, A_rest
+        self.use_banded = offsets_np.size > 0
+
+
+def _degenerate_result(n_spots: int, n_types: int) -> Tuple[np.ndarray, dict]:
+    """Empty-input / zero-iteration fast path (reference ``solver.py:334-343``)."""
+    beta = np.full((n_spots, n_types), 1.0 / max(n_types, 1), dtype=np.float64)
+    if n_spots == 0 or n_types == 0:
+        beta = np.empty((n_spots, n_types), dtype=np.float64)
+    return beta, {
+        "converged": n_spots == 0 or n_types == 0,
+        "n_iterations": 0,
+        "final_objective": 0.0,
+        "objectives": [],
+        "final_change": 0.0,
+    }
+
+
+def normalize_proportions(beta: np.ndarray) -> np.ndarray:
+    """Row-normalize abundances to proportions; all-zero rows become uniform."""
+    beta = np.asarray(beta, dtype=np.float64)
+    row_sums = beta.sum(axis=1, keepdims=True)
+    zero_rows = (row_sums == 0).ravel()
+    proportions = beta / np.maximum(row_sums, 1e-10)
+    if np.any(zero_rows):
+        proportions[zero_rows] = 1.0 / beta.shape[1]
+    return proportions
 
 
 def resolve_device(device) -> torch.device:
@@ -65,17 +215,18 @@ def _not_ported(what: str, entry: str) -> NotImplementedError:
 
 
 class BCDProblem:
-    """A prepared fused banded solve: device operands + graph layout.
+    """A prepared solve: the tier's device operands + graph layout.
 
     Construction does every host pass once — the f64 Gram matrix, the
     banded decomposition (with the coordinate re-sort of scrambled grids),
-    padding of the spot axis to :data:`FUSED_BLOCK`, YtY — and copies the
-    operands to ``device``: Xty transposed to (K, n_solve), XtX, the degree
-    vector and the uint8 band masks. :meth:`solve` then runs only the
-    device loop.
+    the tier's graph operands (band masks, or a degree-capped neighbour
+    table with an overflow table), YtY — and copies the operands to
+    ``device``: Xty transposed to (K, n_solve), XtX, the degree vector and
+    the graph. :meth:`solve` then runs only the device loop.
 
-    Parameters follow :class:`flashdeconv_tpu.core.solver.BCDProblem`,
-    plus ``device`` ("cuda" by default; raises without a card).
+    Parameters follow :class:`flashdeconv_tpu.core.solver.BCDProblem`
+    (``max_degree`` caps the gather tier's neighbour table), plus
+    ``device`` ("cuda" by default; raises without a card).
     """
 
     def __init__(
@@ -85,6 +236,7 @@ class BCDProblem:
         A: sparse.spmatrix,
         dtype=np.float32,
         coords: Optional[np.ndarray] = None,
+        max_degree: Optional[int] = None,
         graph_plan: Optional[GraphDecomposition] = None,
         xty: Optional[np.ndarray] = None,
         yty: Optional[float] = None,
@@ -128,31 +280,19 @@ class BCDProblem:
             graph_plan = graph_plan.result()
         if graph_plan is None:
             graph_plan = GraphDecomposition(A, n_spots, coords=coords)
-        if not graph_plan.use_banded:
-            raise _not_ported(
-                f"the gather tier (graph not banded, or n_spots = {n_spots} "
-                f"< {BANDED_MIN_SPOTS})", "the gather and unfused-banded tiers",
-            )
-        if graph_plan.A_rest.nnz:
-            raise _not_ported(
-                f"the rest stream ({graph_plan.A_rest.nnz} edges off the "
-                "bands)", "the rest stream and band-cap rescue",
-            )
-        offsets = tuple(int(o) for o in graph_plan.offsets)
-        halo = max(abs(o) for o in offsets)
-        h = max(1, -(-halo // FUSED_BLOCK))
-        if h > FUSED_MAX_H or len(offsets) > KERNEL_MAX_BANDS:
-            raise _not_ported(
-                f"a halo of {halo} spots over {len(offsets)} bands",
-                "the rest stream and band-cap rescue",
-            )
-
-        n_solve = -(-n_spots // FUSED_BLOCK) * FUSED_BLOCK
+        A_solve = graph_plan.A_solve.tocsr()
+        fused = False
+        if graph_plan.use_banded:
+            offsets = tuple(int(o) for o in graph_plan.offsets)
+            halo = max(abs(o) for o in offsets)
+            h = max(1, -(-halo // FUSED_BLOCK))
+            fused = (graph_plan.A_rest.nnz == 0 and h <= FUSED_MAX_H
+                     and len(offsets) <= KERNEL_MAX_BANDS)
+        n_solve = (-(-n_spots // FUSED_BLOCK) * FUSED_BLOCK if fused
+                   else n_spots)
         # Binary degree (nnz per row): every edge counts 1 in the sweep.
         n_nbrs = np.zeros(n_solve, dtype=np.float32)
-        n_nbrs[:n_spots] = np.diff(graph_plan.A_solve.tocsr().indptr)
-        masks = np.zeros((len(offsets), n_solve), dtype=np.uint8)
-        masks[:, :n_spots] = graph_plan.masks
+        n_nbrs[:n_spots] = np.diff(A_solve.indptr)
 
         # Non-finite guard on the device: a poisoned spot's Xty row becomes
         # zero (spatially imputed under lambda > 0, uniform otherwise), an
@@ -166,42 +306,73 @@ class BCDProblem:
             Xty = Xty.index_select(
                 0, torch.from_numpy(graph_plan.perm).to(dev)
             )
-            inv = np.empty(n_spots, dtype=np.int64)
-            inv[graph_plan.perm] = np.arange(n_spots)
-            inv_perm = inv
+            inv_perm = np.empty(n_spots, dtype=np.int64)
+            inv_perm[graph_plan.perm] = np.arange(n_spots)
         Xty_t = Xty.new_zeros((n_types, n_solve))
         Xty_t[:, :n_spots] = Xty.T
         del Xty
 
+        common = dict(Xty_t=Xty_t, XtX=XtX, nnb=n_nbrs,
+                      YtY=sanitize_yty(yty, Y_sketch))
+        if fused:
+            masks = np.zeros((len(offsets), n_solve), dtype=np.uint8)
+            masks[:, :n_spots] = graph_plan.masks
+            tier = self._tier(FusedBandedTier,
+                              masks=self._to_dev(masks, torch.uint8),
+                              offsets=offsets, h=h, block=FUSED_BLOCK,
+                              **common)
+        elif graph_plan.use_banded:
+            # The unfused sweep multiplies by the masks every band: widen
+            # them once, here.
+            if graph_plan.A_rest.nnz:
+                rest = adjacency_to_padded(graph_plan.A_rest)[0].T
+            else:
+                rest = np.zeros((0, n_spots), dtype=np.int32)
+            tier = self._tier(
+                BandedTier, masks=self._to_dev(graph_plan.masks,
+                                               torch.float32),
+                offsets=offsets, rest=self._to_dev(rest, torch.int32),
+                **common)
+        else:
+            nbr, _, ov_src, ov_dst = adjacency_to_padded_capped(
+                A_solve, max_degree=max_degree
+            )
+            overflow = None
+            if ov_src.size:
+                overflow = tuple(
+                    self._to_dev(a, torch.int64)
+                    for a in overflow_table(ov_src, ov_dst, n_spots))
+            tier = self._tier(GatherTier,
+                              nbr=self._to_dev(nbr.T, torch.int32),
+                              overflow=overflow, **common)
         self.perm = graph_plan.perm
-        self._attach(
-            Xty_t=Xty_t, XtX=XtX, masks=masks, nnb=n_nbrs,
-            YtY=sanitize_yty(yty, Y_sketch),
-            mean_diag=float(np.mean(np.diag(XtX))), inv_perm=inv_perm,
-            offsets=offsets, h=h, block=FUSED_BLOCK,
-        )
+        self._attach(tier, mean_diag=float(np.mean(np.diag(XtX))),
+                     inv_perm=inv_perm)
 
-    def _attach(self, *, Xty_t, XtX, masks, nnb, YtY, mean_diag, inv_perm,
-                offsets, h, block):
-        """Set the solve-time state; array operands go to ``self.device``."""
-        def to_dev(a, dtype):
-            if isinstance(a, torch.Tensor):
-                return a.to(self.device, dtype).contiguous()
-            return torch.tensor(np.asarray(a), dtype=dtype,
-                                device=self.device)
+    def _to_dev(self, a, dtype) -> torch.Tensor:
+        """A contiguous copy of ``a`` on the problem's device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, dtype).contiguous()
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=self.device)
 
-        self.Xty_t_d = to_dev(Xty_t, torch.float32)
-        self.XtX_d = to_dev(XtX, torch.float32)
-        self.masks_d = to_dev(masks, torch.uint8)
-        self.nnb_d = to_dev(nnb, torch.float32)
-        self._inv_perm_d = (None if inv_perm is None
-                            else to_dev(inv_perm, torch.int64))
-        self.YtY = float(YtY)
+    def _tier(self, cls, *, Xty_t, XtX, nnb, YtY, **graph) -> Tier:
+        """A ``cls`` tier over device copies of the shared operands and
+        the given graph operands."""
+        return cls(Xty_t=self._to_dev(Xty_t, torch.float32),
+                   XtX=self._to_dev(XtX, torch.float32),
+                   nnb=self._to_dev(nnb, torch.float32), YtY=float(YtY),
+                   **graph)
+
+    def _attach(self, tier: Tier, *, mean_diag: float, inv_perm):
+        """Set the solve-time state."""
+        self.tier = tier
+        self.use_fused_banded = isinstance(tier, FusedBandedTier)
+        self.use_banded = isinstance(tier, (FusedBandedTier, BandedTier))
+        self._inv_perm_d = (None if inv_perm is None else torch.as_tensor(
+            np.asarray(inv_perm), dtype=torch.int64, device=self.device))
         self.mean_diag = float(mean_diag)
-        self.offsets = tuple(int(o) for o in offsets)
-        self.h_blocks, self.fused_block = int(h), int(block)
-        self.n_solve = int(self.Xty_t_d.shape[1])
-        self.use_fused_banded = True
+        self.n_solve = int(tier.Xty_t.shape[1])
 
     @property
     def n_nonfinite_spots(self) -> int:
@@ -234,17 +405,15 @@ class BCDProblem:
         verbose: bool = False,
         beta_init: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, Dict]:
-        """Run the fused solve; returns ``(beta (n_spots, K) float64,
-        info)`` with ``info`` = {"converged", "n_iterations",
-        "final_objective", "objectives", "final_change"}."""
+        """Run the solve; returns ``(beta (n_spots, K) float64, info)``
+        with ``info`` = {"converged", "n_iterations", "final_objective",
+        "objectives", "final_change"}."""
         if self._degenerate or max_iter == 0:
             return _degenerate_result(self.n_spots, self.n_types)
         lam, rho_eff = f32(lambda_), f32(rho * self.mean_diag)
         beta_d, n_iter, rel, converged, objectives = fused_solve(
-            self._beta0(beta_init), self.Xty_t_d, self.XtX_d, self.masks_d,
-            self.nnb_d, self.YtY, self._inv_perm_d, lam, rho_eff, tol,
-            max_iter, self.offsets, self.h_blocks, self.fused_block,
-            self.n_spots, verbose=verbose,
+            self._beta0(beta_init), self.tier, self._inv_perm_d, lam,
+            rho_eff, tol, max_iter, self.n_spots, verbose=verbose,
         )
         beta = beta_d.to("cpu", torch.float64).numpy()
         return beta, {
@@ -268,7 +437,7 @@ def problem_from_arrays(
     its attribute names: ``Xty_t_d`` (K, n_solve), ``XtX_d`` (K, K),
     ``masks_d`` (U, n_solve) uint8, ``nnb_d`` (n_solve,), ``YtY``,
     ``mean_diag`` and, for a re-sorted graph, ``_inv_perm_d`` (n_spots,).
-    The port then solves exactly those operands.
+    The port then solves exactly those operands on its fused tier.
     """
     prob = BCDProblem.__new__(BCDProblem)
     K = np.shape(arrays["Xty_t_d"])[0]
@@ -281,12 +450,13 @@ def problem_from_arrays(
         inv_perm = np.asarray(inv_perm, dtype=np.int64)
         prob.perm = np.empty_like(inv_perm)
         prob.perm[inv_perm] = np.arange(inv_perm.size)
-    prob._attach(
-        Xty_t=arrays["Xty_t_d"], XtX=arrays["XtX_d"],
-        masks=arrays["masks_d"], nnb=arrays["nnb_d"], YtY=arrays["YtY"],
-        mean_diag=arrays["mean_diag"], inv_perm=inv_perm, offsets=offsets,
-        h=h, block=block,
+    tier = prob._tier(
+        FusedBandedTier, Xty_t=arrays["Xty_t_d"], XtX=arrays["XtX_d"],
+        nnb=arrays["nnb_d"], YtY=arrays["YtY"],
+        masks=prob._to_dev(arrays["masks_d"], torch.uint8),
+        offsets=tuple(int(o) for o in offsets), h=int(h), block=int(block),
     )
+    prob._attach(tier, mean_diag=arrays["mean_diag"], inv_perm=inv_perm)
     return prob
 
 
@@ -296,6 +466,7 @@ def prepare_bcd(
     A: sparse.spmatrix,
     dtype=np.float32,
     coords: Optional[np.ndarray] = None,
+    max_degree: Optional[int] = None,
     graph_plan: Optional[GraphDecomposition] = None,
     xty: Optional[np.ndarray] = None,
     yty: Optional[float] = None,
@@ -304,7 +475,8 @@ def prepare_bcd(
     """Build a :class:`BCDProblem`: host precompute + copy to ``device``."""
     return BCDProblem(
         Y_sketch, X_sketch, A, dtype=dtype, coords=coords,
-        graph_plan=graph_plan, xty=xty, yty=yty, device=device,
+        max_degree=max_degree, graph_plan=graph_plan, xty=xty, yty=yty,
+        device=device,
     )
 
 
@@ -320,6 +492,7 @@ def bcd_solve(
     dtype=np.float32,
     beta_init: Optional[np.ndarray] = None,
     coords: Optional[np.ndarray] = None,
+    max_degree: Optional[int] = None,
     graph_plan: Optional[GraphDecomposition] = None,
     xty: Optional[np.ndarray] = None,
     yty: Optional[float] = None,
@@ -334,7 +507,8 @@ def bcd_solve(
         return _degenerate_result(n_spots, n_types)
     problem = prepare_bcd(
         Y_sketch, X_sketch, A, dtype=dtype, coords=coords,
-        graph_plan=graph_plan, xty=xty, yty=yty, device=device,
+        max_degree=max_degree, graph_plan=graph_plan, xty=xty, yty=yty,
+        device=device,
     )
     return problem.solve(
         lambda_=lambda_, rho=rho, max_iter=max_iter, tol=tol,

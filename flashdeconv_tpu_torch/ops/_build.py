@@ -1,24 +1,27 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, named by a hash of the sources and the
-flags, under ``ops/build/`` (git-ignored), and loaded with :mod:`ctypes`.
-A source that does not include PyTorch's headers builds in seconds, where
-a ``torch.utils.cpp_extension`` build takes minutes. The compile writes to
-a temporary name and renames, so concurrent processes never load a
-half-written library. There is no fallback: a missing ``nvcc`` or a failed
-build raises.
+Each ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library of its own with a plain C interface, all sources at once, one
+``nvcc`` process each. A library is named by its source and a hash of every
+file under ``csrc/`` (so an edit to a shared header rebuilds every kernel)
+and of the flags, lives under ``ops/build/`` (git-ignored), and is loaded
+with :mod:`ctypes`. A source that does not include PyTorch's headers builds
+in seconds, where a ``torch.utils.cpp_extension`` build takes minutes. Each
+compile writes to a temporary name and renames, so concurrent processes
+never load a half-written library. There is no fallback: a missing
+``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().with_name("build")
@@ -27,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -44,21 +47,17 @@ def _nvcc() -> str:
     )
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` unless a library of the same hash exists;
-    return its path. The compiler's ``-Xptxas -v`` report (registers,
-    spills, shared memory per kernel) is kept beside it as ``.log``."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+def _digest() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    so = BUILD_DIR / f"fdt_kernels-{digest.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for path in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
+        digest.update(str(path.relative_to(CSRC_DIR)).encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def _compile(nvcc: str, src: Path, so: Path) -> None:
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -68,24 +67,56 @@ def build() -> Path:
         )
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)
-    return so
 
 
-def load() -> ctypes.CDLL:
-    """The built library, with ``argtypes``/``restype`` declared."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
+def build() -> Dict[str, Path]:
+    """Compile every ``csrc/*.cu`` whose library of the current hash does
+    not exist yet, in parallel; return ``{kernel name: library path}``.
+    The compiler's ``-Xptxas -v`` report (registers, spills, shared memory
+    per kernel) is kept beside each library as ``.log``."""
+    digest = _digest()
+    libs = {src.stem: (src, BUILD_DIR / f"{src.stem}-{digest}.so")
+            for src in sorted(CSRC_DIR.glob("*.cu"))}
+    todo = [(src, so) for src, so in libs.values() if not so.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
+            for fut in [pool.submit(_compile, nvcc, src, so)
+                        for src, so in todo]:
+                fut.result()
+    return {name: so for name, (_, so) in libs.items()}
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    if name == "fused_banded_sweep":
         lib.fdt_fused_banded_sweep.argtypes = [
             p, p, p, p, p, p, ctypes.POINTER(ctypes.c_int), i, i, ll, ll, ll,
             f, f, p, p,
         ]
-        lib.fdt_fused_banded_sweep.restype = ctypes.c_int
+        lib.fdt_fused_banded_sweep.restype = i
         lib.fdt_fused_banded_sweep_blocks.argtypes = [ll]
         lib.fdt_fused_banded_sweep_blocks.restype = ll
-        lib.fdt_error_string.argtypes = [ctypes.c_int]
-        lib.fdt_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    elif name == "cd_block_sweep":
+        lib.fdt_cd_block_sweep.argtypes = [
+            p, p, p, p, p, p, i, ll, f, f, p, p,
+        ]
+        lib.fdt_cd_block_sweep.restype = i
+        lib.fdt_cd_block_sweep_blocks.argtypes = [ll]
+        lib.fdt_cd_block_sweep_blocks.restype = ll
+    else:
+        raise KeyError(f"no kernel {name!r} in {CSRC_DIR}")
+    lib.fdt_error_string.argtypes = [i]
+    lib.fdt_error_string.restype = ctypes.c_char_p
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of kernel ``name`` (the stem of its ``.cu``), with
+    ``argtypes``/``restype`` declared. The first call builds every kernel."""
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build()[name]))
+        _declare(name, lib)
+        _libs[name] = lib
+    return _libs[name]

@@ -1,22 +1,38 @@
-"""Fused banded block-coordinate-descent sweep: plain PyTorch and its kernel.
+"""Block-coordinate-descent sweeps of the three solve tiers: plain PyTorch
+and the two CUDA kernels.
 
-Counterpart of :mod:`flashdeconv_tpu.ops.bcd` for the fused banded tier:
-the same transposed, block-padded carry ``(K, n_solve + 2*h*block)``, the
-same uint8 band masks, the same Gauss-Seidel pass (Jacobi across spots,
-Gauss-Seidel over the K coordinates of each spot) and the same stop rule.
+Counterpart of :mod:`flashdeconv_tpu.ops.bcd`. Every tier carries beta in
+the transposed ``(K, n)`` layout of the TPU kernels' operands, runs the
+same Gauss-Seidel pass (Jacobi across spots, Gauss-Seidel over the K
+coordinates of each spot) with the per-solve reciprocal denominator
+:func:`gs_inv_den`, and stops on the same rule:
 
-Every function here is plain PyTorch on tensors of an explicit device,
-except :func:`fused_banded_sweep`, the wrapper of the hand-written CUDA
-kernel ``csrc/fused_banded_sweep.cu``: a CUDA carry launches the kernel,
-a CPU carry runs :func:`fused_banded_sweep_reference`. The solve has no
-gradient; none of its tensors requires one.
+- the fused banded tier sweeps a block-padded carry ``(K, n_solve +
+  2*h*block)`` with uint8 band masks in one launch of
+  ``csrc/fused_banded_sweep.cu`` (:func:`fused_banded_sweep`);
+- the unfused banded tier (:func:`bcd_sweep_banded`) and the gather tier
+  (:func:`bcd_sweep`) form the neighbour sums in plain PyTorch — shifted
+  slices times f32 masks plus a rest table, or a padded neighbour table
+  with a zero sentinel column and an overflow table for degree-capped
+  hubs — and then launch ``csrc/cd_block_sweep.cu``
+  (:func:`coordinate_descent_block`).
+
+Both kernels run the one Gauss-Seidel device function of
+``csrc/gs_pass.cuh``, so the fused and unfused banded sweeps are bitwise
+equal on the card, as their plain versions are on the CPU. Every function
+here is plain PyTorch on tensors of an explicit device, except the two
+kernel wrappers: a CUDA tensor launches the kernel (or raises), a CPU
+tensor runs the plain version beside it. :func:`fused_solve` is the one
+solve loop of all three tiers. The solve has no gradient; none of its
+tensors requires one.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Callable, Iterator, Optional, Tuple
+import dataclasses
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,10 +44,10 @@ _GS_PANEL_P_SMALL = 8
 _GS_PANEL_P = 16
 _GS_PANEL_WIDE_K = 64
 
-#: Largest K the CUDA kernel takes (its register arrays are templated on
-#: 8, 16, 32 and 64); the wrapper raises above it.
+#: Largest K the CUDA kernels take (their register arrays are templated on
+#: 8, 16, 32 and 64); the wrappers raise above it.
 KERNEL_MAX_K = 64
-#: Largest band count the CUDA kernel takes (one bit per band per spot).
+#: Largest band count the fused kernel takes (one bit per band per spot).
 KERNEL_MAX_BANDS = 32
 
 
@@ -189,15 +205,14 @@ def fused_banded_sweep_reference(
     n_solve = n_ext - 2 * pad
     ns = _banded_ns(beta_ext_t, masks.to(beta_ext_t.dtype), offsets, pad,
                     n_solve)
-    beta_old = beta_ext_t[:, pad:pad + n_solve]
+    beta_old = beta_ext_t[:, pad:pad + n_solve].contiguous()
     beta = gs_pass(beta_old, Xty_t, XtX, ns, inv_den_t, lambda_, rho)
     if out is None:
         out = torch.empty_like(beta_ext_t)
     out[:, :pad] = 0.0
     out[:, pad + n_solve:] = 0.0
     out[:, pad:pad + n_solve] = beta
-    return (out, torch.amax(torch.abs(beta - beta_old)),
-            torch.amax(torch.abs(beta_old)))
+    return (out, *sweep_stats(beta, beta_old))
 
 
 def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
@@ -237,11 +252,19 @@ def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
                          "be the input carry")
 
 
+def _raise_on_launch_error(lib, err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {err} "
+            f"({lib.fdt_error_string(err).decode()})"
+        )
+
+
 def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
                              lambda_, rho, offsets, h, block, out):
     from flashdeconv_tpu_torch.ops import _build
 
-    lib = _build.load()
+    lib = _build.load("fused_banded_sweep")
     K, n_ext = beta_ext_t.shape
     pad = h * block
     partials = torch.empty((2, lib.fdt_fused_banded_sweep_blocks(n_ext)),
@@ -255,11 +278,7 @@ def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
         len(offsets), K, n_ext, pad, n_ext - 2 * pad, f32(lambda_), f32(rho),
         partials.data_ptr(), stream,
     )
-    if err:
-        raise RuntimeError(
-            "fused_banded_sweep kernel launch failed: CUDA error "
-            f"{err} ({lib.fdt_error_string(err).decode()})"
-        )
+    _raise_on_launch_error(lib, err, "fused_banded_sweep")
     fused_banded_sweep.launches += 1
     stats = torch.amax(partials, dim=1)
     return out, stats[0], stats[1]
@@ -316,31 +335,268 @@ def fused_banded_sweep(
 fused_banded_sweep.launches = 0
 
 
-def objective_terms_banded_fused(
-    beta_ext_t, Xty_t, XtX, YtY, offsets: Tuple[int, ...], masks,
-    lambda_, rho, h: int, block: int, nnb: torch.Tensor,
-):
-    """Objective on the fused carry, as a 0-d f32 tensor:
-    ``0.5*(YtY - 2<beta, Xty> + <beta^T beta, XtX>)
-    + 0.5*lambda*(sum deg*|beta|^2 - <beta, ns>) + rho*|beta|_1``,
-    with the degree ``nnb`` (n_solve,).
+def sweep_stats(beta_out: torch.Tensor, beta_in: torch.Tensor):
+    """Convergence statistics of one sweep, ``(max |beta_out - beta_in|,
+    max |beta_in|)``, as 0-d tensors (``torch.amax`` keeps a NaN)."""
+    return (torch.amax(torch.abs(beta_out - beta_in)),
+            torch.amax(torch.abs(beta_in)))
+
+
+# ---------------------------------------------------------------------------
+# The unfused tiers: neighbour sums in plain PyTorch, then the GS kernel.
+# ---------------------------------------------------------------------------
+
+def with_sentinel(beta_t: torch.Tensor) -> torch.Tensor:
+    """(K, n) -> (K, n + 1) with a zero last column: the sentinel that the
+    padding slots of a neighbour table (index n) gather."""
+    return torch.nn.functional.pad(beta_t, (0, 1))
+
+
+def neighbor_sum(beta_ext_t: torch.Tensor, nbr_t: torch.Tensor
+                 ) -> torch.Tensor:
+    """Sum of beta columns over each spot's padded neighbour list.
+
+    ``beta_ext_t``: (K, n + 1) with the zero sentinel column (see
+    :func:`with_sentinel`); ``nbr_t``: (D, n) indices, one row per degree
+    slot, padding == n. The sum runs one slot at a time, slot 0 first, as
+    the JAX ``neighbor_sum`` does. Returns (K, n).
     """
-    pad = h * block
-    n_solve = Xty_t.shape[1]
-    beta_t = beta_ext_t[:, pad:pad + n_solve]
+    acc = torch.index_select(beta_ext_t, 1, nbr_t[0])
+    for d in range(1, nbr_t.shape[0]):
+        acc += torch.index_select(beta_ext_t, 1, nbr_t[d])
+    return acc
+
+
+def overflow_table(ov_src: np.ndarray, ov_dst: np.ndarray, n_spots: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Group the overflow edges of a degree-capped table by spot.
+
+    ``ov_src``/``ov_dst`` are the edge lists of
+    :func:`flashdeconv_tpu_torch.utils.graph.adjacency_to_padded_capped`
+    (spot, neighbour). Returns ``(rows, table)``: the (H,) distinct spots
+    that have overflow edges, ascending, and an (S, H) table of their
+    neighbours in edge order, padded with the sentinel ``n_spots``. Summing
+    the table slot by slot and adding each spot's sum into its one row is
+    deterministic, where a scatter-add of repeated rows on the card is not.
+    """
+    order = np.argsort(ov_src, kind="stable")
+    rows, counts = np.unique(ov_src, return_counts=True)
+    starts = np.cumsum(counts) - counts
+    table = np.full((int(counts.max()) if rows.size else 0, rows.size),
+                    n_spots, dtype=np.int64)
+    slot = np.arange(order.size) - np.repeat(starts, counts)
+    table[slot, np.repeat(np.arange(rows.size), counts)] = ov_dst[order]
+    return rows.astype(np.int64), table
+
+
+def overflow_sum(beta_ext_t: torch.Tensor, ov_table_t: torch.Tensor
+                 ) -> torch.Tensor:
+    """Neighbour sums over the overflow edges of the hub spots, (K, H):
+    the (S, H) table of :func:`overflow_table` summed slot by slot."""
+    return neighbor_sum(beta_ext_t, ov_table_t)
+
+
+def add_overflow(ns_t, beta_ext_t, overflow) -> torch.Tensor:
+    """``ns_t`` plus the overflow sums in the hub spots' columns, each
+    column written once."""
+    if overflow is None:
+        return ns_t
+    rows, table = overflow
+    ns_t[:, rows] = ns_t[:, rows] + overflow_sum(beta_ext_t, table)
+    return ns_t
+
+
+def neighbor_sum_banded(beta_t: torch.Tensor, offsets: Tuple[int, ...],
+                        masks: torch.Tensor, rest_t: torch.Tensor
+                        ) -> torch.Tensor:
+    """Neighbour sum over a banded + remainder decomposition, (K, n).
+
+    Each band ``off`` adds ``masks[u] * beta_t[:, j + off]`` over the
+    columns where ``j + off`` is in range (the mask is 0 elsewhere), bands
+    in ``offsets`` order from a zero start, as the JAX
+    ``neighbor_sum_banded`` and the fused kernel do; the remainder's padded
+    table ``rest_t`` (R, n), R possibly 0, adds after the bands.
+    ``masks``: (U, n) f32 0/1.
+    """
+    K, n = beta_t.shape
+    ns = beta_t.new_zeros((K, n))
+    for u, off in enumerate(offsets):
+        lo, hi = max(0, -off), min(n, n - off)
+        if lo < hi:
+            ns[:, lo:hi] += masks[u, lo:hi] * beta_t[:, lo + off:hi + off]
+    if rest_t.shape[0]:
+        ns += neighbor_sum(with_sentinel(beta_t), rest_t)
+    return ns
+
+
+def coordinate_descent_block_reference(
+    beta_t, Xty_t, XtX, ns_t, inv_den_t, lambda_, rho,
+    out: Optional[torch.Tensor] = None,
+):
+    """Plain PyTorch version of the coordinate-descent kernel: :func:`gs_pass`
+    on the given neighbour sums. Returns ``(beta (into out when given),
+    max_diff, max_abs)``, the statistics as 0-d tensors."""
+    beta = gs_pass(beta_t, Xty_t, XtX, ns_t, inv_den_t, lambda_, rho)
+    if out is None:
+        out = torch.empty_like(beta_t)
+    out.copy_(beta)
+    return (out, *sweep_stats(beta, beta_t))
+
+
+def _check_cd_operands(beta_t, Xty_t, XtX, ns_t, inv_den_t, out):
+    K, n = beta_t.shape
+    if K > KERNEL_MAX_K:
+        raise ValueError(f"the coordinate-descent kernel takes K <= "
+                         f"{KERNEL_MAX_K}, got K = {K}")
+    expect = {
+        "beta_t": (beta_t, (K, n)), "Xty_t": (Xty_t, (K, n)),
+        "XtX": (XtX, (K, K)), "ns_t": (ns_t, (K, n)),
+        "inv_den_t": (inv_den_t, (K, n)), "out": (out, (K, n)),
+    }
+    for name, (t, shape) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != beta_t.device:
+            raise ValueError(f"{name} is on {t.device}, beta on "
+                             f"{beta_t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out.data_ptr() == beta_t.data_ptr():
+        raise ValueError("the sweep is Jacobi across spots: out must not "
+                         "be the input beta")
+
+
+def _coordinate_descent_block_cuda(beta_t, Xty_t, XtX, ns_t, inv_den_t,
+                                   lambda_, rho, out):
+    from flashdeconv_tpu_torch.ops import _build
+
+    lib = _build.load("cd_block_sweep")
+    K, n = beta_t.shape
+    partials = torch.empty((2, lib.fdt_cd_block_sweep_blocks(n)),
+                           dtype=torch.float32, device=beta_t.device)
+    stream = torch.cuda.current_stream(beta_t.device).cuda_stream
+    err = lib.fdt_cd_block_sweep(
+        beta_t.data_ptr(), out.data_ptr(), Xty_t.data_ptr(),
+        ns_t.data_ptr(), inv_den_t.data_ptr(), XtX.data_ptr(), K, n,
+        f32(lambda_), f32(rho), partials.data_ptr(), stream,
+    )
+    _raise_on_launch_error(lib, err, "cd_block_sweep")
+    coordinate_descent_block.launches += 1
+    stats = torch.amax(partials, dim=1)
+    return out, stats[0], stats[1]
+
+
+def coordinate_descent_block(
+    beta_t: torch.Tensor,
+    Xty_t: torch.Tensor,
+    XtX: torch.Tensor,
+    ns_t: torch.Tensor,
+    inv_den_t: torch.Tensor,
+    lambda_,
+    rho,
+    out: Optional[torch.Tensor] = None,
+):
+    """The Gauss-Seidel pass of every spot given its neighbour sums.
+
+    Counterpart of the JAX ``coordinate_descent_pallas``: ``beta_t``,
+    ``Xty_t``, ``ns_t``, ``inv_den_t`` (K, n) f32, ``XtX`` (K, K) f32, all
+    contiguous; ``out`` an optional (K, n) buffer distinct from ``beta_t``.
+    Returns ``(new beta, max_diff, max_abs)``, the statistics as 0-d f32
+    tensors on beta's device. On a CUDA tensor this launches the
+    hand-written kernel ``csrc/cd_block_sweep.cu`` (and raises if it
+    cannot); on a CPU tensor it runs
+    :func:`coordinate_descent_block_reference`.
+    ``coordinate_descent_block.launches`` counts the kernel's launches.
+    """
+    if out is None:
+        out = torch.empty_like(beta_t)
+    _check_cd_operands(beta_t, Xty_t, XtX, ns_t, inv_den_t, out)
+    if beta_t.device.type == "cuda":
+        return _coordinate_descent_block_cuda(
+            beta_t, Xty_t, XtX, ns_t, inv_den_t, lambda_, rho, out,
+        )
+    if beta_t.device.type == "cpu":
+        return coordinate_descent_block_reference(
+            beta_t, Xty_t, XtX, ns_t, inv_den_t, lambda_, rho, out=out,
+        )
+    raise ValueError(f"no coordinate-descent sweep for device "
+                     f"{beta_t.device}")
+
+
+coordinate_descent_block.launches = 0
+
+
+def bcd_sweep(beta_t, Xty_t, XtX, nbr_t, inv_den_t, lambda_, rho,
+              overflow=None, out=None):
+    """One gather-tier sweep: padded-table neighbour sums (plus the
+    overflow hubs' sums), then :func:`coordinate_descent_block`.
+    ``overflow``: None or the ``(rows, table)`` of :func:`overflow_table`
+    as tensors. Returns ``(beta, max_diff, max_abs)``."""
+    beta_ext_t = with_sentinel(beta_t)
+    ns = add_overflow(neighbor_sum(beta_ext_t, nbr_t), beta_ext_t, overflow)
+    return coordinate_descent_block(beta_t, Xty_t, XtX, ns, inv_den_t,
+                                    lambda_, rho, out=out)
+
+
+def bcd_sweep_banded(beta_t, Xty_t, XtX, offsets, masks, rest_t, inv_den_t,
+                     lambda_, rho, out=None):
+    """One unfused banded sweep: :func:`neighbor_sum_banded`, then
+    :func:`coordinate_descent_block`. Returns ``(beta, max_diff,
+    max_abs)``."""
+    ns = neighbor_sum_banded(beta_t, offsets, masks, rest_t)
+    return coordinate_descent_block(beta_t, Xty_t, XtX, ns, inv_den_t,
+                                    lambda_, rho, out=out)
+
+
+# ---------------------------------------------------------------------------
+# Objective, convergence loop and the one solve of all tiers.
+# ---------------------------------------------------------------------------
+
+def _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho):
+    """``0.5*(YtY - 2<beta, Xty> + <beta beta^T, XtX>) + 0.5*lambda*(sum
+    deg*|beta|^2 - <beta, ns>) + rho*|beta|_1`` on the (K, n) layout, as a
+    0-d tensor: Tr(beta^T L beta) expanded without L."""
     cross = torch.sum(beta_t * Xty_t)
     quad = torch.sum((beta_t @ beta_t.T) * XtX)
     YtY = torch.as_tensor(YtY, dtype=beta_t.dtype, device=beta_t.device)
     fidelity = 0.5 * (YtY - 2.0 * cross + quad)
-
-    masksf = masks.to(beta_t.dtype)
     nnb_row = nnb.reshape(1, -1).to(beta_t.dtype)
-    ns_t = _banded_ns(beta_ext_t, masksf, offsets, pad, n_solve)
     deg_term = torch.sum(nnb_row * torch.sum(beta_t * beta_t, dim=0,
                                              keepdim=True))
     adj_term = torch.sum(beta_t * ns_t)
     spatial = 0.5 * f32(lambda_) * (deg_term - adj_term)
     return fidelity + spatial + f32(rho) * torch.sum(torch.abs(beta_t))
+
+
+def objective_terms_banded_fused(
+    beta_ext_t, Xty_t, XtX, YtY, offsets: Tuple[int, ...], masks,
+    lambda_, rho, h: int, block: int, nnb: torch.Tensor,
+):
+    """Objective on the fused carry, as a 0-d f32 tensor, with the degree
+    ``nnb`` (n_solve,)."""
+    pad = h * block
+    n_solve = Xty_t.shape[1]
+    ns_t = _banded_ns(beta_ext_t, masks.to(Xty_t.dtype), offsets, pad,
+                      n_solve)
+    return _objective(beta_ext_t[:, pad:pad + n_solve], Xty_t, XtX, YtY,
+                      ns_t, nnb, lambda_, rho)
+
+
+def objective_terms(beta_t, Xty_t, XtX, YtY, nbr_t, nnb, lambda_, rho,
+                    overflow=None):
+    """Objective of the gather tier (padded table and overflow hubs)."""
+    beta_ext_t = with_sentinel(beta_t)
+    ns_t = add_overflow(neighbor_sum(beta_ext_t, nbr_t), beta_ext_t,
+                         overflow)
+    return _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho)
+
+
+def objective_terms_banded(beta_t, Xty_t, XtX, YtY, offsets, masks, rest_t,
+                           nnb, lambda_, rho):
+    """Objective of the unfused banded tier."""
+    ns_t = neighbor_sum_banded(beta_t, offsets, masks, rest_t)
+    return _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho)
 
 
 def converge_loop(
@@ -351,7 +607,7 @@ def converge_loop(
     ``sweep_fn(carry, out) -> (new carry, max_diff, max_abs)``. The sweep
     that meets the rule is still applied. The loop ping-pongs between
     ``carry`` and one second buffer allocated here, so ``carry`` is
-    overwritten from the second sweep on (it saves a (K, n_ext) buffer).
+    overwritten from the second sweep on (it saves a carry-sized buffer).
     The ratio is formed in f32 and compared with f32 ``tol``, as the JAX
     loop does. Returns ``(carry, n_iterations, rel_change)``.
     """
@@ -384,15 +640,133 @@ def bcd_iterate_banded_fused(
     )
 
 
+def bcd_iterate(beta0_t, Xty_t, XtX, nbr_t, nnb, lambda_, rho, tol,
+                max_iter: int, overflow=None):
+    """Gather-tier solve loop on the (K, n) carry ``beta0_t`` (overwritten,
+    see :func:`converge_loop`). Returns ``(beta_t, n_iterations,
+    rel_change)``."""
+    inv_den_t = gs_inv_den(XtX, nnb, lambda_)
+    return converge_loop(
+        lambda b, out: bcd_sweep(b, Xty_t, XtX, nbr_t, inv_den_t, lambda_,
+                                 rho, overflow=overflow, out=out),
+        beta0_t, tol, max_iter,
+    )
+
+
+def bcd_iterate_banded(beta0_t, Xty_t, XtX, offsets, masks, rest_t, nnb,
+                       lambda_, rho, tol, max_iter: int):
+    """Unfused banded solve loop on the (K, n) carry ``beta0_t``
+    (overwritten). Returns ``(beta_t, n_iterations, rel_change)``."""
+    inv_den_t = gs_inv_den(XtX, nnb, lambda_)
+    return converge_loop(
+        lambda b, out: bcd_sweep_banded(b, Xty_t, XtX, offsets, masks,
+                                        rest_t, inv_den_t, lambda_, rho,
+                                        out=out),
+        beta0_t, tol, max_iter,
+    )
+
+
+@dataclasses.dataclass
+class Tier:
+    """The device operands of a prepared solve, shared by every tier:
+    ``Xty_t`` (K, n_solve), ``XtX`` (K, K), the degrees ``nnb`` (n_solve,)
+    and the objective's constant ``YtY``. A tier adds its graph and says
+    how beta is carried; :func:`fused_solve` drives any of them."""
+
+    Xty_t: torch.Tensor
+    XtX: torch.Tensor
+    nnb: torch.Tensor
+    YtY: float
+
+    def carry(self, beta0: torch.Tensor) -> torch.Tensor:
+        """(n_solve, K) beta -> the tier's carry."""
+        return beta0.T.contiguous()
+
+    def beta(self, carry: torch.Tensor) -> torch.Tensor:
+        """The carry -> (n_solve, K) beta (a view)."""
+        return carry.T
+
+
+@dataclasses.dataclass
+class FusedBandedTier(Tier):
+    """Wholly banded graph: uint8 masks (U, n_solve), offsets, and the
+    carry's pad of ``h`` blocks of ``block`` spots on each side."""
+
+    masks: torch.Tensor
+    offsets: Tuple[int, ...]
+    h: int
+    block: int
+
+    def carry(self, beta0):
+        return to_fused_carry(beta0, self.h, self.block)
+
+    def beta(self, carry):
+        return from_fused_carry(carry, self.h, self.block)
+
+    def iterate(self, carry, lambda_, rho, tol, max_iter):
+        return bcd_iterate_banded_fused(
+            carry, self.Xty_t, self.XtX, self.masks, self.nnb, lambda_, rho,
+            tol, max_iter, self.offsets, self.h, self.block,
+        )
+
+    def objective(self, carry, lambda_, rho):
+        return objective_terms_banded_fused(
+            carry, self.Xty_t, self.XtX, self.YtY, self.offsets, self.masks,
+            lambda_, rho, self.h, self.block, nnb=self.nnb,
+        )
+
+
+@dataclasses.dataclass
+class BandedTier(Tier):
+    """Banded graph the fused tier does not take: f32 masks (U, n),
+    offsets, and the remainder's padded table ``rest`` (R, n), R >= 0."""
+
+    masks: torch.Tensor
+    offsets: Tuple[int, ...]
+    rest: torch.Tensor
+
+    def iterate(self, carry, lambda_, rho, tol, max_iter):
+        return bcd_iterate_banded(
+            carry, self.Xty_t, self.XtX, self.offsets, self.masks, self.rest,
+            self.nnb, lambda_, rho, tol, max_iter,
+        )
+
+    def objective(self, carry, lambda_, rho):
+        return objective_terms_banded(
+            carry, self.Xty_t, self.XtX, self.YtY, self.offsets, self.masks,
+            self.rest, self.nnb, lambda_, rho,
+        )
+
+
+@dataclasses.dataclass
+class GatherTier(Tier):
+    """Any graph: the padded neighbour table ``nbr`` (D, n) and, when the
+    degree cap binds, the ``overflow`` ``(rows, table)`` of the hubs."""
+
+    nbr: torch.Tensor
+    overflow: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def iterate(self, carry, lambda_, rho, tol, max_iter):
+        return bcd_iterate(
+            carry, self.Xty_t, self.XtX, self.nbr, self.nnb, lambda_, rho,
+            tol, max_iter, overflow=self.overflow,
+        )
+
+    def objective(self, carry, lambda_, rho):
+        return objective_terms(
+            carry, self.Xty_t, self.XtX, self.YtY, self.nbr, self.nnb,
+            lambda_, rho, overflow=self.overflow,
+        )
+
+
 def fused_solve(
-    beta0, Xty_t, XtX, masks, nnb, YtY, inv_perm, lambda_, rho, tol,
-    max_iter: int, offsets: Tuple[int, ...], h: int, block: int,
-    n_spots: int, verbose: bool = False,
+    beta0: Optional[torch.Tensor], tier: Tier, inv_perm, lambda_, rho, tol,
+    max_iter: int, n_spots: int, verbose: bool = False,
 ):
-    """The whole fused banded solve: init, converge loop, objective,
-    un-pad and un-permute — the counterpart of the JAX
-    ``fused_solve_program`` and, with ``verbose``, of its chunked verbose
-    loop.
+    """The whole solve of any tier: init, converge loop, objective, un-pad
+    and un-permute — the counterpart of the JAX ``fused_solve_program``
+    (fused tier) and ``solve_program`` (gather and unfused banded tiers)
+    and, with ``verbose``, of their chunked verbose loop.
 
     The sweeps run as one chunk of ``max_iter``; with ``verbose`` they run
     in chunks that end after sweeps 0, 10, 20, ... (the reference's
@@ -404,30 +778,26 @@ def fused_solve(
     operands' device and ``objectives[-1]`` the final objective.
     """
     tol32 = np.float32(tol)
-    objectives, n_iter, rel = [], 0, float("inf")
+    objectives: List[float] = []
+    n_iter, rel = 0, float("inf")
     chunk = 1 if verbose else max_iter
     with full_f32_matmul():
         if beta0 is None:
-            beta0 = uniform_beta0(Xty_t, n_spots)
-        carry = to_fused_carry(beta0, h, block)
+            beta0 = uniform_beta0(tier.Xty_t, n_spots)
+        carry = tier.carry(beta0)
         while n_iter < max_iter and not rel < tol32:
-            carry, done, rel = bcd_iterate_banded_fused(
-                carry, Xty_t, XtX, masks, nnb, lambda_, rho, tol,
-                min(chunk, max_iter - n_iter), offsets, h, block,
-            )
+            carry, done, rel = tier.iterate(carry, lambda_, rho, tol,
+                                            min(chunk, max_iter - n_iter))
             n_iter += done
             chunk = 10
-            objectives.append(float(objective_terms_banded_fused(
-                carry, Xty_t, XtX, YtY, offsets, masks, lambda_, rho, h,
-                block, nnb=nnb,
-            )))
+            objectives.append(float(tier.objective(carry, lambda_, rho)))
             if verbose:
                 print(f"Iteration {n_iter - 1}: objective = "
                       f"{objectives[-1]:.6f}, rel_change = {rel:.6e}")
     converged = bool(rel < tol32)
     if verbose and converged:
         print(f"Converged at iteration {n_iter - 1}")
-    beta = from_fused_carry(carry, h, block)[:n_spots]
+    beta = tier.beta(carry)[:n_spots]
     if inv_perm is not None:
         beta = beta.index_select(0, inv_perm)
     return beta, n_iter, rel, converged, objectives

@@ -226,10 +226,12 @@ def test_fused_solve_matches_jax_program():
         h=p["h"], block=BLOCK, n_spots=n_spots, interpret=True,
     )
     tp = as_torch(p)
+    tier = tbcd.FusedBandedTier(
+        Xty_t=tp["Xty_t"], XtX=tp["XtX"], nnb=tp["nnb"], YtY=yty,
+        masks=tp["masks"], offsets=p["offsets"], h=p["h"], block=BLOCK,
+    )
     beta, it, rel, converged, objectives = tbcd.fused_solve(
-        None, tp["Xty_t"], tp["XtX"], tp["masks"], tp["nnb"], yty,
-        torch.from_numpy(inv), lam, rho, tol, 3, p["offsets"], p["h"],
-        BLOCK, n_spots,
+        None, tier, torch.from_numpy(inv), lam, rho, tol, 3, n_spots,
     )
     assert beta.shape == (n_spots, K)
     assert it == int(it_ref) == 3 and not converged

@@ -1,12 +1,13 @@
 """The port's whole fit against the JAX package's, on the CPU.
 
-One seeded synthetic dataset (CSR Poisson counts on a 96 x 96 grid, so the
-graph is banded and the port's fused tier takes it) goes through
+Seeded synthetic datasets (CSR Poisson counts on a 96 x 96 grid, so the
+graph is banded and the port's fused tier takes it; and 3,000 spots at
+irregular coordinates, which the gather tier takes) go through
 ``flashdeconv_tpu.FlashDeconv`` and ``flashdeconv_tpu_torch.FlashDeconv``.
-The host stages are the same functions in both, so the selected genes and
-lambda agree exactly; the solves are both f32 — the JAX package's XLA
-banded tier on the CPU, the port's fused sweep — and differ by a few ulp
-per sweep.
+The host stages of the port are bitwise copies of the JAX package's, so
+the selected genes and lambda agree exactly; the solves are both f32 —
+the JAX package's XLA tiers on the CPU, the port's plain sweeps — and
+differ by a few ulp per sweep.
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 import flashdeconv_tpu
 import flashdeconv_tpu_torch
 from conftest import make_synthetic
-from flashdeconv_tpu.utils.metrics import compute_correlation
+from flashdeconv_tpu_torch.utils.metrics import compute_correlation
 
 torch.set_num_threads(2)
 
@@ -59,3 +60,30 @@ def test_fit_recovers_the_truth(fits):
     np.testing.assert_allclose(props.sum(axis=1), 1.0, atol=1e-12)
     assert compute_correlation(props, truth) > 0.9
     assert port.beta_.dtype == np.float64 and (port.beta_ >= 0).all()
+
+
+@pytest.fixture(scope="module")
+def irregular_fits():
+    Y, X, coords, truth = make_synthetic(
+        n_spots=3000, n_genes=600, n_types=8, seed=3, grid=False,
+        sparse_output=True,
+    )
+    ref = flashdeconv_tpu.FlashDeconv()
+    ref.fit(Y, X, coords)
+    port = flashdeconv_tpu_torch.FlashDeconv(device="cpu")
+    props = port.fit_transform(Y, X, coords)
+    return ref, port, props, truth
+
+
+def test_irregular_fit_takes_the_gather_tier_and_matches_jax(irregular_fits):
+    """Irregular coordinates (the gather tier): the same genes and lambda,
+    the same sweeps, proportions within 1e-4."""
+    ref, port, props, truth = irregular_fits
+    np.testing.assert_array_equal(port.gene_idx_, ref.gene_idx_)
+    assert port.lambda_used_ == ref.lambda_used_
+    assert port.info_["converged"] and ref.info_["converged"]
+    assert port.info_["n_iterations"] == ref.info_["n_iterations"]
+    np.testing.assert_allclose(props, ref.proportions_, atol=1e-4)
+    np.testing.assert_allclose(port.info_["final_objective"],
+                               ref.info_["final_objective"], rtol=1e-5)
+    assert compute_correlation(props, truth) > 0.9

@@ -1,19 +1,25 @@
-"""The CUDA fused banded sweep against its plain PyTorch version.
+"""The CUDA kernels against their plain PyTorch versions, and against each
+other.
 
 Runs only where there is a card (marker ``cuda``; ``python -m pytest
 --noconftest -m cuda tests/test_torch_kernels.py`` on a machine without
-JAX): the kernel has no CPU mode. The card is
-looked for inside a fixture, so every pytest worker collects the same
-tests. Bounds: atol 5e-5 / rtol 1e-4 on beta and rtol 1e-4 on the
-statistics — the kernel contracts multiply-adds into FMAs and sums the
-XtX @ beta product in its own order, so it is not bitwise equal.
+JAX): the kernels have no CPU mode. The card is looked for inside a
+fixture, so every pytest worker collects the same tests. Bounds against
+the plain versions: atol 5e-5 / rtol 1e-4 on beta and rtol 1e-4 on the
+statistics — the kernels contract multiply-adds into FMAs and sum the
+XtX @ beta product in their own order, so they are not bitwise equal to
+them. The two kernels run one Gauss-Seidel device function, so the fused
+and unfused banded sweeps are bitwise equal to each other.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from flashdeconv_tpu_torch.core import solver as tsolver
 from flashdeconv_tpu_torch.ops import bcd as tbcd
-from torch_problems import as_torch, fused_problem
+from flashdeconv_tpu_torch.utils.graph import build_knn_graph
+from torch_problems import as_torch, fused_problem, gather_problem
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +94,93 @@ def test_kernel_solve_matches_plain_solve(cuda_device):
             )
     assert it == 10
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
+
+
+def _cd_args(p, lam=0.5, rho=0.1):
+    tp = {k: torch.from_numpy(v).cuda() for k, v in p.items()
+          if k != "coords"}
+    ns = tbcd.neighbor_sum(tbcd.with_sentinel(tp["beta_t"]), tp["nbr_t"])
+    inv = tbcd.gs_inv_den(tp["XtX"], tp["nnb"], lam).contiguous()
+    return tp, [tp["beta_t"], tp["Xty_t"], tp["XtX"], ns, inv, lam, rho]
+
+
+@pytest.mark.parametrize("K", [6, 20, 64])
+def test_cd_kernel_matches_plain_version(cuda_device, K):
+    """3,000 spots: 11 full blocks of 256 and a ragged tail."""
+    _, args = _cd_args(gather_problem(n_types=K, seed=K))
+    before = tbcd.coordinate_descent_block.launches
+    with tbcd.full_f32_matmul():
+        ref, rd, ra = tbcd.coordinate_descent_block_reference(*args)
+        out = torch.full_like(args[0], float("nan"))
+        got, d, a = tbcd.coordinate_descent_block(*args, out=out)
+    torch.cuda.synchronize()
+    assert tbcd.coordinate_descent_block.launches == before + 1
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
+    torch.testing.assert_close(d, rd, atol=0.0, rtol=1e-4)
+    torch.testing.assert_close(a, ra, atol=0.0, rtol=1e-4)
+    assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("where", ["XtX", "inv_den", "lambda"])
+def test_cd_kernel_propagates_nan_like_plain_version(cuda_device, where):
+    tp, args = _cd_args(gather_problem(n_types=20, seed=1),
+                        lam=float("nan") if where == "lambda" else 0.5)
+    if where == "XtX":
+        args[2][10, 1] = float("nan")
+    if where == "inv_den":
+        args[4][7, 300] = float("nan")
+    with tbcd.full_f32_matmul():
+        ref, rd, ra = tbcd.coordinate_descent_block_reference(*args)
+        got, d, a = tbcd.coordinate_descent_block(*args)
+    torch.cuda.synchronize()
+    assert torch.isnan(ref).any()
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4, equal_nan=True)
+    assert torch.isnan(d) and torch.isnan(rd)
+    torch.testing.assert_close(a, ra, atol=0.0, rtol=1e-4)
+
+
+@pytest.mark.parametrize("K", [6, 20, 64])
+def test_fused_and_unfused_banded_kernels_are_bitwise_equal(cuda_device, K):
+    """Ten sweeps of the same grid operands through the fused kernel and
+    through the banded neighbour sums plus the coordinate-descent kernel."""
+    p = fused_problem(n_types=K, seed=K + 2)
+    tp = as_torch(p, cuda_device)
+    n = p["Xty_t"].shape[1]
+    pad = p["h"] * p["block"]
+    args = (0.5, 0.05, 1e-30, 10)
+    before = (tbcd.fused_banded_sweep.launches,
+              tbcd.coordinate_descent_block.launches)
+    carry, it_f, rel_f = tbcd.bcd_iterate_banded_fused(
+        tp["carry"].clone(), tp["Xty_t"], tp["XtX"], tp["masks"], tp["nnb"],
+        *args, p["offsets"], p["h"], p["block"],
+    )
+    beta_t, it_u, rel_u = tbcd.bcd_iterate_banded(
+        tp["carry"][:, pad:pad + n].contiguous(), tp["Xty_t"], tp["XtX"],
+        p["offsets"], tp["masks"].float(),
+        torch.zeros((0, n), dtype=torch.int32, device=cuda_device),
+        tp["nnb"], *args,
+    )
+    torch.cuda.synchronize()
+    assert (tbcd.fused_banded_sweep.launches - before[0],
+            tbcd.coordinate_descent_block.launches - before[1]) == (10, 10)
+    assert it_f == it_u == 10 and rel_f == rel_u
+    assert torch.equal(tbcd.from_fused_carry(carry, p["h"], p["block"]).T,
+                       beta_t)
+
+
+def test_gather_solve_is_bitwise_repeatable(cuda_device):
+    """Two solves of one prepared gather-tier problem, with overflow hubs
+    (a binding degree cap), give the same beta bit for bit."""
+    p = gather_problem(n=5000, n_types=12, seed=4)
+    rng = np.random.RandomState(5)
+    X = rng.randn(12, 48)
+    Y = np.abs(rng.randn(5000, 12)) @ X + 0.05 * rng.randn(5000, 48)
+    A = build_knn_graph(p["coords"], k=6)
+    prob = tsolver.prepare_bcd(Y, X, A, coords=p["coords"], max_degree=6,
+                               device=cuda_device)
+    assert type(prob.tier).__name__ == "GatherTier"
+    assert prob.tier.overflow is not None
+    beta_a, info_a = prob.solve()
+    beta_b, info_b = prob.solve()
+    assert info_a["converged"] and info_a == info_b
+    np.testing.assert_array_equal(beta_a, beta_b)

@@ -1,50 +1,63 @@
-"""The port runs with JAX absent, as on the card's machine.
+"""The port runs with neither JAX nor the JAX package, as on the card's
+machine.
 
-A fresh interpreter whose import system refuses every ``jax*`` module
-imports ``flashdeconv_tpu_torch`` and runs a 96 x 96 grid ``bcd_solve`` on
-the CPU. The variable that keeps ``flashdeconv_tpu``'s package init away
-from JAX is removed from the child's environment, so the port must set it
-itself.
+A fresh interpreter whose import system refuses the top-level modules
+``flashdeconv_tpu``, ``bench`` and every ``jax*`` imports
+``flashdeconv_tpu_torch`` and solves one gather-tier problem (irregular
+coordinates) and one fused-tier problem (a 96 x 96 grid) on the CPU. A
+static check holds every module of the port, and ``chip_smoke.py``, to
+the same rule.
 """
 
+import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+REFUSED = ("flashdeconv_tpu", "bench", "jax")
 
 CHILD = r"""
 import sys
 
-class RefuseJax:
+class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        top = name.split(".")[0]
+        if top in ("flashdeconv_tpu", "bench") or top.startswith("jax"):
             raise ImportError(f"{name} is blocked in this test")
 
-sys.meta_path.insert(0, RefuseJax())
+sys.meta_path.insert(0, Refuse())
 
 import numpy as np
 import torch
 
 torch.set_num_threads(2)
-import flashdeconv_tpu_torch
-from flashdeconv_tpu_torch.core.solver import bcd_solve
-from flashdeconv_tpu.utils.graph import build_knn_graph
-from bench import make_problem
+from flashdeconv_tpu_torch.core.solver import prepare_bcd
+from flashdeconv_tpu_torch.utils.graph import build_knn_graph, grid_coords
 
-Y, X, coords = make_problem(96 * 96, 8, 64)
-beta, info = bcd_solve(Y, X, build_knn_graph(coords, k=6), coords=coords,
+rng = np.random.default_rng(0)
+X = rng.standard_normal((8, 64))
+for coords, tier in ((rng.random((2000, 2)) * 45, "GatherTier"),
+                     (grid_coords(side=96), "FusedBandedTier")):
+    beta_true = rng.dirichlet(np.ones(8), size=coords.shape[0])
+    Y = beta_true @ X + 0.05 * rng.standard_normal((coords.shape[0], 64))
+    prob = prepare_bcd(Y, X, build_knn_graph(coords, k=6), coords=coords,
                        device="cpu")
-assert info["converged"] and np.isfinite(beta).all() and (beta >= 0).all()
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
-print("NOJAX_OK", info["n_iterations"])
+    assert type(prob.tier).__name__ == tier, type(prob.tier)
+    beta, info = prob.solve()
+    assert info["converged"] and np.isfinite(beta).all() and (beta >= 0).all()
+    print(tier, info["n_iterations"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("flashdeconv_tpu", "bench")
+             or m.startswith("jax"))
+assert not bad, bad
+print("NOJAX_OK")
 """
 
 
 def test_port_imports_and_solves_without_jax():
-    env = {k: v for k, v in os.environ.items()
-           if k != "FLASHDECONV_NO_COMPILE_CACHE"}
+    env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p]
     )
@@ -54,3 +67,23 @@ def test_port_imports_and_solves_without_jax():
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    files = sorted((ROOT / "flashdeconv_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    found = [
+        f"{path.relative_to(ROOT)}: {name}"
+        for path in files for name in _imported_modules(path)
+        if name.split(".")[0] in REFUSED or name.startswith("jax")
+    ]
+    assert not found, found

@@ -16,12 +16,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from scipy import sparse
 
 from flashdeconv_tpu.core import solver as jsolver
 from flashdeconv_tpu.ops import bcd as jbcd
-from flashdeconv_tpu.utils.graph import build_knn_graph, grid_coords
 from flashdeconv_tpu_torch.core import solver as tsolver
+from flashdeconv_tpu_torch.utils.graph import build_knn_graph, grid_coords
+from torch_problems import with_long_edges
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from bench import make_problem  # noqa: E402
@@ -121,36 +121,24 @@ def test_verbose_samples_the_objective_on_the_reference_cadence(capsys):
     assert "Iteration 0: objective" in capsys.readouterr().out
 
 
-def _with_long_edges(A, n_edges=40, seed=0):
-    n = A.shape[0]
-    rng = np.random.RandomState(seed)
-    src = rng.choice(n, n_edges, replace=False)
-    dst = (src + rng.randint(5_000, 8_000, size=n_edges)) % n
-    extra = sparse.coo_matrix(
-        (np.ones(2 * n_edges), (np.r_[src, dst], np.r_[dst, src])),
-        shape=(n, n),
-    )
-    return ((A + extra.tocsr()) > 0).astype(np.float64)
-
-
 @pytest.mark.parametrize("case", [
-    "few_spots", "float64", "not_banded", "rest_stream", "large_k",
+    "float64", "large_k_fused", "large_k_banded", "large_k_gather",
 ])
 def test_unported_tiers_raise(case):
+    """f64, and K = 65 on each of the three tiers, name their ROADMAP entry
+    (the problems that solve now are in tests/test_torch_gather.py)."""
     rng = np.random.RandomState(3)
     n, K, kw = SIDE * SIDE, 8, {}
     coords = grid_coords(side=SIDE)
-    if case == "few_spots":
-        n, coords = 400, grid_coords(side=20)
-    elif case == "not_banded":
-        coords = rng.rand(n, 2) * 100
-    elif case == "float64":
+    if case == "float64":
         kw["dtype"] = np.float64
-    elif case == "large_k":
+    else:
         K = 65
+    if case == "large_k_gather":
+        coords = rng.rand(n, 2) * 100
     A = build_knn_graph(coords, k=6)
-    if case == "rest_stream":
-        A = _with_long_edges(A)
+    if case == "large_k_banded":
+        A = with_long_edges(A)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tsolver.prepare_bcd(rng.randn(n, 16), rng.randn(K, 16), A,
                             coords=coords, device="cpu", **kw)

@@ -1,13 +1,18 @@
-"""Seeded numpy problems on the fused carry layout, shared by the port's
-tests. Imports no JAX, so the card-only tests can use it on a machine
-without JAX (run them with ``--noconftest``: tests/conftest.py imports JAX).
+"""Seeded numpy problems on the port's carry layouts, shared by the port's
+tests. Imports no JAX and nothing of the JAX package, so the card-only
+tests can use it on a machine without JAX (run them with ``--noconftest``:
+tests/conftest.py imports JAX).
 """
 
 import numpy as np
 import torch
+from scipy import sparse
 
-import flashdeconv_tpu_torch  # noqa: F401  (keeps flashdeconv_tpu off JAX)
-from flashdeconv_tpu.utils.graph import banded_split, build_knn_graph, grid_coords
+from flashdeconv_tpu_torch.utils.graph import (
+    banded_split,
+    build_knn_graph,
+    grid_coords,
+)
 
 BLOCK = 256  # small block keeps interpret mode fast; the solver uses 4096
 
@@ -43,3 +48,40 @@ def as_torch(p, device="cpu"):
             else v for k, v in p.items()}
 
 
+
+
+def with_long_edges(A, n_edges=40, seed=0):
+    """``A`` plus ``n_edges`` random long-range symmetric edges: off the
+    bands of a grid graph, they make its banded decomposition keep a
+    remainder (the unfused banded tier's rest table)."""
+    n = A.shape[0]
+    rng = np.random.RandomState(seed)
+    src = rng.choice(n, n_edges, replace=False)
+    dst = (src + rng.randint(5_000, 8_000, size=n_edges)) % n
+    extra = sparse.coo_matrix(
+        (np.ones(2 * n_edges), (np.r_[src, dst], np.r_[dst, src])),
+        shape=(n, n),
+    )
+    return ((A + extra.tocsr()) > 0).astype(np.float64)
+
+
+def gather_problem(n=3000, n_types=6, seed=0):
+    """Numpy operands of an irregular kNN-6 problem on the gather tier's
+    (K, n) layout: beta_t, Xty_t, XtX, the neighbour table nbr_t (D, n)
+    with sentinel n, and the degrees nnb."""
+    rng = np.random.RandomState(seed)
+    coords = rng.rand(n, 2) * np.sqrt(n)
+    A = build_knn_graph(coords, k=6).tocsr()
+    nbr = np.full((int(np.diff(A.indptr).max()), n), n, dtype=np.int32)
+    for i in range(n):
+        cols = A.indices[A.indptr[i]:A.indptr[i + 1]]
+        nbr[:cols.size, i] = cols
+    Xs = rng.randn(n_types, 2 * n_types + 8)
+    return {
+        "beta_t": np.abs(rng.randn(n_types, n)).astype(np.float32),
+        "Xty_t": (np.abs(rng.randn(n_types, n)) * 5).astype(np.float32),
+        "XtX": (Xs @ Xs.T).astype(np.float32),
+        "nbr_t": nbr,
+        "nnb": np.diff(A.indptr).astype(np.float32),
+        "coords": coords,
+    }
