@@ -1,13 +1,14 @@
 """Smoke run of flashdeconv_tpu_torch on one NVIDIA card.
 
     python3 chip_smoke.py            # the smoke run
-    python3 chip_smoke.py --profile  # where the warm 1M solves' time goes
+    python3 chip_smoke.py --profile  # where the warm 1M solves' and the
+                                     # dense sketch's time goes
 
-Builds both CUDA kernels from the sources in this checkout (one ``nvcc``
-each, in parallel), holds each against its plain PyTorch version at the
-main paths' shapes, holds the fused and unfused banded solves bitwise
-equal, then drives the two main paths, each with the launch counts set to
-0 just before it and read just after:
+Builds the three CUDA kernels from the sources in this checkout (one
+``nvcc`` each, in parallel), holds each against its plain PyTorch version
+at the main paths' shapes, holds the fused and unfused banded solves
+bitwise equal, then drives the three main paths, each with the launch
+counts set to 0 just before it and read just after:
 
 1. the fused banded tier: a 1M-spot (1000 x 1000 grid, K = 20, sketch
    512, kNN-6) prepare and solve, and a 262,144-spot ``fit_transform`` of
@@ -16,7 +17,17 @@ equal, then drives the two main paths, each with the launch counts set to
    coordinates, kNN-6, as Xenium and CosMx sections look) through
    ``prepare_bcd`` and ``solve``, and two ``fit_transform`` runs: a
    Visium-like section of 4,992 spots on a hex lattice and a 100,000-cell
-   irregular section (2,000 genes, K = 20).
+   irregular section (2,000 genes, K = 20);
+3. the dense-count sketch on the card: a "Xenium 5K-like" section of
+   100,000 cells at irregular coordinates with dense counts of 5,001
+   genes, all kept (``n_hvg=5001``), K = 20, fitted twice; each fit
+   projects Y through the CountSketch kernel once and solves on the
+   gather tier.
+
+The CountSketch kernel is held against its plain version at 262,144 x
+5,001 -> 512 (and at edge shapes), bitwise against itself, against an f64
+projection of 1,024 rows, and timed beside ``torch.matmul`` with the dense
+operator.
 
 Any failed phase raises, so the exit code is non-zero; without a card the
 script fails before it prints any result. The last three lines are one
@@ -26,7 +37,10 @@ line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
 ``--profile`` builds, prepares the 1M grid and the 1M irregular problems
 and, for each, runs three warm solves under ``torch.profiler``, each split
 by the host clock into the device solve and the fetch of beta; it prints
-that split and the profiler's table, and no result line.
+that split and the profiler's table. Then it makes the dense fit's
+normalised 100,000 x 5,001 counts and runs the fit's ``sketch_data`` on
+them, timed by the host clock and once under ``torch.profiler``. It
+prints no result line.
 """
 
 from __future__ import annotations
@@ -49,6 +63,8 @@ SPOTS = 1_000_000
 TYPES = 20
 SKETCH = 512
 FIT_SIDE, FIT_GENES = 512, 2000
+DENSE_GENES = 5001                  # a 10x Xenium Prime 5K panel
+CS_ROWS = 262_144                   # the CountSketch kernel's main shape
 VISIUM_COLS, VISIUM_ROWS = 78, 64   # 4,992 spots, as a Visium capture area
 CELLS = 100_000
 SWEEPS = 20
@@ -56,6 +72,9 @@ SWEEPS = 20
 # kernels contract multiply-adds into FMAs and sum XtX @ beta in their own
 # order, so they are held to tolerances, not bitwise.
 ATOL, RTOL, STATS_RTOL = 5e-5, 1e-4, 1e-4
+# CountSketch against its plain version (and f64): 2e-5 * max(max|ref|, 1),
+# the JAX package's own bound (benchmarks/hw_parity.py, check 4).
+CS_RTOL = 2e-5
 # The card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
 # operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -93,6 +112,8 @@ def phase_build() -> None:
         _build.load(name)
     log(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    if len(libs) != 3:
+        raise AssertionError(f"expected 3 kernels, built {sorted(libs)}")
     for name, so in libs.items():
         log(f"[build] {so.relative_to(ROOT)}")
         for line in so.with_suffix(".log").read_text().splitlines():
@@ -168,13 +189,15 @@ def prepare(n_spots: int, n_types: int, irregular: bool = False):
 
 
 def synthetic_counts(coords, extent: float, n_genes: int, n_types: int,
-                     seed: int = 0, chunk: int = 16384):
-    """Seeded Poisson CSR counts with spatially smooth proportions over
+                     seed: int = 0, chunk: int = 16384, dense: bool = False):
+    """Seeded Poisson counts with spatially smooth proportions over
     ``coords`` (the recipe of tests/conftest.make_synthetic), generated in
-    row chunks. Returns (Y, X, true proportions)."""
+    row chunks: CSR, or with ``dense`` one f64 array. Returns (Y, X, true
+    proportions)."""
     from scipy import sparse
 
     rng = np.random.default_rng(seed)
+    Y = np.empty((coords.shape[0], n_genes)) if dense else None
     X = rng.gamma(2.0, 1.0, (n_types, n_genes))
     X *= rng.random((n_types, n_genes)) < 0.3
     m = max(3, n_genes // (n_types * 10))
@@ -193,10 +216,15 @@ def synthetic_counts(coords, extent: float, n_genes: int, n_types: int,
         mean = p @ X
         mean /= mean.sum(axis=1, keepdims=True)
         depth = rng.gamma(3.0, 1500.0, (len(p), 1))
-        parts.append(sparse.csr_matrix(
-            rng.poisson(mean * depth).astype(np.float64)))
+        counts = rng.poisson(mean * depth)
+        if dense:
+            Y[s:s + chunk] = counts
+        else:
+            parts.append(sparse.csr_matrix(counts.astype(np.float64)))
         props.append(p)
-    return sparse.vstack(parts, format="csr"), X, np.concatenate(props)
+    if not dense:
+        Y = sparse.vstack(parts, format="csr")
+    return Y, X, np.concatenate(props)
 
 
 # -- kernels against their plain versions ---------------------------------------
@@ -326,6 +354,93 @@ def phase_cd_kernel(prob, label: str) -> dict:
     return row
 
 
+def cs_operands(n_rows: int, n_genes: int, d: int, seed: int = 0):
+    """Non-negative f32 rows drawn on the card from a seeded generator and
+    a leverage-weighted CountSketch operator: (Y, buckets, weights, op)."""
+    from flashdeconv_tpu_torch.core.sketching import make_countsketch_op
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    Y = torch.rand((n_rows, n_genes), generator=gen, device="cuda")
+    Y *= 6.0
+    lev = np.random.default_rng(seed).random(n_genes)
+    op = make_countsketch_op(n_genes, d, lev, random_state=0)
+    buckets = torch.from_numpy(op.buckets).cuda()
+    weights = torch.from_numpy(op.weights.astype(np.float32)).cuda()
+    return Y, buckets, weights, op
+
+
+def cs_check(got, ref, label: str) -> float:
+    """max |got - ref|, which must be within CS_RTOL * max(max|ref|, 1)."""
+    torch.cuda.synchronize()
+    err = float((got.double() - ref.double()).abs().max())
+    tol = CS_RTOL * max(float(ref.abs().max()), 1.0)
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"countsketch {label}: max |err| {err} > {tol}")
+    return err
+
+
+def phase_countsketch_kernel() -> dict:
+    """Kernel #3 against its plain version at the main path's shape and at
+    edge shapes, bitwise against itself, against f64 on 1,024 rows, then
+    timed in turns with its plain version and ``torch.matmul``."""
+    from flashdeconv_tpu_torch.ops import _build, bcd
+    from flashdeconv_tpu_torch.ops import countsketch as cs
+
+    for n, g, d in ((1024, 4097, 512), (1024, 4097, 100), (1024, 4097, 2048),
+                    (1029, DENSE_GENES, 100)):
+        Y, b, w, _ = cs_operands(n, g, d, seed=n + d)
+        err = cs_check(cs.countsketch_project_kernel(Y, b, w, d),
+                       cs.countsketch_project_reference(Y, b, w, d),
+                       f"{n}x{g}->{d}")
+        log(f"[kernel] countsketch_project {n}x{g}->{d}: max_abs_err "
+            f"{err:.3e}")
+        del Y
+
+    n, g, d = CS_ROWS, DENSE_GENES, SKETCH
+    Y, b, w, op = cs_operands(n, g, d)
+    ref = cs.countsketch_project_reference(Y, b, w, d)
+    got = cs.countsketch_project_kernel(Y, b, w, d)
+    err = cs_check(got, ref, "main shape")
+    again = cs.countsketch_project_kernel(Y, b, w, d)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("two countsketch kernel calls differ")
+    omega64 = torch.from_numpy(op.to_dense(np.float64)).cuda()
+    err64 = cs_check(got[:1024], Y[:1024].double() @ omega64, "f64 rows")
+    del ref, again, omega64
+
+    omega = torch.from_numpy(op.to_dense(np.float32)).cuda()
+    fns = {
+        "plain": cs.countsketch_project_reference,
+        "kernel": cs.countsketch_project_kernel,
+        "library": lambda Y, b, w, d, out: torch.matmul(Y, omega, out=out),
+    }
+    ms = {name: [] for name in fns}
+    tile = _build.load("countsketch_project").fdt_countsketch_gene_tile()
+    plan_ms = time_sweeps(lambda *a, out: cs.gene_plan(*a), (b, w, d, tile),
+                          None)
+    with bcd.full_f32_matmul():
+        lib_err = cs_check(fns["library"](Y, b, w, d, torch.empty_like(got)),
+                           got, "torch.matmul")
+        for name in ("plain", "kernel", "library", "library", "kernel",
+                     "plain"):
+            ms[name].append(time_sweeps(fns[name], (Y, b, w, d), got))
+    n_bytes = 4.0 * (n * g + n * d) + 8.0 * g
+    bound, by = bound_ms(n_bytes, 2.0 * n * g)
+    row = {"max_abs_err": err, "ms": float(np.mean(ms["kernel"])),
+           "plain_ms": float(np.mean(ms["plain"])), "bound_ms": bound,
+           "bound_by": by, "library_ms": float(np.mean(ms["library"]))}
+    log(f"[kernel] countsketch_project {n}x{g}->{d} (main path): "
+        f"max_abs_err {err:.3e} vs plain, {err64:.3e} vs f64 on 1,024 rows, "
+        f"{lib_err:.3e} torch.matmul vs kernel; two calls bitwise equal; "
+        f"per call kernel {ms['kernel']} ms, plain {ms['plain']} ms, "
+        f"torch.matmul {ms['library']} ms (plain, kernel, library, library, "
+        f"kernel, plain); the kernel's time includes its wrapper's gene "
+        f"sort, alone {plan_ms:.4f} ms; bound {bound:.4f} ms ({by}, "
+        f"{n_bytes / 1e9:.3f} GB)")
+    return row
+
+
 def phase_fused_vs_unfused(prob) -> None:
     """The 1M grid operands solved through the fused tier and through the
     unfused banded tier: the same sweeps and beta, bit for bit."""
@@ -452,19 +567,30 @@ def phase_profile(prob, label: str, reps: int = 3) -> None:
 
 
 def phase_fit(label: str, coords, extent: float, n_genes: int,
-              runs=("cold", "warm")) -> int:
-    """``fit_transform`` of synthetic counts over ``coords``; Pearson
-    against the generating proportions must pass 0.9. Returns sweeps."""
+              runs=("cold", "warm"), dense: bool = False,
+              n_hvg: int = 2000) -> int:
+    """``fit_transform`` of synthetic counts (CSR, or dense with ``dense``)
+    over ``coords``; Pearson against the generating proportions must pass
+    0.9. Returns sweeps."""
     from flashdeconv_tpu_torch import FlashDeconv
     from flashdeconv_tpu_torch.utils import compute_correlation
 
     t0 = time.perf_counter()
-    Y, X, truth = synthetic_counts(coords, extent, n_genes, TYPES)
-    log(f"[fit] {label}: counts {Y.shape} nnz {Y.nnz} made in "
-        f"{time.perf_counter() - t0:.1f} s")
+    Y, X, truth = synthetic_counts(coords, extent, n_genes, TYPES,
+                                   dense=dense)
+    nnz = np.count_nonzero(Y) if dense else Y.nnz
+    log(f"[fit] {label}: {'dense' if dense else 'CSR'} counts {Y.shape} "
+        f"nnz {nnz} made in {time.perf_counter() - t0:.1f} s")
+    if dense:  # the dense sketch's copy to the card, on its own
+        t0 = time.perf_counter()
+        on_card = torch.as_tensor(Y, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[fit] {label}: f64 counts cast to f32 and copied to the card "
+            f"({on_card.nbytes} B) in {time.perf_counter() - t0:.3f} s")
+        del on_card
     sweeps = 0
     for name in runs:  # the first includes first-use host builds
-        model = FlashDeconv(sketch_dim=SKETCH)
+        model = FlashDeconv(sketch_dim=SKETCH, n_hvg=n_hvg)
         t0 = time.perf_counter()
         props = model.fit_transform(Y, X, coords)
         torch.cuda.synchronize()
@@ -472,9 +598,9 @@ def phase_fit(label: str, coords, extent: float, n_genes: int,
         info = model.info_
         pearson = float(compute_correlation(props, truth))
         log(f"[fit] {label} {name} fit_transform {dt:.3f} s, "
-            f"{info['n_iterations']} sweeps, converged {info['converged']}, "
-            f"pearson vs truth {pearson:.4f}, lambda "
-            f"{model.lambda_used_:.6g}")
+            f"{len(model.gene_idx_)} genes, {info['n_iterations']} sweeps, "
+            f"converged {info['converged']}, pearson vs truth "
+            f"{pearson:.4f}, lambda {model.lambda_used_:.6g}")
         log("[fit] stages " + ", ".join(
             f"{k} {v:.3f} s" for k, v in model.timings_.items()))
         if not np.allclose(props.sum(axis=1), 1.0, atol=1e-9):
@@ -485,20 +611,66 @@ def phase_fit(label: str, coords, extent: float, n_genes: int,
     return sweeps
 
 
+def phase_dense_fit() -> dict:
+    """The Xenium 5K-like dense fit, cold and warm: every gene kept, so
+    each fit projects Y (G >= 4096, N >= 1024) through the CountSketch
+    kernel once; X (K rows) takes the matmul. Returns the launches the
+    path must show."""
+    sweeps = phase_fit("Xenium 5K-like dense", irregular_coords(CELLS),
+                       float(np.sqrt(CELLS)), DENSE_GENES, dense=True,
+                       n_hvg=DENSE_GENES)
+    return {"coordinate_descent_block": sweeps, "countsketch_project": 2}
+
+
+def phase_profile_dense_sketch() -> None:
+    """The dense fit's sketch stage on its own: gene selection and log-CPM
+    of the Xenium 5K-like counts as the fit makes them, then
+    ``sketch_data`` (the fit's call) twice by the host clock and once under
+    ``torch.profiler``, whose table (by host time) is printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashdeconv_tpu_torch.core.preprocess import preprocess_data
+    from flashdeconv_tpu_torch.core.sketching import sketch_data
+    from flashdeconv_tpu_torch.utils.genes import select_informative_genes
+
+    Y, X, _ = synthetic_counts(irregular_coords(CELLS), float(np.sqrt(CELLS)),
+                               DENSE_GENES, TYPES, dense=True)
+    gene_idx, lev = select_informative_genes(Y, X, n_hvg=DENSE_GENES)
+    Y_tilde, X_tilde = preprocess_data(Y[:, gene_idx], X[:, gene_idx],
+                                       "log_cpm")
+    del Y
+
+    def timed(run):
+        t0 = time.perf_counter()
+        sketch_data(Y_tilde, X_tilde, SKETCH, lev, random_state=0,
+                    device="cuda")
+        log(f"[profile] dense sketch {run}: {time.perf_counter() - t0:.3f} "
+            f"s for {Y_tilde.shape} f64")
+
+    for run in ("first call", "second call"):
+        timed(run)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed("under the profiler")
+    log(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                  row_limit=20))
+
+
 def counted(kernels, path):
-    """Run ``path()`` (which returns its sweeps) with every kernel's count
-    set to 0 just before; the path's kernel must have launched once per
-    sweep, and the other kernels not at all. Returns the launches."""
+    """Run ``path()``, which returns ``{kernel: launches it must show}``,
+    with every kernel's count set to 0 just before; each kernel named must
+    have launched that many times (at least once), the others not at all.
+    Returns the launches."""
     for k in kernels.values():
         k.launches = 0
-    sweeps, used = path()
+    want = path()
     launches = {name: k.launches for name, k in kernels.items()}
     for name, n in launches.items():
-        want = sweeps if name == used else 0
-        if n != want or (name == used and n == 0):
-            raise AssertionError(f"{name}: {n} launches, expected {want}")
-    log(f"[launches] {launches} for {sweeps} sweeps")
-    return launches[used]
+        if n != want.get(name, 0) or (name in want and n == 0):
+            raise AssertionError(f"{name}: {n} launches, expected "
+                                 f"{want.get(name, 0)}")
+    log(f"[launches] {launches}, expected {want}")
+    return launches
 
 
 def main() -> None:
@@ -509,15 +681,18 @@ def main() -> None:
     args = parser.parse_args()
     phase_device()
     from flashdeconv_tpu_torch.ops import bcd
+    from flashdeconv_tpu_torch.ops import countsketch as cs
     from flashdeconv_tpu_torch.utils import grid_coords
 
     phase_build()
     if args.profile:
         for label, irregular in (("1M grid", False), ("1M irregular", True)):
             phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)
+        phase_profile_dense_sketch()
         return
     kernels = {"fused_banded_sweep": bcd.fused_banded_sweep,
-               "coordinate_descent_block": bcd.coordinate_descent_block}
+               "coordinate_descent_block": bcd.coordinate_descent_block,
+               "countsketch_project": cs.countsketch_project_kernel}
 
     # Kernel 1, the fused banded tier.
     for K in (6, 64):
@@ -529,11 +704,10 @@ def main() -> None:
         raise AssertionError("the 1M grid did not take the fused tier")
     fused_row = phase_fused_kernel(grid, "1000x1000 (main path)")
     phase_fused_vs_unfused(grid)
-    fused_launches = counted(kernels, lambda: (
+    fused_launches = counted(kernels, lambda: {"fused_banded_sweep": (
         phase_solve(grid, grid_s, "1M grid")
         + phase_fit("262k grid", grid_coords(side=FIT_SIDE),
-                    float(FIT_SIDE), FIT_GENES),
-        "fused_banded_sweep"))
+                    float(FIT_SIDE), FIT_GENES))})["fused_banded_sweep"]
     del grid
 
     # Kernel 2, the gather tier.
@@ -546,14 +720,19 @@ def main() -> None:
         raise AssertionError("the 1M irregular problem did not take the "
                              "gather tier")
     cd_row = phase_cd_kernel(irr, "1M irregular (main path)")
-    cd_launches = counted(kernels, lambda: (
+    cd_launches = counted(kernels, lambda: {"coordinate_descent_block": (
         phase_solve(irr, irr_s, "1M irregular")
         + phase_fit("Visium-like hex", hex_coords(VISIUM_COLS, VISIUM_ROWS),
                     float(VISIUM_COLS), FIT_GENES)
         + phase_fit("100k irregular", irregular_coords(CELLS),
-                    float(np.sqrt(CELLS)), FIT_GENES, runs=("once",)),
-        "coordinate_descent_block"))
+                    float(np.sqrt(CELLS)), FIT_GENES, runs=("once",)))
+    })["coordinate_descent_block"]
     del irr
+
+    # Kernel 3, the dense-count sketch on the card.
+    cs_row = phase_countsketch_kernel()
+    torch.cuda.empty_cache()
+    cs_launches = counted(kernels, phase_dense_fit)["countsketch_project"]
     if "jax" in sys.modules or "flashdeconv_tpu" in sys.modules:
         raise AssertionError("JAX or the JAX package was imported")
 
@@ -564,7 +743,8 @@ def main() -> None:
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms"),
         }
 
     print(json.dumps({"kernels": [
@@ -572,6 +752,8 @@ def main() -> None:
               "flashdeconv_tpu/ops/bcd.py:650", fused_launches, fused_row),
         entry("coordinate_descent_block", "cd_block_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:449", cd_launches, cd_row),
+        entry("countsketch_project", "countsketch_project.cu",
+              "flashdeconv_tpu/ops/countsketch.py:112", cs_launches, cs_row),
     ]}), flush=True)
     log(card())
     print(json.dumps({"ok": True, "device": {

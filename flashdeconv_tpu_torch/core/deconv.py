@@ -3,10 +3,12 @@
 Counterpart of :class:`flashdeconv_tpu.core.deconv.FlashDeconv` for a
 single-device fit on any spatial graph. Stages 1-5 — gene selection,
 normalisation, CountSketch (through the native fused Xty pass for CSR
-counts), the spatial graph and the lambda auto-tune — are the port's own
-copies of the JAX package's host functions; stage 6 is the solve of
-:mod:`flashdeconv_tpu_torch.core.solver` on ``device``, on whichever of its
-three tiers the graph takes (fused banded, unfused banded, gather).
+counts; on ``device`` for dense counts, through the CUDA CountSketch kernel
+when G >= 4096 and N >= 1024), the spatial graph and the lambda auto-tune —
+are the port's own copies of the JAX package's host functions; stage 6 is
+the solve of :mod:`flashdeconv_tpu_torch.core.solver` on ``device``, on
+whichever of its three tiers the graph takes (fused banded, unfused
+banded, gather).
 
 Not ported (``ROADMAP.md``): sharded meshes and ``fit_distributed``,
 ``fit_lambda_path``, ``save``/``load``, warm start, and the device-output
@@ -189,10 +191,14 @@ class FlashDeconv:
 
         with timer.stage("sketch"):
             if not use_fused:
+                # Dense counts on a CUDA device project there (the
+                # CountSketch kernel when G >= 4096 and N >= 1024); sparse
+                # ones on the host.
                 Y_sketch, X_sketch, _ = sketch_data(
                     Y_tilde, X_tilde, sketch_dim=self.sketch_dim,
                     leverage_scores=leverage,
-                    random_state=self.random_state, backend="host",
+                    random_state=self.random_state, backend="auto",
+                    device=self.device,
                 )
                 return X_sketch, Y_sketch, None, None
             op = make_countsketch_op(

@@ -106,6 +106,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fdt_cd_block_sweep.restype = i
         lib.fdt_cd_block_sweep_blocks.argtypes = [ll]
         lib.fdt_cd_block_sweep_blocks.restype = ll
+    elif name == "countsketch_project":
+        lib.fdt_countsketch_project.argtypes = [p, ll, i, p, p, p, i, p, p]
+        lib.fdt_countsketch_project.restype = i
+        lib.fdt_countsketch_gene_tile.argtypes = []
+        lib.fdt_countsketch_gene_tile.restype = i
     else:
         raise KeyError(f"no kernel {name!r} in {CSRC_DIR}")
     lib.fdt_error_string.argtypes = [i]

@@ -275,3 +275,28 @@ def test_nonfinite_xty_rows_are_zeroed_on_the_gather_tier():
     assert np.isfinite(beta).all() and np.isfinite(info["final_objective"])
     assert info["n_iterations"] == rinfo["n_iterations"]
     np.testing.assert_allclose(beta, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("holes", [0, 12])
+def test_tissue_masked_grid_takes_the_gather_tier(holes):
+    """A grid masked to a disk of tissue (with or without holes), as real
+    Stereo-seq and Visium HD sections are: kNN-6 leaves no band that
+    covers 90 % of its diagonal, so every edge is a gather edge and the
+    section takes the gather tier (in both packages), not a banded one."""
+    side = 120
+    c = grid_coords(side=side).astype(np.float64)
+    keep = ((c - (side - 1) / 2) ** 2).sum(1) <= 0.9 * (side / 2) ** 2
+    rng = np.random.RandomState(holes)
+    for cx, cy in rng.rand(holes, 2) * side:
+        keep &= ((c - (cx, cy)) ** 2).sum(1) > 9.0
+    coords = c[keep]
+    A = build_knn_graph(coords, k=6)
+    offsets, _, rest = banded_split(A, max_offsets=32, min_coverage=0.9)
+    assert len(offsets) == 0 and rest.nnz == A.nnz
+    rng = np.random.RandomState(1)
+    X = rng.randn(4, 16)
+    Y = np.abs(rng.randn(coords.shape[0], 4)) @ X
+    jprob = jsolver.prepare_bcd(Y, X, A, coords=coords)
+    tprob = tsolver.prepare_bcd(Y, X, A, coords=coords, device="cpu")
+    assert not jprob.use_banded and not jprob.use_fused_banded
+    assert type(tprob.tier).__name__ == "GatherTier"

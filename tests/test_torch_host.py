@@ -105,6 +105,23 @@ CASES = {
         Y_CSR, X_SIG, sketch_dim=64, random_state=0, backend="host"),
     "sketch_data_dense": lambda m: m.sketching.sketch_data(
         Y_DENSE, X_SIG, sketch_dim=64, random_state=0, backend="host"),
+    "sketch_data_positional": lambda m: m.sketching.sketch_data(
+        Y_CSR, X_SIG, 64, np.linspace(1, 2, 500), "countsketch", 4, "host"),
+    "sketch_data_rademacher_sparse": lambda m: m.sketching.sketch_data(
+        Y_CSR, X_SIG, 64, method="rademacher", random_state=0,
+        backend="host"),
+    "sketch_data_rademacher_dense": lambda m: m.sketching.sketch_data(
+        Y_DENSE, X_SIG, 64, np.linspace(1, 2, 500), "rademacher", 5,
+        "auto"),
+    "sketch_op_to_dense": lambda m: (_op(m).to_dense(),
+                                     _op(m).to_dense(np.float64)),
+    "sketch_countsketch_matrix": lambda m:
+        m.sketching.build_countsketch_matrix(
+            500, 64, leverage_scores=np.linspace(1, 2, 500), random_state=6),
+    "sketch_rademacher_matrix": lambda m:
+        m.sketching.build_sparse_rademacher_matrix(
+            500, 64, sparsity=0.2, leverage_scores=np.linspace(1, 2, 500),
+            random_state=7),
     "native_fused_log1pcpm_xty": lambda m: m.native.fused_log1pcpm_xty(
         Y_CSR, GENE_IDX, _op(m).buckets, _op(m).weights, 64,
         SKETCH_X),
@@ -196,12 +213,6 @@ def test_sanitize_yty_leaves_the_callers_sketch_unchanged():
     np.testing.assert_array_equal(Y, before)
     clean = np.where(np.isnan(Y), 0.0, Y)
     assert yty == t_native.yty_f64(clean) and np.isfinite(yty)
-
-
-def test_sketch_data_device_backend_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        t_sketching.sketch_data(Y_DENSE, X_SIG, sketch_dim=64,
-                                backend="device")
 
 
 def test_chip_smoke_make_problem_matches_bench():

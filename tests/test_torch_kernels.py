@@ -9,7 +9,10 @@ the plain versions: atol 5e-5 / rtol 1e-4 on beta and rtol 1e-4 on the
 statistics — the kernels contract multiply-adds into FMAs and sum the
 XtX @ beta product in their own order, so they are not bitwise equal to
 them. The two kernels run one Gauss-Seidel device function, so the fused
-and unfused banded sweeps are bitwise equal to each other.
+and unfused banded sweeps are bitwise equal to each other. The
+CountSketch kernel is held to 2e-5 * max(max|ref|, 1) against its plain
+version and an f64 projection (the JAX package's CountSketch bound), and
+bitwise against itself.
 """
 
 import numpy as np
@@ -184,3 +187,78 @@ def test_gather_solve_is_bitwise_repeatable(cuda_device):
     beta_b, info_b = prob.solve()
     assert info_a["converged"] and info_a == info_b
     np.testing.assert_array_equal(beta_a, beta_b)
+
+
+# -- the CountSketch projection kernel -------------------------------------------
+
+def _cs_operands(n, g, d, device, seed=0):
+    from flashdeconv_tpu_torch.core.sketching import make_countsketch_op
+
+    rng = np.random.default_rng(seed)
+    Y = rng.random((n, g), dtype=np.float32) * 6.0
+    Y *= rng.random((n, g)) < 0.4
+    op = make_countsketch_op(g, d, rng.random(g) + 0.1, random_state=seed)
+    return (Y, op, torch.from_numpy(Y).to(device),
+            torch.from_numpy(op.buckets).to(device),
+            torch.from_numpy(op.weights.astype(np.float32)).to(device))
+
+
+@pytest.mark.parametrize("n,g,d", [(1024, 4097, 512), (1024, 4097, 100),
+                                   (1024, 4097, 2048), (1029, 1100, 64)])
+def test_countsketch_kernel_matches_plain_version(cuda_device, n, g, d):
+    """Within 2e-5 * max(max|ref|, 1) of the plain version and of scipy in
+    f64 (the JAX package's CountSketch bound); two calls bitwise equal."""
+    from flashdeconv_tpu_torch.ops import countsketch as tcs
+
+    Y, op, Yt, b, w = _cs_operands(n, g, d, cuda_device, seed=n + d)
+    before = tcs.countsketch_project_kernel.launches
+    out = torch.full((n, d), float("nan"), device=cuda_device)
+    got = tcs.countsketch_project_kernel(Yt, b, w, d, out=out)
+    again = tcs.countsketch_project_kernel(Yt, b, w, d)
+    ref = tcs.countsketch_project_reference(Yt, b, w, d)
+    torch.cuda.synchronize()
+    assert got is out
+    assert tcs.countsketch_project_kernel.launches == before + 2
+    assert torch.equal(got, again)
+    tol = 2e-5 * max(float(ref.abs().max()), 1.0)
+    assert float((got - ref).abs().max()) <= tol
+    exact = Y.astype(np.float64) @ op.to_csr()
+    assert np.abs(got.cpu().numpy() - exact).max() <= tol
+
+
+@pytest.mark.parametrize("n,g,use_kernel,launched", [
+    (1024, 4096, None, 1), (1023, 4096, None, 0), (1024, 4095, None, 0),
+    (300, 1100, True, 1), (2048, 5001, False, 0),
+])
+def test_countsketch_project_route_on_the_card(cuda_device, n, g,
+                                               use_kernel, launched):
+    from flashdeconv_tpu_torch.ops import countsketch as tcs
+
+    Y, op, _, _, _ = _cs_operands(n, g, 128, cuda_device, seed=g)
+    before = tcs.countsketch_project_kernel.launches
+    got = tcs.countsketch_project(Y, op, use_kernel=use_kernel,
+                                  device=cuda_device)
+    torch.cuda.synchronize()
+    assert tcs.countsketch_project_kernel.launches - before == launched
+    exact = Y.astype(np.float64) @ op.to_csr()
+    tol = 2e-5 * max(float(np.abs(exact).max()), 1.0)
+    assert np.abs(got.cpu().numpy() - exact).max() <= tol
+
+
+def test_dense_sketch_data_launches_the_kernel_once(cuda_device):
+    """``backend="auto"`` on the card: dense Y (1,024 x 4,100) through the
+    kernel, X (3 rows) through the matmul; f32 host arrays back, within
+    1e-5 of the host route."""
+    from flashdeconv_tpu_torch.core.sketching import sketch_data
+    from flashdeconv_tpu_torch.ops import countsketch as tcs
+
+    rng = np.random.RandomState(0)
+    Y, X, lev = rng.rand(1024, 4100), rng.rand(3, 4100), rng.rand(4100)
+    before = tcs.countsketch_project_kernel.launches
+    ys, xs, _ = sketch_data(Y, X, 256, lev, random_state=0,
+                            device=cuda_device)
+    assert tcs.countsketch_project_kernel.launches == before + 1
+    assert ys.dtype == xs.dtype == np.float32
+    hy, hx, _ = sketch_data(Y, X, 256, lev, random_state=0, backend="host")
+    np.testing.assert_allclose(ys, hy, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(xs, hx, rtol=1e-5, atol=1e-5)

@@ -4,9 +4,10 @@ machine.
 A fresh interpreter whose import system refuses the top-level modules
 ``flashdeconv_tpu``, ``bench`` and every ``jax*`` imports
 ``flashdeconv_tpu_torch`` and solves one gather-tier problem (irregular
-coordinates) and one fused-tier problem (a 96 x 96 grid) on the CPU. A
-static check holds every module of the port, and ``chip_smoke.py``, to
-the same rule.
+coordinates) and one fused-tier problem (a 96 x 96 grid) on the CPU, then
+imports ``chip_smoke.py`` and fits its dense counts through the dense
+sketch route (``ops/countsketch.py``). A static check holds every module
+of the port, and ``chip_smoke.py``, to the same rule.
 """
 
 import ast
@@ -48,6 +49,22 @@ for coords, tier in ((rng.random((2000, 2)) * 45, "GatherTier"),
     beta, info = prob.solve()
     assert info["converged"] and np.isfinite(beta).all() and (beta >= 0).all()
     print(tier, info["n_iterations"])
+
+# The dense-count route: chip_smoke's dense counts, projected through the
+# device route (forced on the CPU, where it runs the plain versions).
+import chip_smoke
+import flashdeconv_tpu_torch.core.sketching as sk
+from flashdeconv_tpu_torch import FlashDeconv
+from flashdeconv_tpu_torch.ops import countsketch
+
+coords = chip_smoke.irregular_coords(1500)
+Y, X, truth = chip_smoke.synthetic_counts(coords, 38.0, 300, 6, dense=True)
+assert isinstance(Y, np.ndarray) and Y.shape == (1500, 300)
+sk._device_projection_available = lambda device: True
+props = FlashDeconv(device="cpu", n_hvg=300).fit_transform(Y, X, coords)
+assert props.shape == (1500, 6) and np.isfinite(props).all()
+assert "countsketch_project_kernel" in dir(countsketch)
+print("dense", props.shape)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("flashdeconv_tpu", "bench")
              or m.startswith("jax"))
@@ -81,6 +98,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "flashdeconv_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    assert ROOT / "flashdeconv_tpu_torch" / "ops" / "countsketch.py" in files
     found = [
         f"{path.relative_to(ROOT)}: {name}"
         for path in files for name in _imported_modules(path)
