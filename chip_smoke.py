@@ -22,7 +22,14 @@ counts set to 0 just before it and read just after:
    100,000 cells at irregular coordinates with dense counts of 5,001
    genes, all kept (``n_hvg=5001``), K = 20, fitted twice; each fit
    projects Y through the CountSketch kernel once and solves on the
-   gather tier.
+   gather tier;
+4. the large-K tier (64 < K <= 256, both kernels' panel form): the 1M grid
+   solved at K = 128 and at K = 256 on the fused tier and a 262,144-spot
+   grid ``fit_transform`` at K = 96; the 1M irregular problem solved at
+   K = 128 on the gather tier. Before them each kernel is held against its
+   plain version on those 1M problems at K = 96, 128 and 256 (and at
+   K = 65 on the small shapes), and the 1M grid at K = 128 is solved
+   through the fused and the unfused banded tier, bitwise equal.
 
 The CountSketch kernel is held against its plain version at 262,144 x
 5,001 -> 512 (and at edge shapes), bitwise against itself, against an f64
@@ -31,7 +38,9 @@ operator.
 
 Any failed phase raises, so the exit code is non-zero; without a card the
 script fails before it prints any result. The last three lines are one
-JSON object per kernel, the card's name and power limit, and the result
+JSON object per kernel (each CUDA kernel's panel form at 64 < K <= 256 with
+an entry of its own, ``*_large_k``, timed at K = 128), the card's name and
+power limit, and the result
 line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
 
 ``--profile`` builds, prepares the 1M grid and the 1M irregular problems
@@ -46,6 +55,7 @@ prints no result line.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -61,6 +71,8 @@ sys.path.insert(0, str(ROOT))
 
 SPOTS = 1_000_000
 TYPES = 20
+LARGE_TYPES = (96, 128, 256)        # the large-K kernel rows at 1M spots
+FIT_LARGE_TYPES = 96
 SKETCH = 512
 FIT_SIDE, FIT_GENES = 512, 2000
 DENSE_GENES = 5001                  # a 10x Xenium Prime 5K panel
@@ -174,14 +186,23 @@ def hex_coords(cols: int, rows: int) -> np.ndarray:
     return np.column_stack([c + 0.5 * (r % 2), r * np.sqrt(3) / 2])
 
 
+@functools.lru_cache(maxsize=2)
+def knn_graph(n_spots: int, irregular: bool):
+    """(coords, kNN-6 adjacency) of the grid or the irregular section,
+    built once per shape: every K of one shape shares them (read only)."""
+    from flashdeconv_tpu_torch.utils import build_knn_graph, grid_coords
+
+    coords = irregular_coords(n_spots) if irregular else grid_coords(n_spots)
+    return coords, build_knn_graph(coords, k=6)
+
+
 def prepare(n_spots: int, n_types: int, irregular: bool = False):
     """The port's prepare on a synthetic problem: (problem, seconds)."""
     from flashdeconv_tpu_torch.core.solver import prepare_bcd
-    from flashdeconv_tpu_torch.utils import build_knn_graph
 
-    coords = irregular_coords(n_spots) if irregular else None
-    Y, X, coords = make_problem(n_spots, n_types, SKETCH, coords=coords)
-    A = build_knn_graph(coords, k=6)
+    coords, A = knn_graph(n_spots, irregular)
+    Y, X, _ = make_problem(n_spots, n_types, SKETCH,
+                           coords=coords if irregular else None)
     t0 = time.perf_counter()
     prob = prepare_bcd(Y, X, A, coords=coords, device="cuda")
     torch.cuda.synchronize()
@@ -189,11 +210,13 @@ def prepare(n_spots: int, n_types: int, irregular: bool = False):
 
 
 def synthetic_counts(coords, extent: float, n_genes: int, n_types: int,
-                     seed: int = 0, chunk: int = 16384, dense: bool = False):
+                     seed: int = 0, chunk: int = 16384, dense: bool = False,
+                     width: float = 0.25, depth: float = 1500.0):
     """Seeded Poisson counts with spatially smooth proportions over
     ``coords`` (the recipe of tests/conftest.make_synthetic), generated in
-    row chunks: CSR, or with ``dense`` one f64 array. Returns (Y, X, true
-    proportions)."""
+    row chunks: CSR, or with ``dense`` one f64 array. ``width`` is each
+    type's spatial domain as a share of ``extent``; ``depth`` the scale of
+    the gamma(3) counts per spot. Returns (Y, X, true proportions)."""
     from scipy import sparse
 
     rng = np.random.default_rng(seed)
@@ -210,13 +233,12 @@ def synthetic_counts(coords, extent: float, n_genes: int, n_types: int,
     parts, props = [], []
     for s in range(0, coords.shape[0], chunk):
         d2 = ((coords[s:s + chunk, None, :] - centers[None]) ** 2).sum(-1)
-        p = np.exp(-d2 / (2 * (0.25 * extent) ** 2)
+        p = np.exp(-d2 / (2 * (width * extent) ** 2)
                    + rng.gumbel(0.0, 0.3, d2.shape))
         p /= p.sum(axis=1, keepdims=True)
         mean = p @ X
         mean /= mean.sum(axis=1, keepdims=True)
-        depth = rng.gamma(3.0, 1500.0, (len(p), 1))
-        counts = rng.poisson(mean * depth)
+        counts = rng.poisson(mean * rng.gamma(3.0, depth, (len(p), 1)))
         if dense:
             Y[s:s + chunk] = counts
         else:
@@ -568,16 +590,16 @@ def phase_profile(prob, label: str, reps: int = 3) -> None:
 
 def phase_fit(label: str, coords, extent: float, n_genes: int,
               runs=("cold", "warm"), dense: bool = False,
-              n_hvg: int = 2000) -> int:
-    """``fit_transform`` of synthetic counts (CSR, or dense with ``dense``)
-    over ``coords``; Pearson against the generating proportions must pass
-    0.9. Returns sweeps."""
+              n_hvg: int = 2000, n_types: int = TYPES, **recipe) -> int:
+    """``fit_transform`` of synthetic counts (CSR, or dense with ``dense``;
+    ``recipe`` goes to :func:`synthetic_counts`) over ``coords``; Pearson
+    against the generating proportions must pass 0.9. Returns sweeps."""
     from flashdeconv_tpu_torch import FlashDeconv
     from flashdeconv_tpu_torch.utils import compute_correlation
 
     t0 = time.perf_counter()
-    Y, X, truth = synthetic_counts(coords, extent, n_genes, TYPES,
-                                   dense=dense)
+    Y, X, truth = synthetic_counts(coords, extent, n_genes, n_types,
+                                   dense=dense, **recipe)
     nnz = np.count_nonzero(Y) if dense else Y.nnz
     log(f"[fit] {label}: {'dense' if dense else 'CSR'} counts {Y.shape} "
         f"nnz {nnz} made in {time.perf_counter() - t0:.1f} s")
@@ -658,13 +680,15 @@ def phase_profile_dense_sketch() -> None:
 
 def counted(kernels, path):
     """Run ``path()``, which returns ``{kernel: launches it must show}``,
-    with every kernel's count set to 0 just before; each kernel named must
-    have launched that many times (at least once), the others not at all.
-    Returns the launches."""
-    for k in kernels.values():
-        k.launches = 0
+    with every kernel's count (``kernels``: name -> (wrapper, count
+    attribute)) set to 0 just before; each kernel named must have launched
+    that many times (at least once), the others not at all. Returns the
+    launches."""
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
     want = path()
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in kernels.items()}
     for name, n in launches.items():
         if n != want.get(name, 0) or (name in want and n == 0):
             raise AssertionError(f"{name}: {n} launches, expected "
@@ -690,12 +714,19 @@ def main() -> None:
             phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)
         phase_profile_dense_sketch()
         return
-    kernels = {"fused_banded_sweep": bcd.fused_banded_sweep,
-               "coordinate_descent_block": bcd.coordinate_descent_block,
-               "countsketch_project": cs.countsketch_project_kernel}
+    kernels = {
+        "fused_banded_sweep": (bcd.fused_banded_sweep, "launches"),
+        "fused_banded_sweep_large_k": (bcd.fused_banded_sweep,
+                                       "large_k_launches"),
+        "coordinate_descent_block": (bcd.coordinate_descent_block,
+                                     "launches"),
+        "coordinate_descent_block_large_k": (bcd.coordinate_descent_block,
+                                             "large_k_launches"),
+        "countsketch_project": (cs.countsketch_project_kernel, "launches"),
+    }
 
-    # Kernel 1, the fused banded tier.
-    for K in (6, 64):
+    # Kernel 1, the fused banded tier (K = 65: the panel form's edge).
+    for K in (6, 64, 65):
         prob, _ = prepare(256 * 256, K)
         phase_fused_kernel(prob, "256x256")
         del prob
@@ -710,8 +741,34 @@ def main() -> None:
                     float(FIT_SIDE), FIT_GENES))})["fused_banded_sweep"]
     del grid
 
-    # Kernel 2, the gather tier.
-    for K in (6, 64):
+    # Kernel 1's panel form, 64 < K <= 256, on the fused tier.
+    large_fused_rows, large_fused_launches = {}, 0
+    for K in LARGE_TYPES:
+        prob, prob_s = prepare(SPOTS, K)
+        if not prob.use_fused_banded:
+            raise AssertionError(f"the 1M grid at K = {K} did not take the "
+                                 "fused tier")
+        large_fused_rows[K] = phase_fused_kernel(prob, f"1000x1000 K={K}")
+        if K == 128:
+            phase_fused_vs_unfused(prob)
+        if K in (128, 256):
+            large_fused_launches += counted(kernels, lambda: {
+                "fused_banded_sweep_large_k": phase_solve(
+                    prob, prob_s, f"1M grid K={K}")
+            })["fused_banded_sweep_large_k"]
+        del prob
+        torch.cuda.empty_cache()
+    # Domains of 0.1 x extent and deeper spots keep 96 types identifiable
+    # (the K = 20 recipe's 0.25 mixes too many types into every spot).
+    large_fused_launches += counted(kernels, lambda: {
+        "fused_banded_sweep_large_k": phase_fit(
+            f"262k grid K={FIT_LARGE_TYPES}", grid_coords(side=FIT_SIDE),
+            float(FIT_SIDE), FIT_GENES, runs=("once",),
+            n_types=FIT_LARGE_TYPES, width=0.1, depth=6000.0)
+    })["fused_banded_sweep_large_k"]
+
+    # Kernel 2, the gather tier (K = 65: the panel form's edge).
+    for K in (6, 64, 65):
         prob, _ = prepare(4096, K, irregular=True)
         phase_cd_kernel(prob, "4096 irregular")
         del prob
@@ -728,6 +785,23 @@ def main() -> None:
                     float(np.sqrt(CELLS)), FIT_GENES, runs=("once",)))
     })["coordinate_descent_block"]
     del irr
+
+    # Kernel 2's panel form, 64 < K <= 256, on the gather tier.
+    large_cd_rows, large_cd_launches = {}, 0
+    for K in LARGE_TYPES:
+        prob, prob_s = prepare(SPOTS, K, irregular=True)
+        if type(prob.tier).__name__ != "GatherTier":
+            raise AssertionError(f"the 1M irregular problem at K = {K} did "
+                                 "not take the gather tier")
+        large_cd_rows[K] = phase_cd_kernel(prob, f"1M irregular K={K}")
+        if K == 128:
+            large_cd_launches += counted(kernels, lambda: {
+                "coordinate_descent_block_large_k": phase_solve(
+                    prob, prob_s, f"1M irregular K={K}")
+            })["coordinate_descent_block_large_k"]
+        del prob
+        torch.cuda.empty_cache()
+    knn_graph.cache_clear()
 
     # Kernel 3, the dense-count sketch on the card.
     cs_row = phase_countsketch_kernel()
@@ -752,6 +826,12 @@ def main() -> None:
               "flashdeconv_tpu/ops/bcd.py:650", fused_launches, fused_row),
         entry("coordinate_descent_block", "cd_block_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:449", cd_launches, cd_row),
+        entry("fused_banded_sweep_large_k", "fused_banded_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:376", large_fused_launches,
+              large_fused_rows[128]),
+        entry("coordinate_descent_block_large_k", "cd_block_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:376", large_cd_launches,
+              large_cd_rows[128]),
         entry("countsketch_project", "countsketch_project.cu",
               "flashdeconv_tpu/ops/countsketch.py:112", cs_launches, cs_row),
     ]}), flush=True)

@@ -16,10 +16,13 @@ on an explicit torch device:
   degree-capped padded neighbour table with an overflow list for hubs,
   then the coordinate-descent kernel.
 
-Every tier takes f32 and K <= 64; f64 and larger K raise
-``NotImplementedError`` naming the ``ROADMAP.md`` entry that will port
-them. The host passes (Gram matrix, graph decomposition, YtY) are the
-port's own copies of the JAX package's functions.
+Every tier takes f32 and 1 <= K <= 256: its kernel runs the register
+Gauss-Seidel pass at K <= 64 and the panel pass (panels of 16
+coordinates) above, with the fused tier's 4096-spot block and halo rule at
+every K. f64 and K > 256 raise ``NotImplementedError`` naming the
+``ROADMAP.md`` entry that will port them. The host passes (Gram matrix,
+graph decomposition, YtY) are the port's own copies of the JAX package's
+functions.
 """
 
 from __future__ import annotations
@@ -267,7 +270,7 @@ class BCDProblem:
                               "f64 on the GPU")
         if n_types > KERNEL_MAX_K:
             raise _not_ported(f"K = {n_types} > {KERNEL_MAX_K}",
-                              "large K (K > 64)")
+                              "K > 256")
 
         XtX = precompute_gram_matrix(np.asarray(X_sketch, dtype=np.float64))
         if xty is None:

@@ -97,14 +97,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             f, f, p, p,
         ]
         lib.fdt_fused_banded_sweep.restype = i
-        lib.fdt_fused_banded_sweep_blocks.argtypes = [ll]
+        lib.fdt_fused_banded_sweep_blocks.argtypes = [ll, i]
         lib.fdt_fused_banded_sweep_blocks.restype = ll
     elif name == "cd_block_sweep":
         lib.fdt_cd_block_sweep.argtypes = [
             p, p, p, p, p, p, i, ll, f, f, p, p,
         ]
         lib.fdt_cd_block_sweep.restype = i
-        lib.fdt_cd_block_sweep_blocks.argtypes = [ll]
+        lib.fdt_cd_block_sweep_blocks.argtypes = [ll, i]
         lib.fdt_cd_block_sweep_blocks.restype = ll
     elif name == "countsketch_project":
         lib.fdt_countsketch_project.argtypes = [p, ll, i, p, p, p, i, p, p]

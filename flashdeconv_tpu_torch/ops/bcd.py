@@ -17,14 +17,14 @@ coordinates of each spot) with the per-solve reciprocal denominator
   hubs — and then launch ``csrc/cd_block_sweep.cu``
   (:func:`coordinate_descent_block`).
 
-Both kernels run the one Gauss-Seidel device function of
-``csrc/gs_pass.cuh``, so the fused and unfused banded sweeps are bitwise
-equal on the card, as their plain versions are on the CPU. Every function
-here is plain PyTorch on tensors of an explicit device, except the two
-kernel wrappers: a CUDA tensor launches the kernel (or raises), a CPU
-tensor runs the plain version beside it. :func:`fused_solve` is the one
-solve loop of all three tiers. The solve has no gradient; none of its
-tensors requires one.
+Both kernels run one Gauss-Seidel device function — ``csrc/gs_pass.cuh``
+at K <= 64, the panel pass of ``csrc/gs_pass_panel.cuh`` at 64 < K <= 256
+— so the fused and unfused banded sweeps are bitwise equal on the card, as
+their plain versions are on the CPU. Every function here is plain PyTorch
+on tensors of an explicit device, except the two kernel wrappers: a CUDA
+tensor launches the kernel (or raises), a CPU tensor runs the plain
+version beside it. :func:`fused_solve` is the one solve loop of all three
+tiers. The solve has no gradient; none of its tensors requires one.
 """
 
 from __future__ import annotations
@@ -44,9 +44,13 @@ _GS_PANEL_P_SMALL = 8
 _GS_PANEL_P = 16
 _GS_PANEL_WIDE_K = 64
 
-#: Largest K the CUDA kernels take (their register arrays are templated on
-#: 8, 16, 32 and 64); the wrappers raise above it.
-KERNEL_MAX_K = 64
+#: Largest K of the kernels' register pass (``gs_pass.cuh``, register
+#: arrays templated on 8, 16, 32 and 64); above it both kernels launch their
+#: panel form (``gs_pass_panel.cuh``), counted apart as ``large_k_launches``.
+REGISTER_PASS_MAX_K = 64
+#: Largest K the CUDA kernels take (the panel form's shared-memory tiles
+#: are sized for it); the wrappers raise above it.
+KERNEL_MAX_K = 256
 #: Largest band count the fused kernel takes (one bit per band per spot).
 KERNEL_MAX_BANDS = 32
 
@@ -267,7 +271,7 @@ def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
     lib = _build.load("fused_banded_sweep")
     K, n_ext = beta_ext_t.shape
     pad = h * block
-    partials = torch.empty((2, lib.fdt_fused_banded_sweep_blocks(n_ext)),
+    partials = torch.empty((2, lib.fdt_fused_banded_sweep_blocks(n_ext, K)),
                            dtype=torch.float32,
                            device=beta_ext_t.device)
     offs = (ctypes.c_int * len(offsets))(*(int(o) for o in offsets))
@@ -279,7 +283,10 @@ def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
         partials.data_ptr(), stream,
     )
     _raise_on_launch_error(lib, err, "fused_banded_sweep")
-    fused_banded_sweep.launches += 1
+    if K > REGISTER_PASS_MAX_K:
+        fused_banded_sweep.large_k_launches += 1
+    else:
+        fused_banded_sweep.launches += 1
     stats = torch.amax(partials, dim=1)
     return out, stats[0], stats[1]
 
@@ -313,7 +320,8 @@ def fused_banded_sweep(
     tensors on the carry's device. On a CUDA carry this launches the
     hand-written kernel (and raises if it cannot); on a CPU carry it runs
     :func:`fused_banded_sweep_reference`. ``fused_banded_sweep.launches``
-    counts the kernel's launches.
+    counts the kernel's launches at K <= 64, ``.large_k_launches`` those of
+    its panel form above.
     """
     if out is None:
         out = torch.empty_like(beta_ext_t)
@@ -333,6 +341,7 @@ def fused_banded_sweep(
 
 
 fused_banded_sweep.launches = 0
+fused_banded_sweep.large_k_launches = 0
 
 
 def sweep_stats(beta_out: torch.Tensor, beta_in: torch.Tensor):
@@ -473,7 +482,7 @@ def _coordinate_descent_block_cuda(beta_t, Xty_t, XtX, ns_t, inv_den_t,
 
     lib = _build.load("cd_block_sweep")
     K, n = beta_t.shape
-    partials = torch.empty((2, lib.fdt_cd_block_sweep_blocks(n)),
+    partials = torch.empty((2, lib.fdt_cd_block_sweep_blocks(n, K)),
                            dtype=torch.float32, device=beta_t.device)
     stream = torch.cuda.current_stream(beta_t.device).cuda_stream
     err = lib.fdt_cd_block_sweep(
@@ -482,7 +491,10 @@ def _coordinate_descent_block_cuda(beta_t, Xty_t, XtX, ns_t, inv_den_t,
         f32(lambda_), f32(rho), partials.data_ptr(), stream,
     )
     _raise_on_launch_error(lib, err, "cd_block_sweep")
-    coordinate_descent_block.launches += 1
+    if K > REGISTER_PASS_MAX_K:
+        coordinate_descent_block.large_k_launches += 1
+    else:
+        coordinate_descent_block.launches += 1
     stats = torch.amax(partials, dim=1)
     return out, stats[0], stats[1]
 
@@ -507,7 +519,8 @@ def coordinate_descent_block(
     hand-written kernel ``csrc/cd_block_sweep.cu`` (and raises if it
     cannot); on a CPU tensor it runs
     :func:`coordinate_descent_block_reference`.
-    ``coordinate_descent_block.launches`` counts the kernel's launches.
+    ``coordinate_descent_block.launches`` counts the kernel's launches at
+    K <= 64, ``.large_k_launches`` those of its panel form above.
     """
     if out is None:
         out = torch.empty_like(beta_t)
@@ -525,6 +538,7 @@ def coordinate_descent_block(
 
 
 coordinate_descent_block.launches = 0
+coordinate_descent_block.large_k_launches = 0
 
 
 def bcd_sweep(beta_t, Xty_t, XtX, nbr_t, inv_den_t, lambda_, rho,

@@ -48,9 +48,10 @@ def test_gs_inv_den_matches_jax():
     assert out[3, 0] == 0.0
 
 
-@pytest.mark.parametrize("K", [6, 20, 72])
+@pytest.mark.parametrize("K", [6, 20, 72, 65, 96, 128, 160, 256])
 def test_gs_pass_matches_jax(K):
-    """Classic pass (K = 6), panel 8 (K = 20), panel 16 (K = 72)."""
+    """Classic pass (K = 6), panel 8 (K = 20), panel 16 (K = 65 to 256:
+    the bounds of the JAX package's test_panel_pass_matches_classic_pass)."""
     beta, xty, xtx, ns, nnb = _gs_args(K, seed=K)
     lam, rho = 0.7, 0.15
     jinv = jbcd.gs_inv_den(jnp.asarray(xtx), jnp.asarray(nnb), jnp.float32(lam))
@@ -71,6 +72,7 @@ def test_gs_pass_dispatch_widths():
     assert tbcd._gs_panel_width(9) == 8
     assert tbcd._gs_panel_width(64) == 8
     assert tbcd._gs_panel_width(65) == 16
+    assert tbcd._gs_panel_width(256) == 16
 
 
 def test_carry_roundtrip_matches_jax():
@@ -92,9 +94,11 @@ def _jax_sweep(jp, lam, rho):
     )
 
 
-@pytest.mark.parametrize("K", [6, 20])
+@pytest.mark.parametrize("K", [6, 20, 96])
 def test_fused_sweep_reference_matches_jax_interpret(K):
-    p = fused_problem(n_types=K, seed=K)
+    """64 x 64 grids; the 32 x 32 grid at K = 96 (panels of 16) keeps
+    interpret mode fast."""
+    p = fused_problem(side=32 if K > 64 else 64, n_types=K, seed=K)
     lam, rho = 0.5, 0.1
     ref, rd, ra = _jax_sweep(as_jax(p), lam, rho)
     tp = as_torch(p)

@@ -107,11 +107,11 @@ def test_overflow_table_groups_edges_by_spot_in_edge_order():
                                           [10, 7, 10]])
 
 
-@pytest.mark.parametrize("K", [6, 20, 64])
+@pytest.mark.parametrize("K", [6, 20, 64, 96, 128])
 def test_cd_block_reference_matches_jax_pallas_interpret(K):
     """The plain version of the kernel against the Pallas block kernel:
-    the same GS pass (classic at K <= 8, panels of 8 above), f32 sums in
-    another order inside the matmuls."""
+    the same GS pass (classic at K <= 8, panels of 8 through K = 64, of 16
+    above), f32 sums in another order inside the matmuls."""
     n = 2048
     rng = np.random.RandomState(K)
     Xs = rng.randn(K, 2 * K + 8)
@@ -161,9 +161,9 @@ def test_wrapper_runs_plain_version_on_cpu():
     with pytest.raises(ValueError, match="contiguous"):
         tbcd.coordinate_descent_block(beta, xty, XtX, ns.T.contiguous().T,
                                       inv, 0.3, 0.05)
-    with pytest.raises(ValueError, match="K <= 64"):
-        big = torch.zeros((65, 4))
-        tbcd.coordinate_descent_block(big, big, torch.zeros((65, 65)), big,
+    with pytest.raises(ValueError, match="K <= 256"):
+        big = torch.zeros((257, 4))
+        tbcd.coordinate_descent_block(big, big, torch.zeros((257, 257)), big,
                                       big, 0.3, 0.05)
 
 

@@ -8,8 +8,10 @@ fixture, so every pytest worker collects the same tests. Bounds against
 the plain versions: atol 5e-5 / rtol 1e-4 on beta and rtol 1e-4 on the
 statistics — the kernels contract multiply-adds into FMAs and sum the
 XtX @ beta product in their own order, so they are not bitwise equal to
-them. The two kernels run one Gauss-Seidel device function, so the fused
-and unfused banded sweeps are bitwise equal to each other. The
+them. The two kernels run one Gauss-Seidel device function (the register
+pass at K <= 64, the panel pass of 16 coordinates at 64 < K <= 256), so
+the fused and unfused banded sweeps are bitwise equal to each other, and
+two launches on the same operands are bitwise equal. The
 CountSketch kernel is held to 2e-5 * max(max|ref|, 1) against its plain
 version and an f64 projection (the JAX package's CountSketch bound), and
 bitwise against itself.
@@ -27,6 +29,9 @@ from torch_problems import as_torch, fused_problem, gather_problem
 pytestmark = pytest.mark.cuda
 
 
+KS = [6, 20, 64, 65, 96, 128, 256]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -34,20 +39,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("K", [6, 20, 64])
+def _launches(wrapper, K):
+    """The count of the kernel ``wrapper`` launches at K: its register
+    form at K <= 64, its panel form above."""
+    if K > tbcd.REGISTER_PASS_MAX_K:
+        return wrapper.large_k_launches
+    return wrapper.launches
+
+
+@pytest.mark.parametrize("K", KS)
 def test_kernel_matches_plain_version(cuda_device, K):
     p = fused_problem(n_types=K, seed=K)
     tp = as_torch(p, cuda_device)
     inv = tbcd.gs_inv_den(tp["XtX"], tp["nnb"], 0.5).contiguous()
     args = (tp["carry"], tp["Xty_t"], tp["XtX"], tp["masks"], inv, 0.5, 0.1,
             p["offsets"], p["h"], p["block"])
-    before = tbcd.fused_banded_sweep.launches
+    before = _launches(tbcd.fused_banded_sweep, K)
     with tbcd.full_f32_matmul():
         ref, rd, ra = tbcd.fused_banded_sweep_reference(*args)
         out = torch.full_like(tp["carry"], float("nan"))
         got, d, a = tbcd.fused_banded_sweep(*args, out=out)
     torch.cuda.synchronize()
-    assert tbcd.fused_banded_sweep.launches == before + 1
+    assert _launches(tbcd.fused_banded_sweep, K) == before + 1
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
     torch.testing.assert_close(d, rd, atol=0.0, rtol=1e-4)
     torch.testing.assert_close(a, ra, atol=0.0, rtol=1e-4)
@@ -56,11 +69,12 @@ def test_kernel_matches_plain_version(cuda_device, K):
     assert (got >= 0).all()
 
 
+@pytest.mark.parametrize("K", [20, 96])
 @pytest.mark.parametrize("where", ["XtX", "inv_den", "lambda"])
-def test_kernel_propagates_nan_like_plain_version(cuda_device, where):
+def test_kernel_propagates_nan_like_plain_version(cuda_device, where, K):
     """A NaN operand gives NaN in the same places as the plain version
     and a NaN max_diff, so the sweep cannot pass for converged."""
-    p = fused_problem(n_types=20, seed=1)
+    p = fused_problem(n_types=K, seed=1)
     tp = as_torch(p, cuda_device)
     lam = float("nan") if where == "lambda" else 0.5
     if where == "XtX":
@@ -107,26 +121,28 @@ def _cd_args(p, lam=0.5, rho=0.1):
     return tp, [tp["beta_t"], tp["Xty_t"], tp["XtX"], ns, inv, lam, rho]
 
 
-@pytest.mark.parametrize("K", [6, 20, 64])
+@pytest.mark.parametrize("K", KS)
 def test_cd_kernel_matches_plain_version(cuda_device, K):
-    """3,000 spots: 11 full blocks of 256 and a ragged tail."""
+    """3,000 spots: a ragged tail after 11 full blocks of 256 (K <= 64) or
+    93 full tiles of 32 (above)."""
     _, args = _cd_args(gather_problem(n_types=K, seed=K))
-    before = tbcd.coordinate_descent_block.launches
+    before = _launches(tbcd.coordinate_descent_block, K)
     with tbcd.full_f32_matmul():
         ref, rd, ra = tbcd.coordinate_descent_block_reference(*args)
         out = torch.full_like(args[0], float("nan"))
         got, d, a = tbcd.coordinate_descent_block(*args, out=out)
     torch.cuda.synchronize()
-    assert tbcd.coordinate_descent_block.launches == before + 1
+    assert _launches(tbcd.coordinate_descent_block, K) == before + 1
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
     torch.testing.assert_close(d, rd, atol=0.0, rtol=1e-4)
     torch.testing.assert_close(a, ra, atol=0.0, rtol=1e-4)
     assert (got >= 0).all()
 
 
+@pytest.mark.parametrize("K", [20, 96])
 @pytest.mark.parametrize("where", ["XtX", "inv_den", "lambda"])
-def test_cd_kernel_propagates_nan_like_plain_version(cuda_device, where):
-    tp, args = _cd_args(gather_problem(n_types=20, seed=1),
+def test_cd_kernel_propagates_nan_like_plain_version(cuda_device, where, K):
+    tp, args = _cd_args(gather_problem(n_types=K, seed=1),
                         lam=float("nan") if where == "lambda" else 0.5)
     if where == "XtX":
         args[2][10, 1] = float("nan")
@@ -142,7 +158,7 @@ def test_cd_kernel_propagates_nan_like_plain_version(cuda_device, where):
     torch.testing.assert_close(a, ra, atol=0.0, rtol=1e-4)
 
 
-@pytest.mark.parametrize("K", [6, 20, 64])
+@pytest.mark.parametrize("K", KS)
 def test_fused_and_unfused_banded_kernels_are_bitwise_equal(cuda_device, K):
     """Ten sweeps of the same grid operands through the fused kernel and
     through the banded neighbour sums plus the coordinate-descent kernel."""
@@ -151,8 +167,8 @@ def test_fused_and_unfused_banded_kernels_are_bitwise_equal(cuda_device, K):
     n = p["Xty_t"].shape[1]
     pad = p["h"] * p["block"]
     args = (0.5, 0.05, 1e-30, 10)
-    before = (tbcd.fused_banded_sweep.launches,
-              tbcd.coordinate_descent_block.launches)
+    before = (_launches(tbcd.fused_banded_sweep, K),
+              _launches(tbcd.coordinate_descent_block, K))
     carry, it_f, rel_f = tbcd.bcd_iterate_banded_fused(
         tp["carry"].clone(), tp["Xty_t"], tp["XtX"], tp["masks"], tp["nnb"],
         *args, p["offsets"], p["h"], p["block"],
@@ -164,11 +180,29 @@ def test_fused_and_unfused_banded_kernels_are_bitwise_equal(cuda_device, K):
         tp["nnb"], *args,
     )
     torch.cuda.synchronize()
-    assert (tbcd.fused_banded_sweep.launches - before[0],
-            tbcd.coordinate_descent_block.launches - before[1]) == (10, 10)
+    assert (_launches(tbcd.fused_banded_sweep, K) - before[0],
+            _launches(tbcd.coordinate_descent_block, K) - before[1]
+            ) == (10, 10)
     assert it_f == it_u == 10 and rel_f == rel_u
     assert torch.equal(tbcd.from_fused_carry(carry, p["h"], p["block"]).T,
                        beta_t)
+
+
+@pytest.mark.parametrize("K", [65, 96, 128, 256])
+def test_two_launches_are_bitwise_equal(cuda_device, K):
+    """Each kernel twice on the same operands: the same bits (no atomics,
+    one summation order)."""
+    p = fused_problem(n_types=K, seed=K + 5)
+    tp = as_torch(p, cuda_device)
+    inv = tbcd.gs_inv_den(tp["XtX"], tp["nnb"], 0.5).contiguous()
+    args = (tp["carry"], tp["Xty_t"], tp["XtX"], tp["masks"], inv, 0.5, 0.1,
+            p["offsets"], p["h"], p["block"])
+    fused = [tbcd.fused_banded_sweep(*args) for _ in range(2)]
+    _, cd_args = _cd_args(gather_problem(n_types=K, seed=K + 5))
+    cd = [tbcd.coordinate_descent_block(*cd_args) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in (fused, cd):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_gather_solve_is_bitwise_repeatable(cuda_device):

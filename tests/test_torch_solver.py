@@ -125,21 +125,23 @@ def test_verbose_samples_the_objective_on_the_reference_cadence(capsys):
     "float64", "large_k_fused", "large_k_banded", "large_k_gather",
 ])
 def test_unported_tiers_raise(case):
-    """f64, and K = 65 on each of the three tiers, name their ROADMAP entry
-    (the problems that solve now are in tests/test_torch_gather.py)."""
+    """f64, and K = 257 on each of the three tiers, name their ROADMAP entry
+    (the problems that solve now are in tests/test_torch_gather.py and,
+    at 64 < K <= 256, tests/test_torch_large_k.py)."""
     rng = np.random.RandomState(3)
     n, K, kw = SIDE * SIDE, 8, {}
     coords = grid_coords(side=SIDE)
     if case == "float64":
         kw["dtype"] = np.float64
     else:
-        K = 65
+        K = 257
     if case == "large_k_gather":
         coords = rng.rand(n, 2) * 100
     A = build_knn_graph(coords, k=6)
     if case == "large_k_banded":
         A = with_long_edges(A)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md, Queue 1: (f64 on|K > 256)"):
         tsolver.prepare_bcd(rng.randn(n, 16), rng.randn(K, 16), A,
                             coords=coords, device="cpu", **kw)
 
