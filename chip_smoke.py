@@ -29,7 +29,21 @@ counts set to 0 just before it and read just after:
    K = 128 on the gather tier. Before them each kernel is held against its
    plain version on those 1M problems at K = 96, 128 and 256 (and at
    K = 65 on the small shapes), and the 1M grid at K = 128 is solved
-   through the fused and the unfused banded tier, bitwise equal.
+   through the fused and the unfused banded tier, bitwise equal;
+5. the spot-sharded solves, several shards on the one card (each shard its
+   own CUDA stream): the 1M grid through ``prepare_sharded_bcd`` on meshes
+   of 1, 2 and 4 shards (the banded mesh, kernel #1 per shard): ``solve``,
+   unsplit (what ``overlap="auto"`` picks for such shards), then the sweep
+   loop alone, unsplit and split by the private loop's ``overlap=True``
+   (kernel #1's sub-range form) in turns; and the same at K = 128 on
+   2 shards, each bitwise equal to the single-device fused tier with the
+   same sweeps; the 1M irregular problem on 2 shards through the halo plan
+   (kernel #2 per shard), the gather tier's sweeps and within 1e-5 of its
+   beta; and a 262,144-spot ``fit_transform`` on a 2-shard mesh. Before
+   them kernel #1's sub-range form is held against its plain version on
+   the 1M grid operands at K = 20 and 128 (an interior call and both
+   boundary calls, each alone and into one full carry), the three calls'
+   recomposition bitwise equal to the whole sweep, and timed against it.
 
 The CountSketch kernel is held against its plain version at 262,144 x
 5,001 -> 512 (and at edge shapes), bitwise against itself, against an f64
@@ -39,8 +53,9 @@ operator.
 Any failed phase raises, so the exit code is non-zero; without a card the
 script fails before it prints any result. The last three lines are one
 JSON object per kernel (each CUDA kernel's panel form at 64 < K <= 256 with
-an entry of its own, ``*_large_k``, timed at K = 128), the card's name and
-power limit, and the result
+an entry of its own, ``*_large_k``, timed at K = 128, and kernel #1's
+sub-range form, ``fused_banded_sweep_sub``, timed as the interior call of
+a split 1M x 20 sweep), the card's name and power limit, and the result
 line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
 
 ``--profile`` builds, prepares the 1M grid and the 1M irregular problems
@@ -92,6 +107,10 @@ CS_RTOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SOLVE = dict(lambda_=0.1, rho=0.01, max_iter=100, tol=1e-4)
+MESH_SHARDS = (1, 2, 4)             # shards of the 1M grid on the one card
+# The single-device solves' (beta on the host, sweeps) by label, which the
+# sharded solves of the same problems are held against.
+REFERENCE = {}
 
 
 def log(*parts) -> None:
@@ -535,6 +554,7 @@ def phase_solve(prob, prepare_s: float, label: str) -> int:
     log(f"[solve] {label} prepare {prepare_s:.3f} s (host precompute + copy)")
     if not np.array_equal(betas[0], betas[1]):
         raise AssertionError("two kernel solves are not bitwise equal")
+    REFERENCE[label] = (betas[1], info["n_iterations"])
 
     ref, it = plain_solve(prob)
     diff = float(np.abs(betas[1] - ref).max())
@@ -588,21 +608,35 @@ def phase_profile(prob, label: str, reps: int = 3) -> None:
                                   row_limit=25))
 
 
+@functools.lru_cache(maxsize=1)
+def grid_fit_counts():
+    """The 262,144-spot grid fit's counts, made once for the single-device
+    fit and the 2-shard mesh fit (about a minute of host time each)."""
+    from flashdeconv_tpu_torch.utils import grid_coords
+
+    return synthetic_counts(grid_coords(side=FIT_SIDE), float(FIT_SIDE),
+                            FIT_GENES, TYPES)
+
+
 def phase_fit(label: str, coords, extent: float, n_genes: int,
               runs=("cold", "warm"), dense: bool = False,
-              n_hvg: int = 2000, n_types: int = TYPES, **recipe) -> int:
+              n_hvg: int = 2000, n_types: int = TYPES, model_kw=None,
+              counts=None, **recipe) -> int:
     """``fit_transform`` of synthetic counts (CSR, or dense with ``dense``;
-    ``recipe`` goes to :func:`synthetic_counts`) over ``coords``; Pearson
-    against the generating proportions must pass 0.9. Returns sweeps."""
+    ``recipe`` goes to :func:`synthetic_counts`; or ``counts()``, which
+    returns them, made once) over ``coords`` by a
+    ``FlashDeconv(**model_kw)``; Pearson against the generating
+    proportions must pass 0.9. Returns sweeps."""
     from flashdeconv_tpu_torch import FlashDeconv
     from flashdeconv_tpu_torch.utils import compute_correlation
 
     t0 = time.perf_counter()
-    Y, X, truth = synthetic_counts(coords, extent, n_genes, n_types,
-                                   dense=dense, **recipe)
+    Y, X, truth = counts() if counts else synthetic_counts(
+        coords, extent, n_genes, n_types, dense=dense, **recipe)
     nnz = np.count_nonzero(Y) if dense else Y.nnz
     log(f"[fit] {label}: {'dense' if dense else 'CSR'} counts {Y.shape} "
-        f"nnz {nnz} made in {time.perf_counter() - t0:.1f} s")
+        f"nnz {nnz} {counts.__name__ + '()' if counts else 'made'} in "
+        f"{time.perf_counter() - t0:.1f} s")
     if dense:  # the dense sketch's copy to the card, on its own
         t0 = time.perf_counter()
         on_card = torch.as_tensor(Y, dtype=torch.float32, device="cuda")
@@ -612,7 +646,8 @@ def phase_fit(label: str, coords, extent: float, n_genes: int,
         del on_card
     sweeps = 0
     for name in runs:  # the first includes first-use host builds
-        model = FlashDeconv(sketch_dim=SKETCH, n_hvg=n_hvg)
+        model = FlashDeconv(sketch_dim=SKETCH, n_hvg=n_hvg,
+                            **(model_kw or {}))
         t0 = time.perf_counter()
         props = model.fit_transform(Y, X, coords)
         torch.cuda.synchronize()
@@ -678,6 +713,263 @@ def phase_profile_dense_sketch() -> None:
                                   row_limit=20))
 
 
+def phase_sub_kernel(prob, label: str) -> dict:
+    """Kernel #1's sub-range form on a fused-tier problem's operands: the
+    interior call and both boundary calls of a split sweep, each alone (a
+    sub-carry) against the plain version, and the three into one full
+    carry, which must hold the whole sweep's data columns bit for bit with
+    its pads untouched. Then the interior call (into a full carry) timed
+    in turns with its plain version, and the three calls against the
+    whole call. Returns the interior call's row of the kernels line."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    t = prob.tier
+    lam, rho = 0.1, 0.01 * prob.mean_diag
+    carry = bcd.to_fused_carry(seeded_beta(prob), t.h, t.block)
+    inv = bcd.gs_inv_den(t.XtX, t.nnb, lam).contiguous()
+    args = (carry, t.Xty_t, t.XtX, t.masks, inv, lam, rho, t.offsets, t.h,
+            t.block)
+    h, m, pad = t.h, prob.n_solve // t.block, t.h * t.block
+    subs = {"interior": (h, h, m - 2 * h), "left": (0, 0, h),
+            "right": (m - h, m - h, h)}
+    errs = {}
+    with bcd.full_f32_matmul():
+        whole, wd, wa = bcd.fused_banded_sweep(*args)
+        out = torch.full_like(carry, float("nan"))
+        stats = []
+        for name, sub in subs.items():
+            ref, rd, ra = bcd.fused_banded_sweep_reference(*args, sub=sub)
+            got, d, a = bcd.fused_banded_sweep(*args, sub=sub)
+            errs[name] = check_close(got, ref, d, rd, a, ra,
+                                     f"{label} {name}")
+            if not ((got[:, :pad] == 0).all() and (got[:, -pad:] == 0).all()):
+                raise AssertionError(f"{label} {name}: sub-carry pads not 0")
+            stats.append(bcd.fused_banded_sweep(*args, out=out, sub=sub)[1:])
+            del ref, got
+        torch.cuda.synchronize()
+        same = (torch.equal(out[:, pad:-pad], whole[:, pad:-pad])
+                and bool(torch.isnan(out[:, :pad]).all())
+                and bool(torch.isnan(out[:, -pad:]).all())
+                and max(float(d) for d, _ in stats) == float(wd)
+                and max(float(a) for _, a in stats) == float(wa))
+        log(f"[kernel] fused_banded_sweep sub-range {label}: K={t.XtX.shape[0]}"
+            f" m={m} h={h} subs {subs}; max_abs_err vs plain {errs}; three "
+            f"calls into one carry bitwise the whole sweep, pads untouched, "
+            f"stats max equal: {same}")
+        if not same:
+            raise AssertionError(f"{label}: the split sweep is not the whole")
+        interior = functools.partial(bcd.fused_banded_sweep,
+                                     sub=subs["interior"])
+        ms = in_turns(functools.partial(bcd.fused_banded_sweep_reference,
+                                        sub=subs["interior"]),
+                      interior, args, out)
+
+        def split(*a, out):
+            for sub in subs.values():
+                bcd.fused_banded_sweep(*a, out=out, sub=sub)
+
+        turns = {"whole": [], "split": []}
+        spare = torch.empty_like(carry)
+        for name in ("whole", "split", "split", "whole"):
+            fn = split if name == "split" else bcd.fused_banded_sweep
+            turns[name].append(time_sweeps(fn, args, spare))
+    K = carry.shape[0]
+    n_sub = (m - 2 * h) * t.block
+    cols = slice(h * t.block, (m - h) * t.block)
+    n_bytes = (4.0 * K * (n_sub + 2 * pad) + 4.0 * K * 3 * n_sub
+               + t.masks[:, cols].numel() + 4.0 * K * K)
+    bound, by = bound_ms(n_bytes, gs_ops(K, n_sub)
+                         + K * float(t.masks[:, cols].sum()))
+    log(f"[kernel] fused_banded_sweep sub-range {label}: interior call "
+        f"({n_sub} spots) kernel {ms['kernel']} ms, plain {ms['plain']} ms "
+        f"(plain, kernel, kernel, plain); bound {bound:.4f} ms ({by}); a "
+        f"split sweep (three calls) {turns['split']} ms against the whole "
+        f"sweep {turns['whole']} ms (whole, split, split, whole)")
+    return {"K": K, "max_abs_err": max(errs.values()),
+            "ms": float(np.mean(ms["kernel"])),
+            "plain_ms": float(np.mean(ms["plain"])), "bound_ms": bound,
+            "bound_by": by}
+
+
+def card_mesh(n_shards: int):
+    """A mesh of ``n_shards`` shards on card 0."""
+    return (torch.device("cuda", 0),) * n_shards
+
+
+def timed_mesh_solve(prob, label: str, ref) -> dict:
+    """A cold and a warm ``solve`` of a prepared sharded problem: each must
+    give the reference's sweeps and, for ``ref`` bitwise, its beta; within
+    1e-5 otherwise. Returns the last info."""
+    want, want_it, bitwise = ref
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beta, info = prob.solve(**SOLVE)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        diff = float(np.abs(beta - want).max())
+        log(f"[mesh] {label} {run}: {dt:.4f} s, {prob.n_spots / dt:.1f} "
+            f"spots/s, {info['n_iterations']} sweeps (single device "
+            f"{want_it}), max |beta - beta_single| = {diff:.3e}, objective "
+            f"{info['final_objective']:.6g}, peak "
+            f"{torch.cuda.max_memory_allocated()} B allocated")
+        ok = info["converged"] and info["n_iterations"] == want_it and (
+            np.array_equal(beta, want) if bitwise else diff <= 1e-5)
+        if not ok:
+            raise AssertionError(f"{label}: the sharded solve disagrees "
+                                 "with the single-device one")
+    return info
+
+
+def phase_sharded(halo: dict) -> dict:
+    """The sharded main path (see the module docstring, item 5). Leaves the
+    prepared halo problem in ``halo["prob"]``. Returns the launches the
+    path must show."""
+    from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
+    from flashdeconv_tpu_torch.utils import grid_coords
+
+    want = {}
+
+    def add(name, n):
+        want[name] = want.get(name, 0) + n
+
+    coords, A = knn_graph(SPOTS, False)
+    for K, shard_counts, label in ((TYPES, MESH_SHARDS, "1M grid"),
+                                   (128, (2,), "1M grid K=128")):
+        Y, X, _ = make_problem(SPOTS, K, SKETCH)
+        ref, ref_it = REFERENCE[label]
+        whole = ("fused_banded_sweep_large_k"
+                 if K > 64 else "fused_banded_sweep")
+        for P in shard_counts:
+            t0 = time.perf_counter()
+            prob = prepare_sharded_bcd(Y, X, A, coords=coords,
+                                       mesh=card_mesh(P))
+            torch.cuda.synchronize()
+            inner = prob._inner
+            log(f"[mesh] {label} on {P} shards: prepare "
+                f"{time.perf_counter() - t0:.3f} s, strategy "
+                f"{prob.strategy}, fused {inner.use_fused}, {inner.n_local} "
+                f"spots a shard, block {inner._fused_block}, h "
+                f"{inner._fused_h}")
+            if not (prob.strategy == "banded" and inner.use_fused):
+                raise AssertionError(f"{label}: not the fused banded mesh")
+            info = timed_mesh_solve(prob, f"{label} P={P} unsplit",
+                                    (ref, ref_it, True))
+            add(whole, 2 * P * info["n_iterations"])
+            # The sweeps alone (no objective, no fetch), unsplit and split
+            # in turns; each run's beta bitwise the single device's.
+            loop_s = {False: [], True: []}
+            for overlap in (False, True, True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                beta, it, _ = inner._run(SOLVE["lambda_"], SOLVE["rho"],
+                                         SOLVE["tol"], SOLVE["max_iter"],
+                                         overlap=overlap)
+                torch.cuda.synchronize()
+                loop_s[overlap].append(time.perf_counter() - t0)
+                if not (it == ref_it and np.array_equal(
+                        beta.double().cpu().numpy(), ref)):
+                    raise AssertionError(f"{label} P={P} overlap={overlap}: "
+                                         "disagrees with the single device")
+                if overlap:
+                    add("fused_banded_sweep_sub", 3 * P * it)
+                else:
+                    add(whole, P * it)
+            log(f"[mesh] {label} P={P} sweep loop alone: unsplit "
+                f"{loop_s[False]} s, split (overlap=True) {loop_s[True]} s "
+                f"(unsplit, split, split, unsplit), {ref_it} sweeps, beta "
+                "bitwise the single device's in every run")
+            del prob, inner
+        del Y
+        torch.cuda.empty_cache()
+
+    coords, A = knn_graph(SPOTS, True)
+    Y, X, _ = make_problem(SPOTS, TYPES, SKETCH, coords=coords)
+    t0 = time.perf_counter()
+    prob = prepare_sharded_bcd(Y, X, A, coords=coords, mesh=card_mesh(2))
+    torch.cuda.synchronize()
+    plan = prob._inner.plan
+    log(f"[mesh] 1M irregular on 2 shards: prepare "
+        f"{time.perf_counter() - t0:.3f} s, strategy {prob.strategy}, "
+        f"{plan.shard_size} spots a shard, halo width {plan.halo_width}, "
+        f"{plan.nbr_idx.shape[1]} neighbour slots")
+    if prob.strategy != "halo":
+        raise AssertionError("the 1M irregular problem did not take the "
+                             "halo plan")
+    ref, ref_it = REFERENCE["1M irregular"]
+    info = timed_mesh_solve(prob, "1M irregular P=2 halo",
+                            (ref, ref_it, False))
+    add("coordinate_descent_block", 2 * 2 * info["n_iterations"])
+    halo["prob"] = prob._inner
+    del Y
+
+    sweeps = phase_fit("262k grid on a 2-shard mesh",
+                       grid_coords(side=FIT_SIDE), float(FIT_SIDE),
+                       FIT_GENES, runs=("once",), counts=grid_fit_counts,
+                       model_kw={"mesh": card_mesh(2)})
+    add("fused_banded_sweep", 2 * sweeps)
+    return want
+
+
+def phase_halo_split(inner, reps: int = 5) -> None:
+    """Where a halo-plan sweep's time goes, by CUDA events over ``reps``
+    sweeps each: whole sweeps, the halo exchange and neighbour sums alone,
+    and kernel #2 alone on those sums (per shard, on the shards'
+    streams)."""
+    from flashdeconv_tpu_torch.ops import bcd
+    from flashdeconv_tpu_torch.parallel import solver as psolver
+
+    mesh = inner.mesh
+    lam, rho = bcd.f32(SOLVE["lambda_"]), bcd.f32(SOLVE["rho"]
+                                                  * inner.rho_scale)
+    ops = dict(inner._ops)
+    ops["inv_den"] = [bcd.gs_inv_den(x, n, lam) for x, n in
+                      zip(ops["XtX"], ops["nnb"])]
+    betas = inner._beta0(None)
+    spares = [torch.empty_like(b) for b in betas]
+
+    def neighbour_sums():
+        pools = psolver._halo_exchange(mesh, betas, ops["send"])
+        mesh.fork()
+        out = []
+        for s, beta in enumerate(betas):
+            with mesh.on(s):
+                out.append(psolver._shard_ns(beta, pools[mesh[s]],
+                                             ops["nbr"][s]))
+        mesh.gather([])
+        return out
+
+    ns = neighbour_sums()
+
+    def kernels():
+        mesh.fork()
+        for s, beta in enumerate(betas):
+            with mesh.on(s):
+                bcd.coordinate_descent_block(
+                    beta, ops["Xty_t"][s], ops["XtX"][s], ns[s],
+                    ops["inv_den"][s], lam, rho, out=spares[s])
+        mesh.gather([])
+
+    fns = {"sweep": lambda: psolver._sharded_sweep(mesh, betas, spares, ops,
+                                                   lam, rho),
+           "neighbour sums": neighbour_sums, "kernel #2": kernels}
+    ms = {}
+    with bcd.full_f32_matmul():
+        for name, fn in fns.items():
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            stop.record()
+            torch.cuda.synchronize()
+            ms[name] = start.elapsed_time(stop) / reps
+    log(f"[mesh] 1M irregular halo sweep on 2 shards, ms per sweep (CUDA "
+        f"events, {reps} sweeps each): {ms}")
+
+
 def counted(kernels, path):
     """Run ``path()``, which returns ``{kernel: launches it must show}``,
     with every kernel's count (``kernels``: name -> (wrapper, count
@@ -723,6 +1015,7 @@ def main() -> None:
         "coordinate_descent_block_large_k": (bcd.coordinate_descent_block,
                                              "large_k_launches"),
         "countsketch_project": (cs.countsketch_project_kernel, "launches"),
+        "fused_banded_sweep_sub": (bcd.fused_banded_sweep, "sub_launches"),
     }
 
     # Kernel 1, the fused banded tier (K = 65: the panel form's edge).
@@ -734,11 +1027,13 @@ def main() -> None:
     if not grid.use_fused_banded:
         raise AssertionError("the 1M grid did not take the fused tier")
     fused_row = phase_fused_kernel(grid, "1000x1000 (main path)")
+    sub_row = phase_sub_kernel(grid, "1000x1000 (main path)")
     phase_fused_vs_unfused(grid)
     fused_launches = counted(kernels, lambda: {"fused_banded_sweep": (
         phase_solve(grid, grid_s, "1M grid")
         + phase_fit("262k grid", grid_coords(side=FIT_SIDE),
-                    float(FIT_SIDE), FIT_GENES))})["fused_banded_sweep"]
+                    float(FIT_SIDE), FIT_GENES, counts=grid_fit_counts))
+    })["fused_banded_sweep"]
     del grid
 
     # Kernel 1's panel form, 64 < K <= 256, on the fused tier.
@@ -751,6 +1046,7 @@ def main() -> None:
         large_fused_rows[K] = phase_fused_kernel(prob, f"1000x1000 K={K}")
         if K == 128:
             phase_fused_vs_unfused(prob)
+            phase_sub_kernel(prob, f"1000x1000 K={K}")
         if K in (128, 256):
             large_fused_launches += counted(kernels, lambda: {
                 "fused_banded_sweep_large_k": phase_solve(
@@ -801,7 +1097,15 @@ def main() -> None:
             })["coordinate_descent_block_large_k"]
         del prob
         torch.cuda.empty_cache()
+
+    # The spot-sharded solves: kernel #1 (and its sub-range form) and
+    # kernel #2 per shard, several shards on the one card.
+    halo = {}
+    sharded_launches = counted(kernels, lambda: phase_sharded(halo))
+    phase_halo_split(halo.pop("prob"))
     knn_graph.cache_clear()
+    grid_fit_counts.cache_clear()
+    REFERENCE.clear()
 
     # Kernel 3, the dense-count sketch on the card.
     cs_row = phase_countsketch_kernel()
@@ -834,6 +1138,9 @@ def main() -> None:
               large_cd_rows[128]),
         entry("countsketch_project", "countsketch_project.cu",
               "flashdeconv_tpu/ops/countsketch.py:112", cs_launches, cs_row),
+        entry("fused_banded_sweep_sub", "fused_banded_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:851",
+              sharded_launches["fused_banded_sweep_sub"], sub_row),
     ]}), flush=True)
     log(card())
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ when G >= 4096 and N >= 1024), the spatial graph and the lambda auto-tune —
 are the port's own copies of the JAX package's host functions; stage 6 is
 the solve of :mod:`flashdeconv_tpu_torch.core.solver` on ``device``, on
 whichever of its three tiers the graph takes (fused banded, unfused
-banded, gather).
+banded, gather), or, with ``mesh`` or ``n_shards > 1``, the spot-sharded
+solve of :mod:`flashdeconv_tpu_torch.parallel` (banded mesh or halo plan).
 
-Not ported (``ROADMAP.md``): sharded meshes and ``fit_distributed``,
+Not ported (``ROADMAP.md``): ``fit_distributed`` (multi-process),
 ``fit_lambda_path``, ``save``/``load``, warm start, and the device-output
 knobs (``device_outputs``, ``fetch_dtype``, ``outputs``).
 """
@@ -55,8 +56,12 @@ class FlashDeconv:
     solved on a torch device.
 
     Parameters are those of :class:`flashdeconv_tpu.FlashDeconv` that the
-    single-device fit uses, plus ``device`` ("cuda" by default; raises
-    without a card, "cpu" runs the plain PyTorch sweeps).
+    single-process fit uses, plus ``device`` ("cuda" by default; raises
+    without a card, "cpu" runs the plain PyTorch sweeps). ``mesh`` (a
+    sequence of torch devices, one per shard, a device possibly repeated)
+    or ``n_shards > 1`` (the first ``n_shards`` cards, or ``n_shards``
+    shards on the CPU with ``device="cpu"``) sends stage 6 to
+    :func:`flashdeconv_tpu_torch.parallel.prepare_sharded_bcd`.
 
     Attributes (after fit): ``beta_``, ``proportions_``, ``gene_idx_``,
     ``info_``, ``lambda_used_``, ``adjacency_`` and ``timings_``.
@@ -78,6 +83,8 @@ class FlashDeconv:
         random_state: Optional[int] = 0,
         verbose: bool = False,
         device="cuda",
+        mesh=None,
+        n_shards: Optional[int] = None,
     ):
         if sketch_dim <= 0:
             raise ValueError(f"sketch_dim must be positive, got {sketch_dim}")
@@ -115,6 +122,8 @@ class FlashDeconv:
                 f"Unknown preprocess method: {preprocess}. "
                 f"Choose from {_PREPROCESS_METHODS}."
             )
+        if n_shards is not None and n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.device = resolve_device(device)
         self.sketch_dim = sketch_dim
         self.lambda_spatial = lambda_spatial
@@ -129,6 +138,8 @@ class FlashDeconv:
         self.preprocess = preprocess
         self.random_state = random_state
         self.verbose = verbose
+        self.mesh = mesh
+        self.n_shards = n_shards
 
         self.beta_ = None
         self.proportions_ = None
@@ -257,8 +268,8 @@ class FlashDeconv:
                 k=self.k_neighbors, radius=self.radius,
             )
             plan_f = pool.submit(
-                lambda: GraphDecomposition(graph_f.result(), Y.shape[0],
-                                           coords)
+                lambda: None if self._is_sharded else GraphDecomposition(
+                    graph_f.result(), Y.shape[0], coords)
             )
             try:
                 X_sketch, Y_sketch, xty, yty = self._sketch(Y, X, timer)
@@ -280,12 +291,8 @@ class FlashDeconv:
         self._log(f"  lambda = {lambda_:.4f}")
 
         with timer.stage("solve"):
-            beta, info = bcd_solve(
-                Y_sketch, X_sketch, A, lambda_=lambda_,
-                rho=self.rho_sparsity, max_iter=self.max_iter, tol=self.tol,
-                verbose=self.verbose, coords=coords, graph_plan=plan,
-                xty=xty, yty=yty, device=self.device,
-            )
+            beta, info = self._solve(Y_sketch, X_sketch, A, coords, lambda_,
+                                     plan, xty, yty)
         self.beta_ = beta
         self.proportions_ = normalize_proportions(beta)
         self.info_ = info
@@ -295,6 +302,31 @@ class FlashDeconv:
         if self.verbose:
             print(timer.report())
         return self
+
+    @property
+    def _is_sharded(self) -> bool:
+        """True when the solve dispatches to the spot-sharded mesh path."""
+        return self.mesh is not None or (
+            self.n_shards is not None and self.n_shards > 1
+        )
+
+    def _solve(self, Y_sketch, X_sketch, A, coords, lambda_, plan, xty, yty):
+        """Stage 6: the single-device solve, or the spot-sharded one."""
+        kw = dict(lambda_=lambda_, rho=self.rho_sparsity,
+                  max_iter=self.max_iter, tol=self.tol, verbose=self.verbose)
+        if not self._is_sharded:
+            return bcd_solve(Y_sketch, X_sketch, A, coords=coords,
+                             graph_plan=plan, xty=xty, yty=yty,
+                             device=self.device, **kw)
+        from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
+
+        self._log("  solving on a spot-sharded mesh")
+        problem = prepare_sharded_bcd(
+            Y_sketch, X_sketch, A, coords=coords, mesh=self.mesh,
+            n_shards=self.n_shards, verbose=self.verbose, xty=xty, yty=yty,
+            device=self.device,
+        )
+        return problem.solve(**kw)
 
     def fit_transform(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray
                       ) -> np.ndarray:

@@ -93,8 +93,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                    ctypes.c_float)
     if name == "fused_banded_sweep":
         lib.fdt_fused_banded_sweep.argtypes = [
-            p, p, p, p, p, p, ctypes.POINTER(ctypes.c_int), i, i, ll, ll, ll,
-            f, f, p, p,
+            p, ll, ll, p, ll, ll, p, p, p, ll, ll, p,
+            ctypes.POINTER(ctypes.c_int), i, i, ll, ll, i, f, f, p, p,
         ]
         lib.fdt_fused_banded_sweep.restype = i
         lib.fdt_fused_banded_sweep_blocks.argtypes = [ll, i]

@@ -191,41 +191,99 @@ def _banded_ns(beta_ext_t, masksf, offsets, pad: int, n_solve: int):
     return ns
 
 
+@dataclasses.dataclass(frozen=True)
+class SweepRange:
+    """The columns one fused sweep call covers.
+
+    The window of ``n_sub + 2*pad`` carry columns starts at column
+    ``in_col0`` of the input carry; its data columns are the data columns
+    ``[data0, data0 + n_sub)`` of ``Xty_t``, ``masks`` and ``inv_den_t``;
+    window column ``w`` goes to column ``out_col0 + w`` of the output.
+    ``write_pads``: the window's pad columns are written as zeros (a whole
+    sweep, or a sub-carry of its own); otherwise only data columns are
+    written (a sub-range into a full carry).
+    """
+
+    in_col0: int
+    data0: int
+    n_sub: int
+    out_col0: int
+    write_pads: bool
+
+
+def sweep_range(n_ext: int, n_data: int, h: int, block: int,
+                sub: Optional[Tuple[int, int, int]], into_carry: bool
+                ) -> SweepRange:
+    """The :class:`SweepRange` of a fused sweep call on a carry of
+    ``n_ext`` columns and data arrays of ``n_data`` columns. ``sub`` is
+    None (the whole sweep) or ``(carry_start, data_start, n_data_blocks)``
+    in blocks, as the JAX ``fused_banded_sweep(sub=...)`` takes it;
+    ``into_carry``: the call writes into a given full carry ``out`` (the
+    counterpart of the JAX ``out_alias``). Raises on a range that leaves
+    the carry or the data."""
+    pad = h * block
+    if sub is None:
+        if n_ext != n_data + 2 * pad or n_data <= 0:
+            raise ValueError(
+                f"carry width {n_ext} is not the {n_data} data columns plus "
+                f"2 * h * block = {2 * pad} pad")
+        return SweepRange(0, 0, n_data, 0, True)
+    carry_start, data_start, n_blocks = (int(v) for v in sub)
+    if min(carry_start, data_start) < 0 or n_blocks < 1:
+        raise ValueError(f"sub={sub}: starts must be >= 0 and the range "
+                         "at least one block")
+    if (carry_start + n_blocks + 2 * h) * block > n_ext:
+        raise ValueError(f"sub={sub}: the window of {n_blocks} + 2h blocks "
+                         f"from block {carry_start} leaves the carry of "
+                         f"{n_ext} columns")
+    if (data_start + n_blocks) * block > n_data:
+        raise ValueError(f"sub={sub}: data blocks leave the {n_data} data "
+                         "columns")
+    return SweepRange(carry_start * block, data_start * block,
+                      n_blocks * block, data_start * block if into_carry
+                      else 0, not into_carry)
+
+
 def fused_banded_sweep_reference(
     beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_, rho,
     offsets: Tuple[int, ...], h: int, block: int,
     out: Optional[torch.Tensor] = None,
+    sub: Optional[Tuple[int, int, int]] = None,
 ):
     """Plain PyTorch version of the fused banded sweep kernel.
 
     Same operands and results as :func:`fused_banded_sweep`: reads the
-    carry ``beta_ext_t`` (K, n_solve + 2*h*block), writes the new carry
-    (into ``out`` when given) with its pad slabs zeroed, and returns
-    ``(carry, max|beta - beta_old|, max|beta_old|)`` with the statistics
-    as 0-d tensors on the carry's device.
+    carry ``beta_ext_t``, writes the new carry (into ``out`` when given;
+    pad columns zeroed, except for a sub-range written into a full carry,
+    which writes only its data columns) and returns ``(carry, max|beta -
+    beta_old|, max|beta_old|)`` over the call's data columns, the
+    statistics as 0-d tensors on the carry's device.
     """
     K, n_ext = beta_ext_t.shape
     pad = h * block
-    n_solve = n_ext - 2 * pad
-    ns = _banded_ns(beta_ext_t, masks.to(beta_ext_t.dtype), offsets, pad,
-                    n_solve)
-    beta_old = beta_ext_t[:, pad:pad + n_solve].contiguous()
-    beta = gs_pass(beta_old, Xty_t, XtX, ns, inv_den_t, lambda_, rho)
+    rng = sweep_range(n_ext, Xty_t.shape[1], h, block, sub, out is not None
+                      and sub is not None)
+    n, d0 = rng.n_sub, rng.data0
+    win = beta_ext_t[:, rng.in_col0:rng.in_col0 + n + 2 * pad]
+    ns = _banded_ns(win, masks[:, d0:d0 + n].to(beta_ext_t.dtype), offsets,
+                    pad, n)
+    beta_old = win[:, pad:pad + n].contiguous()
+    beta = gs_pass(beta_old, Xty_t[:, d0:d0 + n], XtX, ns,
+                   inv_den_t[:, d0:d0 + n], lambda_, rho)
     if out is None:
-        out = torch.empty_like(beta_ext_t)
-    out[:, :pad] = 0.0
-    out[:, pad + n_solve:] = 0.0
-    out[:, pad:pad + n_solve] = beta
+        out = beta_ext_t.new_empty((K, n + 2 * pad))
+    o = rng.out_col0
+    if rng.write_pads:
+        out[:, o:o + pad] = 0.0
+        out[:, o + pad + n:o + n + 2 * pad] = 0.0
+    out[:, o + pad:o + pad + n] = beta
     return (out, *sweep_stats(beta, beta_old))
 
 
 def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
-                          offsets, h, block, out):
+                          offsets, h, block, out, out_cols: int):
     K, n_ext = beta_ext_t.shape
-    n_solve = n_ext - 2 * h * block
-    if n_solve <= 0:
-        raise ValueError(f"carry width {n_ext} leaves no data columns "
-                         f"after 2 * h * block = {2 * h * block} pad")
+    n_data = Xty_t.shape[1]
     if K > KERNEL_MAX_K:
         raise ValueError(f"the fused kernel takes K <= {KERNEL_MAX_K}, "
                          f"got K = {K}")
@@ -235,12 +293,12 @@ def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
     if max(abs(int(o)) for o in offsets) > h * block:
         raise ValueError("a band offset exceeds the carry's pad h * block")
     expect = {
-        "Xty_t": (Xty_t, (K, n_solve), torch.float32),
+        "Xty_t": (Xty_t, (K, n_data), torch.float32),
         "XtX": (XtX, (K, K), torch.float32),
-        "masks": (masks, (len(offsets), n_solve), torch.uint8),
-        "inv_den_t": (inv_den_t, (K, n_solve), torch.float32),
+        "masks": (masks, (len(offsets), n_data), torch.uint8),
+        "inv_den_t": (inv_den_t, (K, n_data), torch.float32),
         "beta_ext_t": (beta_ext_t, (K, n_ext), torch.float32),
-        "out": (out, (K, n_ext), torch.float32),
+        "out": (out, (K, out_cols), torch.float32),
     }
     for name, (t, shape, dtype) in expect.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
@@ -264,26 +322,40 @@ def _raise_on_launch_error(lib, err: int, name: str) -> None:
         )
 
 
-def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
-                             lambda_, rho, offsets, h, block, out):
-    from flashdeconv_tpu_torch.ops import _build
-
-    lib = _build.load("fused_banded_sweep")
+def fused_sweep_launch(lib, stream: int, beta_ext_t, Xty_t, XtX, masks,
+                       inv_den_t, lambda_, rho, offsets, h: int, block: int,
+                       out, rng: SweepRange) -> torch.Tensor:
+    """One call of ``fdt_fused_banded_sweep`` of ``lib`` on ``stream`` over
+    ``rng``; returns the (2, blocks) partials of the two statistics. The
+    operands are checked by the caller."""
     K, n_ext = beta_ext_t.shape
     pad = h * block
-    partials = torch.empty((2, lib.fdt_fused_banded_sweep_blocks(n_ext, K)),
-                           dtype=torch.float32,
-                           device=beta_ext_t.device)
+    n_cols = rng.n_sub + (2 * pad if rng.write_pads else 0)
+    partials = torch.empty((2, lib.fdt_fused_banded_sweep_blocks(n_cols, K)),
+                           dtype=torch.float32, device=beta_ext_t.device)
     offs = (ctypes.c_int * len(offsets))(*(int(o) for o in offsets))
-    stream = torch.cuda.current_stream(beta_ext_t.device).cuda_stream
     err = lib.fdt_fused_banded_sweep(
-        beta_ext_t.data_ptr(), out.data_ptr(), Xty_t.data_ptr(),
-        masks.data_ptr(), inv_den_t.data_ptr(), XtX.data_ptr(), offs,
-        len(offsets), K, n_ext, pad, n_ext - 2 * pad, f32(lambda_), f32(rho),
-        partials.data_ptr(), stream,
+        beta_ext_t.data_ptr(), n_ext, rng.in_col0, out.data_ptr(),
+        out.shape[1], rng.out_col0, Xty_t.data_ptr(), masks.data_ptr(),
+        inv_den_t.data_ptr(), Xty_t.shape[1], rng.data0, XtX.data_ptr(),
+        offs, len(offsets), K, pad, rng.n_sub, int(rng.write_pads),
+        f32(lambda_), f32(rho), partials.data_ptr(), stream,
     )
     _raise_on_launch_error(lib, err, "fused_banded_sweep")
-    if K > REGISTER_PASS_MAX_K:
+    return partials
+
+
+def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
+                             lambda_, rho, offsets, h, block, out, rng, sub):
+    from flashdeconv_tpu_torch.ops import _build
+
+    stream = torch.cuda.current_stream(beta_ext_t.device).cuda_stream
+    partials = fused_sweep_launch(
+        _build.load("fused_banded_sweep"), stream, beta_ext_t, Xty_t, XtX,
+        masks, inv_den_t, lambda_, rho, offsets, h, block, out, rng)
+    if sub is not None:
+        fused_banded_sweep.sub_launches += 1
+    elif beta_ext_t.shape[0] > REGISTER_PASS_MAX_K:
         fused_banded_sweep.large_k_launches += 1
     else:
         fused_banded_sweep.launches += 1
@@ -303,45 +375,64 @@ def fused_banded_sweep(
     h: int,
     block: int,
     out: Optional[torch.Tensor] = None,
+    sub: Optional[Tuple[int, int, int]] = None,
 ):
     """One fused banded BCD sweep on the transposed padded carry.
 
     Parameters
     ----------
-    beta_ext_t : (K, n_solve + 2*h*block) f32 carry, pad slabs zero.
+    beta_ext_t : (K, n_ext) f32 carry: ``n_solve + 2*h*block`` columns for
+        the whole sweep, pad slabs zero (or, on a shard of the banded
+        mesh, holding the neighbour shards' boundary blocks).
     Xty_t, inv_den_t : (K, n_solve) f32; XtX : (K, K) f32.
     masks : (U, n_solve) uint8 0/1 band masks, one row per offset.
     offsets : band offsets, each ``|o| <= h * block``.
-    out : optional (K, n_ext) f32 buffer for the new carry, distinct from
-        ``beta_ext_t`` (Jacobi: every spot reads the pre-sweep carry).
-        Solve loops pass a second carry allocated once and ping-pong.
+    out : optional buffer for the new carry, distinct from ``beta_ext_t``
+        (Jacobi: every spot reads the pre-sweep carry). Solve loops pass a
+        second carry allocated once and ping-pong.
+    sub : optional ``(carry_start, data_start, n_data_blocks)``, the
+        sub-range form of the JAX ``fused_banded_sweep`` (the banded mesh's
+        halo-overlap split): the window's blocks start at block
+        ``carry_start`` of ``beta_ext_t``, its data blocks are the data
+        blocks ``[data_start, data_start + n_data_blocks)`` of ``Xty_t``,
+        ``masks`` and ``inv_den_t``, and the statistics cover only those.
+        Without ``out`` it returns the sub-carry ``(K, (n_data_blocks +
+        2h) * block)`` with zero pads; with ``out`` (a full carry, ``(K,
+        n_solve + 2*h*block)``; the JAX ``out_alias``) it writes only the
+        range's data columns, at block ``data_start + h``, and no pad.
 
     Returns ``(new carry, max_diff, max_abs)``, the statistics as 0-d f32
     tensors on the carry's device. On a CUDA carry this launches the
     hand-written kernel (and raises if it cannot); on a CPU carry it runs
     :func:`fused_banded_sweep_reference`. ``fused_banded_sweep.launches``
-    counts the kernel's launches at K <= 64, ``.large_k_launches`` those of
-    its panel form above.
+    counts the kernel's whole-sweep launches at K <= 64,
+    ``.large_k_launches`` those of its panel form above, and
+    ``.sub_launches`` its sub-range launches at any K.
     """
-    if out is None:
-        out = torch.empty_like(beta_ext_t)
-    _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
-                          offsets, h, block, out)
+    pad = h * block
+    rng = sweep_range(beta_ext_t.shape[1], Xty_t.shape[1], h, block, sub,
+                      out is not None and sub is not None)
+    buf = out if out is not None else beta_ext_t.new_empty(
+        (beta_ext_t.shape[0], rng.n_sub + 2 * pad))
+    _check_sweep_operands(
+        beta_ext_t, Xty_t, XtX, masks, inv_den_t, offsets, h, block, buf,
+        (rng.n_sub if rng.write_pads else Xty_t.shape[1]) + 2 * pad)
     if beta_ext_t.device.type == "cuda":
         return _fused_banded_sweep_cuda(
             beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_, rho,
-            offsets, h, block, out,
+            offsets, h, block, buf, rng, sub,
         )
     if beta_ext_t.device.type == "cpu":
         return fused_banded_sweep_reference(
             beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_, rho,
-            offsets, h, block, out=out,
+            offsets, h, block, out=out, sub=sub,
         )
     raise ValueError(f"no fused sweep for device {beta_ext_t.device}")
 
 
 fused_banded_sweep.launches = 0
 fused_banded_sweep.large_k_launches = 0
+fused_banded_sweep.sub_launches = 0
 
 
 def sweep_stats(beta_out: torch.Tensor, beta_in: torch.Tensor):
@@ -476,22 +567,32 @@ def _check_cd_operands(beta_t, Xty_t, XtX, ns_t, inv_den_t, out):
                          "be the input beta")
 
 
-def _coordinate_descent_block_cuda(beta_t, Xty_t, XtX, ns_t, inv_den_t,
-                                   lambda_, rho, out):
-    from flashdeconv_tpu_torch.ops import _build
-
-    lib = _build.load("cd_block_sweep")
+def cd_sweep_launch(lib, stream: int, beta_t, Xty_t, XtX, ns_t, inv_den_t,
+                    lambda_, rho, out) -> torch.Tensor:
+    """One call of ``fdt_cd_block_sweep`` of ``lib`` on ``stream``; returns
+    the (2, blocks) partials of the two statistics. The operands are
+    checked by the caller."""
     K, n = beta_t.shape
     partials = torch.empty((2, lib.fdt_cd_block_sweep_blocks(n, K)),
                            dtype=torch.float32, device=beta_t.device)
-    stream = torch.cuda.current_stream(beta_t.device).cuda_stream
     err = lib.fdt_cd_block_sweep(
         beta_t.data_ptr(), out.data_ptr(), Xty_t.data_ptr(),
         ns_t.data_ptr(), inv_den_t.data_ptr(), XtX.data_ptr(), K, n,
         f32(lambda_), f32(rho), partials.data_ptr(), stream,
     )
     _raise_on_launch_error(lib, err, "cd_block_sweep")
-    if K > REGISTER_PASS_MAX_K:
+    return partials
+
+
+def _coordinate_descent_block_cuda(beta_t, Xty_t, XtX, ns_t, inv_den_t,
+                                   lambda_, rho, out):
+    from flashdeconv_tpu_torch.ops import _build
+
+    partials = cd_sweep_launch(
+        _build.load("cd_block_sweep"),
+        torch.cuda.current_stream(beta_t.device).cuda_stream, beta_t, Xty_t,
+        XtX, ns_t, inv_den_t, lambda_, rho, out)
+    if beta_t.shape[0] > REGISTER_PASS_MAX_K:
         coordinate_descent_block.large_k_launches += 1
     else:
         coordinate_descent_block.launches += 1
@@ -567,20 +668,36 @@ def bcd_sweep_banded(beta_t, Xty_t, XtX, offsets, masks, rest_t, inv_den_t,
 # Objective, convergence loop and the one solve of all tiers.
 # ---------------------------------------------------------------------------
 
-def _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho):
-    """``0.5*(YtY - 2<beta, Xty> + <beta beta^T, XtX>) + 0.5*lambda*(sum
-    deg*|beta|^2 - <beta, ns>) + rho*|beta|_1`` on the (K, n) layout, as a
-    0-d tensor: Tr(beta^T L beta) expanded without L."""
+def objective_sums(beta_t, Xty_t, ns_t, nnb):
+    """The sums of the objective over the columns of ``beta_t`` (K, n):
+    ``(stack([<beta, Xty>, sum deg*|beta|^2, <beta, ns>, |beta|_1]),
+    beta beta^T)``. Summed over the shards of a mesh they are the whole
+    problem's; :func:`objective_from_sums` forms the objective."""
     cross = torch.sum(beta_t * Xty_t)
-    quad = torch.sum((beta_t @ beta_t.T) * XtX)
-    YtY = torch.as_tensor(YtY, dtype=beta_t.dtype, device=beta_t.device)
-    fidelity = 0.5 * (YtY - 2.0 * cross + quad)
     nnb_row = nnb.reshape(1, -1).to(beta_t.dtype)
     deg_term = torch.sum(nnb_row * torch.sum(beta_t * beta_t, dim=0,
                                              keepdim=True))
     adj_term = torch.sum(beta_t * ns_t)
+    l1 = torch.sum(torch.abs(beta_t))
+    return torch.stack([cross, deg_term, adj_term, l1]), beta_t @ beta_t.T
+
+
+def objective_from_sums(sums, BtB, XtX, YtY, lambda_, rho):
+    """``0.5*(YtY - 2<beta, Xty> + <beta beta^T, XtX>) + 0.5*lambda*(sum
+    deg*|beta|^2 - <beta, ns>) + rho*|beta|_1`` from :func:`objective_sums`,
+    as a 0-d tensor: Tr(beta^T L beta) expanded without L."""
+    cross, deg_term, adj_term, l1 = sums
+    quad = torch.sum(BtB * XtX)
+    YtY = torch.as_tensor(YtY, dtype=XtX.dtype, device=XtX.device)
+    fidelity = 0.5 * (YtY - 2.0 * cross + quad)
     spatial = 0.5 * f32(lambda_) * (deg_term - adj_term)
-    return fidelity + spatial + f32(rho) * torch.sum(torch.abs(beta_t))
+    return fidelity + spatial + f32(rho) * l1
+
+
+def _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho):
+    """The objective on the (K, n) layout, as a 0-d tensor."""
+    return objective_from_sums(*objective_sums(beta_t, Xty_t, ns_t, nnb),
+                               XtX, YtY, lambda_, rho)
 
 
 def objective_terms_banded_fused(

@@ -70,7 +70,7 @@ cd_block_sweep_kernel(const float* __restrict__ beta_in,
     float dmax = 0.f, amax = 0.f;
     if (j < n) {
         const LoadSum ns{ns_t + j, n};
-        gs_pass_spot<KMAX>(beta_in + j, beta_out + j, n, xty_t + j,
+        gs_pass_spot<KMAX>(beta_in + j, n, beta_out + j, n, xty_t + j,
                            inv_den_t + j, n, xtx_s, K, lam, rho, ns, dmax,
                            amax);
     }
@@ -96,8 +96,8 @@ cd_block_sweep_panel_kernel(const float* __restrict__ beta_in,
     const long long jj = valid ? j : 0;
     const LoadSum ns{ns_t + jj, n};
     float dmax = 0.f, amax = 0.f;
-    gs_pass_panel(beta_in + jj, beta_out + jj, n, xty_t + jj, inv_den_t + jj,
-                  n, xtx, K, lam, rho, ns, valid,
+    gs_pass_panel(beta_in + jj, n, beta_out + jj, n, xty_t + jj,
+                  inv_den_t + jj, n, xtx, K, lam, rho, ns, valid,
                   reinterpret_cast<float*>(smem4), dmax, amax);
     store_block_partials(dmax, amax, partials);
 }

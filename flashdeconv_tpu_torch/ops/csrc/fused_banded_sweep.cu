@@ -75,19 +75,38 @@ struct BandSum {
     }
 };
 
+// Sub-range form (the counterpart of fused_banded_sweep(sub=...) in
+// flashdeconv_tpu/ops/bcd.py, which the spot-sharded banded mesh runs):
+// both kernels sweep a window of n_sub + 2*pad columns that starts at
+// column in_col0 of the input carry, its n_sub data columns being the data
+// columns [data0, data0 + n_sub) of xty, masks and inv_den (row length
+// ld_data). Window column w (0 <= w < n_sub + 2*pad) is written to column
+// out_col0 + w of the output carry. The whole sweep is in_col0 = data0 =
+// out_col0 = 0 and n_sub = n_solve. With write_pads the pad columns of the
+// window are written as zeros (a whole sweep, or a sub-carry of its own);
+// without it only the data columns are launched and written, so a split
+// sweep fills one full carry without touching its pads. Every data column
+// sees the same window values and runs the same per-column arithmetic
+// whatever the range, so a split sweep recomposes the whole one bit for bit.
+// In both kernels thread t of the launch takes window column w0 + t, w0 = 0
+// with write_pads and pad without.
+
 template <int KMAX>
 __global__ void __launch_bounds__(FDT_THREADS)
 fused_banded_sweep_kernel(const float* __restrict__ carry_in,
+                          const long long ld_in,
                           float* __restrict__ carry_out,
+                          const long long ld_out,
                           const float* __restrict__ xty_t,
                           const uint8_t* __restrict__ masks,
                           const float* __restrict__ inv_den_t,
+                          const long long ld_data,
                           const float* __restrict__ xtx,
                           const BandOffsets offs, const int n_bands,
-                          const int K, const long long n_ext,
-                          const long long pad, const long long n_solve,
-                          const float lam, const float rho,
-                          float* __restrict__ partials)
+                          const int K, const long long pad,
+                          const long long n_sub, const long long w0,
+                          const long long n_cols, const float lam,
+                          const float rho, float* __restrict__ partials)
 {
     extern __shared__ float smem[];
     float* xtx_s = smem;                                 // K*K
@@ -98,38 +117,42 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
         off_s[i] = offs.v[i];
     __syncthreads();
 
-    const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long j = col - pad;              // data column
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long w = w0 + t;                 // window column
+    const long long j = w - pad;                // data column of the range
     float dmax = 0.f, amax = 0.f;
 
-    if (col < n_ext && (j < 0 || j >= n_solve)) {
-        for (int k = 0; k < K; ++k) carry_out[k * n_ext + col] = 0.f;
-    } else if (col < n_ext) {
+    if (t < n_cols && (j < 0 || j >= n_sub)) {
+        for (int k = 0; k < K; ++k) carry_out[k * ld_out + w] = 0.f;
+    } else if (t < n_cols) {
         uint32_t bits = 0u;
         for (int u = 0; u < n_bands; ++u)
-            if (masks[u * n_solve + j]) bits |= 1u << u;
-        const BandSum ns{carry_in + col, n_ext, bits, off_s, n_bands};
-        gs_pass_spot<KMAX>(carry_in + col, carry_out + col, n_ext,
-                           xty_t + j, inv_den_t + j, n_solve, xtx_s, K, lam,
+            if (masks[u * ld_data + j]) bits |= 1u << u;
+        const BandSum ns{carry_in + w, ld_in, bits, off_s, n_bands};
+        gs_pass_spot<KMAX>(carry_in + w, ld_in, carry_out + w, ld_out,
+                           xty_t + j, inv_den_t + j, ld_data, xtx_s, K, lam,
                            rho, ns, dmax, amax);
     }
     store_block_partials(dmax, amax, partials);
 }
 
-// 64 < K <= 256: a block of 256 threads sweeps FDT_TILE_SPOTS carry
-// columns, lane l of every warp column blockIdx.x * 32 + l.
+// 64 < K <= 256: a block of 256 threads sweeps FDT_TILE_SPOTS window
+// columns, lane l of every warp column w0 + blockIdx.x * 32 + l.
 __global__ void __launch_bounds__(FDT_THREADS)
 fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
+                                const long long ld_in,
                                 float* __restrict__ carry_out,
+                                const long long ld_out,
                                 const float* __restrict__ xty_t,
                                 const uint8_t* __restrict__ masks,
                                 const float* __restrict__ inv_den_t,
+                                const long long ld_data,
                                 const float* __restrict__ xtx,
                                 const BandOffsets offs, const int n_bands,
-                                const int K, const long long n_ext,
-                                const long long pad, const long long n_solve,
-                                const float lam, const float rho,
-                                float* __restrict__ partials)
+                                const int K, const long long pad,
+                                const long long n_sub, const long long w0,
+                                const long long n_cols, const float lam,
+                                const float rho, float* __restrict__ partials)
 {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
@@ -138,64 +161,88 @@ fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
         off_s[i] = offs.v[i];
     __syncthreads();
 
-    const long long col =
+    const long long t =
         (long long)blockIdx.x * FDT_TILE_SPOTS + (threadIdx.x & 31);
-    const long long j = col - pad;  // data column
-    const bool valid = col < n_ext && j >= 0 && j < n_solve;
-    if (col < n_ext && !valid)
+    const long long w = w0 + t;  // window column
+    const long long j = w - pad;  // data column of the range
+    const bool valid = t < n_cols && j >= 0 && j < n_sub;
+    if (t < n_cols && !valid)
         for (int k = threadIdx.x >> 5; k < K; k += FDT_THREADS / 32)
-            carry_out[k * n_ext + col] = 0.f;
+            carry_out[k * ld_out + w] = 0.f;
     uint32_t bits = 0u;
     if (valid)
         for (int u = 0; u < n_bands; ++u)
-            if (masks[u * n_solve + j]) bits |= 1u << u;
-    const long long c = valid ? col : 0, jj = valid ? j : 0;
-    const BandSum ns{carry_in + c, n_ext, bits, off_s, n_bands};
+            if (masks[u * ld_data + j]) bits |= 1u << u;
+    const long long c = valid ? w : 0, jj = valid ? j : 0;
+    const BandSum ns{carry_in + c, ld_in, bits, off_s, n_bands};
     float dmax = 0.f, amax = 0.f;
-    gs_pass_panel(carry_in + c, carry_out + c, n_ext, xty_t + jj,
-                  inv_den_t + jj, n_solve, xtx, K, lam, rho, ns, valid, smem,
+    gs_pass_panel(carry_in + c, ld_in, carry_out + c, ld_out, xty_t + jj,
+                  inv_den_t + jj, ld_data, xtx, K, lam, rho, ns, valid, smem,
                   dmax, amax);
     store_block_partials(dmax, amax, partials);
 }
 
-// CUDA blocks of one sweep over n_ext carry columns at K: each writes one
-// partial of each statistic.
-extern "C" long long fdt_fused_banded_sweep_blocks(long long n_ext, int K)
+// CUDA blocks of one launch over n_cols window columns at K: each writes
+// one partial of each statistic.
+extern "C" long long fdt_fused_banded_sweep_blocks(long long n_cols, int K)
 {
     if (K > FDT_REGISTER_MAX_K)
-        return (n_ext + FDT_TILE_SPOTS - 1) / FDT_TILE_SPOTS;
-    return fdt_blocks(n_ext);
+        return (n_cols + FDT_TILE_SPOTS - 1) / FDT_TILE_SPOTS;
+    return fdt_blocks(n_cols);
 }
+
+#define FDT_SWEEP_ARGS                                                      \
+    carry_in, ld_in, carry_out, ld_out, xty_t, masks, inv_den_t, ld_data,   \
+        xtx, offs, n_bands, K, pad, n_sub, w0, n_cols, lam, rho, partials
 
 template <int KMAX>
-static void launch(const float* carry_in, float* carry_out, const float* xty_t,
-                   const uint8_t* masks, const float* inv_den_t,
+static void launch(const float* carry_in, long long ld_in, float* carry_out,
+                   long long ld_out, const float* xty_t, const uint8_t* masks,
+                   const float* inv_den_t, long long ld_data,
                    const float* xtx, const BandOffsets& offs, int n_bands,
-                   int K, long long n_ext, long long pad, long long n_solve,
-                   float lam, float rho, float* partials, size_t smem,
-                   cudaStream_t stream)
+                   int K, long long pad, long long n_sub, long long w0,
+                   long long n_cols, float lam, float rho, float* partials,
+                   size_t smem, cudaStream_t stream)
 {
-    const unsigned blocks = (unsigned)fdt_blocks(n_ext);
+    const unsigned blocks = (unsigned)fdt_blocks(n_cols);
     fused_banded_sweep_kernel<KMAX><<<blocks, FDT_THREADS, smem, stream>>>(
-        carry_in, carry_out, xty_t, masks, inv_den_t, xtx, offs, n_bands, K,
-        n_ext, pad, n_solve, lam, rho, partials);
+        FDT_SWEEP_ARGS);
 }
 
-// Launches one sweep on `stream`. `partials` holds
-// 2 * fdt_fused_banded_sweep_blocks(n_ext, K) floats. Returns the
+// Launches one sweep of the data columns [data0, data0 + n_sub) on
+// `stream`: the window starts at column in_col0 of carry_in (row length
+// ld_in) and its column w goes to column out_col0 + w of carry_out (row
+// length ld_out); xty_t, masks and inv_den_t have rows of ld_data. With
+// write_pads the window's 2*pad pad columns are written as zeros, without
+// it they are neither launched nor written. `partials` holds
+// 2 * fdt_fused_banded_sweep_blocks(n_cols, K) floats, n_cols = n_sub +
+// 2*pad with write_pads and n_sub without. Refuses (cudaErrorInvalidValue)
+// a window, a data range or a write that leaves its array. Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int fdt_fused_banded_sweep(
-    const float* carry_in, float* carry_out, const float* xty_t,
-    const uint8_t* masks, const float* inv_den_t, const float* xtx,
-    const int* offsets, int n_bands, int K, long long n_ext, long long pad,
-    long long n_solve, float lam, float rho, float* partials, void* stream)
+    const float* carry_in, long long ld_in, long long in_col0,
+    float* carry_out, long long ld_out, long long out_col0,
+    const float* xty_t, const uint8_t* masks, const float* inv_den_t,
+    long long ld_data, long long data0, const float* xtx, const int* offsets,
+    int n_bands, int K, long long pad, long long n_sub, int write_pads,
+    float lam, float rho, float* partials, void* stream)
 {
+    const long long w0 = write_pads ? 0 : pad;
+    const long long n_cols = write_pads ? n_sub + 2 * pad : n_sub;
     if (n_bands < 1 || n_bands > FDT_MAX_BANDS || K < 1 ||
-        K > FDT_PANEL_MAX_K || n_solve < 1 || n_ext != n_solve + 2 * pad)
+        K > FDT_PANEL_MAX_K || n_sub < 1 || pad < 0 || in_col0 < 0 ||
+        in_col0 + n_sub + 2 * pad > ld_in || data0 < 0 ||
+        data0 + n_sub > ld_data || out_col0 < 0 ||
+        out_col0 + w0 + n_cols > ld_out)
         return (int)cudaErrorInvalidValue;
     BandOffsets offs;
     for (int u = 0; u < FDT_MAX_BANDS; ++u)
         offs.v[u] = u < n_bands ? offsets[u] : 0;
+    carry_in += in_col0;
+    carry_out += out_col0;
+    xty_t += data0;
+    masks += data0;
+    inv_den_t += data0;
     cudaStream_t s = (cudaStream_t)stream;
     if (K > FDT_REGISTER_MAX_K) {
         const size_t smem = fdt_panel_smem_floats(K) * sizeof(float)
@@ -205,10 +252,9 @@ extern "C" int fdt_fused_banded_sweep(
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         const unsigned blocks =
-            (unsigned)fdt_fused_banded_sweep_blocks(n_ext, K);
+            (unsigned)fdt_fused_banded_sweep_blocks(n_cols, K);
         fused_banded_sweep_panel_kernel<<<blocks, FDT_THREADS, smem, s>>>(
-            carry_in, carry_out, xty_t, masks, inv_den_t, xtx, offs, n_bands,
-            K, n_ext, pad, n_solve, lam, rho, partials);
+            FDT_SWEEP_ARGS);
         return (int)cudaGetLastError();
     }
     // XtX is 16 KB at K = 64, under the 48 KB a block gets without
@@ -216,20 +262,12 @@ extern "C" int fdt_fused_banded_sweep(
     const size_t smem = (size_t)K * K * sizeof(float)
                         + FDT_MAX_BANDS * sizeof(int);
     if (K <= 8)
-        launch<8>(carry_in, carry_out, xty_t, masks, inv_den_t, xtx, offs,
-                  n_bands, K, n_ext, pad, n_solve, lam, rho, partials,
-                  smem, s);
+        launch<8>(FDT_SWEEP_ARGS, smem, s);
     else if (K <= 16)
-        launch<16>(carry_in, carry_out, xty_t, masks, inv_den_t, xtx, offs,
-                   n_bands, K, n_ext, pad, n_solve, lam, rho, partials,
-                   smem, s);
+        launch<16>(FDT_SWEEP_ARGS, smem, s);
     else if (K <= 32)
-        launch<32>(carry_in, carry_out, xty_t, masks, inv_den_t, xtx, offs,
-                   n_bands, K, n_ext, pad, n_solve, lam, rho, partials,
-                   smem, s);
+        launch<32>(FDT_SWEEP_ARGS, smem, s);
     else
-        launch<64>(carry_in, carry_out, xty_t, masks, inv_den_t, xtx, offs,
-                   n_bands, K, n_ext, pad, n_solve, lam, rho, partials,
-                   smem, s);
+        launch<64>(FDT_SWEEP_ARGS, smem, s);
     return (int)cudaGetLastError();
 }

@@ -41,7 +41,8 @@ __device__ __forceinline__ float nan_max(float a, float b)
 }
 
 // The pass for the spot of the calling thread. beta_in / beta_out point at
-// the spot's column of a (K, ld_beta) array; xty and inv_den at its column
+// the spot's column of a (K, ld_in) / (K, ld_out) array (the two differ in
+// the fused kernel's sub-range form); xty and inv_den at its column
 // of (K, ld) arrays; xtx_s is XtX (K, K) in shared memory. ns(k) gives the
 // neighbour sum of coordinate k (the kernel's functor: band sums from the
 // carry in the fused kernel, a load in the unfused one). beta_old and the
@@ -50,8 +51,9 @@ __device__ __forceinline__ float nan_max(float a, float b)
 // |beta_new - beta_old| and |beta_old| into dmax and amax.
 template <int KMAX, class NeighbourSum>
 __device__ __forceinline__ void gs_pass_spot(
-    const float* __restrict__ beta_in, float* __restrict__ beta_out,
-    const long long ld_beta, const float* __restrict__ xty,
+    const float* __restrict__ beta_in, const long long ld_in,
+    float* __restrict__ beta_out, const long long ld_out,
+    const float* __restrict__ xty,
     const float* __restrict__ inv_den, const long long ld,
     const float* __restrict__ xtx_s, const int K, const float lam,
     const float rho, const NeighbourSum& ns, float& dmax, float& amax)
@@ -60,7 +62,7 @@ __device__ __forceinline__ void gs_pass_spot(
     float r[KMAX];
 #pragma unroll
     for (int k = 0; k < KMAX; ++k)
-        if (k < K) b[k] = beta_in[k * ld_beta];
+        if (k < K) b[k] = beta_in[k * ld_in];
 
     // Prologue: r_k = C_k, in the association of the plain version.
 #pragma unroll
@@ -87,7 +89,7 @@ __device__ __forceinline__ void gs_pass_spot(
             for (int i = k + 1; i < KMAX; ++i)
                 if (i < K) r[i] = __fmaf_rn(-xtx_s[i * K + k], delta, r[i]);
             const float nb = __fadd_rn(delta, b[k]);
-            beta_out[k * ld_beta] = nb;
+            beta_out[k * ld_out] = nb;
             dmax = nan_max(dmax, fabsf(__fsub_rn(nb, b[k])));
             amax = nan_max(amax, fabsf(b[k]));
         }

@@ -94,7 +94,8 @@ __device__ __forceinline__ float panel_numerator(
 // The pass for the 32 spots of the calling block; every thread of the
 // block calls it (it synchronises the block). Lane l of every warp stands
 // for one spot: beta_in / beta_out point at that spot's column of a (K,
-// ld_beta) array, xty / inv_den at its column of (K, ld) arrays, and ns(k)
+// ld_in) / (K, ld_out) array, xty / inv_den at its column of (K, ld)
+// arrays, and ns(k)
 // gives its neighbour sum of coordinate k. A lane whose `valid` is false
 // has no spot: it reads and writes nothing. xtx is XtX (K, K) in device
 // memory; smem holds fdt_panel_smem_floats(K) floats, 16-byte aligned.
@@ -102,8 +103,9 @@ __device__ __forceinline__ float panel_numerator(
 // and amax.
 template <class NeighbourSum>
 __device__ __forceinline__ void gs_pass_panel(
-    const float* __restrict__ beta_in, float* __restrict__ beta_out,
-    const long long ld_beta, const float* __restrict__ xty,
+    const float* __restrict__ beta_in, const long long ld_in,
+    float* __restrict__ beta_out, const long long ld_out,
+    const float* __restrict__ xty,
     const float* __restrict__ inv_den, const long long ld,
     const float* __restrict__ xtx, const int K, const float lam,
     const float rho, const NeighbourSum& ns, const bool valid,
@@ -122,7 +124,7 @@ __device__ __forceinline__ void gs_pass_panel(
 
     // Padding rows stay zero: the prologue's products run to k4.
     for (int k = warp; k < kp; k += WARPS)
-        bs[k * S + lane] = (valid && k < K) ? beta_in[k * ld_beta] : 0.f;
+        bs[k * S + lane] = (valid && k < K) ? beta_in[k * ld_in] : 0.f;
 
     const int q0 = 2 * warp, q1 = q0 + 1;  // this warp's rows of a panel
     for (int a = 0; a < K; a += FDT_PANEL) {
@@ -196,7 +198,7 @@ __device__ __forceinline__ void gs_pass_panel(
                     ds[k * S + lane] = delta;
                     if (valid) {
                         const float nb = __fadd_rn(delta, b);
-                        beta_out[k * ld_beta] = nb;
+                        beta_out[k * ld_out] = nb;
                         dmax = nan_max(dmax, fabsf(__fsub_rn(nb, b)));
                         amax = nan_max(amax, fabsf(b));
                     }

@@ -1,0 +1,500 @@
+"""Spot-sharded BCD solve over a mesh of torch devices: the halo plan.
+
+Counterpart of :mod:`flashdeconv_tpu.parallel.solver`, in one process. The
+spots are cut into contiguous shards of a Morton order
+(:func:`flashdeconv_tpu_torch.parallel.partition.plan_shards`); each sweep
+pools every shard's boundary rows (the JAX ``all_gather``,
+:func:`_halo_exchange`), forms each shard's neighbour sums over ``[local |
+pool | zero]`` in plain PyTorch and launches the coordinate-descent kernel
+(``ops/bcd.coordinate_descent_block``, kernel #2) on the shard; the
+convergence statistics are the max over shards (the JAX ``pmax``). The
+halo plan takes any graph; a wholly banded one goes to the banded mesh of
+:mod:`flashdeconv_tpu_torch.parallel.gspmd` when the strategy allows.
+
+The iterate is the single-device gather tier's up to the order of the
+neighbour slots (the Morton remap reorders them), so the two agree to f32
+rounding with the same sweeps.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from scipy import sparse
+
+from flashdeconv_tpu_torch.core.solver import (
+    _not_ported,
+    precompute_gram_matrix,
+    resolve_device,
+    sanitize_yty,
+)
+from flashdeconv_tpu_torch.ops.bcd import (
+    KERNEL_MAX_K,
+    coordinate_descent_block,
+    f32,
+    full_f32_matmul,
+    gs_inv_den,
+    neighbor_sum,
+    objective_from_sums,
+    objective_sums,
+    with_sentinel,
+)
+from flashdeconv_tpu_torch.parallel._runner import (
+    Mesh,
+    as_mesh,
+    converge,
+    device_unpermute,
+    info_dict,
+    run_prepared_solve,
+    sanitize_xty_rows,
+    uniform_result,
+    validate_beta_init,
+)
+from flashdeconv_tpu_torch.parallel.partition import (
+    ShardPlan,
+    halo_fraction,
+    plan_shards,
+)
+
+# Minimum problem size for the auto-strategy scrambled-grid re-sort attempt
+# (the single-device re-sort's gate): below it, the O(nnz) double
+# permutation and second banded split cost more than the banded path saves.
+RESORT_MIN_SPOTS = 8192
+
+
+def default_mesh(n_shards: Optional[int] = None, device="cuda") -> Mesh:
+    """A mesh over the first ``n_shards`` visible cards (all by default)
+    with ``device`` "cuda"; with ``device`` "cpu", ``n_shards`` (default 1)
+    shards on the CPU. Raises past the visible cards, and for "cuda"
+    without a card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [dev] * (1 if n_shards is None else max(int(n_shards), 1))
+    if n_shards is None:
+        n_shards = len(devices)
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if n_shards > len(devices):
+        raise ValueError(
+            f"Requested {n_shards} shards but only {len(devices)} devices "
+            f"are visible."
+        )
+    return Mesh(devices[:n_shards])
+
+
+def _halo_exchange(mesh: Mesh, betas, sends) -> dict:
+    """Every shard's boundary rows, pooled: ``{device: (K, n_shards *
+    halo_width)}``, one pool per distinct device of the mesh (the JAX
+    ``all_gather``). ``betas``: each shard's (K, shard_size) beta;
+    ``sends``: its (halo_width,) local rows, padding == shard_size (the
+    zero sentinel column). Returns after a join: the pools are on the main
+    device's stream."""
+    mesh.fork()
+    parts = []
+    for s, (beta, idx) in enumerate(zip(betas, sends)):
+        with mesh.on(s):
+            parts.append(torch.index_select(with_sentinel(beta), 1, idx))
+    parts = mesh.gather(parts)
+    pool = torch.cat(parts, dim=1)
+    return {dev: pool.to(dev) for dev in set(mesh.devices)}
+
+
+def _shard_ns(beta, pool, nbr):
+    """Neighbour sums of one shard over ``[local | pool | zero]``."""
+    zero = beta.new_zeros((beta.shape[0], 1))
+    return neighbor_sum(torch.cat([beta, pool, zero], dim=1), nbr)
+
+
+def _sharded_sweep(mesh: Mesh, betas, spares, ops, lam, rho):
+    """One sweep of every shard: halo exchange, neighbour sums, kernel #2
+    into ``spares``, the spot mask (padding columns of the last shard stay
+    zero), and the max over shards of the statistics."""
+    pools = _halo_exchange(mesh, betas, ops["send"])
+    mesh.fork()
+    stats = []
+    for s, beta in enumerate(betas):
+        with mesh.on(s):
+            ns = _shard_ns(beta, pools[mesh[s]], ops["nbr"][s])
+            out, d, a = coordinate_descent_block(
+                beta, ops["Xty_t"][s], ops["XtX"][s], ns, ops["inv_den"][s],
+                lam, rho, out=spares[s])
+            n_valid = ops["n_valid"][s]
+            if n_valid < out.shape[1]:
+                # Padding columns: zero Xty, degree and beta give a zero
+                # update, so neither they nor the statistics change here.
+                out[:, n_valid:] = 0.0
+            stats += [d, a]
+    return mesh.join_max(stats)
+
+
+def _sharded_objective(mesh: Mesh, betas, ops, YtY, lam, rho):
+    """The objective: each shard's sums over its own columns (its
+    neighbour sums after a halo exchange), added on the main device."""
+    pools = _halo_exchange(mesh, betas, ops["send"])
+    mesh.fork()
+    sums, btbs = [], []
+    for s, beta in enumerate(betas):
+        with mesh.on(s):
+            ns = _shard_ns(beta, pools[mesh[s]], ops["nbr"][s])
+            sm, btb = objective_sums(beta, ops["Xty_t"][s], ns,
+                                     ops["nnb"][s])
+            sums.append(sm)
+            btbs.append(btb)
+    sums, btbs = mesh.gather(sums), mesh.gather(btbs)
+    return objective_from_sums(torch.stack(sums).sum(0),
+                               torch.stack(btbs).sum(0), ops["XtX"][0], YtY,
+                               lam, rho)
+
+
+def _check_solvable(dtype, n_types: int) -> None:
+    if np.dtype(dtype) != np.float32:
+        raise _not_ported(f"dtype={np.dtype(dtype).name}", "f64 on the GPU")
+    if n_types > KERNEL_MAX_K:
+        raise _not_ported(f"K = {n_types} > {KERNEL_MAX_K}", "K > 256")
+
+
+def sharded_bcd_solve(
+    Y_sketch: np.ndarray,
+    X_sketch: np.ndarray,
+    A: sparse.spmatrix,
+    lambda_: float = 0.1,
+    rho: float = 0.01,
+    max_iter: int = 100,
+    tol: float = 1e-4,
+    coords: Optional[np.ndarray] = None,
+    mesh=None,
+    n_shards: Optional[int] = None,
+    plan: Optional[ShardPlan] = None,
+    order: str = "morton",
+    verbose: bool = False,
+    dtype=np.float32,
+    beta_init: Optional[np.ndarray] = None,
+    strategy: str = "auto",
+    device="cuda",
+) -> Tuple[np.ndarray, dict]:
+    """Spot-sharded BCD solve; drop-in for ``core.solver.bcd_solve``.
+
+    Strategies, as in the JAX package: ``"halo"`` (the explicit plan, any
+    graph), ``"banded"`` (the banded mesh, wholly banded graphs only,
+    :mod:`flashdeconv_tpu_torch.parallel.gspmd`) and ``"auto"`` (banded
+    when the graph is wholly banded, after the scrambled-grid re-sort when
+    that makes it so, else halo). ``mesh`` is a :class:`Mesh` or a
+    sequence of torch devices; without it, :func:`default_mesh` of
+    ``n_shards`` on ``device``. Returns beta (n_spots, K) float64 in the
+    original spot order and the ``info`` contract with ``n_shards`` and
+    ``halo_width``.
+    """
+    n_spots = Y_sketch.shape[0]
+    n_types = X_sketch.shape[0]
+    _check_strategy(strategy, plan)
+    if n_spots == 0 or n_types == 0 or max_iter == 0:
+        mesh = as_mesh(mesh) if mesh is not None else default_mesh(
+            n_shards, device)
+        return uniform_result(n_spots, n_types, n_shards=len(mesh),
+                              halo_width=0)
+    problem = prepare_sharded_bcd(
+        Y_sketch, X_sketch, A, coords=coords, mesh=mesh, n_shards=n_shards,
+        plan=plan, order=order, dtype=dtype, strategy=strategy,
+        verbose=verbose, device=device,
+    )
+    return problem.solve(
+        lambda_=lambda_, rho=rho, max_iter=max_iter, tol=tol,
+        verbose=verbose, beta_init=beta_init,
+    )
+
+
+class HaloShardedProblem:
+    """A prepared halo-plan problem: the shard plan, the host precompute
+    (XtX, YtY, Xty) and each shard's operands on its device, built once;
+    :meth:`solve` runs only the sweeps. Parameters as the JAX
+    ``HaloShardedProblem`` (``mesh`` a :class:`Mesh` or a sequence of
+    devices), plus ``device`` for the default mesh. The plan is built
+    with ``pad_shard_to=1``: kernel #2 takes any shard width."""
+
+    def __init__(
+        self,
+        Y_sketch: Optional[np.ndarray],
+        X_sketch: np.ndarray,
+        A: sparse.spmatrix,
+        coords: Optional[np.ndarray] = None,
+        mesh=None,
+        n_shards: Optional[int] = None,
+        plan: Optional[ShardPlan] = None,
+        order: str = "morton",
+        dtype=np.float32,
+        verbose: bool = False,
+        xty: Optional[np.ndarray] = None,
+        yty: Optional[float] = None,
+        device="cuda",
+    ):
+        n_types = int(X_sketch.shape[0])
+        Xty_np, self.n_nonfinite_spots = _prepared_xty(Y_sketch, X_sketch, A,
+                                                       xty, yty)
+        self.n_spots, self.n_types = Xty_np.shape[0], n_types
+        _check_solvable(dtype, n_types)
+        self.mesh = mesh = (as_mesh(mesh) if mesh is not None
+                            else default_mesh(n_shards, device))
+        self.n_shards = P = len(mesh)
+        if plan is None:
+            plan = plan_shards(A, P, coords=coords, order=order,
+                               pad_shard_to=1)
+        if plan.n_shards != P:
+            raise ValueError(f"the plan has {plan.n_shards} shards, the mesh "
+                             f"{P} devices")
+        self.plan = plan
+        if verbose:
+            print(
+                f"Sharded solve: {P} shards x {plan.shard_size} spots, halo "
+                f"width {plan.halo_width} "
+                f"({100 * halo_fraction(plan):.2f}% of rows exchanged/sweep)"
+            )
+        XtX64 = precompute_gram_matrix(np.asarray(X_sketch, np.float64))
+        self.YtY = sanitize_yty(yty, Y_sketch)
+        self.rho_scale = float(np.mean(np.diag(XtX64)))
+
+        S, hw = plan.shard_size, plan.halo_width
+        Xty = plan.scatter(Xty_np)
+        XtX = {dev: torch.tensor(XtX64, dtype=torch.float32, device=dev)
+               for dev in set(mesh.devices)}
+
+        def cols(arr, s, dtype):
+            """Shard s's rows of a padded (n_pad, ...) array, transposed to
+            (..., S), on its device."""
+            part = np.ascontiguousarray(np.asarray(arr[s * S:(s + 1) * S]).T)
+            return torch.from_numpy(part).to(mesh[s], dtype)
+
+        self._ops = {
+            "Xty_t": [cols(Xty, s, torch.float32) for s in range(P)],
+            "nbr": [cols(plan.nbr_idx, s, torch.int64) for s in range(P)],
+            "nnb": [cols(plan.n_nbrs, s, torch.float32) for s in range(P)],
+            "send": [torch.from_numpy(plan.send_idx[s * hw:(s + 1) * hw]
+                                      .astype(np.int64)).to(mesh[s])
+                     for s in range(P)],
+            "XtX": [XtX[mesh[s]] for s in range(P)],
+            "n_valid": [int(plan.spot_mask[s * S:(s + 1) * S].sum())
+                        for s in range(P)],
+        }
+
+    def _beta0(self, beta_init) -> List[torch.Tensor]:
+        """Each shard's initial beta (K, shard_size): ``beta_init`` clipped
+        at 0 in plan order (copied from the host), or uniform 1/K on the
+        spots (made on the device); padding zero."""
+        plan, K, S = self.plan, self.n_types, self.plan.shard_size
+        if beta_init is None:
+            out = []
+            for s, n_valid in enumerate(self._ops["n_valid"]):
+                b = torch.zeros((K, S), device=self.mesh[s])
+                b[:, :n_valid] = 1.0 / K
+                out.append(b)
+            return out
+        b0 = plan.scatter(np.maximum(beta_init, 0.0).astype(np.float32))
+        return [torch.from_numpy(np.ascontiguousarray(b0[s * S:(s + 1) * S].T))
+                .to(self.mesh[s]) for s in range(self.n_shards)]
+
+    def solve(
+        self,
+        lambda_: float = 0.1,
+        rho: float = 0.01,
+        max_iter: int = 100,
+        tol: float = 1e-4,
+        verbose: bool = False,
+        beta_init: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, dict]:
+        """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``."""
+        n_spots, n_types, plan = self.n_spots, self.n_types, self.plan
+        extra = dict(n_shards=self.n_shards, halo_width=plan.halo_width)
+        if max_iter == 0:
+            return uniform_result(n_spots, n_types, converged=False, **extra)
+        validate_beta_init(beta_init, n_spots, n_types)
+        lam, rho_eff = f32(lambda_), f32(rho * self.rho_scale)
+        ops = dict(self._ops)
+        ops["inv_den"] = [gs_inv_den(xtx, nnb, lam) for xtx, nnb in
+                          zip(ops["XtX"], ops["nnb"])]
+        state = [self._beta0(beta_init)]
+        state.append([torch.empty_like(b) for b in state[0]])
+
+        def sweep():
+            d, a = _sharded_sweep(self.mesh, state[0], state[1], ops, lam,
+                                  rho_eff)
+            state.reverse()
+            return d, a
+
+        with full_f32_matmul():
+            n_iter, rel, final_obj, converged, objectives = (
+                run_prepared_solve(
+                    lambda n: converge(sweep, tol, n),
+                    lambda: _sharded_objective(self.mesh, state[0], ops,
+                                               self.YtY, lam, rho_eff),
+                    max_iter, tol, verbose))
+            beta_pad = torch.cat(self.mesh.gather(state[0]), dim=1).T
+            beta_d = device_unpermute(self, beta_pad[:n_spots], plan.perm,
+                                      n_spots)
+        beta = beta_d.to("cpu", torch.float64).numpy()
+        return beta, info_dict(n_iter, rel, final_obj, converged, objectives,
+                               **extra)
+
+
+def _prepared_xty(Y_sketch, X_sketch, A, xty, yty):
+    """The f32 (N, K) Xty of a sharded problem, non-finite rows zeroed,
+    and their count; validates the sketch / precomputed-reduction inputs
+    as the JAX constructors do."""
+    if Y_sketch is None and (xty is None or yty is None):
+        raise ValueError(
+            "Y_sketch=None requires both xty and yty precomputed."
+        )
+    n_types = int(X_sketch.shape[0])
+    if xty is not None and np.shape(xty) != (A.shape[0], n_types):
+        raise ValueError(
+            f"xty shape {np.shape(xty)} does not match the adjacency / "
+            f"signature dimensions ({A.shape[0]}, {n_types})"
+        )
+    return sanitize_xty_rows(xty if xty is not None
+                             else Y_sketch @ X_sketch.T)
+
+
+class ShardedBCDProblem:
+    """Strategy-dispatched prepared sharded problem: a
+    :class:`~flashdeconv_tpu_torch.parallel.gspmd.GspmdBandedProblem` or a
+    :class:`HaloShardedProblem`, plus the scrambled-grid re-sort
+    permutation applied at prepare time — beta enters and leaves
+    :meth:`solve` in the original spot order. Built by
+    :func:`prepare_sharded_bcd`."""
+
+    def __init__(self, inner, perm: Optional[np.ndarray] = None):
+        self._inner = inner
+        self._perm = perm
+
+    @property
+    def strategy(self) -> str:
+        from flashdeconv_tpu_torch.parallel.gspmd import GspmdBandedProblem
+
+        return ("banded" if isinstance(self._inner, GspmdBandedProblem)
+                else "halo")
+
+    @property
+    def n_spots(self) -> int:
+        return self._inner.n_spots
+
+    @property
+    def n_types(self) -> int:
+        return self._inner.n_types
+
+    def solve(
+        self,
+        lambda_: float = 0.1,
+        rho: float = 0.01,
+        max_iter: int = 100,
+        tol: float = 1e-4,
+        verbose: bool = False,
+        beta_init: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, dict]:
+        perm = self._perm
+        validate_beta_init(beta_init, self.n_spots, self.n_types)
+        if beta_init is not None and perm is not None:
+            beta_init = beta_init[perm]
+        beta, info = self._inner.solve(
+            lambda_=lambda_, rho=rho, max_iter=max_iter, tol=tol,
+            verbose=verbose, beta_init=beta_init,
+        )
+        if perm is not None:
+            out = np.empty_like(beta)
+            out[perm] = beta
+            beta = out
+        return beta, info
+
+
+def _check_strategy(strategy: str, plan) -> None:
+    if strategy not in ("auto", "halo", "banded"):
+        raise ValueError(f"Unknown strategy: {strategy!r}")
+    if strategy == "banded" and plan is not None:
+        raise ValueError(
+            "strategy='banded' does not use a ShardPlan; pass plan only "
+            "with strategy='halo' (or 'auto', which skips the banded path "
+            "when a plan is given)."
+        )
+
+
+def prepare_sharded_bcd(
+    Y_sketch: Optional[np.ndarray],
+    X_sketch: np.ndarray,
+    A: sparse.spmatrix,
+    coords: Optional[np.ndarray] = None,
+    mesh=None,
+    n_shards: Optional[int] = None,
+    plan: Optional[ShardPlan] = None,
+    order: str = "morton",
+    dtype=np.float32,
+    strategy: str = "auto",
+    verbose: bool = False,
+    xty: Optional[np.ndarray] = None,
+    yty: Optional[float] = None,
+    device="cuda",
+) -> ShardedBCDProblem:
+    """Build a :class:`ShardedBCDProblem`: strategy dispatch, graph
+    analysis or partition, host precompute and the copy of every shard's
+    operands — once. Strategy resolution as :func:`sharded_bcd_solve`:
+    ``"banded"`` when the adjacency is wholly banded within 32 offsets
+    (for ``"auto"`` with coords at >= ``RESORT_MIN_SPOTS`` spots, also
+    after the scrambled-grid re-sort), else the ``"halo"`` plan."""
+    _check_strategy(strategy, plan)
+    if Y_sketch is None and (xty is None or yty is None):
+        raise ValueError(
+            "Y_sketch=None requires both xty and yty precomputed "
+            "(the sharded solvers consume the sketch only through these "
+            "two reductions)."
+        )
+    n_spots = int(Y_sketch.shape[0] if Y_sketch is not None
+                  else np.shape(xty)[0])
+    n_types = int(X_sketch.shape[0])
+    if n_spots == 0 or n_types == 0:
+        raise ValueError(
+            "prepare_sharded_bcd requires a non-empty problem "
+            f"(got {n_spots} spots x {n_types} cell types)."
+        )
+    if mesh is None:
+        mesh = default_mesh(n_shards, device)
+
+    if strategy in ("auto", "banded") and plan is None:
+        from flashdeconv_tpu_torch.parallel.gspmd import GspmdBandedProblem
+        from flashdeconv_tpu_torch.utils.graph import banded_split
+
+        # min_coverage=1.0: the (U, N) masks are made only when the graph
+        # really is wholly banded.
+        split = banded_split(A, max_offsets=32, min_coverage=1.0)
+        fully_banded = A.nnz == 0 or (split[0].size > 0
+                                      and split[2].nnz == 0)
+        if (not fully_banded and coords is not None and strategy == "auto"
+                and n_spots >= RESORT_MIN_SPOTS):
+            # Scrambled-grid re-sort: a shuffled grid or hex lattice is
+            # wholly banded in row-major (y, x) order.
+            c = np.asarray(coords)
+            if c.ndim == 2 and c.shape[1] >= 2:
+                cand = np.lexsort((c[:, 0], c[:, 1]))
+                A_cand = A.tocsr()[cand][:, cand]
+                split_c = banded_split(A_cand, max_offsets=32,
+                                       min_coverage=1.0)
+                if split_c[0].size > 0 and split_c[2].nnz == 0:
+                    inner = GspmdBandedProblem(
+                        Y_sketch[cand] if Y_sketch is not None else None,
+                        X_sketch, A_cand, mesh=mesh, dtype=dtype,
+                        verbose=verbose, _split=split_c,
+                        xty=xty[cand] if xty is not None else None, yty=yty,
+                    )
+                    return ShardedBCDProblem(inner, perm=cand)
+        if strategy == "banded" or fully_banded:
+            inner = GspmdBandedProblem(
+                Y_sketch, X_sketch, A, mesh=mesh, dtype=dtype,
+                verbose=verbose, _split=split, xty=xty, yty=yty,
+            )
+            return ShardedBCDProblem(inner)
+
+    inner = HaloShardedProblem(
+        Y_sketch, X_sketch, A, coords=coords, mesh=mesh, plan=plan,
+        order=order, dtype=dtype, verbose=verbose, xty=xty, yty=yty,
+    )
+    return ShardedBCDProblem(inner)

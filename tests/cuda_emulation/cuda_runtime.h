@@ -2,14 +2,22 @@
 // their sources compile with g++ and run on the CPU: one std::thread per
 // CUDA thread, a std::barrier for __syncthreads, round-to-nearest float
 // operations for the __f*_rn intrinsics (compile with -ffp-contract=off).
-// The CUDA blocks of a launch run one after another (emulate.cpp), so a
-// block's shared memory is one static buffer.
+// A launch `kernel<<<blocks, FDT_THREADS, smem, stream>>>(args)` becomes
+// fdt_emu_launch(blocks, [&] { kernel(args); }) in the host copy of a
+// source: its CUDA blocks run one after another, so a block's shared
+// memory is one static buffer.
 #pragma once
 
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <thread>
+#include <vector>
+
+// The sources' own block size, which the launch emulation needs before
+// gs_pass.cuh defines it (again, with the same value).
+#define FDT_THREADS 256
 
 #define __global__
 #define __device__
@@ -59,4 +67,25 @@ inline float __shfl_xor_sync(unsigned, float v, int offset)
     const float r = fdt_emu_lanes[threadIdx.x ^ offset];
     fdt_emu_barrier->arrive_and_wait();
     return r;
+}
+
+// Runs `body` as `blocks` CUDA blocks of FDT_THREADS threads, one block
+// after another.
+template <class Body>
+inline void fdt_emu_launch(unsigned blocks, Body body)
+{
+    std::barrier<> bar(FDT_THREADS);
+    fdt_emu_barrier = &bar;
+    blockDim = {FDT_THREADS, 1, 1};
+    gridDim = {blocks, 1, 1};
+    for (unsigned b = 0; b < blocks; ++b) {
+        blockIdx = {b, 0, 0};
+        std::vector<std::thread> threads;
+        for (unsigned t = 0; t < FDT_THREADS; ++t)
+            threads.emplace_back([&body, t] {
+                threadIdx = {t, 0, 0};
+                body();
+            });
+        for (auto& th : threads) th.join();
+    }
 }

@@ -19,6 +19,8 @@ import flashdeconv_tpu.core.sketching as j_sketching
 import flashdeconv_tpu.core.solver as j_solver
 import flashdeconv_tpu.core.spatial as j_spatial
 import flashdeconv_tpu.native as j_native
+import flashdeconv_tpu.parallel.ordering as j_ordering
+import flashdeconv_tpu.parallel.partition as j_partition
 import flashdeconv_tpu.utils.genes as j_genes
 import flashdeconv_tpu.utils.graph as j_graph
 import flashdeconv_tpu.utils.metrics as j_metrics
@@ -29,6 +31,8 @@ import flashdeconv_tpu_torch.core.sketching as t_sketching
 import flashdeconv_tpu_torch.core.solver as t_solver
 import flashdeconv_tpu_torch.core.spatial as t_spatial
 import flashdeconv_tpu_torch.native as t_native
+import flashdeconv_tpu_torch.parallel.ordering as t_ordering
+import flashdeconv_tpu_torch.parallel.partition as t_partition
 import flashdeconv_tpu_torch.utils.genes as t_genes
 import flashdeconv_tpu_torch.utils.graph as t_graph
 import flashdeconv_tpu_torch.utils.metrics as t_metrics
@@ -40,11 +44,13 @@ JAX_PKG = SimpleNamespace(
     preprocess=j_preprocess, sketching=j_sketching, solver=j_solver,
     spatial=j_spatial, native=j_native, genes=j_genes, graph=j_graph,
     metrics=j_metrics, random=j_random, timing=j_timing,
+    ordering=j_ordering, partition=j_partition,
 )
 PORT = SimpleNamespace(
     preprocess=t_preprocess, sketching=t_sketching, solver=t_solver,
     spatial=t_spatial, native=t_native, genes=t_genes, graph=t_graph,
     metrics=t_metrics, random=t_random, timing=t_timing,
+    ordering=t_ordering, partition=t_partition,
 )
 
 Y_CSR, X_SIG, COORDS, TRUTH = make_synthetic(
@@ -167,6 +173,21 @@ CASES = {
     "metrics_report": lambda m: m.metrics.evaluate_deconvolution(
         m.solver.normalize_proportions(BETA),
         m.solver.normalize_proportions(BETA[::-1])),
+    "ordering_morton_codes": lambda m: m.ordering.morton_codes(IRREGULAR),
+    "ordering_morton_3d": lambda m: m.ordering.morton_order(
+        np.random.RandomState(8).rand(200, 3)),
+    "ordering_spot_order": lambda m: (
+        m.ordering.spot_order(GRID[SCRAMBLE], "morton"),
+        m.ordering.spot_order(GRID[SCRAMBLE], "none")),
+    "partition_plan_grid": lambda m: m.partition.plan_shards(
+        m.graph.build_knn_graph(GRID[SCRAMBLE], k=6), 4,
+        coords=GRID[SCRAMBLE]),
+    "partition_plan_padded": lambda m: m.partition.plan_shards(
+        m.graph.build_knn_graph(IRREGULAR, k=6), 3, coords=IRREGULAR,
+        pad_deg_to=8, pad_shard_to=2048),
+    "partition_halo_fraction": lambda m: m.partition.halo_fraction(
+        m.partition.plan_shards(m.graph.build_knn_graph(IRREGULAR, k=6), 8,
+                                coords=IRREGULAR)),
     "random_state": lambda m: m.random.check_random_state(11).rand(5),
     "timing_stage_timer": _timer,
 }

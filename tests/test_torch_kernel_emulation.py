@@ -7,16 +7,21 @@ There is no CUDA compiler or card on a CPU machine, so
 g++ against host stand-ins for the CUDA names: one std::thread per CUDA
 thread, a barrier for ``__syncthreads``, blocks one after another. The
 copy differs from the source only where a host compiler must: dynamic
-shared memory points at a static buffer, the ``<<<...>>>`` launches are
-dropped (the emulator launches), and the PTX ``max.NaN.f32`` becomes a
-NaN-propagating ``fmax``. That runs the kernels' own indexing, tiling,
+shared memory points at a static buffer, each ``<<<...>>>`` launch becomes
+a call of the emulator's block loop, and the PTX ``max.NaN.f32`` becomes a
+NaN-propagating ``fmax``. The library exports the sources' own C entry
+points, driven by the wrappers' own launch code
+(``ops/bcd.fused_sweep_launch`` / ``cd_sweep_launch``), so this runs the
+C entries' range checks and dispatch and the kernels' indexing, tiling,
 synchronisation and arithmetic — the register pass at K <= 64 and the
-panel pass above — at small sizes. Bounds as on the card
-(tests/test_torch_kernels.py): atol 5e-5 / rtol 1e-4 against the plain
-versions, rtol 1e-4 on the statistics, fused == unfused banded bitwise.
+panel pass above, the whole sweep and its sub-range form — at small
+sizes. Bounds as on the card (tests/test_torch_kernels.py): atol 5e-5 /
+rtol 1e-4 against the plain versions, rtol 1e-4 on the statistics, fused
+== unfused banded bitwise, a split sweep == the whole sweep bitwise.
 """
 
 import ctypes
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from flashdeconv_tpu_torch.ops import _build
 from flashdeconv_tpu_torch.ops import bcd as tbcd
 from torch_problems import fused_problem, gather_problem
 
@@ -47,7 +53,9 @@ HOST_EDITS = {
         ("extern __shared__ float4 smem4[];", "float4* smem4 = fdt_emu_smem;"),
     ],
 }
-LAUNCH = "<<<blocks, FDT_THREADS, smem, "
+# kernel<<<blocks, FDT_THREADS, smem, stream>>>(args); -> the block loop.
+LAUNCH = re.compile(
+    r"([\w<>]+)<<<blocks, FDT_THREADS, smem, \w+>>>\((.*?)\);", re.S)
 
 
 def _host_copy(src: Path, dst: Path) -> None:
@@ -56,10 +64,10 @@ def _host_copy(src: Path, dst: Path) -> None:
         assert old in text, f"{src.name} no longer has {old!r}"
         text = text.replace(old, new)
     if src.suffix == ".cu":
-        n = text.count(LAUNCH)
+        text, n = LAUNCH.subn(
+            r"fdt_emu_launch(blocks, [&] { \1(\2); });", text)
         assert n >= 2, f"{src.name}: expected its launches"
-        head, *rest = text.split(LAUNCH)
-        text = head + "".join(r.split(">>>", 1)[1] for r in rest)
+        assert "<<<" not in text, f"{src.name}: a launch was not emulated"
     dst.write_text(text)
 
 
@@ -74,7 +82,8 @@ def emulator(tmp_path_factory):
         _host_copy(CSRC / name, out / name)
     shutil.copy(EMULATION / "cuda_runtime.h", out)
     libs = {}
-    for name, flag in (("fused", "-DFUSED"), ("cd", "-UFUSED")):
+    for name, flag, kernel in (("fused", "-DFUSED", "fused_banded_sweep"),
+                               ("cd", "-UFUSED", "cd_block_sweep")):
         so = out / f"emu_{name}.so"
         subprocess.run(
             [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
@@ -83,55 +92,33 @@ def emulator(tmp_path_factory):
             check=True, capture_output=True, text=True,
         )
         libs[name] = ctypes.CDLL(str(so))
-    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_float)
-    libs["fused"].emu_fused_banded_sweep.argtypes = [
-        p, p, p, p, p, p, p, i, i, ll, ll, ll, f, f, p]
-    libs["fused"].emu_fused_banded_sweep.restype = ll
-    libs["cd"].emu_cd_block_sweep.argtypes = [p, p, p, p, p, p, i, ll, f, f,
-                                              p]
-    libs["cd"].emu_cd_block_sweep.restype = ll
+        _build._declare(kernel, libs[name])
     return libs
 
 
-def _ptr(a: np.ndarray):
-    assert a.flags.c_contiguous
-    return a.ctypes.data
-
-
-def _stats(partials: np.ndarray):
-    return [torch.tensor(np.max(row) if not np.isnan(row).any()
-                         else np.nan) for row in partials]
+def _stats(partials: torch.Tensor):
+    return list(torch.amax(partials, dim=1))
 
 
 def emulated_cd(emulator, beta_t, Xty_t, XtX, ns_t, inv_den_t, lam, rho):
-    a = [np.ascontiguousarray(t.numpy()) for t in
-         (beta_t, Xty_t, ns_t, inv_den_t, XtX)]
-    K, n = a[0].shape
-    out = np.full_like(a[0], 7.0)
-    partials = np.full((2, n), -1.0, np.float32)  # more than the blocks
-    blocks = emulator["cd"].emu_cd_block_sweep(
-        _ptr(a[0]), _ptr(out), _ptr(a[1]), _ptr(a[2]), _ptr(a[3]),
-        _ptr(a[4]), K, n, tbcd.f32(lam), tbcd.f32(rho), _ptr(partials))
-    flat = partials.reshape(-1)[:2 * blocks].reshape(2, blocks)
-    return (torch.from_numpy(out), *_stats(flat))
+    out = torch.full_like(beta_t, 7.0)
+    partials = tbcd.cd_sweep_launch(emulator["cd"], 0, beta_t, Xty_t, XtX,
+                                    ns_t, inv_den_t, lam, rho, out)
+    return (out, *_stats(partials))
 
 
 def emulated_fused(emulator, carry, Xty_t, XtX, masks, inv_den_t, lam, rho,
-                   offsets, h, block):
-    a = [np.ascontiguousarray(t.numpy()) for t in
-         (carry, Xty_t, masks, inv_den_t, XtX)]
-    K, n_ext = a[0].shape
-    pad = h * block
-    offs = np.asarray(offsets, np.int32)
-    out = np.full_like(a[0], 7.0)
-    partials = np.full((2, n_ext), -1.0, np.float32)
-    blocks = emulator["fused"].emu_fused_banded_sweep(
-        _ptr(a[0]), _ptr(out), _ptr(a[1]), _ptr(a[2]), _ptr(a[3]),
-        _ptr(a[4]), _ptr(offs), len(offsets), K, n_ext, pad, n_ext - 2 * pad,
-        tbcd.f32(lam), tbcd.f32(rho), _ptr(partials))
-    flat = partials.reshape(-1)[:2 * blocks].reshape(2, blocks)
-    return (torch.from_numpy(out), *_stats(flat))
+                   offsets, h, block, out=None, sub=None):
+    """The emulated kernel through the wrapper's launch code; without
+    ``out`` the new carry (or sub-carry) starts as 7.0 everywhere."""
+    rng = tbcd.sweep_range(carry.shape[1], Xty_t.shape[1], h, block, sub,
+                           out is not None and sub is not None)
+    if out is None:
+        out = torch.full((carry.shape[0], rng.n_sub + 2 * h * block), 7.0)
+    partials = tbcd.fused_sweep_launch(
+        emulator["fused"], 0, carry, Xty_t, XtX, masks,
+        inv_den_t.contiguous(), lam, rho, offsets, h, block, out, rng)
+    return (out, *_stats(partials))
 
 
 def _close(got, ref):
@@ -197,3 +184,69 @@ def test_emulated_panel_pass_propagates_nan(emulator, where):
     ref = tbcd.coordinate_descent_block_reference(*args)
     assert torch.isnan(ref[0]).any() and torch.isnan(got[1])
     _close(got, ref)
+
+
+def _split_problem(K):
+    """A 20 x 20 grid in 10 blocks of 40 spots, h = 1: a split sweep has
+    an interior call of 8 blocks and two boundary calls of one."""
+    p = fused_problem(side=20, n_types=K, seed=K + 1, block=40)
+    t = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+         for k, v in p.items()}
+    inv = tbcd.gs_inv_den(t["XtX"], t["nnb"], 0.5)
+    args = (t["carry"], t["Xty_t"], t["XtX"], t["masks"], inv, 0.5, 0.1,
+            p["offsets"], p["h"], p["block"])
+    return p, args
+
+
+@pytest.mark.parametrize("K", [20, 128])
+def test_emulated_sub_range_recomposes_the_whole_sweep(emulator, K):
+    """The interior and both boundary calls, each into one full carry:
+    bit for bit the whole sweep's data columns, the statistics' max equal
+    to the whole sweep's, the carry's pads untouched; each call alone (a
+    sub-carry of its own) against the plain version."""
+    p, args = _split_problem(K)
+    h, m = p["h"], args[1].shape[1] // p["block"]
+    pad = h * p["block"]
+    whole = emulated_fused(emulator, *args)
+    out = torch.full_like(args[0], 7.0)
+    stats = []
+    for sub in ((h, h, m - 2 * h), (0, 0, h), (m - h, m - h, h)):
+        got = emulated_fused(emulator, *args, out=out, sub=sub)
+        assert got[0] is out
+        stats.append(got[1:])
+        alone = emulated_fused(emulator, *args, sub=sub)
+        _close(alone, tbcd.fused_banded_sweep_reference(*args, sub=sub))
+        assert (alone[0][:, :pad] == 0).all()
+        assert (alone[0][:, -pad:] == 0).all()
+    assert torch.equal(out[:, pad:-pad], whole[0][:, pad:-pad])
+    assert (out[:, :pad] == 7.0).all() and (out[:, -pad:] == 7.0).all()
+    assert max(s[0] for s in stats) == whole[1]
+    assert max(s[1] for s in stats) == whole[2]
+
+
+def test_emulated_sub_range_reads_an_assembled_window(emulator):
+    """A boundary call on a small assembled buffer (carry_start != data
+    start, as the JAX mesh's side buffers) writes the same columns as the
+    same call on the full carry."""
+    p, args = _split_problem(20)
+    h, block = p["h"], p["block"]
+    m = args[1].shape[1] // block
+    side = args[0][:, (m - 2 * h) * block:].contiguous()  # blocks m-2h..
+    full = emulated_fused(emulator, *args, sub=(m - h, m - h, h))
+    part = emulated_fused(emulator, side, *args[1:], sub=(h, m - h, h))
+    assert torch.equal(full[0], part[0])
+    assert full[1] == part[1] and full[2] == part[2]
+
+
+def test_emulated_entry_refuses_a_range_off_the_carry(emulator):
+    """The C entry's own check (the wrapper's is bypassed here)."""
+    p, args = _split_problem(20)
+    h, block = p["h"], p["block"]
+    m = args[1].shape[1] // block
+    bad = tbcd.SweepRange(in_col0=block, data0=0, n_sub=m * block,
+                          out_col0=0, write_pads=True)
+    out = torch.empty((args[0].shape[0], (m + 2 * h) * block))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tbcd.fused_sweep_launch(emulator["fused"], 0, args[0], args[1],
+                                args[2], args[3], args[4].contiguous(),
+                                0.5, 0.1, p["offsets"], h, block, out, bad)

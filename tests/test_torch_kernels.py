@@ -14,7 +14,10 @@ the fused and unfused banded sweeps are bitwise equal to each other, and
 two launches on the same operands are bitwise equal. The
 CountSketch kernel is held to 2e-5 * max(max|ref|, 1) against its plain
 version and an f64 projection (the JAX package's CountSketch bound), and
-bitwise against itself.
+bitwise against itself. Kernel #1's sub-range form is held against its
+plain version, and a split sweep bitwise against the whole one; the banded
+mesh with several shards on one card bitwise against the single-device
+fused tier, and the halo plan within 1e-5 of the gather tier.
 """
 
 import numpy as np
@@ -221,6 +224,138 @@ def test_gather_solve_is_bitwise_repeatable(cuda_device):
     beta_b, info_b = prob.solve()
     assert info_a["converged"] and info_a == info_b
     np.testing.assert_array_equal(beta_a, beta_b)
+
+
+# -- kernel #1's sub-range form (the banded mesh's overlap split) -------------------
+
+def _split_args(K, device, seed=0):
+    """A 64 x 64 grid in 16 blocks of 256 spots, h = 1, and the three
+    sub-ranges of a split sweep: the interior and both boundaries."""
+    p = fused_problem(n_types=K, seed=seed)
+    tp = as_torch(p, device)
+    inv = tbcd.gs_inv_den(tp["XtX"], tp["nnb"], 0.5).contiguous()
+    args = (tp["carry"], tp["Xty_t"], tp["XtX"], tp["masks"], inv, 0.5, 0.1,
+            p["offsets"], p["h"], p["block"])
+    h, m = p["h"], p["Xty_t"].shape[1] // p["block"]
+    return args, h * p["block"], ((h, h, m - 2 * h), (0, 0, h),
+                                  (m - h, m - h, h))
+
+
+@pytest.mark.parametrize("K", KS)
+def test_sub_range_kernel_matches_plain_version(cuda_device, K):
+    """Each sub-call alone (a sub-carry with zero pads) and into a full
+    carry (its data columns only) against the plain version."""
+    args, pad, subs = _split_args(K, cuda_device, seed=K + 11)
+    before = tbcd.fused_banded_sweep.sub_launches
+    with tbcd.full_f32_matmul():
+        for sub in subs:
+            ref, rd, ra = tbcd.fused_banded_sweep_reference(*args, sub=sub)
+            got, d, a = tbcd.fused_banded_sweep(*args, sub=sub)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
+            torch.testing.assert_close(d, rd, atol=0.0, rtol=1e-4)
+            torch.testing.assert_close(a, ra, atol=0.0, rtol=1e-4)
+            assert (got[:, :pad] == 0).all() and (got[:, -pad:] == 0).all()
+            full = torch.full_like(args[0], float("nan"))
+            ref_full = full.clone()
+            tbcd.fused_banded_sweep_reference(*args, out=ref_full, sub=sub)
+            tbcd.fused_banded_sweep(*args, out=full, sub=sub)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(full, ref_full, atol=5e-5, rtol=1e-4,
+                                       equal_nan=True)
+            assert torch.equal(torch.isnan(full), torch.isnan(ref_full))
+    assert tbcd.fused_banded_sweep.sub_launches == before + 2 * len(subs)
+
+
+@pytest.mark.parametrize("K", [6, 20, 64, 65, 128, 256])
+def test_split_sweep_is_bitwise_the_whole_sweep(cuda_device, K):
+    """The interior and both boundary calls into one full carry give the
+    whole sweep's data columns bit for bit, leave the carry's pads as they
+    were, and their statistics' max is the whole sweep's."""
+    args, pad, subs = _split_args(K, cuda_device, seed=K + 13)
+    whole, wd, wa = tbcd.fused_banded_sweep(*args)
+    out = torch.full_like(args[0], float("nan"))
+    stats = [tbcd.fused_banded_sweep(*args, out=out, sub=sub)[1:]
+             for sub in subs]
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, pad:-pad], whole[:, pad:-pad])
+    assert torch.isnan(out[:, :pad]).all() and torch.isnan(out[:, -pad:]).all()
+    assert max(float(d) for d, _ in stats) == float(wd)
+    assert max(float(a) for _, a in stats) == float(wa)
+
+
+def test_sub_range_off_the_carry_raises(cuda_device):
+    args, _, _ = _split_args(20, cuda_device)
+    m = args[1].shape[1] // args[-1]
+    with pytest.raises(ValueError, match="leaves the carry"):
+        tbcd.fused_banded_sweep(*args, sub=(1, 0, m))
+
+
+def _mesh_problem(K, seed=0):
+    from flashdeconv_tpu_torch.utils.graph import grid_coords
+
+    coords = grid_coords(side=96)
+    rng = np.random.RandomState(seed)
+    X = rng.randn(K, 2 * K + 8)
+    Y = np.abs(rng.randn(coords.shape[0], K)) @ X \
+        + 0.05 * rng.randn(coords.shape[0], X.shape[1])
+    return Y, X, build_knn_graph(coords, k=6), coords
+
+
+@pytest.mark.parametrize("K", [20, 96])
+@pytest.mark.parametrize("n_shards", [2, 3])
+def test_banded_mesh_on_one_card_is_bitwise_the_fused_tier(cuda_device,
+                                                           n_shards, K):
+    """Shards on one card (their own streams), split and unsplit, and the
+    unfused mesh (blocks of one spot: kernel #2 per shard): the same
+    sweeps and beta as the single-device fused tier, bit for bit. Blocks
+    of 256 spots give each shard the 2h + 1 blocks the split needs."""
+    from flashdeconv_tpu_torch.parallel import GspmdBandedProblem
+
+    Y, X, A, coords = _mesh_problem(K, seed=K)
+    kw = dict(lambda_=0.3, rho=0.01, tol=1e-4)
+    single = tsolver.prepare_bcd(Y, X, A, coords=coords, device=cuda_device)
+    assert single.use_fused_banded
+    ref, info = single.solve(max_iter=40, **kw)
+    prob = GspmdBandedProblem(Y, X, A, mesh=(cuda_device,) * n_shards,
+                              fused_block=256)
+    assert prob.use_fused
+    for overlap in (False, True):
+        before = tbcd.fused_banded_sweep.sub_launches
+        beta, it, _ = prob._run(max_iter=40, overlap=overlap, **kw)
+        torch.cuda.synchronize()
+        assert it == info["n_iterations"]
+        np.testing.assert_array_equal(beta.double().cpu().numpy(), ref)
+        split = tbcd.fused_banded_sweep.sub_launches - before
+        assert split == (3 * n_shards * it if overlap else 0)
+    unfused = GspmdBandedProblem(Y, X, A, mesh=(cuda_device,) * n_shards,
+                                 fused_block=1)
+    assert not unfused.use_fused
+    before = _launches(tbcd.coordinate_descent_block, K)
+    beta, sh = unfused.solve(max_iter=40, **kw)
+    assert sh["n_iterations"] == info["n_iterations"]
+    np.testing.assert_array_equal(beta, ref)
+    assert (_launches(tbcd.coordinate_descent_block, K) - before
+            == n_shards * sh["n_iterations"])
+
+
+def test_halo_plan_on_one_card_matches_the_gather_tier(cuda_device):
+    from flashdeconv_tpu_torch.parallel import sharded_bcd_solve
+
+    p = gather_problem(n=5000, n_types=12, seed=6)
+    rng = np.random.RandomState(7)
+    X = rng.randn(12, 48)
+    Y = np.abs(rng.randn(5000, 12)) @ X + 0.05 * rng.randn(5000, 48)
+    A = build_knn_graph(p["coords"], k=6)
+    ref, info = tsolver.bcd_solve(Y, X, A, coords=p["coords"],
+                                  device=cuda_device)
+    before = tbcd.coordinate_descent_block.launches
+    beta, sh = sharded_bcd_solve(Y, X, A, coords=p["coords"],
+                                 mesh=(cuda_device,) * 2, strategy="halo")
+    assert sh["n_iterations"] == info["n_iterations"]
+    assert tbcd.coordinate_descent_block.launches - before == 2 * \
+        sh["n_iterations"]
+    assert np.abs(beta - ref).max() <= 1e-5
 
 
 # -- the CountSketch projection kernel -------------------------------------------

@@ -4,10 +4,12 @@ machine.
 A fresh interpreter whose import system refuses the top-level modules
 ``flashdeconv_tpu``, ``bench`` and every ``jax*`` imports
 ``flashdeconv_tpu_torch`` and solves one gather-tier problem (irregular
-coordinates) and one fused-tier problem (a 96 x 96 grid) on the CPU, then
-imports ``chip_smoke.py`` and fits its dense counts through the dense
-sketch route (``ops/countsketch.py``). A static check holds every module
-of the port, and ``chip_smoke.py``, to the same rule.
+coordinates) and one fused-tier problem (a 96 x 96 grid) on the CPU, and
+two spot-sharded solves on a mesh of two CPU shards (``parallel/``: the
+banded mesh and the halo plan), then imports ``chip_smoke.py`` and fits
+its dense counts through the dense sketch route (``ops/countsketch.py``).
+A static check holds every module of the port, ``parallel/`` among them,
+and ``chip_smoke.py``, to the same rule.
 """
 
 import ast
@@ -49,6 +51,20 @@ for coords, tier in ((rng.random((2000, 2)) * 45, "GatherTier"),
     beta, info = prob.solve()
     assert info["converged"] and np.isfinite(beta).all() and (beta >= 0).all()
     print(tier, info["n_iterations"])
+
+# The spot-sharded solves on a mesh of CPU shards: the banded mesh (grid)
+# and the halo plan (irregular coordinates).
+from flashdeconv_tpu_torch.parallel import sharded_bcd_solve
+
+for coords, strategy in ((grid_coords(side=40), "banded"),
+                         (rng.random((900, 2)) * 30, "halo")):
+    Y = rng.dirichlet(np.ones(8), size=coords.shape[0]) @ X
+    beta, info = sharded_bcd_solve(
+        Y, X, build_knn_graph(coords, k=6), coords=coords,
+        mesh=("cpu",) * 2, strategy=strategy, device="cpu")
+    assert info["converged"] and info["n_shards"] == 2, info
+    assert np.isfinite(beta).all() and (beta >= 0).all()
+    print(strategy, info["n_iterations"])
 
 # The dense-count route: chip_smoke's dense counts, projected through the
 # device route (forced on the CPU, where it runs the plain versions).
@@ -99,6 +115,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     assert ROOT / "flashdeconv_tpu_torch" / "ops" / "countsketch.py" in files
+    assert ROOT / "flashdeconv_tpu_torch" / "parallel" / "gspmd.py" in files
     found = [
         f"{path.relative_to(ROOT)}: {name}"
         for path in files for name in _imported_modules(path)
