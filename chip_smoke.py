@@ -12,7 +12,20 @@ counts set to 0 just before it and read just after:
 
 1. the fused banded tier: a 1M-spot (1000 x 1000 grid, K = 20, sketch
    512, kNN-6) prepare and solve, and a 262,144-spot ``fit_transform`` of
-   synthetic Poisson counts;
+   synthetic Poisson counts; the grid takes the fused tier with no rest
+   tables and launches only the kernel's plain form;
+1b. the fused tier's rest stream (kernel #1's ``ns_rest`` input): the
+   1000 x 1000 grid with 1 % of its bins dropped at random (990,042
+   spots, K = 20), prepared and solved, bitwise the unfused banded tier;
+   the 1000 x 1000 grid plus 100 symmetric long-range edges, which takes
+   the fused tier only after the band-cap rescue, solved and bitwise the
+   unfused banded tier on the capped decomposition; and a
+   ``fit_transform`` of the 262,144-spot grid's counts with 1 % of the
+   bins dropped (259,491 spots). Before them the kernel with ``ns_rest``
+   is held against its plain version on the dropped grid and timed in
+   turns, beside the rest update, the whole fused+rest sweep and the
+   unfused banded sweep on the same operands, and the capped grid's sweep
+   (8 bands and the rest stream) beside the plain grid's (16 bands);
 2. the gather tier: a 1M-spot irregular problem (uniform random
    coordinates, kNN-6, as Xenium and CosMx sections look) through
    ``prepare_bcd`` and ``solve``, and two ``fit_transform`` runs: a
@@ -56,7 +69,9 @@ JSON object per kernel (each CUDA kernel's panel form at 64 < K <= 256 with
 an entry of its own, ``*_large_k``, timed at K = 128, and kernel #1's
 sub-range form, ``fused_banded_sweep_sub``, timed as the interior call of
 a split 1M x 20 sweep), the card's name and power limit, and the result
-line ``{"ok": true, "device": {...}}``. Needs no JAX and no network.
+line ``{"ok": true, "device": {...}}``; kernel #1 with the rest stream
+has the entry ``fused_banded_sweep_rest``, timed on the 1 %-dropped 1M
+grid. Needs no JAX and no network.
 
 ``--profile`` builds, prepares the 1M grid and the 1M irregular problems
 and, for each, runs three warm solves under ``torch.profiler``, each split
@@ -108,6 +123,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SOLVE = dict(lambda_=0.1, rho=0.01, max_iter=100, tol=1e-4)
 MESH_SHARDS = (1, 2, 4)             # shards of the 1M grid on the one card
+DROP = 0.01                         # share of bins dropped from a grid
+RESCUE_EDGES = 100                  # long-range edges of the rescue case
 # The single-device solves' (beta on the host, sweeps) by label, which the
 # sharded solves of the same problems are held against.
 REFERENCE = {}
@@ -217,11 +234,41 @@ def knn_graph(n_spots: int, irregular: bool):
 
 def prepare(n_spots: int, n_types: int, irregular: bool = False):
     """The port's prepare on a synthetic problem: (problem, seconds)."""
+    coords, A = knn_graph(n_spots, irregular)
+    return prepare_on(coords, A, n_types, grid=not irregular)
+
+
+def drop_mask(n: int, frac: float = DROP, seed: int = 0) -> np.ndarray:
+    """Bins kept when a share ``frac`` of ``n`` is dropped at random (a
+    seeded ``RandomState``): a section whose empty or low-count bins were
+    filtered out before deconvolution."""
+    return np.random.RandomState(seed).rand(n) >= frac
+
+
+def with_rescue_edges(A):
+    """``A`` plus ``RESCUE_EDGES`` symmetric long-range edges from spots of
+    its first half, 60,000-120,000 spots away (``RandomState(1)``, as the
+    JAX package's tests/test_fused_banded.py builds its rescue case)."""
+    from scipy import sparse
+
+    n = A.shape[0]
+    rng = np.random.RandomState(1)
+    src = rng.choice(n // 2, RESCUE_EDGES, replace=False)
+    dst = src + rng.randint(60_000, 120_000, size=RESCUE_EDGES)
+    extra = sparse.coo_matrix(
+        (np.ones(2 * RESCUE_EDGES), (np.r_[src, dst], np.r_[dst, src])),
+        shape=(n, n))
+    return ((A + extra.tocsr()) > 0).astype(np.float64)
+
+
+def prepare_on(coords, A, n_types: int, grid: bool = False):
+    """The port's prepare of a synthetic problem over ``coords`` and graph
+    ``A`` (with ``grid``, the numbers of ``bench.make_problem`` for a full
+    grid): (problem, seconds)."""
     from flashdeconv_tpu_torch.core.solver import prepare_bcd
 
-    coords, A = knn_graph(n_spots, irregular)
-    Y, X, _ = make_problem(n_spots, n_types, SKETCH,
-                           coords=coords if irregular else None)
+    Y, X, _ = make_problem(coords.shape[0], n_types, SKETCH,
+                           coords=None if grid else coords)
     t0 = time.perf_counter()
     prob = prepare_bcd(Y, X, A, coords=coords, device="cuda")
     torch.cuda.synchronize()
@@ -483,17 +530,13 @@ def phase_countsketch_kernel() -> dict:
 
 
 def phase_fused_vs_unfused(prob) -> None:
-    """The 1M grid operands solved through the fused tier and through the
-    unfused banded tier: the same sweeps and beta, bit for bit."""
+    """A fused-tier problem's operands solved through the fused tier (with
+    its rest stream, if it has one) and through the unfused banded tier on
+    the same decomposition: the same sweeps and beta, bit for bit."""
     from flashdeconv_tpu_torch.ops import bcd
 
     t = prob.tier
-    banded = bcd.BandedTier(
-        Xty_t=t.Xty_t, XtX=t.XtX, nnb=t.nnb, YtY=t.YtY,
-        masks=t.masks.float(), offsets=t.offsets,
-        rest=torch.zeros((0, prob.n_solve), dtype=torch.int32,
-                         device=t.Xty_t.device),
-    )
+    banded = t.unfused()
     lam, rho = bcd.f32(SOLVE["lambda_"]), bcd.f32(SOLVE["rho"]
                                                   * prob.mean_diag)
     out = {}
@@ -509,6 +552,155 @@ def phase_fused_vs_unfused(prob) -> None:
     if not (same and out["fused"][1] == out["unfused"][1]
             and out["fused"][2]):
         raise AssertionError("fused and unfused banded solves differ")
+
+
+def rest_stats(t) -> str:
+    """Bands, halo, rest edges and touched spots of a fused tier."""
+    touched = int(torch.unique(t.rest_touched).numel())
+    edges = int((t.rest_slot_cols[:, :touched] != 0).sum())
+    return (f"{len(t.offsets)} bands, halo {max(abs(o) for o in t.offsets)} "
+            f"(h = {t.h} blocks of {t.block}), {edges} rest edges over "
+            f"{touched} touched spots, T = {t.rest_touched.numel()} columns "
+            f"after padding, R = {t.rest_slot_cols.shape[0]} slots")
+
+
+def rest_args(prob):
+    """Kernel #1's arguments on a seeded carry of a fused tier with the rest
+    stream, its ``ns_rest`` refreshed from that carry, and a whole sweep
+    of the solve loop on those arguments (the rest update, then the
+    launch): ``(args, ns_rest, sweep(*args, out))``."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    t = prob.tier
+    lam, rho = 0.1, 0.01 * prob.mean_diag
+    carry = bcd.to_fused_carry(seeded_beta(prob), t.h, t.block)
+    inv = bcd.gs_inv_den(t.XtX, t.nnb, lam).contiguous()
+    nsr = bcd.rest_ns_update(torch.zeros_like(t.Xty_t), carry,
+                             t.rest_touched, t.rest_slot_cols)
+
+    def sweep(*a, out):
+        bcd.rest_ns_update(nsr, carry, t.rest_touched, t.rest_slot_cols)
+        bcd.fused_banded_sweep(*a, out=out, ns_rest_t=nsr)
+
+    return (carry, t.Xty_t, t.XtX, t.masks, inv, lam, rho, t.offsets, t.h,
+            t.block), nsr, sweep
+
+
+def check_rest_kernel(args, nsr, label: str) -> float:
+    """One sweep with ``ns_rest``, kernel against plain; max |err|."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    ref, rd, ra = bcd.fused_banded_sweep_reference(*args, ns_rest_t=nsr)
+    got, d, a = bcd.fused_banded_sweep(*args, ns_rest_t=nsr)
+    err = check_close(got, ref, d, rd, a, ra, label)
+    pad = args[8] * args[9]
+    if not ((got[:, :pad] == 0).all() and (got[:, -pad:] == 0).all()):
+        raise AssertionError(f"{label}: pad slabs are not zero")
+    return err
+
+
+def phase_rest_kernel(prob, label: str) -> dict:
+    """Kernel #1 with ``ns_rest`` on a fused tier with the rest stream:
+    against its plain version, then by CUDA events in turns with it; then,
+    in turns, the rest update alone, the whole fused+rest sweep (update and
+    launch) and the unfused banded sweep on the same operands (plain-torch
+    band and rest sums, then kernel #2). Returns the kernels line's row."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    t = prob.tier
+    args, nsr, fused_sweep = rest_args(prob)
+    carry, inv, lam, rho = args[0], args[4], args[5], args[6]
+
+    def update(*_, out):
+        bcd.rest_ns_update(nsr, carry, t.rest_touched, t.rest_slot_cols)
+
+    unfused = t.unfused()
+    beta_t = bcd.from_fused_carry(carry, t.h, t.block).T.contiguous()
+    uargs = (beta_t, t.Xty_t, t.XtX, t.offsets, unfused.masks, unfused.rest,
+             inv, lam, rho)
+    with bcd.full_f32_matmul():
+        err = check_rest_kernel(args, nsr, label)
+        ms = in_turns(functools.partial(bcd.fused_banded_sweep_reference,
+                                        ns_rest_t=nsr),
+                      functools.partial(bcd.fused_banded_sweep,
+                                        ns_rest_t=nsr),
+                      args, torch.empty_like(carry))
+        turns = {"update": [], "fused+rest sweep": [], "unfused sweep": []}
+        spare, uspare = torch.empty_like(carry), torch.empty_like(beta_t)
+        for name in ("unfused sweep", "fused+rest sweep", "update", "update",
+                     "fused+rest sweep", "unfused sweep"):
+            if name == "unfused sweep":
+                turns[name].append(time_sweeps(bcd.bcd_sweep_banded, uargs,
+                                               uspare))
+            else:
+                turns[name].append(time_sweeps(
+                    update if name == "update" else fused_sweep, args, spare))
+    K, n_ext = carry.shape
+    n = prob.n_solve
+    n_bytes = 4.0 * K * (2 * n_ext + 3 * n) + t.masks.numel() + 4.0 * K * K
+    bound, by = bound_ms(n_bytes, gs_ops(K, n) + K * float(t.masks.sum())
+                         + K * n)
+    log(f"[kernel] fused_banded_sweep with ns_rest {label}: K={K} "
+        f"{rest_stats(t)}; max_abs_err={err:.3e}; per sweep kernel "
+        f"{ms['kernel']} ms, plain {ms['plain']} ms (plain, kernel, kernel, "
+        f"plain); bound {bound:.4f} ms ({by}, {n_bytes / 1e9:.4f} GB)")
+    log(f"[kernel] rest stream {label}, ms per sweep (CUDA events, "
+        f"{SWEEPS} sweeps, in turns unfused, fused, update, update, fused, "
+        f"unfused): {turns}")
+    return {"K": K, "max_abs_err": err, "ms": float(np.mean(ms["kernel"])),
+            "plain_ms": float(np.mean(ms["plain"])), "bound_ms": bound,
+            "bound_by": by}
+
+
+def phase_band_cap(grid, capped) -> None:
+    """The band-cap question on the card: the capped 1M grid's sweep (its
+    near-empty bands spilled into the rest stream: kernel with ``ns_rest``,
+    plus the rest update) beside the plain 1M grid's sweep (all bands, no
+    rest), by CUDA events in turns; the capped kernel first held against
+    its plain version."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    t = capped.tier
+    args, nsr, capped_sweep = rest_args(capped)
+    g = grid.tier
+    gcarry = bcd.to_fused_carry(seeded_beta(grid), g.h, g.block)
+    gargs = (gcarry, g.Xty_t, g.XtX, g.masks,
+             bcd.gs_inv_den(g.XtX, g.nnb, 0.1).contiguous(), 0.1,
+             0.01 * grid.mean_diag, g.offsets, g.h, g.block)
+    turns = {"plain grid": [], "capped grid": []}
+    with bcd.full_f32_matmul():
+        err = check_rest_kernel(args, nsr, "capped 1M grid")
+        for name in ("plain grid", "capped grid", "capped grid",
+                     "plain grid"):
+            if name == "plain grid":
+                turns[name].append(time_sweeps(bcd.fused_banded_sweep, gargs,
+                                               torch.empty_like(gcarry)))
+            else:
+                turns[name].append(time_sweeps(capped_sweep, args,
+                                               torch.empty_like(args[0])))
+    log(f"[band cap] 1M grid + {RESCUE_EDGES} long edges, rescued: "
+        f"{rest_stats(t)}; kernel vs plain max_abs_err {err:.3e}; ms per "
+        f"sweep (CUDA events, {SWEEPS} sweeps): {len(g.offsets)}-band plain "
+        f"grid {turns['plain grid']}, {len(t.offsets)}-band capped grid with "
+        f"the rest update {turns['capped grid']} (plain, capped, capped, "
+        f"plain)")
+
+
+def rest_tier(prob, label: str) -> None:
+    """``prob`` must have taken the fused tier with rest tables."""
+    if not (prob.use_fused_banded and prob.tier.rest_touched is not None):
+        raise AssertionError(f"{label} did not take the fused tier with the "
+                             "rest stream")
+    log(f"[rest] {label}: {prob.n_spots} spots, fused tier, "
+        f"{rest_stats(prob.tier)}")
+
+
+@functools.lru_cache(maxsize=1)
+def dropped_fit_counts():
+    """The 262,144-spot grid fit's counts with 1 % of the bins dropped."""
+    Y, X, truth = grid_fit_counts()
+    keep = drop_mask(Y.shape[0])
+    return Y[keep], X, truth[keep]
 
 
 # -- the main paths ---------------------------------------------------------------
@@ -995,6 +1187,7 @@ def main() -> None:
                         help="profile the warm 1M solves instead of the "
                              "smoke run")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     phase_device()
     from flashdeconv_tpu_torch.ops import bcd
     from flashdeconv_tpu_torch.ops import countsketch as cs
@@ -1016,6 +1209,7 @@ def main() -> None:
                                              "large_k_launches"),
         "countsketch_project": (cs.countsketch_project_kernel, "launches"),
         "fused_banded_sweep_sub": (bcd.fused_banded_sweep, "sub_launches"),
+        "fused_banded_sweep_rest": (bcd.fused_banded_sweep, "rest_launches"),
     }
 
     # Kernel 1, the fused banded tier (K = 65: the panel form's edge).
@@ -1024,8 +1218,9 @@ def main() -> None:
         phase_fused_kernel(prob, "256x256")
         del prob
     grid, grid_s = prepare(SPOTS, TYPES)
-    if not grid.use_fused_banded:
-        raise AssertionError("the 1M grid did not take the fused tier")
+    if not (grid.use_fused_banded and grid.tier.rest_touched is None):
+        raise AssertionError("the 1M grid did not take the fused tier "
+                             "without rest tables")
     fused_row = phase_fused_kernel(grid, "1000x1000 (main path)")
     sub_row = phase_sub_kernel(grid, "1000x1000 (main path)")
     phase_fused_vs_unfused(grid)
@@ -1034,7 +1229,40 @@ def main() -> None:
         + phase_fit("262k grid", grid_coords(side=FIT_SIDE),
                     float(FIT_SIDE), FIT_GENES, counts=grid_fit_counts))
     })["fused_banded_sweep"]
-    del grid
+
+    # Kernel 1 with the rest stream: grids whose banded split leaves a
+    # small remainder.
+    from flashdeconv_tpu_torch.utils import build_knn_graph
+
+    coords, A = knn_graph(SPOTS, False)
+    t0 = time.perf_counter()
+    dropped_coords = coords[drop_mask(SPOTS)]
+    dropped_A = build_knn_graph(dropped_coords, k=6)
+    log(f"[rest] 1M grid with {DROP:.0%} of its bins dropped: "
+        f"{dropped_coords.shape[0]} spots, kNN-6 graph made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dropped, dropped_s = prepare_on(dropped_coords, dropped_A, TYPES)
+    rest_tier(dropped, "1M 1%-dropped grid")
+    rest_row = phase_rest_kernel(dropped, "1M 1%-dropped grid (main path)")
+    phase_fused_vs_unfused(dropped)
+    rescue, rescue_s = prepare_on(coords, with_rescue_edges(A), TYPES,
+                                  grid=True)
+    rest_tier(rescue, f"1M grid + {RESCUE_EDGES} long edges")
+    phase_band_cap(grid, rescue)
+    phase_fused_vs_unfused(rescue)
+    del grid, A, dropped_A
+    rest_launches = counted(kernels, lambda: {"fused_banded_sweep_rest": (
+        phase_solve(dropped, dropped_s, "1M 1%-dropped grid")
+        + phase_solve(rescue, rescue_s,
+                      f"1M grid + {RESCUE_EDGES} long edges")
+        + phase_fit("262k grid, 1% of bins dropped",
+                    grid_coords(side=FIT_SIDE)[drop_mask(FIT_SIDE ** 2)],
+                    float(FIT_SIDE), FIT_GENES, runs=("once",),
+                    counts=dropped_fit_counts))
+    })["fused_banded_sweep_rest"]
+    del dropped, rescue
+    dropped_fit_counts.cache_clear()
+    torch.cuda.empty_cache()
 
     # Kernel 1's panel form, 64 < K <= 256, on the fused tier.
     large_fused_rows, large_fused_launches = {}, 0
@@ -1125,6 +1353,8 @@ def main() -> None:
             "library_ms": row.get("library_ms"),
         }
 
+    log(f"[total] {time.perf_counter() - t_start:.1f} s from the card check "
+        "to the kernels line, the build included")
     print(json.dumps({"kernels": [
         entry("fused_banded_sweep", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:650", fused_launches, fused_row),
@@ -1141,6 +1371,8 @@ def main() -> None:
         entry("fused_banded_sweep_sub", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:851",
               sharded_launches["fused_banded_sweep_sub"], sub_row),
+        entry("fused_banded_sweep_rest", "fused_banded_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:724", rest_launches, rest_row),
     ]}), flush=True)
     log(card())
     print(json.dumps({"ok": True, "device": {

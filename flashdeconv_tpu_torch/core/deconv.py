@@ -11,15 +11,18 @@ whichever of its three tiers the graph takes (fused banded, unfused
 banded, gather), or, with ``mesh`` or ``n_shards > 1``, the spot-sharded
 solve of :mod:`flashdeconv_tpu_torch.parallel` (banded mesh or halo plan).
 
-Not ported (``ROADMAP.md``): ``fit_distributed`` (multi-process),
-``fit_lambda_path``, ``save``/``load``, warm start, and the device-output
-knobs (``device_outputs``, ``fetch_dtype``, ``outputs``).
+The constructor takes every keyword of the JAX class; a value the port
+cannot honour yet raises ``NotImplementedError`` naming its ``ROADMAP.md``
+entry: an f64 ``solver_dtype``, ``warm_start=True``,
+``device_outputs=True``, a ``fetch_dtype`` and ``outputs`` with
+``"dominant"``. Not ported either (``ROADMAP.md``): ``fit_distributed``
+(multi-process), ``fit_lambda_path`` and ``save``/``load``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 from scipy import sparse
@@ -39,6 +42,7 @@ from flashdeconv_tpu_torch.core.sketching import (
 )
 from flashdeconv_tpu_torch.core.solver import (
     GraphDecomposition,
+    _not_ported,
     bcd_solve,
     normalize_proportions,
     resolve_device,
@@ -55,16 +59,22 @@ class FlashDeconv:
     """Spatial-transcriptomics deconvolution with spatial regularisation,
     solved on a torch device.
 
-    Parameters are those of :class:`flashdeconv_tpu.FlashDeconv` that the
-    single-process fit uses, plus ``device`` ("cuda" by default; raises
-    without a card, "cpu" runs the plain PyTorch sweeps). ``mesh`` (a
-    sequence of torch devices, one per shard, a device possibly repeated)
-    or ``n_shards > 1`` (the first ``n_shards`` cards, or ``n_shards``
-    shards on the CPU with ``device="cpu"``) sends stage 6 to
-    :func:`flashdeconv_tpu_torch.parallel.prepare_sharded_bcd`.
+    Parameters are those of :class:`flashdeconv_tpu.FlashDeconv`, with its
+    defaults, plus ``device`` ("cuda" by default; raises without a card,
+    "cpu" runs the plain PyTorch sweeps). ``mesh`` (a sequence of torch
+    devices, one per shard, a device possibly repeated) or ``n_shards > 1``
+    (the first ``n_shards`` cards, or ``n_shards`` shards on the CPU with
+    ``device="cpu"``) sends stage 6 to
+    :func:`flashdeconv_tpu_torch.parallel.prepare_sharded_bcd`. The fit
+    always takes the host path of the JAX class's ``device_outputs=False``
+    (beta fetched as f64, normalised on the host); the values of
+    ``solver_dtype``, ``warm_start``, ``device_outputs``, ``fetch_dtype``
+    and ``outputs`` that need more raise ``NotImplementedError``.
 
     Attributes (after fit): ``beta_``, ``proportions_``, ``gene_idx_``,
-    ``info_``, ``lambda_used_``, ``adjacency_`` and ``timings_``.
+    ``info_``, ``lambda_used_``, ``adjacency_``, ``timings_``,
+    ``n_spots_``, ``n_genes_``, ``n_cell_types_`` and
+    ``cell_type_names_``.
     """
 
     def __init__(
@@ -82,9 +92,14 @@ class FlashDeconv:
         preprocess: str = "log_cpm",
         random_state: Optional[int] = 0,
         verbose: bool = False,
-        device="cuda",
+        solver_dtype=np.float32,
         mesh=None,
         n_shards: Optional[int] = None,
+        warm_start: bool = False,
+        device_outputs: Optional[bool] = None,
+        fetch_dtype=None,
+        outputs: Tuple[str, ...] = ("proportions",),
+        device="cuda",
     ):
         if sketch_dim <= 0:
             raise ValueError(f"sketch_dim must be positive, got {sketch_dim}")
@@ -124,6 +139,35 @@ class FlashDeconv:
             )
         if n_shards is not None and n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        if fetch_dtype is not None:
+            fetch_dtype = str(
+                fetch_dtype if isinstance(fetch_dtype, str)
+                else np.dtype(fetch_dtype).name
+            )
+            if fetch_dtype not in ("float16", "bfloat16", "float32"):
+                raise ValueError(
+                    "fetch_dtype must be one of None, 'float16', "
+                    f"'bfloat16', 'float32'; got {fetch_dtype!r}"
+                )
+        outputs = tuple(outputs)
+        if not outputs or not set(outputs) <= {"proportions", "dominant"}:
+            raise ValueError(
+                "outputs must be a non-empty subset of "
+                f"('proportions', 'dominant'); got {outputs!r}"
+            )
+        if np.dtype(solver_dtype) != np.float32:
+            raise _not_ported(f"solver_dtype={np.dtype(solver_dtype).name}",
+                              "f64 on the GPU")
+        if warm_start:
+            raise _not_ported("warm_start=True",
+                              "the rest of the FlashDeconv surface")
+        for what, given in (("device_outputs=True", device_outputs is True),
+                            (f"fetch_dtype={fetch_dtype!r}",
+                             fetch_dtype is not None),
+                            ("outputs with 'dominant'", "dominant" in outputs)):
+            if given:
+                raise _not_ported(what, "the fetch of beta, and device "
+                                  "outputs")
         self.device = resolve_device(device)
         self.sketch_dim = sketch_dim
         self.lambda_spatial = lambda_spatial
@@ -138,8 +182,13 @@ class FlashDeconv:
         self.preprocess = preprocess
         self.random_state = random_state
         self.verbose = verbose
+        self.solver_dtype = solver_dtype
         self.mesh = mesh
         self.n_shards = n_shards
+        self.warm_start = warm_start
+        self.device_outputs = device_outputs
+        self.fetch_dtype = fetch_dtype
+        self.outputs = outputs
 
         self.beta_ = None
         self.proportions_ = None
@@ -149,7 +198,7 @@ class FlashDeconv:
         self.adjacency_ = None
         self.timings_ = None
 
-    def _validate(self, Y, X, coords):
+    def _validate(self, Y, X, coords, cell_type_names):
         if Y.shape[1] != X.shape[1]:
             raise ValueError(
                 f"Gene dimension mismatch: Y has {Y.shape[1]} genes but "
@@ -164,6 +213,11 @@ class FlashDeconv:
         if X.shape[0] == 0:
             raise ValueError(
                 "Reference matrix X must contain at least one cell type."
+            )
+        if cell_type_names is not None and len(cell_type_names) != X.shape[0]:
+            raise ValueError(
+                f"cell_type_names length ({len(cell_type_names)}) does not "
+                f"match number of cell types in X ({X.shape[0]})."
             )
 
     def _sketch(self, Y, X, timer):
@@ -249,13 +303,19 @@ class FlashDeconv:
             )
         return res
 
-    def fit(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray
-            ) -> "FlashDeconv":
-        """Run the full pipeline; stores results on the instance."""
+    def fit(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray,
+            cell_type_names: Optional[np.ndarray] = None) -> "FlashDeconv":
+        """Run the full pipeline; stores results on the instance.
+        ``cell_type_names`` (one per row of X) is kept as
+        ``cell_type_names_``."""
         if sparse.issparse(Y) and not sparse.isspmatrix_csr(Y):
             Y = Y.tocsr()
         coords = np.asarray(coords)
-        self._validate(Y, X, coords)
+        self._validate(Y, X, coords, cell_type_names)
+        self.n_spots_ = Y.shape[0]
+        self.n_genes_ = Y.shape[1]
+        self.n_cell_types_ = X.shape[0]
+        self.cell_type_names_ = cell_type_names
         self._log(f"FlashDeconv (torch, {self.device}): {Y.shape[0]} spots "
                   f"x {Y.shape[1]} genes, {X.shape[0]} cell types")
         timer = StageTimer()
@@ -328,10 +388,11 @@ class FlashDeconv:
         )
         return problem.solve(**kw)
 
-    def fit_transform(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray
-                      ) -> np.ndarray:
-        """Fit and return the (n_spots, n_cell_types) proportions."""
-        return self.fit(Y, X, coords).proportions_
+    def fit_transform(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray,
+                      **kwargs) -> np.ndarray:
+        """Fit (``kwargs`` go to :meth:`fit`) and return the (n_spots,
+        n_cell_types) proportions."""
+        return self.fit(Y, X, coords, **kwargs).proportions_
 
     def _log(self, msg: str):
         if self.verbose:

@@ -6,12 +6,18 @@ mean(diag(XtX)), warm start, the ``info`` dict) and the same choice among
 three tiers, with the solve in :func:`flashdeconv_tpu_torch.ops.bcd.fused_solve`
 on an explicit torch device:
 
-- **fused banded**: the graph is wholly banded (no remainder edges), at
-  most 32 bands within a halo of 8 blocks of 4096 spots, at least 8,192
-  spots — one fused kernel launch per sweep;
-- **unfused banded**: a banded graph the fused tier does not take (rest
-  edges, or a wider halo) — banded neighbour sums plus a rest table in
-  plain PyTorch, then the coordinate-descent kernel;
+- **fused banded**: a banded graph of at least 8,192 spots, at most 32
+  bands within a halo of 8 blocks of 4096 spots, whose remainder of rest
+  edges is empty or small (at most 2 % of the edges and 8 a spot, the JAX
+  gate) — one fused kernel launch per sweep, the rest edges' sums streamed
+  into it (refreshed in plain PyTorch at the touched spots). When only the
+  halo fails, near-empty bands are spilled into the rest
+  (``cap_sparse_bands``) and the plan is tried again, as the JAX solver
+  rescues a grid with a few long-range edges;
+- **unfused banded**: a banded graph the fused tier does not take (a
+  larger remainder, or a halo the rescue cannot cut) — banded neighbour
+  sums plus a rest table in plain PyTorch, then the coordinate-descent
+  kernel;
 - **gather**: any other graph (not banded, or under 8,192 spots) — a
   degree-capped padded neighbour table with an overflow list for hubs,
   then the coordinate-descent kernel.
@@ -41,6 +47,7 @@ from flashdeconv_tpu_torch.ops.bcd import (
     FusedBandedTier,
     GatherTier,
     Tier,
+    build_fused_rest_tables,
     f32,
     fused_solve,
     overflow_table,
@@ -49,6 +56,7 @@ from flashdeconv_tpu_torch.utils.graph import (
     adjacency_to_padded,
     adjacency_to_padded_capped,
     banded_split,
+    cap_sparse_bands,
 )
 
 #: Spot-axis block of the fused tier: the carry's pad slabs are h blocks
@@ -172,6 +180,51 @@ class GraphDecomposition:
         self.use_banded = offsets_np.size > 0
 
 
+def _fused_halo_blocks(offsets: np.ndarray) -> Optional[int]:
+    """The fused tier's pad ``h`` (blocks of ``FUSED_BLOCK``) for these band
+    offsets, or None when it takes no such band set (more than
+    ``KERNEL_MAX_BANDS`` bands, or h > ``FUSED_MAX_H``). It stands for the
+    JAX planner, whose VMEM gate has no counterpart on the card."""
+    halo = int(np.max(np.abs(offsets)))
+    h = max(1, -(-halo // FUSED_BLOCK))
+    if h > FUSED_MAX_H or offsets.size > KERNEL_MAX_BANDS:
+        return None
+    return h
+
+
+def fused_decomposition(offsets: np.ndarray, masks: np.ndarray,
+                        A_rest: sparse.spmatrix, total_nnz: int):
+    """The decomposition the fused tier runs, as the JAX ``BCDProblem``
+    chooses it: ``(offsets, masks, A_rest, h)``, or None for the unfused
+    banded tier.
+
+    The remainder must be small: at most 2 % of the graph's ``total_nnz``
+    edges and 8 edges a spot (JAX ``_rest_fusable``). When the bands' halo
+    is too wide, near-empty bands are spilled into the remainder
+    (:func:`cap_sparse_bands`) and, if that leaves fewer bands and a small
+    remainder, planned again — the JAX rescue of a grid with a few
+    long-range edges.
+    """
+    def rest_fusable(rest):
+        return rest.nnz == 0 or (
+            rest.nnz <= 0.02 * max(int(total_nnz), 1)
+            and int(np.diff(rest.tocsr().indptr).max()) <= 8
+        )
+
+    if not rest_fusable(A_rest):
+        return None
+    h = _fused_halo_blocks(offsets)
+    if h is not None:
+        return offsets, masks, A_rest, h
+    off2, masks2, rest2 = cap_sparse_bands(offsets, masks, A_rest,
+                                           int(total_nnz))
+    if off2.size and off2.size < offsets.size and rest_fusable(rest2):
+        h = _fused_halo_blocks(off2)
+        if h is not None:
+            return off2, masks2, rest2, h
+    return None
+
+
 def _degenerate_result(n_spots: int, n_types: int) -> Tuple[np.ndarray, dict]:
     """Empty-input / zero-iteration fast path (reference ``solver.py:334-343``)."""
     beta = np.full((n_spots, n_types), 1.0 / max(n_types, 1), dtype=np.float64)
@@ -284,13 +337,10 @@ class BCDProblem:
         if graph_plan is None:
             graph_plan = GraphDecomposition(A, n_spots, coords=coords)
         A_solve = graph_plan.A_solve.tocsr()
-        fused = False
+        fused = None
         if graph_plan.use_banded:
-            offsets = tuple(int(o) for o in graph_plan.offsets)
-            halo = max(abs(o) for o in offsets)
-            h = max(1, -(-halo // FUSED_BLOCK))
-            fused = (graph_plan.A_rest.nnz == 0 and h <= FUSED_MAX_H
-                     and len(offsets) <= KERNEL_MAX_BANDS)
+            fused = fused_decomposition(graph_plan.offsets, graph_plan.masks,
+                                        graph_plan.A_rest, A_solve.nnz)
         n_solve = (-(-n_spots // FUSED_BLOCK) * FUSED_BLOCK if fused
                    else n_spots)
         # Binary degree (nnz per row): every edge counts 1 in the sweep.
@@ -318,11 +368,24 @@ class BCDProblem:
         common = dict(Xty_t=Xty_t, XtX=XtX, nnb=n_nbrs,
                       YtY=sanitize_yty(yty, Y_sketch))
         if fused:
-            masks = np.zeros((len(offsets), n_solve), dtype=np.uint8)
-            masks[:, :n_spots] = graph_plan.masks
+            offsets_np, masks_np, A_rest, h = fused
+            masks = np.zeros((offsets_np.size, n_solve), dtype=np.uint8)
+            masks[:, :n_spots] = masks_np
+            # The rest table padded to n_solve rows with the sentinel
+            # n_spots, as the JAX solver builds it.
+            rest_nbr = np.full((n_solve, 0), n_spots, dtype=np.int32)
+            if A_rest.nnz:
+                table = adjacency_to_padded(A_rest)[0]
+                rest_nbr = np.full((n_solve, table.shape[1]), n_spots,
+                                   dtype=np.int32)
+                rest_nbr[:n_spots] = table
+            touched, slot_cols = build_fused_rest_tables(
+                rest_nbr, n_spots, h, FUSED_BLOCK)
             tier = self._tier(FusedBandedTier,
                               masks=self._to_dev(masks, torch.uint8),
-                              offsets=offsets, h=h, block=FUSED_BLOCK,
+                              offsets=tuple(int(o) for o in offsets_np),
+                              h=h, block=FUSED_BLOCK,
+                              **self._rest_tables(touched, slot_cols),
                               **common)
         elif graph_plan.use_banded:
             # The unfused sweep multiplies by the masks every band: widen
@@ -334,8 +397,8 @@ class BCDProblem:
             tier = self._tier(
                 BandedTier, masks=self._to_dev(graph_plan.masks,
                                                torch.float32),
-                offsets=offsets, rest=self._to_dev(rest, torch.int32),
-                **common)
+                offsets=tuple(int(o) for o in graph_plan.offsets),
+                rest=self._to_dev(rest, torch.int32), **common)
         else:
             nbr, _, ov_src, ov_dst = adjacency_to_padded_capped(
                 A_solve, max_degree=max_degree
@@ -358,6 +421,14 @@ class BCDProblem:
             return a.to(self.device, dtype).contiguous()
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
                             device=self.device)
+
+    def _rest_tables(self, touched, slot_cols) -> dict:
+        """The fused tier's rest-stream tables on the device (int64, the
+        index type of ``index_copy_``), or None without rest edges."""
+        if touched is None:
+            return dict(rest_touched=None, rest_slot_cols=None)
+        return dict(rest_touched=self._to_dev(touched, torch.int64),
+                    rest_slot_cols=self._to_dev(slot_cols, torch.int64))
 
     def _tier(self, cls, *, Xty_t, XtX, nnb, YtY, **graph) -> Tier:
         """A ``cls`` tier over device copies of the shared operands and
@@ -439,8 +510,10 @@ def problem_from_arrays(
     :class:`flashdeconv_tpu.core.solver.BCDProblem` as numpy arrays, under
     its attribute names: ``Xty_t_d`` (K, n_solve), ``XtX_d`` (K, K),
     ``masks_d`` (U, n_solve) uint8, ``nnb_d`` (n_solve,), ``YtY``,
-    ``mean_diag`` and, for a re-sorted graph, ``_inv_perm_d`` (n_spots,).
-    The port then solves exactly those operands on its fused tier.
+    ``mean_diag``, for a re-sorted graph ``_inv_perm_d`` (n_spots,) and,
+    for a graph with rest edges, the rest stream's ``rest_touched_d`` (T,)
+    and ``rest_slots_d`` (R, T). The port then solves exactly those
+    operands on its fused tier.
     """
     prob = BCDProblem.__new__(BCDProblem)
     K = np.shape(arrays["Xty_t_d"])[0]
@@ -458,6 +531,8 @@ def problem_from_arrays(
         nnb=arrays["nnb_d"], YtY=arrays["YtY"],
         masks=prob._to_dev(arrays["masks_d"], torch.uint8),
         offsets=tuple(int(o) for o in offsets), h=int(h), block=int(block),
+        **prob._rest_tables(arrays.get("rest_touched_d"),
+                            arrays.get("rest_slots_d")),
     )
     prob._attach(tier, mean_diag=arrays["mean_diag"], inv_perm=inv_perm)
     return prob

@@ -93,7 +93,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                    ctypes.c_float)
     if name == "fused_banded_sweep":
         lib.fdt_fused_banded_sweep.argtypes = [
-            p, ll, ll, p, ll, ll, p, p, p, ll, ll, p,
+            p, ll, ll, p, ll, ll, p, p, p, p, ll, ll, p,
             ctypes.POINTER(ctypes.c_int), i, i, ll, ll, i, f, f, p, p,
         ]
         lib.fdt_fused_banded_sweep.restype = i

@@ -9,7 +9,10 @@ coordinates of each spot) with the per-solve reciprocal denominator
 
 - the fused banded tier sweeps a block-padded carry ``(K, n_solve +
   2*h*block)`` with uint8 band masks in one launch of
-  ``csrc/fused_banded_sweep.cu`` (:func:`fused_banded_sweep`);
+  ``csrc/fused_banded_sweep.cu`` (:func:`fused_banded_sweep`); a small
+  remainder of rest edges rides along as a (K, n_solve) ``ns_rest`` input,
+  refreshed in plain PyTorch before each launch at the touched columns
+  only (:func:`build_fused_rest_tables`, :func:`rest_ns_update`);
 - the unfused banded tier (:func:`bcd_sweep_banded`) and the gather tier
   (:func:`bcd_sweep`) form the neighbour sums in plain PyTorch — shifted
   slices times f32 masks plus a rest table, or a padded neighbour table
@@ -249,6 +252,7 @@ def fused_banded_sweep_reference(
     offsets: Tuple[int, ...], h: int, block: int,
     out: Optional[torch.Tensor] = None,
     sub: Optional[Tuple[int, int, int]] = None,
+    ns_rest_t: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the fused banded sweep kernel.
 
@@ -257,7 +261,8 @@ def fused_banded_sweep_reference(
     pad columns zeroed, except for a sub-range written into a full carry,
     which writes only its data columns) and returns ``(carry, max|beta -
     beta_old|, max|beta_old|)`` over the call's data columns, the
-    statistics as 0-d tensors on the carry's device.
+    statistics as 0-d tensors on the carry's device. ``ns_rest_t`` (K,
+    n_solve), when given, adds once after the bands.
     """
     K, n_ext = beta_ext_t.shape
     pad = h * block
@@ -267,6 +272,8 @@ def fused_banded_sweep_reference(
     win = beta_ext_t[:, rng.in_col0:rng.in_col0 + n + 2 * pad]
     ns = _banded_ns(win, masks[:, d0:d0 + n].to(beta_ext_t.dtype), offsets,
                     pad, n)
+    if ns_rest_t is not None:
+        ns = ns + ns_rest_t[:, d0:d0 + n]
     beta_old = win[:, pad:pad + n].contiguous()
     beta = gs_pass(beta_old, Xty_t[:, d0:d0 + n], XtX, ns,
                    inv_den_t[:, d0:d0 + n], lambda_, rho)
@@ -281,7 +288,8 @@ def fused_banded_sweep_reference(
 
 
 def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
-                          offsets, h, block, out, out_cols: int):
+                          offsets, h, block, out, out_cols: int,
+                          ns_rest_t=None):
     K, n_ext = beta_ext_t.shape
     n_data = Xty_t.shape[1]
     if K > KERNEL_MAX_K:
@@ -300,6 +308,8 @@ def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
         "beta_ext_t": (beta_ext_t, (K, n_ext), torch.float32),
         "out": (out, (K, out_cols), torch.float32),
     }
+    if ns_rest_t is not None:
+        expect["ns_rest_t"] = (ns_rest_t, (K, n_data), torch.float32)
     for name, (t, shape, dtype) in expect.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype} {shape}, got "
@@ -324,10 +334,11 @@ def _raise_on_launch_error(lib, err: int, name: str) -> None:
 
 def fused_sweep_launch(lib, stream: int, beta_ext_t, Xty_t, XtX, masks,
                        inv_den_t, lambda_, rho, offsets, h: int, block: int,
-                       out, rng: SweepRange) -> torch.Tensor:
+                       out, rng: SweepRange, ns_rest_t=None) -> torch.Tensor:
     """One call of ``fdt_fused_banded_sweep`` of ``lib`` on ``stream`` over
     ``rng``; returns the (2, blocks) partials of the two statistics. The
-    operands are checked by the caller."""
+    operands are checked by the caller; ``ns_rest_t`` None passes a null
+    pointer (no rest input)."""
     K, n_ext = beta_ext_t.shape
     pad = h * block
     n_cols = rng.n_sub + (2 * pad if rng.write_pads else 0)
@@ -337,7 +348,9 @@ def fused_sweep_launch(lib, stream: int, beta_ext_t, Xty_t, XtX, masks,
     err = lib.fdt_fused_banded_sweep(
         beta_ext_t.data_ptr(), n_ext, rng.in_col0, out.data_ptr(),
         out.shape[1], rng.out_col0, Xty_t.data_ptr(), masks.data_ptr(),
-        inv_den_t.data_ptr(), Xty_t.shape[1], rng.data0, XtX.data_ptr(),
+        inv_den_t.data_ptr(),
+        None if ns_rest_t is None else ns_rest_t.data_ptr(),
+        Xty_t.shape[1], rng.data0, XtX.data_ptr(),
         offs, len(offsets), K, pad, rng.n_sub, int(rng.write_pads),
         f32(lambda_), f32(rho), partials.data_ptr(), stream,
     )
@@ -346,15 +359,19 @@ def fused_sweep_launch(lib, stream: int, beta_ext_t, Xty_t, XtX, masks,
 
 
 def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
-                             lambda_, rho, offsets, h, block, out, rng, sub):
+                             lambda_, rho, offsets, h, block, out, rng, sub,
+                             ns_rest_t):
     from flashdeconv_tpu_torch.ops import _build
 
     stream = torch.cuda.current_stream(beta_ext_t.device).cuda_stream
     partials = fused_sweep_launch(
         _build.load("fused_banded_sweep"), stream, beta_ext_t, Xty_t, XtX,
-        masks, inv_den_t, lambda_, rho, offsets, h, block, out, rng)
+        masks, inv_den_t, lambda_, rho, offsets, h, block, out, rng,
+        ns_rest_t)
     if sub is not None:
         fused_banded_sweep.sub_launches += 1
+    elif ns_rest_t is not None:
+        fused_banded_sweep.rest_launches += 1
     elif beta_ext_t.shape[0] > REGISTER_PASS_MAX_K:
         fused_banded_sweep.large_k_launches += 1
     else:
@@ -376,6 +393,7 @@ def fused_banded_sweep(
     block: int,
     out: Optional[torch.Tensor] = None,
     sub: Optional[Tuple[int, int, int]] = None,
+    ns_rest_t: Optional[torch.Tensor] = None,
 ):
     """One fused banded BCD sweep on the transposed padded carry.
 
@@ -400,14 +418,19 @@ def fused_banded_sweep(
         2h) * block)`` with zero pads; with ``out`` (a full carry, ``(K,
         n_solve + 2*h*block)``; the JAX ``out_alias``) it writes only the
         range's data columns, at block ``data_start + h``, and no pad.
+    ns_rest_t : optional (K, n_solve) f32 rest-edge neighbour sums
+        (:func:`rest_ns_update` refreshes them before each sweep), added
+        once after the bands, as the unfused tier adds its rest table's
+        sums; indexed by data column, like ``Xty_t``.
 
     Returns ``(new carry, max_diff, max_abs)``, the statistics as 0-d f32
     tensors on the carry's device. On a CUDA carry this launches the
     hand-written kernel (and raises if it cannot); on a CPU carry it runs
-    :func:`fused_banded_sweep_reference`. ``fused_banded_sweep.launches``
-    counts the kernel's whole-sweep launches at K <= 64,
-    ``.large_k_launches`` those of its panel form above, and
-    ``.sub_launches`` its sub-range launches at any K.
+    :func:`fused_banded_sweep_reference`. Each launch counts once:
+    ``fused_banded_sweep.sub_launches`` the sub-range launches at any K,
+    ``.rest_launches`` the whole-sweep launches with ``ns_rest_t`` at any
+    K, ``.large_k_launches`` the other whole-sweep launches of the panel
+    form (K > 64) and ``.launches`` those at K <= 64.
     """
     pad = h * block
     rng = sweep_range(beta_ext_t.shape[1], Xty_t.shape[1], h, block, sub,
@@ -416,16 +439,17 @@ def fused_banded_sweep(
         (beta_ext_t.shape[0], rng.n_sub + 2 * pad))
     _check_sweep_operands(
         beta_ext_t, Xty_t, XtX, masks, inv_den_t, offsets, h, block, buf,
-        (rng.n_sub if rng.write_pads else Xty_t.shape[1]) + 2 * pad)
+        (rng.n_sub if rng.write_pads else Xty_t.shape[1]) + 2 * pad,
+        ns_rest_t)
     if beta_ext_t.device.type == "cuda":
         return _fused_banded_sweep_cuda(
             beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_, rho,
-            offsets, h, block, buf, rng, sub,
+            offsets, h, block, buf, rng, sub, ns_rest_t,
         )
     if beta_ext_t.device.type == "cpu":
         return fused_banded_sweep_reference(
             beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_, rho,
-            offsets, h, block, out=out, sub=sub,
+            offsets, h, block, out=out, sub=sub, ns_rest_t=ns_rest_t,
         )
     raise ValueError(f"no fused sweep for device {beta_ext_t.device}")
 
@@ -433,6 +457,7 @@ def fused_banded_sweep(
 fused_banded_sweep.launches = 0
 fused_banded_sweep.large_k_launches = 0
 fused_banded_sweep.sub_launches = 0
+fused_banded_sweep.rest_launches = 0
 
 
 def sweep_stats(beta_out: torch.Tensor, beta_in: torch.Tensor):
@@ -527,6 +552,56 @@ def neighbor_sum_banded(beta_t: torch.Tensor, offsets: Tuple[int, ...],
     if rest_t.shape[0]:
         ns += neighbor_sum(with_sentinel(beta_t), rest_t)
     return ns
+
+
+def build_fused_rest_tables(rest_nbr_idx: np.ndarray, sentinel: int, h: int,
+                            block: int):
+    """The fused tier's tables of its rest edges (the graph's remainder off
+    the bands, spilled sparse bands included).
+
+    ``rest_nbr_idx``: the (n_solve, R) padded neighbour table of the rest
+    edges (:func:`flashdeconv_tpu_torch.utils.graph.adjacency_to_padded`,
+    padding rows appended), padding slots == ``sentinel``. Returns
+    ``(touched, slot_cols)`` int32 host arrays: the (T,) data columns that
+    have a rest edge, padded to a multiple of 128 by repeating the last one
+    (each repeat writes the same value, so the update stays deterministic),
+    and the (R, T) carry columns each slot reads (data column + ``h *
+    block``; the sentinel reads column 0, a zero column of the carry's left
+    pad). ``(None, None)`` when the table has no edge. The JAX package's
+    ``build_fused_rest_tables``, unchanged.
+    """
+    t = np.asarray(rest_nbr_idx)
+    touched = np.flatnonzero((t != sentinel).any(axis=1))
+    if touched.size == 0:
+        return None, None
+    pad = (-touched.size) % 128
+    touched_p = np.concatenate(
+        [touched, np.full(pad, touched[-1], dtype=touched.dtype)]
+    ).astype(np.int32)
+    slots = t[touched_p]                          # (T, R)
+    cols = np.where(
+        slots == sentinel, 0, slots + h * block
+    ).astype(np.int32).T                          # (R, T)
+    return touched_p, np.ascontiguousarray(cols)
+
+
+def rest_ns_update(ns_rest: torch.Tensor, carry_ext_t: torch.Tensor,
+                   touched: torch.Tensor, slot_cols: torch.Tensor
+                   ) -> torch.Tensor:
+    """Refresh the rest-edge neighbour sums ``ns_rest`` (K, n_solve) in
+    place from the fused carry, at the touched columns only; returns it.
+
+    The sums run one slot at a time, slot 0 first, in the order of
+    :func:`neighbor_sum`, so the fused sweep with this input is bitwise the
+    unfused banded sweep with the same rest table. ``touched`` (T,) int64
+    and ``slot_cols`` (R, T) come from :func:`build_fused_rest_tables`. The
+    other columns keep what they hold (+0.0 from the solve's start). Plain
+    PyTorch, as the JAX package's is XLA.
+    """
+    vals = torch.index_select(carry_ext_t, 1, slot_cols[0])
+    for s in range(1, slot_cols.shape[0]):
+        vals += torch.index_select(carry_ext_t, 1, slot_cols[s])
+    return ns_rest.index_copy_(1, touched, vals)
 
 
 def coordinate_descent_block_reference(
@@ -703,13 +778,18 @@ def _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho):
 def objective_terms_banded_fused(
     beta_ext_t, Xty_t, XtX, YtY, offsets: Tuple[int, ...], masks,
     lambda_, rho, h: int, block: int, nnb: torch.Tensor,
+    rest_touched=None, rest_slot_cols=None,
 ):
     """Objective on the fused carry, as a 0-d f32 tensor, with the degree
-    ``nnb`` (n_solve,)."""
+    ``nnb`` (n_solve,); the rest tables, when given, add the rest edges'
+    sums after the bands."""
     pad = h * block
     n_solve = Xty_t.shape[1]
     ns_t = _banded_ns(beta_ext_t, masks.to(Xty_t.dtype), offsets, pad,
                       n_solve)
+    if rest_touched is not None:
+        ns_t = ns_t + rest_ns_update(torch.zeros_like(ns_t), beta_ext_t,
+                                     rest_touched, rest_slot_cols)
     return _objective(beta_ext_t[:, pad:pad + n_solve], Xty_t, XtX, YtY,
                       ns_t, nnb, lambda_, rho)
 
@@ -756,19 +836,28 @@ def converge_loop(
 def bcd_iterate_banded_fused(
     carry0, Xty_t, XtX, masks, nnb, lambda_, rho, tol, max_iter: int,
     offsets: Tuple[int, ...], h: int, block: int,
+    rest_touched=None, rest_slot_cols=None,
 ):
     """Fused solve loop on the transposed padded carry; the reciprocal
     denominator is computed once per solve from the degree vector ``nnb``.
-    ``carry0`` is overwritten (see :func:`converge_loop`). Returns
-    ``(carry, n_iterations, rel_change)``."""
+    ``rest_touched`` / ``rest_slot_cols`` (:func:`build_fused_rest_tables`,
+    as tensors) turn on the rest stream: a (K, n_solve) ``ns_rest`` buffer,
+    zero at the start, whose touched columns :func:`rest_ns_update`
+    refreshes from each sweep's input carry (Jacobi, like the bands) on the
+    launch's stream before the launch that reads it. ``carry0`` is
+    overwritten (see :func:`converge_loop`). Returns ``(carry,
+    n_iterations, rel_change)``."""
     inv_den_t = gs_inv_den(XtX, nnb, lambda_)
-    return converge_loop(
-        lambda c, out: fused_banded_sweep(
-            c, Xty_t, XtX, masks, inv_den_t, lambda_, rho, offsets, h,
-            block, out=out,
-        ),
-        carry0, tol, max_iter,
-    )
+    ns_rest = None if rest_touched is None else torch.zeros_like(Xty_t)
+
+    def sweep(c, out):
+        if ns_rest is not None:
+            rest_ns_update(ns_rest, c, rest_touched, rest_slot_cols)
+        return fused_banded_sweep(c, Xty_t, XtX, masks, inv_den_t, lambda_,
+                                  rho, offsets, h, block, out=out,
+                                  ns_rest_t=ns_rest)
+
+    return converge_loop(sweep, carry0, tol, max_iter)
 
 
 def bcd_iterate(beta0_t, Xty_t, XtX, nbr_t, nnb, lambda_, rho, tol,
@@ -820,13 +909,18 @@ class Tier:
 
 @dataclasses.dataclass
 class FusedBandedTier(Tier):
-    """Wholly banded graph: uint8 masks (U, n_solve), offsets, and the
-    carry's pad of ``h`` blocks of ``block`` spots on each side."""
+    """Banded graph on the fused kernel: uint8 masks (U, n_solve),
+    offsets, the carry's pad of ``h`` blocks of ``block`` spots on each
+    side and, for a small remainder of rest edges, the rest stream's
+    ``rest_touched`` (T,) and ``rest_slot_cols`` (R, T) int64 tables
+    (:func:`build_fused_rest_tables`; None without rest edges)."""
 
     masks: torch.Tensor
     offsets: Tuple[int, ...]
     h: int
     block: int
+    rest_touched: Optional[torch.Tensor] = None
+    rest_slot_cols: Optional[torch.Tensor] = None
 
     def carry(self, beta0):
         return to_fused_carry(beta0, self.h, self.block)
@@ -838,13 +932,36 @@ class FusedBandedTier(Tier):
         return bcd_iterate_banded_fused(
             carry, self.Xty_t, self.XtX, self.masks, self.nnb, lambda_, rho,
             tol, max_iter, self.offsets, self.h, self.block,
+            rest_touched=self.rest_touched,
+            rest_slot_cols=self.rest_slot_cols,
         )
 
     def objective(self, carry, lambda_, rho):
         return objective_terms_banded_fused(
             carry, self.Xty_t, self.XtX, self.YtY, self.offsets, self.masks,
             lambda_, rho, self.h, self.block, nnb=self.nnb,
+            rest_touched=self.rest_touched,
+            rest_slot_cols=self.rest_slot_cols,
         )
+
+    def unfused(self) -> "BandedTier":
+        """The unfused banded tier on the same operands and decomposition:
+        f32 masks, and the rest table (R, n_solve) rebuilt from the rest
+        stream's tables (sentinel n_solve, the zero column
+        :func:`with_sentinel` appends). Its sweeps are bitwise this tier's.
+        """
+        n_solve = self.Xty_t.shape[1]
+        rest = torch.full((0, n_solve), n_solve, dtype=torch.int64,
+                          device=self.Xty_t.device)
+        if self.rest_touched is not None:
+            cols = self.rest_slot_cols
+            rest = torch.full((cols.shape[0], n_solve), n_solve,
+                              dtype=torch.int64, device=cols.device)
+            rest[:, self.rest_touched] = torch.where(
+                cols == 0, n_solve, cols - self.h * self.block)
+        return BandedTier(Xty_t=self.Xty_t, XtX=self.XtX, nnb=self.nnb,
+                          YtY=self.YtY, masks=self.masks.float(),
+                          offsets=self.offsets, rest=rest)
 
 
 @dataclasses.dataclass

@@ -9,10 +9,20 @@
 // What it computes, for every data column j of the transposed carry
 // (K, n_solve + 2*pad), pad = h*block:
 //   ns_k = sum_u mask[u, j] * beta_old[k, j + off_u]      (bands in order)
-// then the Gauss-Seidel pass of gs_pass.cuh on those sums. Pad columns are
-// written as zeros. Each CUDA block also writes its max |beta_new -
-// beta_old| and max |beta_old| to partials[0, b] and partials[1, b]; the
-// wrapper reduces those.
+//   ns_k = ns_k + ns_rest[k, j]            (only when ns_rest is given)
+// then the Gauss-Seidel pass of gs_pass.cuh on those sums. ns_rest (K,
+// n_solve), the rest stream, holds each spot's sum over the graph's edges
+// off the bands (refreshed by the caller before each sweep, zero where a
+// spot has none); it replaces the ns_rest_t input of the Pallas kernel
+// (flashdeconv_tpu/ops/bcd.py:724-729). It is added once, after the band
+// loop, with one __fadd_rn: the association of the unfused banded tier
+// (bands, then the rest table's total), so the two stay bitwise equal.
+// Both kernels are compiled with and without the rest input (template
+// REST), chosen by whether ns_rest is null: a wholly banded grid runs the
+// code it ran before the rest stream and moves no extra bytes. Pad
+// columns are written as zeros. Each CUDA block also writes its max
+// |beta_new - beta_old| and max |beta_old| to partials[0, b] and
+// partials[1, b]; the wrapper reduces those.
 //
 // What bounds it: bytes. At 1M spots, K = 20 and 18 bands one sweep reads
 // the carry (80 MB), Xty (80 MB), inv_den (80 MB) and the uint8 masks
@@ -58,19 +68,24 @@ struct BandOffsets {
     int v[FDT_MAX_BANDS];
 };
 
-// ns(k) of one spot: the set bands' carry values of row k, in band order.
+// ns(k) of one spot: the set bands' carry values of row k, in band order,
+// then, with REST, the spot's rest-stream sum.
+template <bool REST>
 struct BandSum {
-    const float* col;  // the spot's column of the input carry
-    long long ld;      // the carry's row length n_ext
-    uint32_t bits;     // bit u set iff band u has an edge at this spot
-    const int* off_s;  // band offsets, in shared memory
+    const float* col;   // the spot's column of the input carry
+    long long ld;       // the carry's row length n_ext
+    uint32_t bits;      // bit u set iff band u has an edge at this spot
+    const int* off_s;   // band offsets, in shared memory
     int n_bands;
+    const float* rest;  // the spot's column of ns_rest (read with REST)
+    long long ld_rest;  // ns_rest's row length (that of xty)
 
     __device__ __forceinline__ float operator()(int k) const
     {
         float s = 0.f;
         for (int u = 0; u < n_bands; ++u)
             if ((bits >> u) & 1u) s = __fadd_rn(s, col[k * ld + off_s[u]]);
+        if (REST) s = __fadd_rn(s, rest[k * ld_rest]);
         return s;
     }
 };
@@ -79,10 +94,10 @@ struct BandSum {
 // flashdeconv_tpu/ops/bcd.py, which the spot-sharded banded mesh runs):
 // both kernels sweep a window of n_sub + 2*pad columns that starts at
 // column in_col0 of the input carry, its n_sub data columns being the data
-// columns [data0, data0 + n_sub) of xty, masks and inv_den (row length
-// ld_data). Window column w (0 <= w < n_sub + 2*pad) is written to column
-// out_col0 + w of the output carry. The whole sweep is in_col0 = data0 =
-// out_col0 = 0 and n_sub = n_solve. With write_pads the pad columns of the
+// columns [data0, data0 + n_sub) of xty, masks, inv_den and ns_rest (row
+// length ld_data). Window column w (0 <= w < n_sub + 2*pad) is written to
+// column out_col0 + w of the output carry. The whole sweep is in_col0 =
+// data0 = out_col0 = 0 and n_sub = n_solve. With write_pads the pad columns of the
 // window are written as zeros (a whole sweep, or a sub-carry of its own);
 // without it only the data columns are launched and written, so a split
 // sweep fills one full carry without touching its pads. Every data column
@@ -91,7 +106,7 @@ struct BandSum {
 // In both kernels thread t of the launch takes window column w0 + t, w0 = 0
 // with write_pads and pad without.
 
-template <int KMAX>
+template <int KMAX, bool REST>
 __global__ void __launch_bounds__(FDT_THREADS)
 fused_banded_sweep_kernel(const float* __restrict__ carry_in,
                           const long long ld_in,
@@ -100,6 +115,7 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
                           const float* __restrict__ xty_t,
                           const uint8_t* __restrict__ masks,
                           const float* __restrict__ inv_den_t,
+                          const float* __restrict__ ns_rest,
                           const long long ld_data,
                           const float* __restrict__ xtx,
                           const BandOffsets offs, const int n_bands,
@@ -128,7 +144,8 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
         uint32_t bits = 0u;
         for (int u = 0; u < n_bands; ++u)
             if (masks[u * ld_data + j]) bits |= 1u << u;
-        const BandSum ns{carry_in + w, ld_in, bits, off_s, n_bands};
+        const BandSum<REST> ns{carry_in + w, ld_in, bits, off_s, n_bands,
+                               ns_rest + j, ld_data};
         gs_pass_spot<KMAX>(carry_in + w, ld_in, carry_out + w, ld_out,
                            xty_t + j, inv_den_t + j, ld_data, xtx_s, K, lam,
                            rho, ns, dmax, amax);
@@ -138,6 +155,7 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
 
 // 64 < K <= 256: a block of 256 threads sweeps FDT_TILE_SPOTS window
 // columns, lane l of every warp column w0 + blockIdx.x * 32 + l.
+template <bool REST>
 __global__ void __launch_bounds__(FDT_THREADS)
 fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
                                 const long long ld_in,
@@ -146,6 +164,7 @@ fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
                                 const float* __restrict__ xty_t,
                                 const uint8_t* __restrict__ masks,
                                 const float* __restrict__ inv_den_t,
+                                const float* __restrict__ ns_rest,
                                 const long long ld_data,
                                 const float* __restrict__ xtx,
                                 const BandOffsets offs, const int n_bands,
@@ -174,7 +193,8 @@ fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
         for (int u = 0; u < n_bands; ++u)
             if (masks[u * ld_data + j]) bits |= 1u << u;
     const long long c = valid ? w : 0, jj = valid ? j : 0;
-    const BandSum ns{carry_in + c, ld_in, bits, off_s, n_bands};
+    const BandSum<REST> ns{carry_in + c, ld_in, bits, off_s, n_bands,
+                           ns_rest + jj, ld_data};
     float dmax = 0.f, amax = 0.f;
     gs_pass_panel(carry_in + c, ld_in, carry_out + c, ld_out, xty_t + jj,
                   inv_den_t + jj, ld_data, xtx, K, lam, rho, ns, valid, smem,
@@ -192,27 +212,58 @@ extern "C" long long fdt_fused_banded_sweep_blocks(long long n_cols, int K)
 }
 
 #define FDT_SWEEP_ARGS                                                      \
-    carry_in, ld_in, carry_out, ld_out, xty_t, masks, inv_den_t, ld_data,   \
-        xtx, offs, n_bands, K, pad, n_sub, w0, n_cols, lam, rho, partials
+    carry_in, ld_in, carry_out, ld_out, xty_t, masks, inv_den_t, ns_rest,   \
+        ld_data, xtx, offs, n_bands, K, pad, n_sub, w0, n_cols, lam, rho,     \
+        partials
 
+#define FDT_SWEEP_PARAMS                                                    \
+    const float *carry_in, long long ld_in, float *carry_out,               \
+        long long ld_out, const float *xty_t, const uint8_t *masks,         \
+        const float *inv_den_t, const float *ns_rest, long long ld_data,    \
+        const float *xtx, const BandOffsets &offs, int n_bands, int K,      \
+        long long pad, long long n_sub, long long w0, long long n_cols,     \
+        float lam, float rho, float *partials, size_t smem,                 \
+        cudaStream_t stream
+
+// K <= 64: the register kernel of KMAX, with the rest input iff ns_rest.
+// With it the smallest instance is KMAX = 16: at KMAX = 8 ptxas (CUDA 12.8,
+// sm_90a) held the kernel to 40 registers and spilled 20 bytes. A larger
+// KMAX runs the same operations for every k < K, so the bits are the same.
 template <int KMAX>
-static void launch(const float* carry_in, long long ld_in, float* carry_out,
-                   long long ld_out, const float* xty_t, const uint8_t* masks,
-                   const float* inv_den_t, long long ld_data,
-                   const float* xtx, const BandOffsets& offs, int n_bands,
-                   int K, long long pad, long long n_sub, long long w0,
-                   long long n_cols, float lam, float rho, float* partials,
-                   size_t smem, cudaStream_t stream)
+static int launch(FDT_SWEEP_PARAMS)
 {
     const unsigned blocks = (unsigned)fdt_blocks(n_cols);
-    fused_banded_sweep_kernel<KMAX><<<blocks, FDT_THREADS, smem, stream>>>(
-        FDT_SWEEP_ARGS);
+    constexpr int KREST = KMAX < 16 ? 16 : KMAX;
+    if (ns_rest)
+        fused_banded_sweep_kernel<KREST, true>
+            <<<blocks, FDT_THREADS, smem, stream>>>(FDT_SWEEP_ARGS);
+    else
+        fused_banded_sweep_kernel<KMAX, false>
+            <<<blocks, FDT_THREADS, smem, stream>>>(FDT_SWEEP_ARGS);
+    return (int)cudaGetLastError();
+}
+
+// 64 < K <= 256: the panel kernel; its shared memory may pass 48 KB, so
+// the attribute is set before every launch.
+template <bool REST>
+static int launch_panel(FDT_SWEEP_PARAMS)
+{
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_banded_sweep_panel_kernel<REST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks =
+        (unsigned)fdt_fused_banded_sweep_blocks(n_cols, K);
+    fused_banded_sweep_panel_kernel<REST>
+        <<<blocks, FDT_THREADS, smem, stream>>>(FDT_SWEEP_ARGS);
+    return (int)cudaGetLastError();
 }
 
 // Launches one sweep of the data columns [data0, data0 + n_sub) on
 // `stream`: the window starts at column in_col0 of carry_in (row length
 // ld_in) and its column w goes to column out_col0 + w of carry_out (row
-// length ld_out); xty_t, masks and inv_den_t have rows of ld_data. With
+// length ld_out); xty_t, masks, inv_den_t and ns_rest (null: no rest
+// stream) have rows of ld_data. With
 // write_pads the window's 2*pad pad columns are written as zeros, without
 // it they are neither launched nor written. `partials` holds
 // 2 * fdt_fused_banded_sweep_blocks(n_cols, K) floats, n_cols = n_sub +
@@ -223,9 +274,10 @@ extern "C" int fdt_fused_banded_sweep(
     const float* carry_in, long long ld_in, long long in_col0,
     float* carry_out, long long ld_out, long long out_col0,
     const float* xty_t, const uint8_t* masks, const float* inv_den_t,
-    long long ld_data, long long data0, const float* xtx, const int* offsets,
-    int n_bands, int K, long long pad, long long n_sub, int write_pads,
-    float lam, float rho, float* partials, void* stream)
+    const float* ns_rest, long long ld_data, long long data0,
+    const float* xtx, const int* offsets, int n_bands, int K, long long pad,
+    long long n_sub, int write_pads, float lam, float rho, float* partials,
+    void* stream)
 {
     const long long w0 = write_pads ? 0 : pad;
     const long long n_cols = write_pads ? n_sub + 2 * pad : n_sub;
@@ -243,31 +295,20 @@ extern "C" int fdt_fused_banded_sweep(
     xty_t += data0;
     masks += data0;
     inv_den_t += data0;
+    if (ns_rest) ns_rest += data0;
     cudaStream_t s = (cudaStream_t)stream;
     if (K > FDT_REGISTER_MAX_K) {
         const size_t smem = fdt_panel_smem_floats(K) * sizeof(float)
                             + FDT_MAX_BANDS * sizeof(int);
-        const cudaError_t err = cudaFuncSetAttribute(
-            fused_banded_sweep_panel_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        const unsigned blocks =
-            (unsigned)fdt_fused_banded_sweep_blocks(n_cols, K);
-        fused_banded_sweep_panel_kernel<<<blocks, FDT_THREADS, smem, s>>>(
-            FDT_SWEEP_ARGS);
-        return (int)cudaGetLastError();
+        return ns_rest ? launch_panel<true>(FDT_SWEEP_ARGS, smem, s)
+                       : launch_panel<false>(FDT_SWEEP_ARGS, smem, s);
     }
     // XtX is 16 KB at K = 64, under the 48 KB a block gets without
     // cudaFuncSetAttribute.
     const size_t smem = (size_t)K * K * sizeof(float)
                         + FDT_MAX_BANDS * sizeof(int);
-    if (K <= 8)
-        launch<8>(FDT_SWEEP_ARGS, smem, s);
-    else if (K <= 16)
-        launch<16>(FDT_SWEEP_ARGS, smem, s);
-    else if (K <= 32)
-        launch<32>(FDT_SWEEP_ARGS, smem, s);
-    else
-        launch<64>(FDT_SWEEP_ARGS, smem, s);
-    return (int)cudaGetLastError();
+    if (K <= 8) return launch<8>(FDT_SWEEP_ARGS, smem, s);
+    if (K <= 16) return launch<16>(FDT_SWEEP_ARGS, smem, s);
+    if (K <= 32) return launch<32>(FDT_SWEEP_ARGS, smem, s);
+    return launch<64>(FDT_SWEEP_ARGS, smem, s);
 }

@@ -251,6 +251,53 @@ def adjacency_to_padded_capped(
     return nbr, counts, ov_src, ov_dst
 
 
+def cap_sparse_bands(
+    offsets: np.ndarray,
+    masks: np.ndarray,
+    A_rest: sparse.spmatrix,
+    total_nnz: int,
+    min_density: float = 0.05,
+    max_spill_frac: float = 0.02,
+) -> Tuple[np.ndarray, np.ndarray, sparse.csr_matrix]:
+    """Spill near-empty bands out of a banded decomposition.
+
+    A few long-range edges can make :func:`banded_split` keep
+    near-singleton offsets as bands, whose offsets widen the halo past what
+    the fused tier takes; a finite-grid kNN graph also grows sparse
+    boundary-artifact bands. Bands with density below ``min_density`` are
+    removed from the banded set and their edges merged into ``A_rest``,
+    PROVIDED the combined spill stays under ``max_spill_frac`` of the
+    graph's edges (the fused tier's rest stream is meant for a small
+    remainder); otherwise the decomposition is returned unchanged.
+
+    Returns the same triple shape as :func:`banded_split`.
+    """
+    if offsets.size == 0 or masks.size == 0:
+        return offsets, masks, A_rest.tocsr()
+    dens = masks.mean(axis=1)
+    spill = dens < min_density
+    if not spill.any():
+        return offsets, masks, A_rest.tocsr()
+    spilled_nnz = int(masks[spill].sum())
+    if spilled_nnz > max_spill_frac * max(int(total_nnz), 1):
+        return offsets, masks, A_rest.tocsr()
+    n = masks.shape[1]
+    rows = []
+    cols = []
+    for u in np.flatnonzero(spill):
+        j = np.flatnonzero(masks[u])
+        rows.append(j)
+        cols.append(j + int(offsets[u]))
+    rows = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+    cols = np.concatenate(cols) if cols else np.zeros(0, np.int64)
+    spill_m = sparse.coo_matrix(
+        (np.ones(rows.size, dtype=np.float32), (rows, cols)), shape=(n, n)
+    )
+    A_rest2 = (A_rest.tocsr() + spill_m.tocsr()).tocsr()
+    A_rest2.sort_indices()
+    return offsets[~spill], masks[~spill], A_rest2
+
+
 def banded_split(
     A: sparse.spmatrix,
     max_offsets: int = 16,

@@ -186,15 +186,19 @@ def _case(case):
         Y, X, _ = make_problem(96 * 96, 8, 32, seed=4)
         coords = _irregular(96 * 96, seed=4)
         return Y, X, coords, build_knn_graph(coords, k=6), None, "gather"
-    # rest_stream: a grid with long-range edges off the bands
+    # rest_stream: a grid with long-range edges off the bands, a remainder
+    # over the fused tier's 2 % gate (800 edges) or under it (40 edges)
     Y, X, coords = make_problem(96 * 96, 8, 64, seed=1)
+    if case == "rest_stream":
+        A = with_long_edges(build_knn_graph(coords, k=6), n_edges=800)
+        return Y, X, coords, A, None, "banded"
     A = with_long_edges(build_knn_graph(coords, k=6))
-    return Y, X, coords, A, None, "banded"
+    return Y, X, coords, A, None, "fused"
 
 
 @pytest.mark.parametrize("case", [
     "irregular", "few_spots", "grid_2500", "radius_capped", "not_banded",
-    "rest_stream",
+    "rest_stream", "rest_stream_fused",
 ])
 def test_bcd_solve_matches_jax_cpu(case):
     """Cold and warm-started solves: the same sweeps, beta within 1e-5,
@@ -204,8 +208,10 @@ def test_bcd_solve_matches_jax_cpu(case):
               max_degree=max_degree)
     prob = tsolver.prepare_bcd(Y, X, A, coords=coords,
                                max_degree=max_degree, device="cpu")
-    assert not prob.use_fused_banded
-    assert prob.use_banded == (tier == "banded")
+    assert prob.use_fused_banded == (tier == "fused")
+    assert prob.use_banded == (tier in ("banded", "fused"))
+    if tier == "fused":
+        assert prob.tier.rest_touched is not None
     if case == "radius_capped":
         assert prob.tier.overflow is not None
     ref, rinfo = jsolver.bcd_solve(Y, X, A, **kw)

@@ -61,6 +61,13 @@ GENE_IDX = np.sort(np.random.RandomState(2).choice(500, 150, replace=False))
 IRREGULAR = np.random.RandomState(3).rand(1200, 2) * 30
 GRID = j_graph.grid_coords(side=96)
 SCRAMBLE = np.random.RandomState(4).permutation(GRID.shape[0])
+_LONG = np.random.RandomState(9).choice(GRID.shape[0] // 2, 12, replace=False)
+# The grid graph plus 12 symmetric edges ~3,000-4,000 spots long: near-
+# singleton bands that cap_sparse_bands spills.
+GRID_LONG = (j_graph.build_knn_graph(GRID, k=6) + sparse.coo_matrix(
+    (np.ones(24), (np.r_[_LONG, _LONG + 3000 + 80 * np.arange(12)],
+                   np.r_[_LONG + 3000 + 80 * np.arange(12), _LONG])),
+    shape=(GRID.shape[0],) * 2).tocsr() > 0).astype(np.float64)
 SKETCH_Y = np.random.RandomState(5).randn(300, 64)
 SKETCH_X = np.random.RandomState(6).randn(6, 64)
 BETA = np.abs(np.random.RandomState(7).randn(300, 6))
@@ -106,6 +113,14 @@ CASES = {
     "graph_banded_split": lambda m: m.graph.banded_split(
         m.graph.build_knn_graph(GRID, k=6), max_offsets=32,
         min_coverage=0.9),
+    "graph_cap_sparse_bands": lambda m: m.graph.cap_sparse_bands(
+        *m.graph.banded_split(m.graph.build_knn_graph(GRID, k=6),
+                              max_offsets=32), 9216 * 6),
+    "graph_cap_sparse_bands_long_edges": lambda m: m.graph.cap_sparse_bands(
+        *m.graph.banded_split(GRID_LONG, max_offsets=32, min_coverage=0.9),
+        GRID_LONG.nnz),
+    "graph_cap_sparse_bands_over_spill": lambda m: m.graph.cap_sparse_bands(
+        *m.graph.banded_split(GRID_LONG, max_offsets=32), 100),
     "sketch_op": lambda m: _op(m),
     "sketch_data_sparse": lambda m: m.sketching.sketch_data(
         Y_CSR, X_SIG, sketch_dim=64, random_state=0, backend="host"),

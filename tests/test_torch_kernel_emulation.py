@@ -14,8 +14,8 @@ points, driven by the wrappers' own launch code
 (``ops/bcd.fused_sweep_launch`` / ``cd_sweep_launch``), so this runs the
 C entries' range checks and dispatch and the kernels' indexing, tiling,
 synchronisation and arithmetic — the register pass at K <= 64 and the
-panel pass above, the whole sweep and its sub-range form — at small
-sizes. Bounds as on the card (tests/test_torch_kernels.py): atol 5e-5 /
+panel pass above, the whole sweep and its sub-range form, each with and
+without the rest stream's ``ns_rest`` input — at small sizes. Bounds as on the card (tests/test_torch_kernels.py): atol 5e-5 /
 rtol 1e-4 against the plain versions, rtol 1e-4 on the statistics, fused
 == unfused banded bitwise, a split sweep == the whole sweep bitwise.
 """
@@ -32,7 +32,7 @@ import torch
 
 from flashdeconv_tpu_torch.ops import _build
 from flashdeconv_tpu_torch.ops import bcd as tbcd
-from torch_problems import fused_problem, gather_problem
+from torch_problems import fused_problem, gather_problem, with_rest
 
 EMULATION = Path(__file__).resolve().with_name("cuda_emulation")
 CSRC = Path(tbcd.__file__).resolve().with_name("csrc")
@@ -55,7 +55,8 @@ HOST_EDITS = {
 }
 # kernel<<<blocks, FDT_THREADS, smem, stream>>>(args); -> the block loop.
 LAUNCH = re.compile(
-    r"([\w<>]+)<<<blocks, FDT_THREADS, smem, \w+>>>\((.*?)\);", re.S)
+    r"(\w[\w<>, ]*?)\s*<<<blocks, FDT_THREADS, smem, \w+>>>\((.*?)\);",
+    re.S)
 
 
 def _host_copy(src: Path, dst: Path) -> None:
@@ -108,7 +109,7 @@ def emulated_cd(emulator, beta_t, Xty_t, XtX, ns_t, inv_den_t, lam, rho):
 
 
 def emulated_fused(emulator, carry, Xty_t, XtX, masks, inv_den_t, lam, rho,
-                   offsets, h, block, out=None, sub=None):
+                   offsets, h, block, out=None, sub=None, ns_rest_t=None):
     """The emulated kernel through the wrapper's launch code; without
     ``out`` the new carry (or sub-carry) starts as 7.0 everywhere."""
     rng = tbcd.sweep_range(carry.shape[1], Xty_t.shape[1], h, block, sub,
@@ -117,7 +118,8 @@ def emulated_fused(emulator, carry, Xty_t, XtX, masks, inv_den_t, lam, rho,
         out = torch.full((carry.shape[0], rng.n_sub + 2 * h * block), 7.0)
     partials = tbcd.fused_sweep_launch(
         emulator["fused"], 0, carry, Xty_t, XtX, masks,
-        inv_den_t.contiguous(), lam, rho, offsets, h, block, out, rng)
+        inv_den_t.contiguous(), lam, rho, offsets, h, block, out, rng,
+        ns_rest_t)
     return (out, *_stats(partials))
 
 
@@ -250,3 +252,63 @@ def test_emulated_entry_refuses_a_range_off_the_carry(emulator):
         tbcd.fused_sweep_launch(emulator["fused"], 0, args[0], args[1],
                                 args[2], args[3], args[4].contiguous(),
                                 0.5, 0.1, p["offsets"], h, block, out, bad)
+
+
+def _rest_problem(K, seed):
+    """The 20 x 20 grid of :func:`_split_problem` plus 60 random rest edges,
+    and its rest stream's ``ns_rest`` refreshed from the carry."""
+    p = with_rest(fused_problem(side=20, n_types=K, seed=seed, block=40),
+                  n_edges=60, seed=seed)
+    t = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+         for k, v in p.items()}
+    inv = tbcd.gs_inv_den(t["XtX"], t["nnb"], 0.5)
+    nsr = tbcd.rest_ns_update(torch.zeros_like(t["Xty_t"]), t["carry"],
+                              t["touched"], t["slot_cols"])
+    args = (t["carry"], t["Xty_t"], t["XtX"], t["masks"], inv, 0.5, 0.1,
+            p["offsets"], p["h"], p["block"])
+    return p, t, args, nsr
+
+
+@pytest.mark.parametrize("K", [6, 20, 96])
+def test_emulated_fused_kernel_with_rest_matches_plain_and_unfused(emulator,
+                                                                   K):
+    """The kernel with ``ns_rest``: the plain version within the card's
+    bounds, pad slabs zero, and the coordinate-descent kernel on the
+    unfused banded sums with the same rest table bit for bit."""
+    p, t, args, nsr = _rest_problem(K, seed=K + 3)
+    got = emulated_fused(emulator, *args, ns_rest_t=nsr)
+    _close(got, tbcd.fused_banded_sweep_reference(*args, ns_rest_t=nsr))
+    pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
+    assert (got[0][:, :pad] == 0).all() and (got[0][:, -pad:] == 0).all()
+    beta_t = t["carry"][:, pad:pad + n].contiguous()
+    ns = tbcd.neighbor_sum_banded(beta_t, p["offsets"], t["masks"].float(),
+                                  t["rest_t"])
+    unfused = emulated_cd(emulator, beta_t, t["Xty_t"], t["XtX"], ns,
+                          args[4], 0.5, 0.1)
+    assert torch.equal(unfused[0], got[0][:, pad:pad + n])
+    no_rest = emulated_fused(emulator, *args)
+    assert not torch.equal(no_rest[0], got[0])
+
+
+@pytest.mark.parametrize("K", [20, 128])
+def test_emulated_sub_range_with_rest_recomposes_the_whole_sweep(emulator,
+                                                                 K):
+    """The interior and both boundary calls with ``ns_rest`` (indexed by
+    data column, like Xty) into one full carry: the whole sweep with
+    ``ns_rest`` bit for bit, its statistics' max equal."""
+    p, t, args, nsr = _rest_problem(K, seed=K + 5)
+    h, m = p["h"], t["Xty_t"].shape[1] // p["block"]
+    pad = h * p["block"]
+    whole = emulated_fused(emulator, *args, ns_rest_t=nsr)
+    out = torch.full_like(args[0], 7.0)
+    stats = []
+    for sub in ((h, h, m - 2 * h), (0, 0, h), (m - h, m - h, h)):
+        stats.append(emulated_fused(emulator, *args, out=out, sub=sub,
+                                    ns_rest_t=nsr)[1:])
+        alone = emulated_fused(emulator, *args, sub=sub, ns_rest_t=nsr)
+        _close(alone, tbcd.fused_banded_sweep_reference(
+            *args, sub=sub, ns_rest_t=nsr))
+    assert torch.equal(out[:, pad:-pad], whole[0][:, pad:-pad])
+    assert (out[:, :pad] == 7.0).all() and (out[:, -pad:] == 7.0).all()
+    assert max(s[0] for s in stats) == whole[1]
+    assert max(s[1] for s in stats) == whole[2]

@@ -17,7 +17,10 @@ version and an f64 projection (the JAX package's CountSketch bound), and
 bitwise against itself. Kernel #1's sub-range form is held against its
 plain version, and a split sweep bitwise against the whole one; the banded
 mesh with several shards on one card bitwise against the single-device
-fused tier, and the halo plan within 1e-5 of the gather tier.
+fused tier, and the halo plan within 1e-5 of the gather tier. Kernel #1
+with the rest stream's ``ns_rest`` input is held against its plain
+version, and the fused tier with the rest stream bitwise against the
+unfused banded tier with the same rest table.
 """
 
 import numpy as np
@@ -27,7 +30,13 @@ import torch
 from flashdeconv_tpu_torch.core import solver as tsolver
 from flashdeconv_tpu_torch.ops import bcd as tbcd
 from flashdeconv_tpu_torch.utils.graph import build_knn_graph
-from torch_problems import as_torch, fused_problem, gather_problem
+from torch_problems import (
+    as_torch,
+    dropped_grid_coords,
+    fused_problem,
+    gather_problem,
+    with_rest,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,6 +123,100 @@ def test_kernel_solve_matches_plain_solve(cuda_device):
             )
     assert it == 10
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
+
+
+def _rest_args(K, device, seed):
+    """A 64 x 64 grid (32 x 32 above K = 64) with 200 random rest edges, its
+    refreshed ``ns_rest`` and the sweep's arguments."""
+    p = with_rest(fused_problem(side=32 if K > 64 else 64, n_types=K,
+                                seed=seed), seed=seed)
+    tp = as_torch(p, device)
+    inv = tbcd.gs_inv_den(tp["XtX"], tp["nnb"], 0.5).contiguous()
+    nsr = tbcd.rest_ns_update(torch.zeros_like(tp["Xty_t"]), tp["carry"],
+                              tp["touched"], tp["slot_cols"])
+    args = (tp["carry"], tp["Xty_t"], tp["XtX"], tp["masks"], inv, 0.5, 0.1,
+            p["offsets"], p["h"], p["block"])
+    return p, tp, args, nsr
+
+
+@pytest.mark.parametrize("K", KS)
+def test_kernel_with_rest_matches_plain_version(cuda_device, K):
+    """One launch with ``ns_rest``, counted on ``.rest_launches`` only;
+    a CPU ``ns_rest`` beside a CUDA carry raises, launching nothing."""
+    p, tp, args, nsr = _rest_args(K, cuda_device, seed=K + 21)
+    counts = ("launches", "large_k_launches", "sub_launches", "rest_launches")
+    before = [getattr(tbcd.fused_banded_sweep, c) for c in counts]
+    with tbcd.full_f32_matmul():
+        ref, rd, ra = tbcd.fused_banded_sweep_reference(*args, ns_rest_t=nsr)
+        out = torch.full_like(tp["carry"], float("nan"))
+        got, d, a = tbcd.fused_banded_sweep(*args, out=out, ns_rest_t=nsr)
+    torch.cuda.synchronize()
+    after = [getattr(tbcd.fused_banded_sweep, c) for c in counts]
+    assert [x - y for x, y in zip(after, before)] == [0, 0, 0, 1]
+    torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
+    torch.testing.assert_close(d, rd, atol=0.0, rtol=1e-4)
+    torch.testing.assert_close(a, ra, atol=0.0, rtol=1e-4)
+    pad = p["h"] * p["block"]
+    assert (got[:, :pad] == 0).all() and (got[:, -pad:] == 0).all()
+    with pytest.raises(ValueError, match="ns_rest_t is on cpu"):
+        tbcd.fused_banded_sweep(*args, ns_rest_t=nsr.cpu())
+    assert tbcd.fused_banded_sweep.rest_launches == after[3]
+
+
+@pytest.mark.parametrize("K", KS)
+def test_fused_rest_and_unfused_banded_are_bitwise_equal(cuda_device, K):
+    """Ten sweeps through the rest stream and the fused kernel, and through
+    the unfused banded sums with the same rest table and the
+    coordinate-descent kernel: the same bits."""
+    p, tp, _, _ = _rest_args(K, cuda_device, seed=K + 23)
+    n, pad = p["Xty_t"].shape[1], p["h"] * p["block"]
+    args = (0.5, 0.05, 1e-30, 10)
+    before = (tbcd.fused_banded_sweep.rest_launches,
+              _launches(tbcd.coordinate_descent_block, K))
+    carry, it_f, rel_f = tbcd.bcd_iterate_banded_fused(
+        tp["carry"].clone(), tp["Xty_t"], tp["XtX"], tp["masks"], tp["nnb"],
+        *args, p["offsets"], p["h"], p["block"],
+        rest_touched=tp["touched"], rest_slot_cols=tp["slot_cols"],
+    )
+    beta_t, it_u, rel_u = tbcd.bcd_iterate_banded(
+        tp["carry"][:, pad:pad + n].contiguous(), tp["Xty_t"], tp["XtX"],
+        p["offsets"], tp["masks"].float(), tp["rest_t"], tp["nnb"], *args,
+    )
+    torch.cuda.synchronize()
+    assert (tbcd.fused_banded_sweep.rest_launches - before[0],
+            _launches(tbcd.coordinate_descent_block, K) - before[1]
+            ) == (10, 10)
+    assert it_f == it_u == 10 and rel_f == rel_u
+    assert torch.equal(tbcd.from_fused_carry(carry, p["h"], p["block"]).T,
+                       beta_t)
+
+
+def test_dropped_grid_solves_on_the_rest_stream(cuda_device):
+    """A 128 x 128 grid with 5 % of its bins dropped takes the fused tier
+    with rest tables; its solve is bitwise the unfused banded tier's and
+    launches the kernel with ``ns_rest`` once a sweep."""
+    coords = dropped_grid_coords(128, 0.05)
+    rng = np.random.RandomState(2)
+    X = rng.randn(20, 48)
+    Y = np.abs(rng.randn(coords.shape[0], 20)) @ X \
+        + 0.05 * rng.randn(coords.shape[0], 48)
+    prob = tsolver.prepare_bcd(Y, X, build_knn_graph(coords, k=6),
+                               coords=coords, device=cuda_device)
+    t = prob.tier
+    assert prob.use_fused_banded and t.rest_touched is not None
+    before = (tbcd.fused_banded_sweep.launches,
+              tbcd.fused_banded_sweep.rest_launches)
+    beta, info = prob.solve()
+    assert info["converged"]
+    assert (tbcd.fused_banded_sweep.launches - before[0],
+            tbcd.fused_banded_sweep.rest_launches - before[1]
+            ) == (0, info["n_iterations"])
+    lam, rho = tbcd.f32(0.1), tbcd.f32(0.01 * prob.mean_diag)
+    runs = [tbcd.fused_solve(None, tier, None, lam, rho, 1e-4, 100,
+                             prob.n_spots) for tier in (t, t.unfused())]
+    assert runs[0][1] == runs[1][1] == info["n_iterations"]
+    assert torch.equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][0].double().cpu().numpy(), beta)
 
 
 def _cd_args(p, lam=0.5, rho=0.1):

@@ -139,7 +139,7 @@ def test_unported_tiers_raise(case):
         coords = rng.rand(n, 2) * 100
     A = build_knn_graph(coords, k=6)
     if case == "large_k_banded":
-        A = with_long_edges(A)
+        A = with_long_edges(A, n_edges=800)
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP\.md, Queue 1: (f64 on|K > 256)"):
         tsolver.prepare_bcd(rng.randn(n, 16), rng.randn(K, 16), A,

@@ -8,7 +8,9 @@ import numpy as np
 import torch
 from scipy import sparse
 
+from flashdeconv_tpu_torch.ops.bcd import build_fused_rest_tables
 from flashdeconv_tpu_torch.utils.graph import (
+    adjacency_to_padded,
     banded_split,
     build_knn_graph,
     grid_coords,
@@ -48,12 +50,40 @@ def as_torch(p, device="cpu"):
             else v for k, v in p.items()}
 
 
+def with_rest(p, n_edges=200, seed=0):
+    """``p`` (a :func:`fused_problem`) plus ``n_edges`` random symmetric
+    rest edges off its bands: the padded rest table ``rest_t`` (R, n),
+    sentinel n, the fused rest stream's ``touched`` (T,) and ``slot_cols``
+    (R, T) int64 tables, and the degree ``nnb`` grown by the rest edges."""
+    n = p["Xty_t"].shape[1]
+    rng = np.random.RandomState(seed)
+    src, dst = rng.randint(0, n, n_edges), rng.randint(0, n, n_edges)
+    A_rest = (sparse.coo_matrix(
+        (np.ones(2 * n_edges), (np.r_[src, dst], np.r_[dst, src])),
+        shape=(n, n)).tocsr() > 0).astype(np.float64)
+    table, counts = adjacency_to_padded(A_rest)
+    touched, slot_cols = build_fused_rest_tables(table, n, p["h"],
+                                                 p["block"])
+    return dict(p, rest_t=np.ascontiguousarray(table.T.astype(np.int64)),
+                touched=touched.astype(np.int64),
+                slot_cols=slot_cols.astype(np.int64),
+                nnb=(p["nnb"] + counts).astype(np.float32))
+
+
+def dropped_grid_coords(side, frac, seed=0):
+    """A side x side grid with a share ``frac`` of its bins dropped at
+    random (a seeded ``RandomState``): a section whose empty or low-count
+    bins were filtered out before deconvolution."""
+    coords = grid_coords(side=side)
+    return coords[np.random.RandomState(seed).rand(coords.shape[0]) >= frac]
 
 
 def with_long_edges(A, n_edges=40, seed=0):
     """``A`` plus ``n_edges`` random long-range symmetric edges: off the
     bands of a grid graph, they make its banded decomposition keep a
-    remainder (the unfused banded tier's rest table)."""
+    remainder (at the default 40 on a 96 x 96 grid a small one, which the
+    fused tier streams; at 800 one over its 2 % gate, which takes the
+    unfused banded tier)."""
     n = A.shape[0]
     rng = np.random.RandomState(seed)
     src = rng.choice(n, n_edges, replace=False)
