@@ -3,6 +3,9 @@
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --profile  # where the warm 1M solves' and the
                                      # dense sketch's time goes
+    python3 chip_smoke.py --large-k [--against DIR]
+                                     # the panel kernels (64 < K <= 256)
+                                     # alone
 
 Builds the three CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, in parallel), holds each against its plain PyTorch version
@@ -80,11 +83,28 @@ that split and the profiler's table. Then it makes the dense fit's
 normalised 100,000 x 5,001 counts and runs the fit's ``sketch_data`` on
 them, timed by the host clock and once under ``torch.profiler``. It
 prints no result line.
+
+``--large-k`` runs the panel kernels alone, a few minutes where the smoke
+run takes most of its limit: it builds, prints ptxas's registers, spills
+and shared memory of every instance of both panel ``__global__``s and the
+blocks an SM holds of each at K = 65-256
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); holds each panel
+kernel against its plain version, timed in turns with it, on the 1M grid
+(kernel #1) and the 1M irregular problem (kernel #2) at K = 96, 128 and
+256 and on the small shapes at K = 65; and solves the 1M grid at K = 128
+through the fused and the unfused banded tier, bitwise equal. With
+``--against DIR`` it also builds the two sweep kernels from the sources
+of the checkout at DIR (into DIR's own build directory) and, on each 1M
+problem, times them in turns with this checkout's (theirs, ours, ours,
+theirs) on the same operands, printing whether the two give the same bits.
+It prints no result line.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import ctypes
 import functools
 import json
 import re
@@ -1162,6 +1182,124 @@ def phase_halo_split(inner, reps: int = 5) -> None:
         f"events, {reps} sweeps each): {ms}")
 
 
+# -- the panel kernels alone (--large-k) -----------------------------------------
+
+def panel_report() -> None:
+    """ptxas's report of every instance of the two panel ``__global__``s
+    (the build logs' lines after each "Compiling entry function"), then
+    the pass's shared memory and the blocks an SM holds at K = 65-256."""
+    from flashdeconv_tpu_torch.ops import _build
+
+    for name, so in _build.build().items():
+        entry = None
+        for line in so.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1) if "panel_kernel" in m.group(1) else None
+            elif entry and ("registers" in line or "spill" in line):
+                log(f"[large-k] ptxas {entry}: {line.strip()}")
+    fused, cd = _build.load("fused_banded_sweep"), _build.load("cd_block_sweep")
+    for K in (65, 80, 96, 128, 129, 160, 192, 255, 256):
+        log(f"[large-k] K={K}: tile {(K + 31) // 32} rows x 4 spots a "
+            f"thread; pass shared memory {fused.fdt_panel_pass_smem_bytes(K)}"
+            f" B; blocks an SM: fused "
+            f"{fused.fdt_fused_banded_sweep_panel_occupancy(K, 0)}, fused "
+            f"with ns_rest {fused.fdt_fused_banded_sweep_panel_occupancy(K, 1)}"
+            f", cd {cd.fdt_cd_block_sweep_panel_occupancy(K)}")
+
+
+def build_against(root: str) -> dict:
+    """The two sweep kernels built by ``nvcc`` from the sources of the
+    checkout at ``root``, into that checkout's build directory, loaded and
+    declared like this checkout's: {kernel name: ctypes library}."""
+    from flashdeconv_tpu_torch.ops import _build
+
+    ops = Path(root).resolve() / "flashdeconv_tpu_torch" / "ops"
+    out = ops / "build"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    names = ("fused_banded_sweep", "cd_block_sweep")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        for fut in [pool.submit(_build._compile, nvcc, ops / "csrc" / f"{n}.cu",
+                                out / f"{n}-against.so") for n in names]:
+            fut.result()
+    libs = {}
+    for n in names:
+        libs[n] = ctypes.CDLL(str(out / f"{n}-against.so"))
+        _build._declare(n, libs[n])
+    log(f"[against] {ops.parent.parent}: {len(names)} kernels built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return libs
+
+
+def phase_against(prob, name: str, other: dict, label: str) -> None:
+    """Kernel ``name`` of this checkout and of ``other`` on the same
+    operands (those of :func:`phase_fused_kernel` / :func:`phase_cd_kernel`),
+    both through this checkout's launch code: max |Δ| between them, whether
+    the bits are equal, and CUDA-event times in turns theirs, ours, ours,
+    theirs."""
+    from flashdeconv_tpu_torch.ops import _build, bcd
+
+    t = prob.tier
+    lam, rho = 0.1, 0.01 * prob.mean_diag
+    inv = bcd.gs_inv_den(t.XtX, t.nnb, lam).contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "fused_banded_sweep":
+        x = bcd.to_fused_carry(seeded_beta(prob), t.h, t.block)
+        rng = bcd.sweep_range(x.shape[1], t.Xty_t.shape[1], t.h, t.block,
+                              None, False)
+
+        def run(lib, out):
+            bcd.fused_sweep_launch(lib, stream, x, t.Xty_t, t.XtX, t.masks,
+                                   inv, lam, rho, t.offsets, t.h, t.block,
+                                   out, rng)
+    else:
+        x = seeded_beta(prob).T.contiguous()
+        ext = bcd.with_sentinel(x)
+        ns = bcd.add_overflow(bcd.neighbor_sum(ext, t.nbr), ext, t.overflow)
+
+        def run(lib, out):
+            bcd.cd_sweep_launch(lib, stream, x, t.Xty_t, t.XtX, ns, inv, lam,
+                                rho, out)
+    libs = {"theirs": other[name], "ours": _build.load(name)}
+    outs = {k: torch.empty_like(x) for k in libs}
+    for k, lib in libs.items():
+        run(lib, outs[k])
+    torch.cuda.synchronize()
+    same = torch.equal(outs["ours"], outs["theirs"])
+    diff = float((outs["ours"] - outs["theirs"]).abs().max())
+    ms = {k: [] for k in libs}
+    for k in ("theirs", "ours", "ours", "theirs"):
+        ms[k].append(time_sweeps(
+            lambda *_, out, lib=libs[k]: run(lib, out), (), outs[k]))
+    log(f"[against] {name} {label}: K={x.shape[0]} bitwise equal {same}, "
+        f"max |ours - theirs| {diff:.3e}; ms per launch ours {ms['ours']}, "
+        f"theirs {ms['theirs']} (theirs, ours, ours, theirs)")
+
+
+def large_k(against) -> None:
+    """The ``--large-k`` mode (see the module docstring)."""
+    panel_report()
+    other = against.result() if against else None
+    phase_fused_kernel(prepare(256 * 256, 65)[0], "256x256")
+    phase_cd_kernel(prepare(4096, 65, irregular=True)[0], "4096 irregular")
+    for irregular, lib, phase in (
+            (False, "fused_banded_sweep", phase_fused_kernel),
+            (True, "cd_block_sweep", phase_cd_kernel)):
+        label = "1M irregular" if irregular else "1000x1000"
+        for K in LARGE_TYPES:
+            prob, _ = prepare(SPOTS, K, irregular)
+            phase(prob, f"{label} K={K}")
+            if other:
+                phase_against(prob, lib, other, f"{label} K={K}")
+            if K == 128 and not irregular:
+                phase_fused_vs_unfused(prob)
+            del prob
+            torch.cuda.empty_cache()
+        knn_graph.cache_clear()
+
+
 def counted(kernels, path):
     """Run ``path()``, which returns ``{kernel: launches it must show}``,
     with every kernel's count (``kernels``: name -> (wrapper, count
@@ -1186,14 +1324,32 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="profile the warm 1M solves instead of the "
                              "smoke run")
+    parser.add_argument("--large-k", action="store_true",
+                        help="the panel kernels alone instead of the smoke "
+                             "run")
+    parser.add_argument("--against", metavar="DIR",
+                        help="with --large-k: time the sweep kernels of the "
+                             "checkout at DIR in turns with this one's")
     args = parser.parse_args()
+    if args.against and not args.large_k:
+        parser.error("--against goes with --large-k")
     t_start = time.perf_counter()
     phase_device()
     from flashdeconv_tpu_torch.ops import bcd
     from flashdeconv_tpu_torch.ops import countsketch as cs
     from flashdeconv_tpu_torch.utils import grid_coords
 
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    against = (pool.submit(build_against, args.against) if args.against
+               else None)
     phase_build()
+    if args.large_k:
+        large_k(against)
+        pool.shutdown()
+        log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
+            "included")
+        return
+    pool.shutdown()
     if args.profile:
         for label, irregular in (("1M grid", False), ("1M irregular", True)):
             phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)

@@ -30,12 +30,12 @@
 // the JAX package runs it there to K = 128 and its XLA pass above). It is
 // bound by operations at K = 128 and 256 (about 3K^2 f32 operations per
 // spot against about 20K bytes: 0.75 ms and 3.0 ms at 1M spots, derived,
-// not measured). A block owns 32 spots, one per lane; their beta_old and
-// delta tiles live in shared memory and XtX is staged 16 rows at a time
-// (gs_pass_panel.cuh says why), so no thread keeps K floats in registers.
-// Its shared memory passes 48 KB above K = 128, so every launch sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize first and returns that
-// call's error if it fails.
+// not measured). A block owns 32 spots, one per lane; the pass runs its
+// XtX products as register-tiled tile products of TM rows x 4 spots a
+// thread (gs_pass_panel.cuh says why), so the kernel is templated on
+// TM = ceil(K/32), 3..8. Its shared memory passes 48 KB above K = 160, so
+// every launch sets cudaFuncAttributeMaxDynamicSharedMemorySize first and
+// returns that call's error if it fails.
 // Launch: on the caller's stream, no allocation, no synchronisation.
 
 #include "gs_pass_panel.cuh"
@@ -77,9 +77,12 @@ cd_block_sweep_kernel(const float* __restrict__ beta_in,
     store_block_partials(dmax, amax, partials);
 }
 
-// 64 < K <= 256: a block of 256 threads passes over FDT_TILE_SPOTS spots,
-// lane l of every warp spot blockIdx.x * 32 + l.
-__global__ void __launch_bounds__(FDT_THREADS)
+// 64 < K <= 256, TM = fdt_panel_tm(K): a block of 256 threads passes over
+// FDT_TILE_SPOTS spots, lane l of every warp spot blockIdx.x * 32 + l (the
+// spot layout of gs_pass_panel.cuh).
+template <int TM>
+__global__ void
+__launch_bounds__(FDT_THREADS, FDT_PANEL_MIN_BLOCKS(TM))
 cd_block_sweep_panel_kernel(const float* __restrict__ beta_in,
                             float* __restrict__ beta_out,
                             const float* __restrict__ xty_t,
@@ -96,9 +99,9 @@ cd_block_sweep_panel_kernel(const float* __restrict__ beta_in,
     const long long jj = valid ? j : 0;
     const LoadSum ns{ns_t + jj, n};
     float dmax = 0.f, amax = 0.f;
-    gs_pass_panel(beta_in + jj, n, beta_out + jj, n, xty_t + jj,
-                  inv_den_t + jj, n, xtx, K, lam, rho, ns, valid,
-                  reinterpret_cast<float*>(smem4), dmax, amax);
+    gs_pass_panel<TM>(beta_in + jj, n, beta_out + jj, n, xty_t + jj,
+                      inv_den_t + jj, n, xtx, K, lam, rho, ns, valid,
+                      reinterpret_cast<float*>(smem4), dmax, amax);
     store_block_partials(dmax, amax, partials);
 }
 
@@ -109,6 +112,41 @@ extern "C" long long fdt_cd_block_sweep_blocks(long long n, int K)
     if (K > FDT_REGISTER_MAX_K)
         return (n + FDT_TILE_SPOTS - 1) / FDT_TILE_SPOTS;
     return fdt_blocks(n);
+}
+
+// Blocks of the panel kernel at 64 < K <= 256 that one SM holds at once,
+// by registers and shared memory; a negative cudaError_t if the query
+// fails.
+extern "C" int fdt_cd_block_sweep_panel_occupancy(int K)
+{
+    if (K <= FDT_REGISTER_MAX_K || K > FDT_PANEL_MAX_K)
+        return -(int)cudaErrorInvalidValue;
+    return fdt_panel_dispatch(K, [&](auto tm) {
+        return fdt_panel_occupancy(
+            cd_block_sweep_panel_kernel<decltype(tm)::value>,
+            fdt_panel_smem_floats(K) * sizeof(float));
+    });
+}
+
+// 64 < K <= 256: the panel kernel of TM; its shared memory may pass 48 KB,
+// so the attribute is set before every launch.
+template <int TM>
+static int launch_panel(const float* beta_in, float* beta_out,
+                        const float* xty_t, const float* ns_t,
+                        const float* inv_den_t, const float* xtx, int K,
+                        long long n, float lam, float rho, float* partials,
+                        cudaStream_t stream)
+{
+    const size_t smem = fdt_panel_smem_floats(K) * sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        cd_block_sweep_panel_kernel<TM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)fdt_cd_block_sweep_blocks(n, K);
+    cd_block_sweep_panel_kernel<TM><<<blocks, FDT_THREADS, smem, stream>>>(
+        beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n, lam, rho,
+        partials);
+    return (int)cudaGetLastError();
 }
 
 template <int KMAX>
@@ -135,18 +173,12 @@ extern "C" int fdt_cd_block_sweep(
     if (K < 1 || K > FDT_PANEL_MAX_K || n < 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (K > FDT_REGISTER_MAX_K) {
-        const size_t smem = fdt_panel_smem_floats(K) * sizeof(float);
-        const cudaError_t err = cudaFuncSetAttribute(
-            cd_block_sweep_panel_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        const unsigned blocks = (unsigned)fdt_cd_block_sweep_blocks(n, K);
-        cd_block_sweep_panel_kernel<<<blocks, FDT_THREADS, smem, s>>>(
-            beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n, lam, rho,
-            partials);
-        return (int)cudaGetLastError();
-    }
+    if (K > FDT_REGISTER_MAX_K)
+        return fdt_panel_dispatch(K, [&](auto tm) {
+            return launch_panel<decltype(tm)::value>(
+                beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n, lam,
+                rho, partials, s);
+        });
     if (K <= 8)
         launch<8>(beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n, lam,
                   rho, partials, s);

@@ -53,11 +53,12 @@
 // flashdeconv_tpu/ops/bcd.py). It is bound by operations at K = 128 and
 // 256 (about 3K^2 f32 operations per spot against about 16K bytes: 0.75 ms
 // and 3.0 ms at 1M spots, derived, not measured). A block owns 32 spots,
-// one per lane; their beta_old and delta tiles live in shared memory and
-// XtX is staged 16 rows at a time (gs_pass_panel.cuh says why), so no
-// thread keeps K floats in registers. Its shared memory passes 48 KB above
-// K = 128, so every launch sets cudaFuncAttributeMaxDynamicSharedMemorySize
-// first and returns that call's error if it fails.
+// one per lane; the pass runs its XtX products as register-tiled tile
+// products of TM rows x 4 spots a thread (gs_pass_panel.cuh says why), so
+// the kernel is templated on TM = ceil(K/32), 3..8, and on REST. Its shared
+// memory passes 48 KB above K = 160, so every launch sets
+// cudaFuncAttributeMaxDynamicSharedMemorySize first and returns that call's
+// error if it fails.
 // Launch: on the caller's stream, no allocation, no synchronisation.
 
 #include "gs_pass_panel.cuh"
@@ -153,10 +154,12 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
     store_block_partials(dmax, amax, partials);
 }
 
-// 64 < K <= 256: a block of 256 threads sweeps FDT_TILE_SPOTS window
-// columns, lane l of every warp column w0 + blockIdx.x * 32 + l.
-template <bool REST>
-__global__ void __launch_bounds__(FDT_THREADS)
+// 64 < K <= 256, TM = fdt_panel_tm(K): a block of 256 threads sweeps
+// FDT_TILE_SPOTS window columns, lane l of every warp column w0 +
+// blockIdx.x * 32 + l (the spot layout of gs_pass_panel.cuh).
+template <int TM, bool REST>
+__global__ void
+__launch_bounds__(FDT_THREADS, FDT_PANEL_MIN_BLOCKS(TM))
 fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
                                 const long long ld_in,
                                 float* __restrict__ carry_out,
@@ -196,9 +199,9 @@ fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
     const BandSum<REST> ns{carry_in + c, ld_in, bits, off_s, n_bands,
                            ns_rest + jj, ld_data};
     float dmax = 0.f, amax = 0.f;
-    gs_pass_panel(carry_in + c, ld_in, carry_out + c, ld_out, xty_t + jj,
-                  inv_den_t + jj, ld_data, xtx, K, lam, rho, ns, valid, smem,
-                  dmax, amax);
+    gs_pass_panel<TM>(carry_in + c, ld_in, carry_out + c, ld_out,
+                      xty_t + jj, inv_den_t + jj, ld_data, xtx, K, lam, rho,
+                      ns, valid, smem, dmax, amax);
     store_block_partials(dmax, amax, partials);
 }
 
@@ -243,20 +246,45 @@ static int launch(FDT_SWEEP_PARAMS)
     return (int)cudaGetLastError();
 }
 
-// 64 < K <= 256: the panel kernel; its shared memory may pass 48 KB, so
-// the attribute is set before every launch.
-template <bool REST>
+// 64 < K <= 256: the panel kernel of TM; its shared memory may pass 48 KB,
+// so the attribute is set before every launch.
+template <int TM, bool REST>
 static int launch_panel(FDT_SWEEP_PARAMS)
 {
     const cudaError_t err = cudaFuncSetAttribute(
-        fused_banded_sweep_panel_kernel<REST>,
+        fused_banded_sweep_panel_kernel<TM, REST>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const unsigned blocks =
         (unsigned)fdt_fused_banded_sweep_blocks(n_cols, K);
-    fused_banded_sweep_panel_kernel<REST>
+    fused_banded_sweep_panel_kernel<TM, REST>
         <<<blocks, FDT_THREADS, smem, stream>>>(FDT_SWEEP_ARGS);
     return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of the panel kernel at K, in bytes.
+static size_t panel_smem(int K)
+{
+    return fdt_panel_smem_floats(K) * sizeof(float)
+           + FDT_MAX_BANDS * sizeof(int);
+}
+
+// Blocks of the panel kernel at 64 < K <= 256 (with the rest input iff
+// rest) that one SM holds at once, by registers and shared memory; a
+// negative cudaError_t if the query fails.
+extern "C" int fdt_fused_banded_sweep_panel_occupancy(int K, int rest)
+{
+    if (K <= FDT_REGISTER_MAX_K || K > FDT_PANEL_MAX_K)
+        return -(int)cudaErrorInvalidValue;
+    return fdt_panel_dispatch(K, [&](auto tm) {
+        constexpr int TM = decltype(tm)::value;
+        return rest ? fdt_panel_occupancy(
+                          fused_banded_sweep_panel_kernel<TM, true>,
+                          panel_smem(K))
+                    : fdt_panel_occupancy(
+                          fused_banded_sweep_panel_kernel<TM, false>,
+                          panel_smem(K));
+    });
 }
 
 // Launches one sweep of the data columns [data0, data0 + n_sub) on
@@ -298,10 +326,12 @@ extern "C" int fdt_fused_banded_sweep(
     if (ns_rest) ns_rest += data0;
     cudaStream_t s = (cudaStream_t)stream;
     if (K > FDT_REGISTER_MAX_K) {
-        const size_t smem = fdt_panel_smem_floats(K) * sizeof(float)
-                            + FDT_MAX_BANDS * sizeof(int);
-        return ns_rest ? launch_panel<true>(FDT_SWEEP_ARGS, smem, s)
-                       : launch_panel<false>(FDT_SWEEP_ARGS, smem, s);
+        const size_t smem = panel_smem(K);
+        return fdt_panel_dispatch(K, [&](auto tm) {
+            constexpr int TM = decltype(tm)::value;
+            return ns_rest ? launch_panel<TM, true>(FDT_SWEEP_ARGS, smem, s)
+                           : launch_panel<TM, false>(FDT_SWEEP_ARGS, smem, s);
+        });
     }
     // XtX is 16 KB at K = 64, under the 48 KB a block gets without
     // cudaFuncSetAttribute.

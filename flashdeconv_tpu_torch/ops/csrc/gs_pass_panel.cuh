@@ -19,46 +19,66 @@
 // than the 255 registers a thread may have.
 //
 // What bounds it on an H100: at 1M spots about 3K^2 f32 operations per
-// spot (the prologue's K^2 multiply-adds and the recurrence's K^2/2) against
-// about 16K bytes per spot (beta in and out, Xty, inv_den): operations at
-// K = 128 (0.75 ms at 67 TFLOP/s against 0.61 ms of bytes at 3.35 TB/s) and
-// K = 256 (3.0 ms against 1.3 ms), about level at K = 96 (derived counts,
-// not measurements).
+// spot (the prologue's K^2 multiply-adds and the corrections' K^2/2)
+// against about 16K bytes per spot (beta in and out, Xty, inv_den):
+// operations at K = 128 (0.75 ms at 67 TFLOP/s against 0.61 ms of bytes at
+// 3.35 TB/s) and K = 256 (3.0 ms against 1.3 ms), about level at K = 96
+// (derived counts, not measurements). So the multiply-adds must run near
+// the FMA rate, which needs (1) few shared-memory loads per FMA and (2)
+// every warp busy.
 //
-// The design:
-//   - one CUDA block of 256 threads owns FDT_TILE_SPOTS = 32 spots, one per
-//     lane, so a warp's load of row k of any (K, n) operand reads 32
-//     neighbouring floats;
-//   - the spots' beta_old and their deltas live in shared memory as
-//     (K, 32) tiles (32 KB each at K = 256), never in registers or local
-//     memory;
-//   - XtX does not fit in shared memory whole at K = 256 (256 KB, above the
-//     227 KB a block may have), so it is staged one panel of 16 rows at a
-//     time (16 x K floats, 16 KB at K = 256); the whole matrix stays hot in
-//     the 50 MB L2. Its shared memory is 86,016 B at K = 256 and 45,056 B
-//     at K = 128, so the launchers set
-//     cudaFuncAttributeMaxDynamicSharedMemorySize before every launch;
-//   - per panel [a, a+16): the 8 warps compute C and the cross-panel part
-//     of r (rows a..a+15, two rows a warp, float4 broadcasts of XtX rows
-//     against the lanes' tile columns: tile products of f32 FMAs on the
-//     CUDA cores, no tensor cores); then warp 0 runs the panel's 16-step
-//     recurrence with the 16 values of r of its lane's spot in registers;
-//   - every sum has one fixed order and every operation is an explicit
+// The design: one CUDA block of 256 threads owns FDT_TILE_SPOTS = 32 spots.
+//   - Two layouts. In the spot layout lane l of every warp stands for spot
+//     l (a warp's load of row k of a (K, n) operand reads 32 neighbouring
+//     floats); the neighbour sums, numerators and the recurrence run there.
+//     In the tile layout thread t owns a register tile of TM rows x 4 spots
+//     of the (RP, 32) numerator matrix R, rows TM*(t/8) .. +TM-1, spots
+//     4*(t%8) .. +3, RP = 32*TM >= K (TM = ceil(K/32): 3 at K = 96, 4 at
+//     128, 8 at 256); the two tile products run there.
+//   - The prologue is one tile product over all rows at once,
+//     P = XtX[:RP, :kp] . B_old (kp = K rounded up to 16). XtX is streamed
+//     through shared memory in strips of 16 columns, stored transposed so
+//     that a thread's TM rows at one column are contiguous; per column a
+//     thread loads its TM XtX values (float4 / float2 / scalar as TM
+//     allows) and one float4 of beta and runs 4*TM FMAs: at K = 256, 3
+//     loads feed 32 FMAs, where the first design's 6 fed 8. Then the spot
+//     layout turns P into C (panel_numerator) through a (RP, 32) tile in
+//     shared memory, and every thread takes its rows of C back into its
+//     register tile.
+//   - Per panel [a, a+16): XtX rows a..a+15 are staged (16 x kp, over the
+//     strip buffers); the 8 warps take C of the panel's rows from the R
+//     tile and apply the finished panels' corrections (two rows a warp,
+//     float4 broadcasts of XtX rows against the lanes' delta columns, c
+//     ascending, left-looking); then warp 0 runs the panel's 16-step
+//     recurrence and writes its delta rows into the (kp, 32) delta tile.
+//   - Shared memory: beta_old, the delta tile (kp x 32 each), the R tile
+//     (RP x 32), two strip buffers (16 x (RP + 4) each, the +4 spreading
+//     the transposing stores over the banks), and 16 x 32 each of the
+//     panel's r and inv_den. The launchers set
+//     cudaFuncAttributeMaxDynamicSharedMemorySize before every launch.
+//   - Every sum has one fixed order and every operation is an explicit
 //     __fmaf_rn / __fadd_rn / __fsub_rn, with no atomics, so two launches
 //     are bitwise equal and both kernels give the same bits on the same
 //     operands.
 
 #pragma once
 
+#include <type_traits>
+
 #include "gs_pass.cuh"
 
-#define FDT_PANEL 16        // coordinates of one panel
+#define FDT_PANEL 16        // coordinates of one panel, columns of a strip
 #define FDT_TILE_SPOTS 32   // spots of one CUDA block: one per lane
 #define FDT_REGISTER_MAX_K 64   // largest K of gs_pass_spot
 #define FDT_PANEL_MAX_K 256
 
-static_assert(2 * (FDT_THREADS / 32) == FDT_PANEL,
-              "each warp computes two rows of a panel");
+static_assert(FDT_THREADS == 8 * FDT_TILE_SPOTS,
+              "8 threads of 4 spots cover a tile row; 32 row groups");
+
+// Blocks an SM the panel kernel of TM asks ptxas to fit by registers
+// (__launch_bounds__): 3 (80 registers) at TM <= 4, 2 (128) above, where
+// shared memory holds 2-3 blocks at K = 161-256 anyway.
+#define FDT_PANEL_MIN_BLOCKS(TM) ((TM) <= 4 ? 3 : 2)
 
 // K rounded up to a whole panel.
 __host__ __device__ __forceinline__ int fdt_panel_kp(int K)
@@ -66,14 +86,56 @@ __host__ __device__ __forceinline__ int fdt_panel_kp(int K)
     return (K + FDT_PANEL - 1) / FDT_PANEL * FDT_PANEL;
 }
 
-// Floats of dynamic shared memory gs_pass_panel takes at K: the XtX panel
-// (16 x kp), the beta_old and delta tiles (kp x 32 each), the panel's
-// numerators and reciprocal denominators (16 x 32 each).
+// Rows of a thread's register tile at K: RP = 32 * TM rows cover K.
+__host__ __device__ __forceinline__ int fdt_panel_tm(int K)
+{
+    return (K + 31) / 32;
+}
+
+// Floats of dynamic shared memory gs_pass_panel takes at K: the beta_old
+// tile (kp x 32), two strips (16 x (RP + 4) each), the panel's r, delta
+// and reciprocal denominators (16 x 32 each).
 __host__ __device__ __forceinline__ int fdt_panel_smem_floats(int K)
 {
-    const int kp = fdt_panel_kp(K);
-    return FDT_PANEL * kp + 2 * kp * FDT_TILE_SPOTS
-           + 2 * FDT_PANEL * FDT_TILE_SPOTS;
+    const int rp = 32 * fdt_panel_tm(K);
+    return 2 * fdt_panel_kp(K) * FDT_TILE_SPOTS + 2 * FDT_PANEL * (rp + 4)
+           + rp * FDT_TILE_SPOTS + 2 * FDT_PANEL * FDT_TILE_SPOTS;
+}
+
+// f(std::integral_constant<int, TM>{}) with TM = fdt_panel_tm(K), 3..8 at
+// 64 < K <= 256: the launchers' choice of the pass's instance.
+template <class F>
+static int fdt_panel_dispatch(const int K, F f)
+{
+    switch (fdt_panel_tm(K)) {
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    default: return f(std::integral_constant<int, 8>{});
+    }
+}
+
+// Blocks of a panel `kernel` one SM holds at once with smem bytes of
+// dynamic shared memory; a negative cudaError_t if a query fails.
+template <class Kernel>
+static int fdt_panel_occupancy(Kernel kernel, const size_t smem)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int n = 0;
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, kernel, FDT_THREADS, smem);
+    return err == cudaSuccess ? n : -(int)err;
+}
+
+// Bytes of dynamic shared memory the panel pass takes at K (the fused
+// kernel adds its band offsets).
+extern "C" long long fdt_panel_pass_smem_bytes(int K)
+{
+    return (long long)fdt_panel_smem_floats(K) * sizeof(float);
 }
 
 // C_k of the lane's spot, given p = sum_i XtX[k,i]*beta_old_i; 0 for a
@@ -91,17 +153,109 @@ __device__ __forceinline__ float panel_numerator(
     return __fsub_rn(c, rho);
 }
 
+// The TM floats at p (a thread's rows at one strip column), in the widest
+// loads their alignment allows (p is TM-float aligned, the strip's row
+// length a multiple of 4).
+template <int TM>
+__device__ __forceinline__ void load_rows(const float* p, float (&x)[TM])
+{
+    if constexpr (TM % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < TM / 4; ++j) {
+            const float4 v = reinterpret_cast<const float4*>(p)[j];
+            x[4 * j] = v.x;
+            x[4 * j + 1] = v.y;
+            x[4 * j + 2] = v.z;
+            x[4 * j + 3] = v.w;
+        }
+    } else if constexpr (TM % 2 == 0) {
+#pragma unroll
+        for (int j = 0; j < TM / 2; ++j) {
+            const float2 v = reinterpret_cast<const float2*>(p)[j];
+            x[2 * j] = v.x;
+            x[2 * j + 1] = v.y;
+        }
+    } else {
+#pragma unroll
+        for (int m = 0; m < TM; ++m) x[m] = p[m];
+    }
+}
+
+// The register-tiled product of one strip: for c = 0..15 ascending,
+// acc[m][n] = fma(+-xs[c, row0 + m], bt[c, s0 + n], acc[m][n]), the minus
+// sign with SUB; with SUB only rows >= lo change. xs is a strip (16 x ld,
+// transposed: column c's rows contiguous), bt a (16, 32) tile of beta_old
+// or delta.
+template <int TM, bool SUB>
+__device__ __forceinline__ void strip_product(float (&acc)[TM][4],
+                                              const float* __restrict__ xs,
+                                              const int ldx,
+                                              const float* __restrict__ bt,
+                                              const int row0, const int s0,
+                                              const int lo)
+{
+#pragma unroll 4
+    for (int c = 0; c < FDT_PANEL; ++c) {
+        float x[TM];
+        load_rows<TM>(xs + c * ldx + row0, x);
+        const float4 b = *reinterpret_cast<const float4*>(
+            bt + c * FDT_TILE_SPOTS + s0);
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+            if (SUB && row0 + m < lo) continue;
+            const float u = SUB ? -x[m] : x[m];
+            acc[m][0] = __fmaf_rn(u, b.x, acc[m][0]);
+            acc[m][1] = __fmaf_rn(u, b.y, acc[m][1]);
+            acc[m][2] = __fmaf_rn(u, b.z, acc[m][2]);
+            acc[m][3] = __fmaf_rn(u, b.w, acc[m][3]);
+        }
+    }
+}
+
+// The global loads of strip XtX[row_lo:RP, col0:col0+16] (zero outside
+// XtX) into registers: element e = row * 16 + c, thread t takes e =
+// row_lo * 16 + t + 256 * u. Issued before the FMAs they hide behind.
+template <int TM>
+__device__ __forceinline__ void fetch_strip(const float* __restrict__ xtx,
+                                            const int K, const int col0,
+                                            const int row_lo,
+                                            float (&pre)[2 * TM])
+{
+    constexpr int RP = 32 * TM;
+#pragma unroll
+    for (int u = 0; u < 2 * TM; ++u) {
+        const int e = row_lo * FDT_PANEL + threadIdx.x + FDT_THREADS * u;
+        const int row = e >> 4, col = col0 + (e & 15);
+        pre[u] = (row < K && col < K && row < RP) ? xtx[row * K + col]
+                                                  : 0.f;
+    }
+}
+
+// The registers of fetch_strip into a strip buffer (transposed, rows
+// contiguous per column, row length ldx).
+template <int TM>
+__device__ __forceinline__ void put_strip(float* __restrict__ xs,
+                                          const int ldx, const int row_lo,
+                                          const float (&pre)[2 * TM])
+{
+    constexpr int RP = 32 * TM;
+#pragma unroll
+    for (int u = 0; u < 2 * TM; ++u) {
+        const int e = row_lo * FDT_PANEL + threadIdx.x + FDT_THREADS * u;
+        if (e < RP * FDT_PANEL) xs[(e & 15) * ldx + (e >> 4)] = pre[u];
+    }
+}
+
 // The pass for the 32 spots of the calling block; every thread of the
-// block calls it (it synchronises the block). Lane l of every warp stands
-// for one spot: beta_in / beta_out point at that spot's column of a (K,
-// ld_in) / (K, ld_out) array, xty / inv_den at its column of (K, ld)
-// arrays, and ns(k)
-// gives its neighbour sum of coordinate k. A lane whose `valid` is false
-// has no spot: it reads and writes nothing. xtx is XtX (K, K) in device
-// memory; smem holds fdt_panel_smem_floats(K) floats, 16-byte aligned.
-// Warp 0 folds its spots' |beta_new - beta_old| and |beta_old| into dmax
-// and amax.
-template <class NeighbourSum>
+// block calls it (it synchronises the block), with TM = fdt_panel_tm(K).
+// Lane l of every warp stands for one spot: beta_in / beta_out point at
+// that spot's column of a (K, ld_in) / (K, ld_out) array, xty / inv_den at
+// its column of (K, ld) arrays, and ns(k) gives its neighbour sum of
+// coordinate k. A lane whose `valid` is false has no spot: it reads and
+// writes nothing. xtx is XtX (K, K) in device memory; smem holds
+// fdt_panel_smem_floats(K) floats, 16-byte aligned. Warp 0 folds its
+// spots' |beta_new - beta_old| and |beta_old| into dmax and amax.
+template <int TM, class NeighbourSum>
 __device__ __forceinline__ void gs_pass_panel(
     const float* __restrict__ beta_in, const long long ld_in,
     float* __restrict__ beta_out, const long long ld_out,
@@ -113,53 +267,65 @@ __device__ __forceinline__ void gs_pass_panel(
 {
     constexpr int S = FDT_TILE_SPOTS;
     constexpr int WARPS = FDT_THREADS / 32;
+    constexpr int RP = 32 * TM;
+    constexpr int LDX = RP + 4;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int kp = fdt_panel_kp(K);
-    const int k4 = (K + 3) & ~3;
-    float* xs = smem;                   // XtX rows a..a+15, (16, kp)
-    float* bs = xs + FDT_PANEL * kp;    // beta_old, (kp, S)
-    float* ds = bs + kp * S;            // delta, (kp, S)
-    float* rs = ds + kp * S;            // r of the panel's rows, (16, S)
-    float* is = rs + FDT_PANEL * S;     // inv_den of the panel's rows
+    const int row0 = (threadIdx.x >> 3) * TM;  // the register tile's rows
+    const int s0 = 4 * (threadIdx.x & 7);      // and spots
+    float* bs = smem;                  // beta_old, (kp, S)
+    float* xs = bs + kp * S;           // two strips, (16, LDX) each
+    float* rt = xs + 2 * FDT_PANEL * LDX;  // the R tile, (RP, S)
+    float* ds = rt + RP * S;           // delta, (kp, S)
+    float* rs = ds + kp * S;           // r of the panel's rows, (16, S)
+    float* is = rs + FDT_PANEL * S;    // inv_den of the panel's rows
 
-    // Padding rows stay zero: the prologue's products run to k4.
+    // Padding rows stay zero: the prologue's products run to kp.
     for (int k = warp; k < kp; k += WARPS)
         bs[k * S + lane] = (valid && k < K) ? beta_in[k * ld_in] : 0.f;
 
+    // The prologue, P = XtX . B_old over all rows, i ascending.
+    float acc[TM][4];
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+        acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+    float pre[2 * TM];
+    fetch_strip<TM>(xtx, K, 0, 0, pre);
+    for (int i0 = 0, j = 0; i0 < kp; i0 += FDT_PANEL, ++j) {
+        float* x = xs + (j & 1) * FDT_PANEL * LDX;
+        put_strip<TM>(x, LDX, 0, pre);
+        __syncthreads();  // the strip (and at j = 0 bs) stored
+        if (i0 + FDT_PANEL < kp)
+            fetch_strip<TM>(xtx, K, i0 + FDT_PANEL, 0, pre);
+        if (row0 < K)
+            strip_product<TM, false>(acc, x, LDX, bs + i0 * S, row0, s0, 0);
+    }
+    __syncthreads();  // every read of the strips done: R tile over them
+
+    // The numerators, in the spot layout, in the R tile.
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+        *reinterpret_cast<float4*>(rt + (row0 + m) * S + s0) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    __syncthreads();
+    for (int k = warp; k < K; k += WARPS)
+        rt[k * S + lane] = panel_numerator(k, K, valid, rt[k * S + lane],
+                                           xty, ld, xtx[k * K + k],
+                                           bs[k * S + lane], lam, rho, ns);
+
+    float* xr = xs;  // XtX rows a..a+15, (16, kp), over the strips
     const int q0 = 2 * warp, q1 = q0 + 1;  // this warp's rows of a panel
     for (int a = 0; a < K; a += FDT_PANEL) {
-        __syncthreads();  // bs loaded, the last panel's ds rows written
+        __syncthreads();  // C written, the last panel's ds rows written
         for (int e = threadIdx.x; e < FDT_PANEL * kp; e += FDT_THREADS) {
             const int q = e / kp, c = e - q * kp;
-            xs[e] = (a + q < K && c < K) ? xtx[(a + q) * K + c] : 0.f;
+            xr[e] = (a + q < K && c < K) ? xtx[(a + q) * K + c] : 0.f;
         }
         __syncthreads();
-
-        const float4* x0 = reinterpret_cast<const float4*>(xs + q0 * kp);
-        const float4* x1 = reinterpret_cast<const float4*>(xs + q1 * kp);
-        // Prologue rows: p = XtX[k, :] . beta_old, i ascending.
-        float p0 = 0.f, p1 = 0.f;
-        for (int i = 0; i < k4; i += 4) {
-            const float4 u = x0[i >> 2], v = x1[i >> 2];
-            const float b0 = bs[i * S + lane], b1 = bs[(i + 1) * S + lane];
-            const float b2 = bs[(i + 2) * S + lane];
-            const float b3 = bs[(i + 3) * S + lane];
-            p0 = __fmaf_rn(u.x, b0, p0);
-            p0 = __fmaf_rn(u.y, b1, p0);
-            p0 = __fmaf_rn(u.z, b2, p0);
-            p0 = __fmaf_rn(u.w, b3, p0);
-            p1 = __fmaf_rn(v.x, b0, p1);
-            p1 = __fmaf_rn(v.y, b1, p1);
-            p1 = __fmaf_rn(v.z, b2, p1);
-            p1 = __fmaf_rn(v.w, b3, p1);
-        }
+        const float4* x0 = reinterpret_cast<const float4*>(xr + q0 * kp);
+        const float4* x1 = reinterpret_cast<const float4*>(xr + q1 * kp);
         const int k0 = a + q0, k1 = a + q1;
-        float r0 = panel_numerator(k0, K, valid, p0, xty, ld,
-                                   xs[q0 * kp + k0], bs[k0 * S + lane], lam,
-                                   rho, ns);
-        float r1 = panel_numerator(k1, K, valid, p1, xty, ld,
-                                   xs[q1 * kp + k1], bs[k1 * S + lane], lam,
-                                   rho, ns);
+        float r0 = rt[k0 * S + lane], r1 = rt[k1 * S + lane];
         // The finished panels' corrections, coordinate c ascending.
         for (int c = 0; c < a; c += 4) {
             const float4 u = x0[c >> 2], v = x1[c >> 2];
@@ -189,18 +355,18 @@ __device__ __forceinline__ void gs_pass_panel(
             for (int q = 0; q < FDT_PANEL; ++q) {
                 const int k = a + q;
                 if (k < K) {
-                    const float b = bs[k * S + lane];
+                    const float bk = bs[k * S + lane];
                     const float num = nan_max(r[q], 0.f);
-                    const float delta = __fmaf_rn(num, is[q * S + lane], -b);
+                    const float delta = __fmaf_rn(num, is[q * S + lane], -bk);
 #pragma unroll
                     for (int t = q + 1; t < FDT_PANEL; ++t)
-                        r[t] = __fmaf_rn(-xs[t * kp + k], delta, r[t]);
+                        r[t] = __fmaf_rn(-xr[t * kp + k], delta, r[t]);
                     ds[k * S + lane] = delta;
                     if (valid) {
-                        const float nb = __fadd_rn(delta, b);
+                        const float nb = __fadd_rn(delta, bk);
                         beta_out[k * ld_out] = nb;
-                        dmax = nan_max(dmax, fabsf(__fsub_rn(nb, b)));
-                        amax = nan_max(amax, fabsf(b));
+                        dmax = nan_max(dmax, fabsf(__fsub_rn(nb, bk)));
+                        amax = nan_max(amax, fabsf(bk));
                     }
                 }
             }

@@ -23,7 +23,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 
 struct dim3 {
@@ -35,6 +35,13 @@ extern dim3 blockIdx, blockDim, gridDim;
 struct alignas(16) float4 {
     float x, y, z, w;
 };
+struct alignas(8) float2 {
+    float x, y;
+};
+inline float4 make_float4(float x, float y, float z, float w)
+{
+    return {x, y, z, w};
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -43,6 +50,14 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class T>
 inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int)
 {
+    return cudaSuccess;
+}
+// One block an SM: the emulator runs its blocks one after another.
+template <class T>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* n, T, int, std::size_t)
+{
+    *n = 1;
     return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }

@@ -131,9 +131,11 @@ def _close(got, ref):
                                    equal_nan=True)
 
 
-@pytest.mark.parametrize("K", [20, 65, 96, 256])
+@pytest.mark.parametrize("K", [20, 65, 80, 96, 129, 255, 256])
 def test_emulated_cd_kernel_matches_plain_version(emulator, K):
-    """100 spots: a ragged last block at every K."""
+    """100 spots: a ragged last block at every K; above K = 64 a whole
+    number of panels (80, 96, 256), a ragged last panel (65, 129, 255) and
+    register tiles of 3 to 8 rows whose last rows pass K (65, 129, 255)."""
     p = gather_problem(n=100, n_types=K, seed=K)
     t = {k: torch.from_numpy(v) for k, v in p.items() if k != "coords"}
     ns = tbcd.neighbor_sum(tbcd.with_sentinel(t["beta_t"]), t["nbr_t"])
@@ -145,7 +147,7 @@ def test_emulated_cd_kernel_matches_plain_version(emulator, K):
     assert (got[0] >= 0).all()
 
 
-@pytest.mark.parametrize("K", [20, 65, 96, 256])
+@pytest.mark.parametrize("K", [20, 65, 80, 96, 129, 255, 256])
 def test_emulated_fused_kernel_matches_plain_and_unfused(emulator, K):
     """A 20 x 20 grid with a 40-spot pad, which splits a 32-spot tile of
     the panel form: the plain version within the card's bounds, pad slabs
@@ -200,7 +202,7 @@ def _split_problem(K):
     return p, args
 
 
-@pytest.mark.parametrize("K", [20, 128])
+@pytest.mark.parametrize("K", [20, 128, 256])
 def test_emulated_sub_range_recomposes_the_whole_sweep(emulator, K):
     """The interior and both boundary calls, each into one full carry:
     bit for bit the whole sweep's data columns, the statistics' max equal
@@ -269,7 +271,7 @@ def _rest_problem(K, seed):
     return p, t, args, nsr
 
 
-@pytest.mark.parametrize("K", [6, 20, 96])
+@pytest.mark.parametrize("K", [6, 20, 96, 256])
 def test_emulated_fused_kernel_with_rest_matches_plain_and_unfused(emulator,
                                                                    K):
     """The kernel with ``ns_rest``: the plain version within the card's

@@ -41,7 +41,9 @@ from torch_problems import (
 pytestmark = pytest.mark.cuda
 
 
-KS = [6, 20, 64, 65, 96, 128, 256]
+# Above K = 64: whole panels (80, 96, 128, 256) and a ragged last panel
+# and register tile (65, 129, 255).
+KS = [6, 20, 64, 65, 80, 96, 128, 129, 255, 256]
 
 
 @pytest.fixture
@@ -294,7 +296,7 @@ def test_fused_and_unfused_banded_kernels_are_bitwise_equal(cuda_device, K):
                        beta_t)
 
 
-@pytest.mark.parametrize("K", [65, 96, 128, 256])
+@pytest.mark.parametrize("K", [65, 80, 96, 128, 129, 255, 256])
 def test_two_launches_are_bitwise_equal(cuda_device, K):
     """Each kernel twice on the same operands: the same bits (no atomics,
     one summation order)."""
@@ -370,7 +372,7 @@ def test_sub_range_kernel_matches_plain_version(cuda_device, K):
     assert tbcd.fused_banded_sweep.sub_launches == before + 2 * len(subs)
 
 
-@pytest.mark.parametrize("K", [6, 20, 64, 65, 128, 256])
+@pytest.mark.parametrize("K", [6, 20, 64, 65, 80, 128, 129, 255, 256])
 def test_split_sweep_is_bitwise_the_whole_sweep(cuda_device, K):
     """The interior and both boundary calls into one full carry give the
     whole sweep's data columns bit for bit, leave the carry's pads as they
