@@ -171,7 +171,10 @@ def phase_device() -> None:
         f"python {sys.version.split()[0]} cards {torch.cuda.device_count()}")
 
 
-def phase_build() -> None:
+def phase_build(spills_fatal: bool = True) -> None:
+    """Builds and loads the kernels and prints ptxas's report; a spill
+    fails the run unless ``spills_fatal`` is False (the ``--large-k``
+    design runs, which report every panel instance's spills)."""
     from flashdeconv_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -188,7 +191,7 @@ def phase_build() -> None:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build] {name}: {line.strip()}")
             spills = re.findall(r"(\d+) bytes spill", line)
-            if any(int(s) for s in spills):
+            if spills_fatal and any(int(s) for s in spills):
                 raise AssertionError(f"{name} spills registers: {line}")
 
 
@@ -1228,7 +1231,7 @@ def build_against(root: str) -> dict:
     for n in names:
         libs[n] = ctypes.CDLL(str(out / f"{n}-against.so"))
         _build._declare(n, libs[n])
-    log(f"[against] {ops.parent.parent}: {len(names)} kernels built in "
+    log(f"[against] {root}: {len(names)} kernels built in "
         f"{time.perf_counter() - t0:.3f} s")
     return libs
 
@@ -1279,9 +1282,11 @@ def phase_against(prob, name: str, other: dict, label: str) -> None:
 
 
 def large_k(against) -> None:
-    """The ``--large-k`` mode (see the module docstring)."""
+    """The ``--large-k`` mode (see the module docstring); ``against``
+    maps each ``--against`` DIR to the future of its
+    :func:`build_against`."""
     panel_report()
-    other = against.result() if against else None
+    others = {d: fut.result() for d, fut in against.items()}
     phase_fused_kernel(prepare(256 * 256, 65)[0], "256x256")
     phase_cd_kernel(prepare(4096, 65, irregular=True)[0], "4096 irregular")
     for irregular, lib, phase in (
@@ -1291,8 +1296,8 @@ def large_k(against) -> None:
         for K in LARGE_TYPES:
             prob, _ = prepare(SPOTS, K, irregular)
             phase(prob, f"{label} K={K}")
-            if other:
-                phase_against(prob, lib, other, f"{label} K={K}")
+            for d, other in others.items():
+                phase_against(prob, lib, other, f"{label} K={K} against {d}")
             if K == 128 and not irregular:
                 phase_fused_vs_unfused(prob)
             del prob
@@ -1327,9 +1332,10 @@ def main() -> None:
     parser.add_argument("--large-k", action="store_true",
                         help="the panel kernels alone instead of the smoke "
                              "run")
-    parser.add_argument("--against", metavar="DIR",
+    parser.add_argument("--against", metavar="DIR", action="append",
                         help="with --large-k: time the sweep kernels of the "
-                             "checkout at DIR in turns with this one's")
+                             "checkout at DIR in turns with this one's "
+                             "(repeatable)")
     args = parser.parse_args()
     if args.against and not args.large_k:
         parser.error("--against goes with --large-k")
@@ -1339,10 +1345,10 @@ def main() -> None:
     from flashdeconv_tpu_torch.ops import countsketch as cs
     from flashdeconv_tpu_torch.utils import grid_coords
 
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    against = (pool.submit(build_against, args.against) if args.against
-               else None)
-    phase_build()
+    pool = concurrent.futures.ThreadPoolExecutor(max(1, len(args.against
+                                                         or ())))
+    against = {d: pool.submit(build_against, d) for d in args.against or ()}
+    phase_build(spills_fatal=not args.large_k)
     if args.large_k:
         large_k(against)
         pool.shutdown()

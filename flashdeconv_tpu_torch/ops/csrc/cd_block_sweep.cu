@@ -30,11 +30,11 @@
 // the JAX package runs it there to K = 128 and its XLA pass above). It is
 // bound by operations at K = 128 and 256 (about 3K^2 f32 operations per
 // spot against about 20K bytes: 0.75 ms and 3.0 ms at 1M spots, derived,
-// not measured). A block owns 32 spots, one per lane; the pass runs its
-// XtX products as register-tiled tile products of TM rows x 4 spots a
-// thread (gs_pass_panel.cuh says why), so the kernel is templated on
-// TM = ceil(K/32), 3..8. Its shared memory passes 48 KB above K = 160, so
-// every launch sets cudaFuncAttributeMaxDynamicSharedMemorySize first and
+// not measured). A block owns 64 spots; the pass runs its XtX products as
+// register-tiled tile products of TM rows x 8 spots a thread
+// (gs_pass_panel.cuh says why), so the kernel is templated on TM =
+// ceil(K/32), 3..8. Its shared memory passes 48 KB above K = 80, so every
+// launch sets cudaFuncAttributeMaxDynamicSharedMemorySize first and
 // returns that call's error if it fails.
 // Launch: on the caller's stream, no allocation, no synchronisation.
 
@@ -48,6 +48,16 @@ struct LoadSum {
     __device__ __forceinline__ float operator()(int k) const
     {
         return col[k * ld];
+    }
+
+    // s[j] = (*this)(k0 + j * step) for the rows below lim.
+    template <int N>
+    __device__ __forceinline__ void rows(int k0, int step, int lim,
+                                         float (&s)[N]) const
+    {
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+            s[j] = k0 + j * step < lim ? col[(k0 + j * step) * ld] : 0.f;
     }
 };
 
@@ -78,8 +88,8 @@ cd_block_sweep_kernel(const float* __restrict__ beta_in,
 }
 
 // 64 < K <= 256, TM = fdt_panel_tm(K): a block of 256 threads passes over
-// FDT_TILE_SPOTS spots, lane l of every warp spot blockIdx.x * 32 + l (the
-// spot layout of gs_pass_panel.cuh).
+// FDT_TILE_SPOTS spots, thread t spot blockIdx.x * FDT_TILE_SPOTS +
+// fdt_panel_spot() (the spot layout of gs_pass_panel.cuh).
 template <int TM>
 __global__ void
 __launch_bounds__(FDT_THREADS, FDT_PANEL_MIN_BLOCKS(TM))
@@ -94,7 +104,7 @@ cd_block_sweep_panel_kernel(const float* __restrict__ beta_in,
 {
     extern __shared__ float4 smem4[];
     const long long j =
-        (long long)blockIdx.x * FDT_TILE_SPOTS + (threadIdx.x & 31);
+        (long long)blockIdx.x * FDT_TILE_SPOTS + fdt_panel_spot();
     const bool valid = j < n;
     const long long jj = valid ? j : 0;
     const LoadSum ns{ns_t + jj, n};

@@ -52,11 +52,11 @@
 // counterpart of _make_fused_banded_kernel with _gs_pass_kb_panel in
 // flashdeconv_tpu/ops/bcd.py). It is bound by operations at K = 128 and
 // 256 (about 3K^2 f32 operations per spot against about 16K bytes: 0.75 ms
-// and 3.0 ms at 1M spots, derived, not measured). A block owns 32 spots,
-// one per lane; the pass runs its XtX products as register-tiled tile
-// products of TM rows x 4 spots a thread (gs_pass_panel.cuh says why), so
-// the kernel is templated on TM = ceil(K/32), 3..8, and on REST. Its shared
-// memory passes 48 KB above K = 160, so every launch sets
+// and 3.0 ms at 1M spots, derived, not measured). A block owns 64 spots;
+// the pass runs its XtX products as register-tiled tile products of TM
+// rows x 8 spots a thread (gs_pass_panel.cuh says why), so the kernel is
+// templated on TM = ceil(K/32), 3..8, and on REST. Its shared memory
+// passes 48 KB above K = 80, so every launch sets
 // cudaFuncAttributeMaxDynamicSharedMemorySize first and returns that call's
 // error if it fails.
 // Launch: on the caller's stream, no allocation, no synchronisation.
@@ -88,6 +88,29 @@ struct BandSum {
             if ((bits >> u) & 1u) s = __fadd_rn(s, col[k * ld + off_s[u]]);
         if (REST) s = __fadd_rn(s, rest[k * ld_rest]);
         return s;
+    }
+
+    // s[j] = (*this)(k0 + j * step) for the rows below lim, each summed in
+    // the same order; the N rows' loads of one band are issued together.
+    template <int N>
+    __device__ __forceinline__ void rows(int k0, int step, int lim,
+                                         float (&s)[N]) const
+    {
+#pragma unroll
+        for (int j = 0; j < N; ++j) s[j] = 0.f;
+        for (int u = 0; u < n_bands; ++u)
+            if ((bits >> u) & 1u) {
+                const float* c = col + off_s[u];
+#pragma unroll
+                for (int j = 0; j < N; ++j)
+                    if (k0 + j * step < lim)
+                        s[j] = __fadd_rn(s[j], c[(k0 + j * step) * ld]);
+            }
+        if (REST)
+#pragma unroll
+            for (int j = 0; j < N; ++j)
+                if (k0 + j * step < lim)
+                    s[j] = __fadd_rn(s[j], rest[(k0 + j * step) * ld_rest]);
     }
 };
 
@@ -155,8 +178,8 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
 }
 
 // 64 < K <= 256, TM = fdt_panel_tm(K): a block of 256 threads sweeps
-// FDT_TILE_SPOTS window columns, lane l of every warp column w0 +
-// blockIdx.x * 32 + l (the spot layout of gs_pass_panel.cuh).
+// FDT_TILE_SPOTS window columns, thread t column w0 + blockIdx.x *
+// FDT_TILE_SPOTS + fdt_panel_spot() (the spot layout of gs_pass_panel.cuh).
 template <int TM, bool REST>
 __global__ void
 __launch_bounds__(FDT_THREADS, FDT_PANEL_MIN_BLOCKS(TM))
@@ -184,12 +207,12 @@ fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
     __syncthreads();
 
     const long long t =
-        (long long)blockIdx.x * FDT_TILE_SPOTS + (threadIdx.x & 31);
+        (long long)blockIdx.x * FDT_TILE_SPOTS + fdt_panel_spot();
     const long long w = w0 + t;  // window column
     const long long j = w - pad;  // data column of the range
     const bool valid = t < n_cols && j >= 0 && j < n_sub;
     if (t < n_cols && !valid)
-        for (int k = threadIdx.x >> 5; k < K; k += FDT_THREADS / 32)
+        for (int k = fdt_panel_spot_row(); k < K; k += FDT_SPOT_ROWS)
             carry_out[k * ld_out + w] = 0.f;
     uint32_t bits = 0u;
     if (valid)

@@ -20,42 +20,65 @@
 //
 // What bounds it on an H100: at 1M spots about 3K^2 f32 operations per
 // spot (the prologue's K^2 multiply-adds and the corrections' K^2/2)
-// against about 16K bytes per spot (beta in and out, Xty, inv_den):
-// operations at K = 128 (0.75 ms at 67 TFLOP/s against 0.61 ms of bytes at
-// 3.35 TB/s) and K = 256 (3.0 ms against 1.3 ms), about level at K = 96
-// (derived counts, not measurements). So the multiply-adds must run near
-// the FMA rate, which needs (1) few shared-memory loads per FMA and (2)
-// every warp busy.
+// against about 20K bytes per spot (beta in and out, Xty, inv_den, and ns
+// for kernel #2): operations at K = 128 (0.75 ms at 67 TFLOP/s against
+// 0.61-0.76 ms of bytes at 3.35 TB/s) and K = 256 (3.0 ms against 1.3-1.5
+// ms), about level at K = 96 (derived counts, not measurements). So the
+// multiply-adds must run near the FMA rate, which needs (1) few
+// shared-memory loads per FMA, (2) no warp left idle for long, and (3)
+// enough loads from device memory in flight in the phases that have no
+// FMAs to hide them.
 //
-// The design: one CUDA block of 256 threads owns FDT_TILE_SPOTS = 32 spots.
-//   - Two layouts. In the spot layout lane l of every warp stands for spot
-//     l (a warp's load of row k of a (K, n) operand reads 32 neighbouring
-//     floats); the neighbour sums, numerators and the recurrence run there.
-//     In the tile layout thread t owns a register tile of TM rows x 4 spots
-//     of the (RP, 32) numerator matrix R, rows TM*(t/8) .. +TM-1, spots
-//     4*(t%8) .. +3, RP = 32*TM >= K (TM = ceil(K/32): 3 at K = 96, 4 at
-//     128, 8 at 256); the two tile products run there.
-//   - The prologue is one tile product over all rows at once,
+// The design: one CUDA block of 256 threads owns FDT_TILE_SPOTS = 64 spots.
+//   - Two layouts. In the spot layout each thread stands for one spot
+//     (fdt_panel_spot: two warps cover the 64 spots, so a warp's load of
+//     row k of a (K, n) operand reads 32 neighbouring floats, and the 8
+//     warps cover 4 rows at a time); the neighbour sums, numerators and
+//     the recurrence run there. In the tile layout thread t owns a
+//     register tile of TM rows x 8 spots of the (RP, 64) numerator matrix
+//     R, rows TM*(t/8) .. +TM-1, spots 8*(t%8) .. +7, RP = 32*TM >= K
+//     (TM = ceil(K/32): 3 at K = 96, 4 at 128, 8 at 256); the two tile
+//     products run there.
+//   - (1) The prologue is one tile product over all rows at once,
 //     P = XtX[:RP, :kp] . B_old (kp = K rounded up to 16). XtX is streamed
 //     through shared memory in strips of 16 columns, stored transposed so
 //     that a thread's TM rows at one column are contiguous; per column a
 //     thread loads its TM XtX values (float4 / float2 / scalar as TM
-//     allows) and one float4 of beta and runs 4*TM FMAs: at K = 256, 3
-//     loads feed 32 FMAs, where the first design's 6 fed 8. Then the spot
-//     layout turns P into C (panel_numerator) through a (RP, 32) tile in
-//     shared memory, and every thread takes its rows of C back into its
-//     register tile.
-//   - Per panel [a, a+16): XtX rows a..a+15 are staged (16 x kp, over the
-//     strip buffers); the 8 warps take C of the panel's rows from the R
-//     tile and apply the finished panels' corrections (two rows a warp,
-//     float4 broadcasts of XtX rows against the lanes' delta columns, c
-//     ascending, left-looking); then warp 0 runs the panel's 16-step
-//     recurrence and writes its delta rows into the (kp, 32) delta tile.
-//   - Shared memory: beta_old, the delta tile (kp x 32 each), the R tile
-//     (RP x 32), two strip buffers (16 x (RP + 4) each, the +4 spreading
-//     the transposing stores over the banks), and 16 x 32 each of the
-//     panel's r and inv_den. The launchers set
-//     cudaFuncAttributeMaxDynamicSharedMemorySize before every launch.
+//     allows) and two float4s of beta and runs 8*TM FMAs: at K = 256, 4
+//     loads feed 64 FMAs, where the first design's 6 fed 8. A warp's
+//     float4 load is served as four quarter-warp wavefronts, so 8 x 8 is
+//     the tile at which the loads keep pace with the FMAs (8 x 4 needs
+//     1.5 times the FMAs' time in wavefronts).
+//   - Then the spot layout turns P into C (panel_numerator) through an R
+//     tile in shared memory, in two rounds of RP/2 rows (the tile reuses
+//     the strip buffers), and every thread takes its rows of C back into
+//     its register tile. (3) The neighbour sums go NB = 4 rows at a time
+//     (the functors' rows()), so a band's four loads are in flight
+//     together; beta_old is loaded 8 rows at a time for the same reason.
+//   - Per panel [a, a+16): the owners of rows a..a+15 hand them to the
+//     recurrence through shared memory; the two warps of spot-layout row
+//     0 run the 16-step recurrence for their 32 spots each (in-panel
+//     coefficients from the same strip) and write the panel's 16 delta
+//     rows; then all 256 threads apply them to
+//     every row below, right-looking, in one register-tiled product:
+//     R[k, s] -= sum_c XtX[k, c] * delta[c, s] for k >= a + 16, c
+//     ascending (the strip XtX[a:RP, a:a+16], the prologue's shape, so
+//     both steps share one staging routine and one micro-kernel). Panels
+//     go in ascending order, so every r_k takes its corrections in the
+//     first design's order and the bits do not move. (2) A warp whose rows
+//     are all done skips the product, so the SM's issue slots go to the
+//     other warps and blocks.
+//   - Each strip is loaded and stored just before its barrier; measured
+//     on the card, holding the next strip in registers across the FMAs
+//     cost more in registers (spills, fewer blocks) than it hid. A block
+//     streams XtX about 1.5 times a pass (all of it for the prologue, the
+//     rows below each panel for the corrections), from the 50 MB L2.
+//   - Shared memory: beta_old (kp x 64), two strip buffers (16 x (RP + 4)
+//     each, the +4 spreading the transposing stores over the banks), and
+//     16 x 64 each of the panel's r, delta and inv_den: 111,104 B at
+//     K = 256 (2 blocks an SM), 61,952 B at K = 128 and 49,664 B at K = 96
+//     (3 blocks an SM, the registers' limit: 80 a thread). The launchers
+//     set cudaFuncAttributeMaxDynamicSharedMemorySize before every launch.
 //   - Every sum has one fixed order and every operation is an explicit
 //     __fmaf_rn / __fadd_rn / __fsub_rn, with no atomics, so two launches
 //     are bitwise equal and both kernels give the same bits on the same
@@ -68,12 +91,27 @@
 #include "gs_pass.cuh"
 
 #define FDT_PANEL 16        // coordinates of one panel, columns of a strip
-#define FDT_TILE_SPOTS 32   // spots of one CUDA block: one per lane
+#define FDT_TILE_SPOTS 64   // spots of one CUDA block
+#define FDT_TILE_TN (FDT_TILE_SPOTS / 8)     // spots of a register tile
+#define FDT_SPOT_WARPS (FDT_TILE_SPOTS / 32) // warps of a spot-layout row
+#define FDT_SPOT_ROWS (FDT_THREADS / 32 / FDT_SPOT_WARPS)  // rows a pass
 #define FDT_REGISTER_MAX_K 64   // largest K of gs_pass_spot
 #define FDT_PANEL_MAX_K 256
 
-static_assert(FDT_THREADS == 8 * FDT_TILE_SPOTS,
-              "8 threads of 4 spots cover a tile row; 32 row groups");
+static_assert(FDT_THREADS == 256 && FDT_TILE_TN % 4 == 0 &&
+              FDT_TILE_SPOTS % 32 == 0,
+              "8 threads of TN spots cover a tile row; 32 row groups");
+
+// The spot (0 .. FDT_TILE_SPOTS - 1) of the calling thread in the spot
+// layout, and the first spot-layout row of its warp.
+__device__ __forceinline__ int fdt_panel_spot()
+{
+    return (threadIdx.x >> 5) % FDT_SPOT_WARPS * 32 + (threadIdx.x & 31);
+}
+__device__ __forceinline__ int fdt_panel_spot_row()
+{
+    return (threadIdx.x >> 5) / FDT_SPOT_WARPS;
+}
 
 // Blocks an SM the panel kernel of TM asks ptxas to fit by registers
 // (__launch_bounds__): 3 (80 registers) at TM <= 4, 2 (128) above, where
@@ -98,8 +136,8 @@ __host__ __device__ __forceinline__ int fdt_panel_tm(int K)
 __host__ __device__ __forceinline__ int fdt_panel_smem_floats(int K)
 {
     const int rp = 32 * fdt_panel_tm(K);
-    return 2 * fdt_panel_kp(K) * FDT_TILE_SPOTS + 2 * FDT_PANEL * (rp + 4)
-           + rp * FDT_TILE_SPOTS + 2 * FDT_PANEL * FDT_TILE_SPOTS;
+    return fdt_panel_kp(K) * FDT_TILE_SPOTS + 2 * FDT_PANEL * (rp + 4)
+           + 3 * FDT_PANEL * FDT_TILE_SPOTS;
 }
 
 // f(std::integral_constant<int, TM>{}) with TM = fdt_panel_tm(K), 3..8 at
@@ -138,16 +176,15 @@ extern "C" long long fdt_panel_pass_smem_bytes(int K)
     return (long long)fdt_panel_smem_floats(K) * sizeof(float);
 }
 
-// C_k of the lane's spot, given p = sum_i XtX[k,i]*beta_old_i; 0 for a
-// padding row or a lane without a spot.
-template <class NeighbourSum>
+// C_k of the thread's spot, given p = sum_i XtX[k,i]*beta_old_i and its
+// neighbour sum nsk; 0 for a padding row or a thread without a spot.
 __device__ __forceinline__ float panel_numerator(
     const int k, const int K, const bool valid, const float p,
     const float* __restrict__ xty, const long long ld, const float xkk,
-    const float bk, const float lam, const float rho, const NeighbourSum& ns)
+    const float bk, const float lam, const float rho, const float nsk)
 {
     if (!valid || k >= K) return 0.f;
-    float c = __fmaf_rn(lam, ns(k), xty[k * ld]);
+    float c = __fmaf_rn(lam, nsk, xty[k * ld]);
     c = __fsub_rn(c, p);
     c = __fmaf_rn(xkk, bk, c);
     return __fsub_rn(c, rho);
@@ -184,77 +221,102 @@ __device__ __forceinline__ void load_rows(const float* p, float (&x)[TM])
 // The register-tiled product of one strip: for c = 0..15 ascending,
 // acc[m][n] = fma(+-xs[c, row0 + m], bt[c, s0 + n], acc[m][n]), the minus
 // sign with SUB; with SUB only rows >= lo change. xs is a strip (16 x ld,
-// transposed: column c's rows contiguous), bt a (16, 32) tile of beta_old
-// or delta.
+// transposed: column c's rows contiguous), bt a (16, FDT_TILE_SPOTS) tile
+// of beta_old or delta.
 template <int TM, bool SUB>
-__device__ __forceinline__ void strip_product(float (&acc)[TM][4],
-                                              const float* __restrict__ xs,
-                                              const int ldx,
-                                              const float* __restrict__ bt,
-                                              const int row0, const int s0,
-                                              const int lo)
+__device__ __forceinline__ void strip_product(
+    float (&acc)[TM][FDT_TILE_TN], const float* __restrict__ xs,
+    const int ldx, const float* __restrict__ bt, const int row0,
+    const int s0, const int lo)
 {
-#pragma unroll 4
+    constexpr int TN = FDT_TILE_TN;
+#pragma unroll 2
     for (int c = 0; c < FDT_PANEL; ++c) {
         float x[TM];
         load_rows<TM>(xs + c * ldx + row0, x);
-        const float4 b = *reinterpret_cast<const float4*>(
-            bt + c * FDT_TILE_SPOTS + s0);
+        float b[TN];
+#pragma unroll
+        for (int j = 0; j < TN / 4; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                bt + c * FDT_TILE_SPOTS + s0 + 4 * j);
+            b[4 * j] = v.x;
+            b[4 * j + 1] = v.y;
+            b[4 * j + 2] = v.z;
+            b[4 * j + 3] = v.w;
+        }
 #pragma unroll
         for (int m = 0; m < TM; ++m) {
             if (SUB && row0 + m < lo) continue;
             const float u = SUB ? -x[m] : x[m];
-            acc[m][0] = __fmaf_rn(u, b.x, acc[m][0]);
-            acc[m][1] = __fmaf_rn(u, b.y, acc[m][1]);
-            acc[m][2] = __fmaf_rn(u, b.z, acc[m][2]);
-            acc[m][3] = __fmaf_rn(u, b.w, acc[m][3]);
+#pragma unroll
+            for (int n = 0; n < TN; ++n)
+                acc[m][n] = __fmaf_rn(u, b[n], acc[m][n]);
         }
     }
 }
 
-// The global loads of strip XtX[row_lo:RP, col0:col0+16] (zero outside
-// XtX) into registers: element e = row * 16 + c, thread t takes e =
-// row_lo * 16 + t + 256 * u. Issued before the FMAs they hide behind.
+// The thread's register tile rows [row0 - r0, row0 - r0 + TM) into (LOAD
+// false) or out of (LOAD true) a (rows, FDT_TILE_SPOTS) tile t.
+template <int TM, bool LOAD>
+__device__ __forceinline__ void tile_rows(float (&acc)[TM][FDT_TILE_TN],
+                                          float* __restrict__ t,
+                                          const int row, const int s0)
+{
+#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int j = 0; j < FDT_TILE_TN / 4; ++j) {
+            float4* v = reinterpret_cast<float4*>(
+                t + (row + m) * FDT_TILE_SPOTS + s0 + 4 * j);
+            if (LOAD) {
+                const float4 w = *v;
+                acc[m][4 * j] = w.x;
+                acc[m][4 * j + 1] = w.y;
+                acc[m][4 * j + 2] = w.z;
+                acc[m][4 * j + 3] = w.w;
+            } else {
+                *v = make_float4(acc[m][4 * j], acc[m][4 * j + 1],
+                                 acc[m][4 * j + 2], acc[m][4 * j + 3]);
+            }
+        }
+}
+
+// Strip XtX[row_lo:RP, col0:col0+16] (zero outside XtX) into a strip
+// buffer, transposed (rows contiguous per column, row length ldx): element
+// e = row * 16 + c, thread t takes e = row_lo * 16 + t + 256 * u, all its
+// loads issued before its stores.
 template <int TM>
-__device__ __forceinline__ void fetch_strip(const float* __restrict__ xtx,
+__device__ __forceinline__ void stage_strip(float* __restrict__ xs,
+                                            const int ldx,
+                                            const float* __restrict__ xtx,
                                             const int K, const int col0,
-                                            const int row_lo,
-                                            float (&pre)[2 * TM])
+                                            const int row_lo)
 {
     constexpr int RP = 32 * TM;
+    float v[2 * TM];
 #pragma unroll
     for (int u = 0; u < 2 * TM; ++u) {
         const int e = row_lo * FDT_PANEL + threadIdx.x + FDT_THREADS * u;
         const int row = e >> 4, col = col0 + (e & 15);
-        pre[u] = (row < K && col < K && row < RP) ? xtx[row * K + col]
-                                                  : 0.f;
+        v[u] = (row < K && col < K && row < RP) ? xtx[row * K + col] : 0.f;
     }
-}
-
-// The registers of fetch_strip into a strip buffer (transposed, rows
-// contiguous per column, row length ldx).
-template <int TM>
-__device__ __forceinline__ void put_strip(float* __restrict__ xs,
-                                          const int ldx, const int row_lo,
-                                          const float (&pre)[2 * TM])
-{
-    constexpr int RP = 32 * TM;
 #pragma unroll
     for (int u = 0; u < 2 * TM; ++u) {
         const int e = row_lo * FDT_PANEL + threadIdx.x + FDT_THREADS * u;
-        if (e < RP * FDT_PANEL) xs[(e & 15) * ldx + (e >> 4)] = pre[u];
+        if (e < RP * FDT_PANEL) xs[(e & 15) * ldx + (e >> 4)] = v[u];
     }
 }
 
-// The pass for the 32 spots of the calling block; every thread of the
-// block calls it (it synchronises the block), with TM = fdt_panel_tm(K).
-// Lane l of every warp stands for one spot: beta_in / beta_out point at
-// that spot's column of a (K, ld_in) / (K, ld_out) array, xty / inv_den at
-// its column of (K, ld) arrays, and ns(k) gives its neighbour sum of
-// coordinate k. A lane whose `valid` is false has no spot: it reads and
-// writes nothing. xtx is XtX (K, K) in device memory; smem holds
-// fdt_panel_smem_floats(K) floats, 16-byte aligned. Warp 0 folds its
-// spots' |beta_new - beta_old| and |beta_old| into dmax and amax.
+// The pass for the FDT_TILE_SPOTS spots of the calling block; every
+// thread of the block calls it (it synchronises the block), with TM =
+// fdt_panel_tm(K). Each thread stands for spot fdt_panel_spot() of the
+// block: beta_in / beta_out point at that spot's column of a (K, ld_in) /
+// (K, ld_out) array, xty / inv_den at its column of (K, ld) arrays, and
+// ns(k) gives its neighbour sum of coordinate k. A thread whose `valid` is
+// false has no spot: it reads and writes nothing. xtx is XtX (K, K) in
+// device memory; smem holds fdt_panel_smem_floats(K) floats, 16-byte
+// aligned. The warps of spot-layout row 0 fold their spots'
+// |beta_new - beta_old| and |beta_old| into dmax and amax.
 template <int TM, class NeighbourSum>
 __device__ __forceinline__ void gs_pass_panel(
     const float* __restrict__ beta_in, const long long ld_in,
@@ -265,103 +327,126 @@ __device__ __forceinline__ void gs_pass_panel(
     const float rho, const NeighbourSum& ns, const bool valid,
     float* __restrict__ smem, float& dmax, float& amax)
 {
-    constexpr int S = FDT_TILE_SPOTS;
-    constexpr int WARPS = FDT_THREADS / 32;
+    constexpr int S = FDT_TILE_SPOTS, TN = FDT_TILE_TN;
+    constexpr int ROWS = FDT_SPOT_ROWS;  // spot-layout rows a pass covers
+    constexpr int NI = FDT_PANEL / ROWS;  // inv_den values a thread stages
     constexpr int RP = 32 * TM;
     constexpr int LDX = RP + 4;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    constexpr int RR = RP / FDT_SPOT_WARPS;  // R tile rows a round
+    const int sp = fdt_panel_spot(), wr = fdt_panel_spot_row();
+    const bool rec = wr == 0;  // the warps that run the recurrence
     const int kp = fdt_panel_kp(K);
     const int row0 = (threadIdx.x >> 3) * TM;  // the register tile's rows
-    const int s0 = 4 * (threadIdx.x & 7);      // and spots
+    const int s0 = TN * (threadIdx.x & 7);     // and spots
     float* bs = smem;                  // beta_old, (kp, S)
     float* xs = bs + kp * S;           // two strips, (16, LDX) each
-    float* rt = xs + 2 * FDT_PANEL * LDX;  // the R tile, (RP, S)
-    float* ds = rt + RP * S;           // delta, (kp, S)
-    float* rs = ds + kp * S;           // r of the panel's rows, (16, S)
+    float* ds = xs + 2 * FDT_PANEL * LDX;  // delta of the panel, (16, S)
+    float* rs = ds + FDT_PANEL * S;    // r of the panel's rows, (16, S)
     float* is = rs + FDT_PANEL * S;    // inv_den of the panel's rows
+    float* rt = xs;                    // the R tile, (RR, S), between steps
+    static_assert(RR * S <= 2 * FDT_PANEL * LDX, "R tile over the strips");
 
-    // Padding rows stay zero: the prologue's products run to kp.
-    for (int k = warp; k < kp; k += WARPS)
-        bs[k * S + lane] = (valid && k < K) ? beta_in[k * ld_in] : 0.f;
+    // Padding rows stay zero: the prologue's products run to kp. Unrolled,
+    // as the numerators' loop below, so that each warp keeps several rows'
+    // loads from device memory in flight.
+#pragma unroll 8
+    for (int k = wr; k < kp; k += ROWS)
+        bs[k * S + sp] = (valid && k < K) ? beta_in[k * ld_in] : 0.f;
 
     // The prologue, P = XtX . B_old over all rows, i ascending.
-    float acc[TM][4];
+    float acc[TM][TN];
 #pragma unroll
     for (int m = 0; m < TM; ++m)
-        acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
-    float pre[2 * TM];
-    fetch_strip<TM>(xtx, K, 0, 0, pre);
+#pragma unroll
+        for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
     for (int i0 = 0, j = 0; i0 < kp; i0 += FDT_PANEL, ++j) {
         float* x = xs + (j & 1) * FDT_PANEL * LDX;
-        put_strip<TM>(x, LDX, 0, pre);
+        stage_strip<TM>(x, LDX, xtx, K, i0, 0);
         __syncthreads();  // the strip (and at j = 0 bs) stored
-        if (i0 + FDT_PANEL < kp)
-            fetch_strip<TM>(xtx, K, i0 + FDT_PANEL, 0, pre);
         if (row0 < K)
             strip_product<TM, false>(acc, x, LDX, bs + i0 * S, row0, s0, 0);
     }
-    __syncthreads();  // every read of the strips done: R tile over them
-
-    // The numerators, in the spot layout, in the R tile.
+    float inv[NI];
 #pragma unroll
-    for (int m = 0; m < TM; ++m)
-        *reinterpret_cast<float4*>(rt + (row0 + m) * S + s0) =
-            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    __syncthreads();
-    for (int k = warp; k < K; k += WARPS)
-        rt[k * S + lane] = panel_numerator(k, K, valid, rt[k * S + lane],
-                                           xty, ld, xtx[k * K + k],
-                                           bs[k * S + lane], lam, rho, ns);
+    for (int u = 0; u < NI; ++u) {
+        const int k = wr + ROWS * u;
+        inv[u] = (valid && k < K) ? inv_den[k * ld] : 0.f;
+    }
 
-    float* xr = xs;  // XtX rows a..a+15, (16, kp), over the strips
-    const int q0 = 2 * warp, q1 = q0 + 1;  // this warp's rows of a panel
-    for (int a = 0; a < K; a += FDT_PANEL) {
-        __syncthreads();  // C written, the last panel's ds rows written
-        for (int e = threadIdx.x; e < FDT_PANEL * kp; e += FDT_THREADS) {
-            const int q = e / kp, c = e - q * kp;
-            xr[e] = (a + q < K && c < K) ? xtx[(a + q) * K + c] : 0.f;
+    // The numerators, in the spot layout, through the R tile over the
+    // strips, RR rows a round.
+#pragma unroll
+    for (int r0 = 0; r0 < RP; r0 += RR) {
+        const bool mine = row0 >= r0 && row0 < r0 + RR;
+        __syncthreads();  // the strips (or the last round's tile) read
+        if (mine) tile_rows<TM, false>(acc, rt, row0 - r0, s0);
+        __syncthreads();
+        // NB rows at a time, their neighbour sums through ns.rows, which
+        // issues the NB rows' loads of each band together.
+        constexpr int NB = 4;
+        const int lim = K < r0 + RR ? K : r0 + RR;
+        for (int k = r0 + wr; k < lim; k += NB * ROWS) {
+            float nsk[NB];
+            ns.template rows<NB>(k, ROWS, lim, nsk);
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+                const int kj = k + j * ROWS;
+                if (kj < lim)
+                    rt[(kj - r0) * S + sp] = panel_numerator(
+                        kj, K, valid, rt[(kj - r0) * S + sp], xty, ld,
+                        xtx[kj * K + kj], bs[kj * S + sp], lam, rho, nsk[j]);
+            }
         }
         __syncthreads();
-        const float4* x0 = reinterpret_cast<const float4*>(xr + q0 * kp);
-        const float4* x1 = reinterpret_cast<const float4*>(xr + q1 * kp);
-        const int k0 = a + q0, k1 = a + q1;
-        float r0 = rt[k0 * S + lane], r1 = rt[k1 * S + lane];
-        // The finished panels' corrections, coordinate c ascending.
-        for (int c = 0; c < a; c += 4) {
-            const float4 u = x0[c >> 2], v = x1[c >> 2];
-            const float d0 = ds[c * S + lane], d1 = ds[(c + 1) * S + lane];
-            const float d2 = ds[(c + 2) * S + lane];
-            const float d3 = ds[(c + 3) * S + lane];
-            r0 = __fmaf_rn(-u.x, d0, r0);
-            r0 = __fmaf_rn(-u.y, d1, r0);
-            r0 = __fmaf_rn(-u.z, d2, r0);
-            r0 = __fmaf_rn(-u.w, d3, r0);
-            r1 = __fmaf_rn(-v.x, d0, r1);
-            r1 = __fmaf_rn(-v.y, d1, r1);
-            r1 = __fmaf_rn(-v.z, d2, r1);
-            r1 = __fmaf_rn(-v.w, d3, r1);
-        }
-        rs[q0 * S + lane] = r0;
-        rs[q1 * S + lane] = r1;
-        is[q0 * S + lane] = (valid && k0 < K) ? inv_den[k0 * ld] : 0.f;
-        is[q1 * S + lane] = (valid && k1 < K) ? inv_den[k1 * ld] : 0.f;
-        __syncthreads();
+        if (mine) tile_rows<TM, true>(acc, rt, row0 - r0, s0);
+    }
+    __syncthreads();  // the R tile read: strips over it again
 
-        if (warp == 0) {
+    for (int a = 0, j = 0; a < K; a += FDT_PANEL, ++j) {
+        float* x = xs + (j & 1) * FDT_PANEL * LDX;
+        stage_strip<TM>(x, LDX, xtx, K, a, a);
+#pragma unroll
+        for (int u = 0; u < NI; ++u) is[(wr + ROWS * u) * S + sp] = inv[u];
+#pragma unroll
+        for (int m = 0; m < TM; ++m) {
+            const int q = row0 + m - a;
+            if (q >= 0 && q < FDT_PANEL)
+#pragma unroll
+                for (int jj = 0; jj < TN / 4; ++jj)
+                    *reinterpret_cast<float4*>(rs + q * S + s0 + 4 * jj) =
+                        make_float4(acc[m][4 * jj], acc[m][4 * jj + 1],
+                                    acc[m][4 * jj + 2], acc[m][4 * jj + 3]);
+        }
+        __syncthreads();  // the strip, the panel's r and inv_den stored
+        const int b = a + FDT_PANEL;  // the first row below the panel
+        // The next panel's inv_den: loaded before the recurrence by the
+        // other warps, after it by the recurrence's, whose registers hold
+        // the panel's r meanwhile.
+        const auto next_inv = [&] {
+#pragma unroll
+            for (int u = 0; u < NI; ++u) {
+                const int k = b + wr + ROWS * u;
+                inv[u] = (valid && k < K) ? inv_den[k * ld] : 0.f;
+            }
+        };
+        if (!rec) next_inv();
+
+        if (rec) {
             float r[FDT_PANEL];
 #pragma unroll
-            for (int q = 0; q < FDT_PANEL; ++q) r[q] = rs[q * S + lane];
+            for (int q = 0; q < FDT_PANEL; ++q) r[q] = rs[q * S + sp];
 #pragma unroll
             for (int q = 0; q < FDT_PANEL; ++q) {
                 const int k = a + q;
                 if (k < K) {
-                    const float bk = bs[k * S + lane];
+                    const float bk = bs[k * S + sp];
                     const float num = nan_max(r[q], 0.f);
-                    const float delta = __fmaf_rn(num, is[q * S + lane], -bk);
+                    const float delta = __fmaf_rn(num, is[q * S + sp], -bk);
+                    // XtX[a + t, k] is column q of the strip at row a + t.
 #pragma unroll
                     for (int t = q + 1; t < FDT_PANEL; ++t)
-                        r[t] = __fmaf_rn(-xr[t * kp + k], delta, r[t]);
-                    ds[k * S + lane] = delta;
+                        r[t] = __fmaf_rn(-x[q * LDX + a + t], delta, r[t]);
+                    ds[q * S + sp] = delta;
                     if (valid) {
                         const float nb = __fadd_rn(delta, bk);
                         beta_out[k * ld_out] = nb;
@@ -370,6 +455,12 @@ __device__ __forceinline__ void gs_pass_panel(
                     }
                 }
             }
+            next_inv();
         }
+        __syncthreads();  // the panel's deltas written
+
+        // The panel's corrections to every row below it, c ascending.
+        if (b < K && row0 + TM > b && row0 < K)
+            strip_product<TM, true>(acc, x, LDX, ds, row0, s0, b);
     }
 }

@@ -149,7 +149,7 @@ def test_emulated_cd_kernel_matches_plain_version(emulator, K):
 
 @pytest.mark.parametrize("K", [20, 65, 80, 96, 129, 255, 256])
 def test_emulated_fused_kernel_matches_plain_and_unfused(emulator, K):
-    """A 20 x 20 grid with a 40-spot pad, which splits a 32-spot tile of
+    """A 20 x 20 grid with a 40-spot pad, which splits a 64-spot block of
     the panel form: the plain version within the card's bounds, pad slabs
     zero, and the coordinate-descent kernel on the banded neighbour sums
     of the same carry bit for bit."""
@@ -314,3 +314,23 @@ def test_emulated_sub_range_with_rest_recomposes_the_whole_sweep(emulator,
     assert (out[:, :pad] == 7.0).all() and (out[:, -pad:] == 7.0).all()
     assert max(s[0] for s in stats) == whole[1]
     assert max(s[1] for s in stats) == whole[2]
+
+
+@pytest.mark.parametrize("K,nbytes", [(65, 45_568), (96, 49_664),
+                                      (128, 61_952), (256, 111_104)])
+def test_emulated_panel_queries(emulator, K, nbytes):
+    """The C entries ``chip_smoke.py --large-k`` reads: the panel pass's
+    shared memory at K (the figures the note at the head of
+    gs_pass_panel.cuh gives), the same in both libraries, and an
+    occupancy answer from the instance of K's register tile (the
+    emulator's stand-in holds one block an SM); K outside the panel range
+    is refused."""
+    fused, cd = emulator["fused"], emulator["cd"]
+    assert fused.fdt_panel_pass_smem_bytes(K) == nbytes
+    assert cd.fdt_panel_pass_smem_bytes(K) == nbytes
+    assert fused.fdt_fused_banded_sweep_panel_occupancy(K, 0) == 1
+    assert fused.fdt_fused_banded_sweep_panel_occupancy(K, 1) == 1
+    assert cd.fdt_cd_block_sweep_panel_occupancy(K) == 1
+    for bad in (tbcd.REGISTER_PASS_MAX_K, tbcd.KERNEL_MAX_K + 1):
+        assert fused.fdt_fused_banded_sweep_panel_occupancy(bad, 0) == -1
+        assert cd.fdt_cd_block_sweep_panel_occupancy(bad) == -1

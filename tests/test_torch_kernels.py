@@ -232,7 +232,7 @@ def _cd_args(p, lam=0.5, rho=0.1):
 @pytest.mark.parametrize("K", KS)
 def test_cd_kernel_matches_plain_version(cuda_device, K):
     """3,000 spots: a ragged tail after 11 full blocks of 256 (K <= 64) or
-    93 full tiles of 32 (above)."""
+    46 full blocks of 64 (above)."""
     _, args = _cd_args(gather_problem(n_types=K, seed=K))
     before = _launches(tbcd.coordinate_descent_block, K)
     with tbcd.full_f32_matmul():
