@@ -1203,9 +1203,9 @@ def panel_report() -> None:
                 log(f"[large-k] ptxas {entry}: {line.strip()}")
     fused, cd = _build.load("fused_banded_sweep"), _build.load("cd_block_sweep")
     for K in (65, 80, 96, 128, 129, 160, 192, 255, 256):
-        log(f"[large-k] K={K}: tile {(K + 31) // 32} rows x 4 spots a "
-            f"thread; pass shared memory {fused.fdt_panel_pass_smem_bytes(K)}"
-            f" B; blocks an SM: fused "
+        log(f"[large-k] K={K}: TM = {(K + 31) // 32} rows a thread; pass "
+            f"shared memory {fused.fdt_panel_pass_smem_bytes(K)} B; blocks "
+            f"an SM: fused "
             f"{fused.fdt_fused_banded_sweep_panel_occupancy(K, 0)}, fused "
             f"with ns_rest {fused.fdt_fused_banded_sweep_panel_occupancy(K, 1)}"
             f", cd {cd.fdt_cd_block_sweep_panel_occupancy(K)}")
@@ -1345,17 +1345,17 @@ def main() -> None:
     from flashdeconv_tpu_torch.ops import countsketch as cs
     from flashdeconv_tpu_torch.utils import grid_coords
 
-    pool = concurrent.futures.ThreadPoolExecutor(max(1, len(args.against
-                                                         or ())))
-    against = {d: pool.submit(build_against, d) for d in args.against or ()}
+    against = {}
+    if args.against:  # built while this checkout's kernels build
+        pool = concurrent.futures.ThreadPoolExecutor(len(args.against))
+        against = {d: pool.submit(build_against, d) for d in args.against}
+        pool.shutdown(wait=False)
     phase_build(spills_fatal=not args.large_k)
     if args.large_k:
         large_k(against)
-        pool.shutdown()
         log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
             "included")
         return
-    pool.shutdown()
     if args.profile:
         for label, irregular in (("1M grid", False), ("1M irregular", True)):
             phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)
