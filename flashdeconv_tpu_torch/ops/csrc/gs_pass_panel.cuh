@@ -45,10 +45,10 @@
 //     that a thread's TM rows at one column are contiguous; per column a
 //     thread loads its TM XtX values (float4 / float2 / scalar as TM
 //     allows) and two float4s of beta and runs 8*TM FMAs: at K = 256, 4
-//     loads feed 64 FMAs, where the first design's 6 fed 8. A warp's
-//     float4 load is served as four quarter-warp wavefronts, so 8 x 8 is
-//     the tile at which the loads keep pace with the FMAs (8 x 4 needs
-//     1.5 times the FMAs' time in wavefronts).
+//     loads feed 64 FMAs. A warp's float4 load is served as four
+//     quarter-warp wavefronts, so 8 x 8 is the tile at which the loads
+//     keep pace with the FMAs (8 x 4 needs 1.5 times the FMAs' time in
+//     wavefronts).
 //   - Then the spot layout turns P into C (panel_numerator) through an R
 //     tile in shared memory, in two rounds of RP/2 rows (the tile reuses
 //     the strip buffers), and every thread takes its rows of C back into
@@ -64,8 +64,8 @@
 //     R[k, s] -= sum_c XtX[k, c] * delta[c, s] for k >= a + 16, c
 //     ascending (the strip XtX[a:RP, a:a+16], the prologue's shape, so
 //     both steps share one staging routine and one micro-kernel). Panels
-//     go in ascending order, so every r_k takes its corrections in the
-//     first design's order and the bits do not move. (2) A warp whose rows
+//     go in ascending order, so every r_k takes its corrections with c
+//     ascending, the association above. (2) A warp whose rows
 //     are all done skips the product, so the SM's issue slots go to the
 //     other warps and blocks.
 //   - Each strip is loaded and stored just before its barrier; measured
