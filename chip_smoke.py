@@ -6,6 +6,8 @@
     python3 chip_smoke.py --large-k [--against DIR]
                                      # the panel kernels (64 < K <= 256)
                                      # alone
+    python3 chip_smoke.py --small-k [--against DIR]
+                                     # the sweep kernels at K <= 64 alone
 
 Builds the three CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, in parallel), holds each against its plain PyTorch version
@@ -98,6 +100,18 @@ of the checkout at DIR (into DIR's own build directory) and, on each 1M
 problem, times them in turns with this checkout's (theirs, ours, ours,
 theirs) on the same operands, printing whether the two give the same bits.
 It prints no result line.
+
+``--small-k`` does the same for K <= 64, where both sweep kernels run the
+register pass of ``gs_pass.cuh`` up to K = 32 and the panel pass (TM = 2)
+from K = 33: ptxas's registers and spills of every register ``__global__``
+and of the panel ones of TM <= 2, and the blocks an SM holds at K = 1-64;
+then at 1M spots and K = 6, 20, 32, 48 and 64 kernel #1 on the grid (the
+whole sweep, and the sub-range form's interior call), kernel #1 with the
+rest stream on the 1 %-dropped grid and kernel #2 on the irregular
+problem, each against its plain version and timed in turns with it, with
+``--against DIR`` each of those four forms against DIR's build, bitwise
+and in turns; and the 1M grid at K = 20 solved through the fused and the
+unfused banded tier, bitwise equal. It prints no result line.
 """
 
 from __future__ import annotations
@@ -122,6 +136,7 @@ sys.path.insert(0, str(ROOT))
 SPOTS = 1_000_000
 TYPES = 20
 LARGE_TYPES = (96, 128, 256)        # the large-K kernel rows at 1M spots
+SMALL_TYPES = (6, 20, 32, 48, 64)   # the K <= 64 rows at 1M spots
 FIT_LARGE_TYPES = 96
 SKETCH = 512
 FIT_SIDE, FIT_GENES = 512, 2000
@@ -1041,6 +1056,7 @@ def phase_sharded(halo: dict) -> dict:
     """The sharded main path (see the module docstring, item 5). Leaves the
     prepared halo problem in ``halo["prob"]``. Returns the launches the
     path must show."""
+    from flashdeconv_tpu_torch.ops import bcd
     from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
     from flashdeconv_tpu_torch.utils import grid_coords
 
@@ -1055,7 +1071,7 @@ def phase_sharded(halo: dict) -> dict:
         Y, X, _ = make_problem(SPOTS, K, SKETCH)
         ref, ref_it = REFERENCE[label]
         whole = ("fused_banded_sweep_large_k"
-                 if K > 64 else "fused_banded_sweep")
+                 if K > bcd.REGISTER_PASS_MAX_K else "fused_banded_sweep")
         for P in shard_counts:
             t0 = time.perf_counter()
             prob = prepare_sharded_bcd(Y, X, A, coords=coords,
@@ -1187,25 +1203,57 @@ def phase_halo_split(inner, reps: int = 5) -> None:
 
 # -- the panel kernels alone (--large-k) -----------------------------------------
 
-def panel_report() -> None:
-    """ptxas's report of every instance of the two panel ``__global__``s
-    (the build logs' lines after each "Compiling entry function"), then
-    the pass's shared memory and the blocks an SM holds at K = 65-256."""
-    from flashdeconv_tpu_torch.ops import _build
+def ptxas_entries(log_text: str) -> dict:
+    """ptxas's report in a build log: {entry function: its "Used ...
+    registers" and spill lines, joined}."""
+    entries, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and ("registers" in line or "spill" in line):
+            entries[entry] = (entries.get(entry, "") + " "
+                              + line.replace("ptxas info    :", "").strip())
+    return entries
 
+
+def pass_instance(entry: str, small: bool) -> bool:
+    """Whether a ``__global__`` instance is one a mode is about: with
+    ``small`` (``--small-k``) every register sweep kernel and the panel
+    ones of TM <= 2, else (``--large-k``) the panel ones of TM >= 3."""
+    tm = re.search(r"panel_kernelILi(\d+)E", entry)
+    if tm:
+        return (int(tm.group(1)) <= 2) == small
+    return small and re.search(r"sweep_kernelILi", entry) is not None
+
+
+def pass_report(small: bool) -> None:
+    """ptxas's report (registers, spills) of the instances a mode is about
+    (:func:`pass_instance`), then the blocks an SM holds at each K: with
+    ``small`` each K's form at K = 1-64; else the panel pass's shared
+    memory and blocks an SM at K = 65-256."""
+    from flashdeconv_tpu_torch.ops import _build, bcd
+
+    tag = "[small-k]" if small else "[large-k]"
     for name, so in _build.build().items():
-        entry = None
-        for line in so.with_suffix(".log").read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                entry = m.group(1) if "panel_kernel" in m.group(1) else None
-            elif entry and ("registers" in line or "spill" in line):
-                log(f"[large-k] ptxas {entry}: {line.strip()}")
+        for entry, report in ptxas_entries(
+                so.with_suffix(".log").read_text()).items():
+            if pass_instance(entry, small):
+                log(f"{tag} ptxas {entry}:{report}")
     fused, cd = _build.load("fused_banded_sweep"), _build.load("cd_block_sweep")
-    for K in (65, 80, 96, 128, 129, 160, 192, 255, 256):
-        log(f"[large-k] K={K}: TM = {(K + 31) // 32} rows a thread; pass "
-            f"shared memory {fused.fdt_panel_pass_smem_bytes(K)} B; blocks "
-            f"an SM: fused "
+    for K in ((1, 6, 8, 9, 16, 17, 20, 24, 25, 32, 33, 48, 64) if small
+              else (65, 80, 96, 128, 129, 160, 192, 255, 256)):
+        if K <= bcd.REGISTER_PASS_MAX_K:
+            log(f"{tag} K={K}: register pass, KMAX = {(K + 7) // 8 * 8}; "
+                f"blocks an SM: fused "
+                f"{fused.fdt_fused_banded_sweep_register_occupancy(K, 0)}, "
+                f"fused with ns_rest "
+                f"{fused.fdt_fused_banded_sweep_register_occupancy(K, 1)}, cd "
+                f"{cd.fdt_cd_block_sweep_register_occupancy(K)}")
+            continue
+        log(f"{tag} K={K}: panel pass, TM = {(K + 31) // 32} rows a thread; "
+            f"pass shared memory {fused.fdt_panel_pass_smem_bytes(K)} B; "
+            f"blocks an SM: fused "
             f"{fused.fdt_fused_banded_sweep_panel_occupancy(K, 0)}, fused "
             f"with ns_rest {fused.fdt_fused_banded_sweep_panel_occupancy(K, 1)}"
             f", cd {cd.fdt_cd_block_sweep_panel_occupancy(K)}")
@@ -1231,17 +1279,23 @@ def build_against(root: str) -> dict:
     for n in names:
         libs[n] = ctypes.CDLL(str(out / f"{n}-against.so"))
         _build._declare(n, libs[n])
+        for entry, report in ptxas_entries(
+                (out / f"{n}-against.log").read_text()).items():
+            log(f"[against] {root} ptxas {entry}:{report}")
     log(f"[against] {root}: {len(names)} kernels built in "
         f"{time.perf_counter() - t0:.3f} s")
     return libs
 
 
-def phase_against(prob, name: str, other: dict, label: str) -> None:
+def phase_against(prob, name: str, other: dict, label: str,
+                  form: str = "whole") -> None:
     """Kernel ``name`` of this checkout and of ``other`` on the same
-    operands (those of :func:`phase_fused_kernel` / :func:`phase_cd_kernel`),
-    both through this checkout's launch code: max |Δ| between them, whether
-    the bits are equal, and CUDA-event times in turns theirs, ours, ours,
-    theirs."""
+    operands (those of :func:`phase_fused_kernel` / :func:`phase_cd_kernel`,
+    and for kernel #1's ``form`` "rest" those of :func:`phase_rest_kernel`,
+    for "sub" the interior call of :func:`phase_sub_kernel` into a full
+    carry), both through this checkout's launch code: max |Δ| between
+    them, whether the bits are equal, and CUDA-event times in turns
+    theirs, ours, ours, theirs."""
     from flashdeconv_tpu_torch.ops import _build, bcd
 
     t = prob.tier
@@ -1250,13 +1304,18 @@ def phase_against(prob, name: str, other: dict, label: str) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     if name == "fused_banded_sweep":
         x = bcd.to_fused_carry(seeded_beta(prob), t.h, t.block)
+        m = prob.n_solve // t.block
+        sub = (t.h, t.h, m - 2 * t.h) if form == "sub" else None
         rng = bcd.sweep_range(x.shape[1], t.Xty_t.shape[1], t.h, t.block,
-                              None, False)
+                              sub, sub is not None)
+        nsr = (bcd.rest_ns_update(torch.zeros_like(t.Xty_t), x,
+                                  t.rest_touched, t.rest_slot_cols)
+               if form == "rest" else None)
 
         def run(lib, out):
             bcd.fused_sweep_launch(lib, stream, x, t.Xty_t, t.XtX, t.masks,
                                    inv, lam, rho, t.offsets, t.h, t.block,
-                                   out, rng)
+                                   out, rng, nsr)
     else:
         x = seeded_beta(prob).T.contiguous()
         ext = bcd.with_sentinel(x)
@@ -1266,7 +1325,7 @@ def phase_against(prob, name: str, other: dict, label: str) -> None:
             bcd.cd_sweep_launch(lib, stream, x, t.Xty_t, t.XtX, ns, inv, lam,
                                 rho, out)
     libs = {"theirs": other[name], "ours": _build.load(name)}
-    outs = {k: torch.empty_like(x) for k in libs}
+    outs = {k: torch.zeros_like(x) for k in libs}
     for k, lib in libs.items():
         run(lib, outs[k])
     torch.cuda.synchronize()
@@ -1276,16 +1335,16 @@ def phase_against(prob, name: str, other: dict, label: str) -> None:
     for k in ("theirs", "ours", "ours", "theirs"):
         ms[k].append(time_sweeps(
             lambda *_, out, lib=libs[k]: run(lib, out), (), outs[k]))
-    log(f"[against] {name} {label}: K={x.shape[0]} bitwise equal {same}, "
-        f"max |ours - theirs| {diff:.3e}; ms per launch ours {ms['ours']}, "
-        f"theirs {ms['theirs']} (theirs, ours, ours, theirs)")
+    log(f"[against] {name} {form} {label}: K={x.shape[0]} bitwise equal "
+        f"{same}, max |ours - theirs| {diff:.3e}; ms per launch ours "
+        f"{ms['ours']}, theirs {ms['theirs']} (theirs, ours, ours, theirs)")
 
 
 def large_k(against) -> None:
     """The ``--large-k`` mode (see the module docstring); ``against``
     maps each ``--against`` DIR to the future of its
     :func:`build_against`."""
-    panel_report()
+    pass_report(small=False)
     others = {d: fut.result() for d, fut in against.items()}
     phase_fused_kernel(prepare(256 * 256, 65)[0], "256x256")
     phase_cd_kernel(prepare(4096, 65, irregular=True)[0], "4096 irregular")
@@ -1303,6 +1362,47 @@ def large_k(against) -> None:
             del prob
             torch.cuda.empty_cache()
         knn_graph.cache_clear()
+
+
+def small_k(against) -> None:
+    """The ``--small-k`` mode (see the module docstring); ``against`` as
+    for :func:`large_k`."""
+    from flashdeconv_tpu_torch.utils import build_knn_graph
+
+    pass_report(small=True)
+    others = {d: fut.result() for d, fut in against.items()}
+    coords, _ = knn_graph(SPOTS, False)
+    dropped_coords = coords[drop_mask(SPOTS)]
+    dropped_A = build_knn_graph(dropped_coords, k=6)
+    for K in SMALL_TYPES:
+        grid, _ = prepare(SPOTS, K)
+        label = f"1000x1000 K={K}"
+        phase_fused_kernel(grid, label)
+        phase_sub_kernel(grid, label)
+        for d, other in others.items():
+            for form in ("whole", "sub"):
+                phase_against(grid, "fused_banded_sweep", other,
+                              f"{label} against {d}", form)
+        if K == TYPES:
+            phase_fused_vs_unfused(grid)
+        del grid
+        dropped, _ = prepare_on(dropped_coords, dropped_A, K)
+        label = f"1M 1%-dropped grid K={K}"
+        if dropped.tier.rest_touched is None:
+            raise AssertionError(f"{label}: no rest stream")
+        phase_rest_kernel(dropped, label)
+        for d, other in others.items():
+            phase_against(dropped, "fused_banded_sweep", other,
+                          f"{label} against {d}", "rest")
+        del dropped
+        irr, _ = prepare(SPOTS, K, irregular=True)
+        label = f"1M irregular K={K}"
+        phase_cd_kernel(irr, label)
+        for d, other in others.items():
+            phase_against(irr, "cd_block_sweep", other,
+                          f"{label} against {d}")
+        del irr
+        torch.cuda.empty_cache()
 
 
 def counted(kernels, path):
@@ -1332,13 +1432,16 @@ def main() -> None:
     parser.add_argument("--large-k", action="store_true",
                         help="the panel kernels alone instead of the smoke "
                              "run")
+    parser.add_argument("--small-k", action="store_true",
+                        help="the sweep kernels at K <= 64 alone instead of "
+                             "the smoke run")
     parser.add_argument("--against", metavar="DIR", action="append",
-                        help="with --large-k: time the sweep kernels of the "
-                             "checkout at DIR in turns with this one's "
-                             "(repeatable)")
+                        help="with --large-k or --small-k: time the sweep "
+                             "kernels of the checkout at DIR in turns with "
+                             "this one's (repeatable)")
     args = parser.parse_args()
-    if args.against and not args.large_k:
-        parser.error("--against goes with --large-k")
+    if args.against and not (args.large_k or args.small_k):
+        parser.error("--against goes with --large-k or --small-k")
     t_start = time.perf_counter()
     phase_device()
     from flashdeconv_tpu_torch.ops import bcd
@@ -1350,9 +1453,9 @@ def main() -> None:
         pool = concurrent.futures.ThreadPoolExecutor(len(args.against))
         against = {d: pool.submit(build_against, d) for d in args.against}
         pool.shutdown(wait=False)
-    phase_build(spills_fatal=not args.large_k)
-    if args.large_k:
-        large_k(against)
+    phase_build(spills_fatal=not (args.large_k or args.small_k))
+    if args.large_k or args.small_k:
+        (large_k if args.large_k else small_k)(against)
         log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
             "included")
         return
@@ -1374,8 +1477,10 @@ def main() -> None:
         "fused_banded_sweep_rest": (bcd.fused_banded_sweep, "rest_launches"),
     }
 
-    # Kernel 1, the fused banded tier (K = 65: the panel form's edge).
-    for K in (6, 64, 65):
+    # Kernel 1, the fused banded tier (K = 32 / 33: the register form's
+    # last K and the panel form's first; 64 / 65: the panel form's register
+    # tiles of 2 and 3 rows).
+    for K in (6, 32, 33, 64, 65):
         prob, _ = prepare(256 * 256, K)
         phase_fused_kernel(prob, "256x256")
         del prob
@@ -1426,7 +1531,7 @@ def main() -> None:
     dropped_fit_counts.cache_clear()
     torch.cuda.empty_cache()
 
-    # Kernel 1's panel form, 64 < K <= 256, on the fused tier.
+    # Kernel 1's panel form at large K (64 < K <= 256), on the fused tier.
     large_fused_rows, large_fused_launches = {}, 0
     for K in LARGE_TYPES:
         prob, prob_s = prepare(SPOTS, K)
@@ -1453,8 +1558,8 @@ def main() -> None:
             n_types=FIT_LARGE_TYPES, width=0.1, depth=6000.0)
     })["fused_banded_sweep_large_k"]
 
-    # Kernel 2, the gather tier (K = 65: the panel form's edge).
-    for K in (6, 64, 65):
+    # Kernel 2, the gather tier (the same edges).
+    for K in (6, 32, 33, 64, 65):
         prob, _ = prepare(4096, K, irregular=True)
         phase_cd_kernel(prob, "4096 irregular")
         del prob
@@ -1472,7 +1577,7 @@ def main() -> None:
     })["coordinate_descent_block"]
     del irr
 
-    # Kernel 2's panel form, 64 < K <= 256, on the gather tier.
+    # Kernel 2's panel form at large K (64 < K <= 256), on the gather tier.
     large_cd_rows, large_cd_launches = {}, 0
     for K in LARGE_TYPES:
         prob, prob_s = prepare(SPOTS, K, irregular=True)

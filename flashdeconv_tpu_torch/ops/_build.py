@@ -115,11 +115,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         raise KeyError(f"no kernel {name!r} in {CSRC_DIR}")
     lib.fdt_error_string.argtypes = [i]
     lib.fdt_error_string.restype = ctypes.c_char_p
-    # The panel pass's queries (a library built from sources older than
-    # the register-tiled panel pass has none).
+    # The passes' queries (a library built from older sources may lack
+    # some: the register forms' before the K <= 32 register pass, the
+    # panel pass's before the register-tiled one).
     queries = {"fdt_panel_pass_smem_bytes": ([i], ll),
                "fdt_fused_banded_sweep_panel_occupancy": ([i, i], i),
-               "fdt_cd_block_sweep_panel_occupancy": ([i], i)}
+               "fdt_cd_block_sweep_panel_occupancy": ([i], i),
+               "fdt_fused_banded_sweep_register_occupancy": ([i, i], i),
+               "fdt_cd_block_sweep_register_occupancy": ([i], i)}
     for fn, (args, res) in queries.items():
         if name != "countsketch_project" and hasattr(lib, fn):
             getattr(lib, fn).argtypes = args

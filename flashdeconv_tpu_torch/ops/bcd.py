@@ -21,7 +21,7 @@ coordinates of each spot) with the per-solve reciprocal denominator
   (:func:`coordinate_descent_block`).
 
 Both kernels run one Gauss-Seidel device function — ``csrc/gs_pass.cuh``
-at K <= 64, the panel pass of ``csrc/gs_pass_panel.cuh`` at 64 < K <= 256
+at K <= 32, the panel pass of ``csrc/gs_pass_panel.cuh`` at 32 < K <= 256
 — so the fused and unfused banded sweeps are bitwise equal on the card, as
 their plain versions are on the CPU. Every function here is plain PyTorch
 on tensors of an explicit device, except the two kernel wrappers: a CUDA
@@ -48,9 +48,9 @@ _GS_PANEL_P = 16
 _GS_PANEL_WIDE_K = 64
 
 #: Largest K of the kernels' register pass (``gs_pass.cuh``, register
-#: arrays templated on 8, 16, 32 and 64); above it both kernels launch their
+#: arrays templated on 8, 16, 24 and 32); above it both kernels launch their
 #: panel form (``gs_pass_panel.cuh``), counted apart as ``large_k_launches``.
-REGISTER_PASS_MAX_K = 64
+REGISTER_PASS_MAX_K = 32
 #: Largest K the CUDA kernels take (the panel form's shared-memory tiles
 #: are sized for it); the wrappers raise above it.
 KERNEL_MAX_K = 256
@@ -430,7 +430,8 @@ def fused_banded_sweep(
     ``fused_banded_sweep.sub_launches`` the sub-range launches at any K,
     ``.rest_launches`` the whole-sweep launches with ``ns_rest_t`` at any
     K, ``.large_k_launches`` the other whole-sweep launches of the panel
-    form (K > 64) and ``.launches`` those at K <= 64.
+    form (K > ``REGISTER_PASS_MAX_K`` = 32) and ``.launches`` those of the
+    register form (K <= 32).
     """
     pad = h * block
     rng = sweep_range(beta_ext_t.shape[1], Xty_t.shape[1], h, block, sub,
@@ -695,8 +696,9 @@ def coordinate_descent_block(
     hand-written kernel ``csrc/cd_block_sweep.cu`` (and raises if it
     cannot); on a CPU tensor it runs
     :func:`coordinate_descent_block_reference`.
-    ``coordinate_descent_block.launches`` counts the kernel's launches at
-    K <= 64, ``.large_k_launches`` those of its panel form above.
+    ``coordinate_descent_block.launches`` counts the launches of the
+    kernel's register form (K <= ``REGISTER_PASS_MAX_K`` = 32),
+    ``.large_k_launches`` those of its panel form above.
     """
     if out is None:
         out = torch.empty_like(beta_t)

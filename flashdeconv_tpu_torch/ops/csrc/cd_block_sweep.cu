@@ -14,55 +14,64 @@
 // writes its max |beta_new - beta_old| and max |beta_old| to
 // partials[0, b] and partials[1, b]; the wrapper reduces those.
 //
-// What bounds it: bytes. At 1M spots and K = 20 one launch reads beta,
-// Xty, ns and inv_den (4 x 80 MB) and writes the new beta (80 MB): 400 MB,
-// about 0.12 ms at 3.35 TB/s (a derived count, not a measurement); about
-// K*K multiply-adds per spot are far below the card's rate. What the
-// design does about it: one thread per spot, so a warp's loads of one row
-// k touch 32 neighbouring floats and every operand is read once and the
-// new beta written once; beta_old and the numerators stay in registers
-// (gs_pass.cuh) and XtX in shared memory. The pass is Jacobi across spots:
+// What bounds it at K <= 32: bytes. At 1M spots and K = 20 one launch
+// reads beta, Xty, ns and inv_den (4 x 80 MB) and writes the new beta
+// (80 MB): 400 MB, about 0.12 ms at 3.35 TB/s (a derived count, not a
+// measurement); about K*K multiply-adds per spot are far below the card's
+// rate, so the loads must be kept in flight. What the design does about
+// it, with the register pass of gs_pass.cuh (cd_block_sweep_kernel,
+// templated on KMAX = K rounded up to 8, 8..32): one thread per spot, so a
+// warp's loads of one row k touch 32 neighbouring floats and every operand
+// is read once and the new beta written once; the spot's Xty and inv_den
+// columns are staged into shared memory at kernel start, and its K
+// neighbour sums and K values of beta_old are each loaded in one batch, so
+// a thread waits on device memory about three times a pass, not about 2K
+// times; beta_old and the numerators stay in registers, XtX (and its
+// transpose) in shared memory. Shared memory passes 48 KB from K = 22, so
+// every launch sets cudaFuncAttributeMaxDynamicSharedMemorySize first and
+// returns that call's error if it fails. The pass is Jacobi across spots:
 // it reads one beta and writes another, never in place.
 //
-// At 64 < K <= 256 a second kernel, cd_block_sweep_panel_kernel, runs the
+// At 32 < K <= 256 a second kernel, cd_block_sweep_panel_kernel, runs the
 // panel pass of gs_pass_panel.cuh on the same operands (the counterpart of
 // _cd_block_kernel with _gs_pass_kb_panel in flashdeconv_tpu/ops/bcd.py;
 // the JAX package runs it there to K = 128 and its XLA pass above). It is
 // bound by operations at K = 128 and 256 (about 3K^2 f32 operations per
 // spot against about 20K bytes: 0.75 ms and 3.0 ms at 1M spots, derived,
-// not measured). A block owns 64 spots; the pass runs its XtX products as
-// register-tiled tile products of TM rows x 8 spots a thread
-// (gs_pass_panel.cuh says why), so the kernel is templated on TM =
-// ceil(K/32), 3..8. Its shared memory passes 48 KB above K = 80, so every
-// launch sets cudaFuncAttributeMaxDynamicSharedMemorySize first and
-// returns that call's error if it fails.
+// not measured) and by bytes below K = 96. A block owns 64 spots; the pass
+// runs its XtX products as register-tiled tile products of TM rows x 8
+// spots a thread (gs_pass_panel.cuh says why), so the kernel is templated
+// on TM = ceil(K/32), 2..8. Its shared memory passes 48 KB above K = 80,
+// so every launch sets the attribute first, as the register kernel's.
 // Launch: on the caller's stream, no allocation, no synchronisation.
 
 #include "gs_pass_panel.cuh"
 
-// ns(k) of one spot: a load from the precomputed neighbour sums.
+// The neighbour sums of one spot: loads from the precomputed ones.
 struct LoadSum {
     const float* col;  // the spot's column of ns (K, n)
     long long ld;      // n
 
-    __device__ __forceinline__ float operator()(int k) const
-    {
-        return col[k * ld];
-    }
-
-    // s[j] = (*this)(k0 + j * step) for the rows below lim.
+    // s[j] = ns[k0 + j * step] for the rows below lim (0 for the others),
+    // the N loads issued together.
     template <int N>
     __device__ __forceinline__ void rows(int k0, int step, int lim,
                                          float (&s)[N]) const
     {
+        const float* c = col + k0 * ld;
 #pragma unroll
-        for (int j = 0; j < N; ++j)
-            s[j] = k0 + j * step < lim ? col[(k0 + j * step) * ld] : 0.f;
+        for (int j = 0; j < N; ++j, c = fdt_next(c, step * ld))
+            s[j] = k0 + j * step < lim ? *c : 0.f;
     }
 };
 
+// K <= FDT_REGISTER_MAX_K, KMAX = K rounded up to 8: one thread per spot.
+// A spot's Xty and inv_den columns are staged into shared memory by
+// asynchronous copies first, so their loads are in flight while the
+// neighbour sums and beta_old are loaded.
 template <int KMAX>
-__global__ void __launch_bounds__(FDT_THREADS)
+__global__ void
+__launch_bounds__(FDT_THREADS, FDT_REGISTER_MIN_BLOCKS(KMAX, false))
 cd_block_sweep_kernel(const float* __restrict__ beta_in,
                       float* __restrict__ beta_out,
                       const float* __restrict__ xty_t,
@@ -72,23 +81,31 @@ cd_block_sweep_kernel(const float* __restrict__ beta_in,
                       const long long n, const float lam, const float rho,
                       float* __restrict__ partials)
 {
-    extern __shared__ float xtx_s[];  // K*K
-    load_xtx(xtx, xtx_s, K);
-    __syncthreads();
+    extern __shared__ float4 smem4[];
+    float* xs = reinterpret_cast<float*>(smem4);  // 2 KMAX^2
+    float* xty_s = xs + 2 * KMAX * KMAX;          // (K, FDT_THREADS)
+    float* inv_s = xty_s + K * FDT_THREADS;       // (K, FDT_THREADS)
 
     const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j < n) {
+        stage_column<KMAX>(xty_s + threadIdx.x, xty_t + j, n, K);
+        stage_column<KMAX>(inv_s + threadIdx.x, inv_den_t + j, n, K);
+    }
+    load_xtx<KMAX>(xtx, xs, K);
+    __syncthreads();
+
     float dmax = 0.f, amax = 0.f;
     if (j < n) {
         const LoadSum ns{ns_t + j, n};
-        gs_pass_spot<KMAX>(beta_in + j, n, beta_out + j, n, xty_t + j,
-                           inv_den_t + j, n, xtx_s, K, lam, rho, ns, dmax,
-                           amax);
+        gs_pass_spot<KMAX>(beta_in + j, n, beta_out + j, n,
+                           xty_s + threadIdx.x, inv_s + threadIdx.x,
+                           FDT_THREADS, xs, K, lam, rho, ns, dmax, amax);
     }
     store_block_partials(dmax, amax, partials);
 }
 
-// 64 < K <= 256, TM = fdt_panel_tm(K): a block of 256 threads passes over
-// FDT_TILE_SPOTS spots, thread t spot blockIdx.x * FDT_TILE_SPOTS +
+// FDT_REGISTER_MAX_K < K <= 256, TM = fdt_panel_tm(K): a block of 256
+// threads passes over FDT_TILE_SPOTS spots, thread t spot blockIdx.x * FDT_TILE_SPOTS +
 // fdt_panel_spot() (the spot layout of gs_pass_panel.cuh).
 template <int TM>
 __global__ void
@@ -124,22 +141,22 @@ extern "C" long long fdt_cd_block_sweep_blocks(long long n, int K)
     return fdt_blocks(n);
 }
 
-// Blocks of the panel kernel at 64 < K <= 256 that one SM holds at once,
-// by registers and shared memory; a negative cudaError_t if the query
-// fails.
+// Blocks of the panel kernel at FDT_REGISTER_MAX_K < K <= 256 that one SM
+// holds at once, by registers and shared memory; a negative cudaError_t if
+// the query fails.
 extern "C" int fdt_cd_block_sweep_panel_occupancy(int K)
 {
     if (K <= FDT_REGISTER_MAX_K || K > FDT_PANEL_MAX_K)
         return -(int)cudaErrorInvalidValue;
     return fdt_panel_dispatch(K, [&](auto tm) {
-        return fdt_panel_occupancy(
+        return fdt_occupancy(
             cd_block_sweep_panel_kernel<decltype(tm)::value>,
             fdt_panel_smem_floats(K) * sizeof(float));
     });
 }
 
-// 64 < K <= 256: the panel kernel of TM; its shared memory may pass 48 KB,
-// so the attribute is set before every launch.
+// FDT_REGISTER_MAX_K < K <= 256: the panel kernel of TM; its shared
+// memory may pass 48 KB, so the attribute is set before every launch.
 template <int TM>
 static int launch_panel(const float* beta_in, float* beta_out,
                         const float* xty_t, const float* ns_t,
@@ -159,17 +176,41 @@ static int launch_panel(const float* beta_in, float* beta_out,
     return (int)cudaGetLastError();
 }
 
-template <int KMAX>
-static void launch(const float* beta_in, float* beta_out, const float* xty_t,
-                   const float* ns_t, const float* inv_den_t,
-                   const float* xtx, int K, long long n, float lam, float rho,
-                   float* partials, cudaStream_t stream)
+// Dynamic shared memory of the register kernel of KMAX at K, in bytes.
+static size_t register_smem(int KMAX, int K)
 {
+    return fdt_register_smem_floats(KMAX, K) * sizeof(float);
+}
+
+// The same for the register kernel at 1 <= K <= FDT_REGISTER_MAX_K.
+extern "C" int fdt_cd_block_sweep_register_occupancy(int K)
+{
+    if (K < 1 || K > FDT_REGISTER_MAX_K) return -(int)cudaErrorInvalidValue;
+    return fdt_register_dispatch(K, [&](auto kmax) {
+        constexpr int KMAX = decltype(kmax)::value;
+        return fdt_occupancy(cd_block_sweep_kernel<KMAX>,
+                             register_smem(KMAX, K));
+    });
+}
+
+// K <= FDT_REGISTER_MAX_K: the register kernel of KMAX; its shared memory
+// passes 48 KB from K = 22, so the attribute is set before every launch.
+template <int KMAX>
+static int launch(const float* beta_in, float* beta_out, const float* xty_t,
+                  const float* ns_t, const float* inv_den_t,
+                  const float* xtx, int K, long long n, float lam, float rho,
+                  float* partials, cudaStream_t stream)
+{
+    const size_t smem = register_smem(KMAX, K);
+    const cudaError_t err = cudaFuncSetAttribute(
+        cd_block_sweep_kernel<KMAX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
     const unsigned blocks = (unsigned)fdt_blocks(n);
-    const size_t smem = (size_t)K * K * sizeof(float);  // 16 KB at K = 64
     cd_block_sweep_kernel<KMAX><<<blocks, FDT_THREADS, smem, stream>>>(
         beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n, lam, rho,
         partials);
+    return (int)cudaGetLastError();
 }
 
 // Launches one pass on `stream`. `partials` holds
@@ -189,17 +230,9 @@ extern "C" int fdt_cd_block_sweep(
                 beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n, lam,
                 rho, partials, s);
         });
-    if (K <= 8)
-        launch<8>(beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n, lam,
-                  rho, partials, s);
-    else if (K <= 16)
-        launch<16>(beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n,
-                   lam, rho, partials, s);
-    else if (K <= 32)
-        launch<32>(beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n,
-                   lam, rho, partials, s);
-    else
-        launch<64>(beta_in, beta_out, xty_t, ns_t, inv_den_t, xtx, K, n,
-                   lam, rho, partials, s);
-    return (int)cudaGetLastError();
+    return fdt_register_dispatch(K, [&](auto kmax) {
+        return launch<decltype(kmax)::value>(beta_in, beta_out, xty_t, ns_t,
+                                             inv_den_t, xtx, K, n, lam, rho,
+                                             partials, s);
+    });
 }

@@ -24,41 +24,55 @@
 // |beta_new - beta_old| and max |beta_old| to partials[0, b] and
 // partials[1, b]; the wrapper reduces those.
 //
-// What bounds it: bytes. At 1M spots, K = 20 and 18 bands one sweep reads
-// the carry (80 MB), Xty (80 MB), inv_den (80 MB) and the uint8 masks
-// (18 MB) and writes the new carry (80 MB): about 340 MB, or about 0.1 ms
-// at 3.35 TB/s (a derived count, not a measurement). The arithmetic,
-// about K*(K + U) multiply-adds per spot, is far below the card's rate.
-// What the design does about it:
+// What bounds it at K <= 32: bytes. At 1M spots, K = 20 and 16 bands one
+// sweep reads the carry (80 MB), Xty (80 MB), inv_den (80 MB) and the
+// uint8 masks (16 MB) and writes the new carry (80 MB): about 340 MB, or
+// about 0.1 ms at 3.35 TB/s (a derived count, not a measurement). The
+// arithmetic, about K*(K + U) multiply-adds per spot, is far below the
+// card's rate; the loads must be kept in flight. What the design does
+// about it, with the register pass of gs_pass.cuh (fused_banded_sweep_kernel,
+// templated on KMAX = K rounded up to 8, 8..32, and on REST):
 //   - one thread per carry column, so a warp's loads of one row k touch 32
 //     neighbouring floats; every stream is read once and the new carry is
 //     written once, with no intermediate in device memory;
 //   - the neighbour reads beta_old[k, j + off] come straight from the input
 //     carry: the near bands (+-1, +-2) hit lines the warp is loading anyway,
 //     and the far bands (+-side, +-2*side) lie a few hundred KB away per
-//     row and are served from the 50 MB L2 rather than device memory;
-//   - the band masks are read once per spot and kept as one 32-bit word,
-//     and a band whose bit is clear costs no load (so a non-finite value
-//     behind a clear bit does not reach ns, where the plain version's
-//     0 * inf would; a solve's carry is finite while its operands are).
-//     Set bands add in band order from 0, so the sum equals the plain
-//     version's sum of 1*x and 0*x terms bit for bit;
-//   - XtX and the band offsets live in shared memory;
+//     row and are served from the 50 MB L2 rather than device memory. A
+//     band's loads of all K rows are issued together (BandSum::rows), so
+//     a thread waits once a band;
+//   - the band masks are read once per spot, all bands' loads in flight
+//     together, and kept as one 32-bit word, and a band whose bit is clear
+//     costs no load (so a non-finite value behind a clear bit does not
+//     reach ns, where the plain version's 0 * inf would; a solve's carry is
+//     finite while its operands are). Set bands add in band order from 0,
+//     so the sum equals the plain version's sum of 1*x and 0*x terms bit
+//     for bit;
+//   - the spot's Xty and inv_den columns are staged into shared memory at
+//     kernel start (stage_column), in flight during the band sums;
+//   - XtX (with its transpose) and the band offsets live in shared memory;
+//     the offsets are read from the kernel parameter at fixed indices, so
+//     it stays out of local memory;
 //   - the sweep is Jacobi across spots, so it reads one carry and writes
 //     another: the caller ping-pongs two carries and nothing is in place.
+// Shared memory passes 48 KB from K = 22, so every launch sets
+// cudaFuncAttributeMaxDynamicSharedMemorySize first and returns that
+// call's error if it fails.
 //
-// At 64 < K <= 256 a second kernel, fused_banded_sweep_panel_kernel, runs
+// At 32 < K <= 256 a second kernel, fused_banded_sweep_panel_kernel, runs
 // the same band sums into the panel pass of gs_pass_panel.cuh (the
 // counterpart of _make_fused_banded_kernel with _gs_pass_kb_panel in
 // flashdeconv_tpu/ops/bcd.py). It is bound by operations at K = 128 and
 // 256 (about 3K^2 f32 operations per spot against about 16K bytes: 0.75 ms
-// and 3.0 ms at 1M spots, derived, not measured). A block owns 64 spots;
-// the pass runs its XtX products as register-tiled tile products of TM
-// rows x 8 spots a thread (gs_pass_panel.cuh says why), so the kernel is
-// templated on TM = ceil(K/32), 3..8, and on REST. Its shared memory
-// passes 48 KB above K = 80, so every launch sets
-// cudaFuncAttributeMaxDynamicSharedMemorySize first and returns that call's
-// error if it fails.
+// and 3.0 ms at 1M spots, derived, not measured) and by bytes below
+// K = 96. A block owns 64 spots; the pass runs its XtX products as
+// register-tiled tile products of TM rows x 8 spots a thread
+// (gs_pass_panel.cuh says why), so the kernel is templated on TM =
+// ceil(K/32), 2..8, and on REST. Its register tiles keep the registers a
+// thread needs flat in K, where the register pass's arrays grow with it;
+// on the card it ran K = 48 and 64 faster than the old register pass of
+// KMAX = 64 (PERF.md). Its shared memory passes 48 KB above K = 80, so
+// every launch sets the attribute first, as the register kernel's.
 // Launch: on the caller's stream, no allocation, no synchronisation.
 
 #include "gs_pass_panel.cuh"
@@ -69,8 +83,21 @@ struct BandOffsets {
     int v[FDT_MAX_BANDS];
 };
 
-// ns(k) of one spot: the set bands' carry values of row k, in band order,
-// then, with REST, the spot's rest-stream sum.
+// The band offsets into shared memory, offset u by thread u: each read of
+// the kernel parameter at an index fixed at compile time, which keeps the
+// parameter out of local memory (the register kernel's; the panel kernel
+// keeps the plain loop, which measured faster there).
+__device__ __forceinline__ void load_offsets(const BandOffsets& offs,
+                                             const int n_bands,
+                                             int* __restrict__ off_s)
+{
+#pragma unroll
+    for (int u = 0; u < FDT_MAX_BANDS; ++u)
+        if (threadIdx.x == u && u < n_bands) off_s[u] = offs.v[u];
+}
+
+// The neighbour sums of one spot: for row k, the set bands' carry values of
+// row k added in band order, then, with REST, the spot's rest-stream sum.
 template <bool REST>
 struct BandSum {
     const float* col;   // the spot's column of the input carry
@@ -81,17 +108,12 @@ struct BandSum {
     const float* rest;  // the spot's column of ns_rest (read with REST)
     long long ld_rest;  // ns_rest's row length (that of xty)
 
-    __device__ __forceinline__ float operator()(int k) const
-    {
-        float s = 0.f;
-        for (int u = 0; u < n_bands; ++u)
-            if ((bits >> u) & 1u) s = __fadd_rn(s, col[k * ld + off_s[u]]);
-        if (REST) s = __fadd_rn(s, rest[k * ld_rest]);
-        return s;
-    }
-
-    // s[j] = (*this)(k0 + j * step) for the rows below lim, each summed in
-    // the same order; the N rows' loads of one band are issued together.
+    // s[j] = the sum of row k0 + j * step for the rows below lim (0 for the
+    // others); the N rows' loads of one band are issued together. Batches
+    // of 8 rows or more walk each band's column (fdt_next); for the panel
+    // pass's batches of 4 the walk's asm statements kept nvcc from
+    // overlapping consecutive bands' loads (3-5 % slower at K = 96-256,
+    // measured), and 4 row offsets are cheap to keep.
     template <int N>
     __device__ __forceinline__ void rows(int k0, int step, int lim,
                                          float (&s)[N]) const
@@ -100,17 +122,25 @@ struct BandSum {
         for (int j = 0; j < N; ++j) s[j] = 0.f;
         for (int u = 0; u < n_bands; ++u)
             if ((bits >> u) & 1u) {
-                const float* c = col + off_s[u];
+                if constexpr (N >= 8) {  // the register pass: K rows
+                    const float* c = col + off_s[u] + k0 * ld;
 #pragma unroll
-                for (int j = 0; j < N; ++j)
-                    if (k0 + j * step < lim)
-                        s[j] = __fadd_rn(s[j], c[(k0 + j * step) * ld]);
+                    for (int j = 0; j < N; ++j, c = fdt_next(c, step * ld))
+                        if (k0 + j * step < lim) s[j] = __fadd_rn(s[j], *c);
+                } else {  // the panel pass: a few rows, offsets kept
+                    const float* c = col + off_s[u];
+#pragma unroll
+                    for (int j = 0; j < N; ++j)
+                        if (k0 + j * step < lim)
+                            s[j] = __fadd_rn(s[j], c[(k0 + j * step) * ld]);
+                }
             }
-        if (REST)
+        if (REST) {
+            const float* c = rest + k0 * ld_rest;
 #pragma unroll
-            for (int j = 0; j < N; ++j)
-                if (k0 + j * step < lim)
-                    s[j] = __fadd_rn(s[j], rest[(k0 + j * step) * ld_rest]);
+            for (int j = 0; j < N; ++j, c = fdt_next(c, step * ld_rest))
+                if (k0 + j * step < lim) s[j] = __fadd_rn(s[j], *c);
+        }
     }
 };
 
@@ -130,8 +160,28 @@ struct BandSum {
 // In both kernels thread t of the launch takes window column w0 + t, w0 = 0
 // with write_pads and pad without.
 
+// The band bits of data column j: bit u set iff masks[u, j] is nonzero;
+// the n_bands loads are in flight together (the register kernel's; the
+// panel kernel keeps the plain loop, which measured faster there).
+__device__ __forceinline__ uint32_t band_bits(const uint8_t* __restrict__ masks,
+                                              const long long ld,
+                                              const long long j,
+                                              const int n_bands)
+{
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int u = 0; u < FDT_MAX_BANDS; ++u)
+        if (u < n_bands && masks[u * ld + j]) bits |= 1u << u;
+    return bits;
+}
+
+// K <= FDT_REGISTER_MAX_K, KMAX = K rounded up to 8: one thread per window
+// column. A spot's Xty and inv_den columns are staged into shared memory
+// by asynchronous copies first, so their loads are in flight while the
+// band sums run.
 template <int KMAX, bool REST>
-__global__ void __launch_bounds__(FDT_THREADS)
+__global__ void
+__launch_bounds__(FDT_THREADS, FDT_REGISTER_MIN_BLOCKS(KMAX, REST))
 fused_banded_sweep_kernel(const float* __restrict__ carry_in,
                           const long long ld_in,
                           float* __restrict__ carry_out,
@@ -148,37 +198,41 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
                           const long long n_cols, const float lam,
                           const float rho, float* __restrict__ partials)
 {
-    extern __shared__ float smem[];
-    float* xtx_s = smem;                                 // K*K
-    int* off_s = reinterpret_cast<int*>(smem + K * K);   // n_bands
-
-    load_xtx(xtx, xtx_s, K);
-    for (int i = threadIdx.x; i < n_bands; i += blockDim.x)
-        off_s[i] = offs.v[i];
-    __syncthreads();
+    extern __shared__ float4 smem4[];
+    float* xs = reinterpret_cast<float*>(smem4);         // 2 KMAX^2
+    float* xty_s = xs + 2 * KMAX * KMAX;                 // (K, FDT_THREADS)
+    float* inv_s = xty_s + K * FDT_THREADS;              // (K, FDT_THREADS)
+    int* off_s = reinterpret_cast<int*>(inv_s + K * FDT_THREADS);
 
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long w = w0 + t;                 // window column
     const long long j = w - pad;                // data column of the range
-    float dmax = 0.f, amax = 0.f;
+    const bool spot = t < n_cols && j >= 0 && j < n_sub;
+    uint32_t bits = 0u;
+    if (spot) {
+        stage_column<KMAX>(xty_s + threadIdx.x, xty_t + j, ld_data, K);
+        stage_column<KMAX>(inv_s + threadIdx.x, inv_den_t + j, ld_data, K);
+        bits = band_bits(masks, ld_data, j, n_bands);
+    }
+    load_xtx<KMAX>(xtx, xs, K);
+    load_offsets(offs, n_bands, off_s);
+    __syncthreads();
 
-    if (t < n_cols && (j < 0 || j >= n_sub)) {
+    float dmax = 0.f, amax = 0.f;
+    if (t < n_cols && !spot) {
         for (int k = 0; k < K; ++k) carry_out[k * ld_out + w] = 0.f;
-    } else if (t < n_cols) {
-        uint32_t bits = 0u;
-        for (int u = 0; u < n_bands; ++u)
-            if (masks[u * ld_data + j]) bits |= 1u << u;
+    } else if (spot) {
         const BandSum<REST> ns{carry_in + w, ld_in, bits, off_s, n_bands,
                                ns_rest + j, ld_data};
         gs_pass_spot<KMAX>(carry_in + w, ld_in, carry_out + w, ld_out,
-                           xty_t + j, inv_den_t + j, ld_data, xtx_s, K, lam,
-                           rho, ns, dmax, amax);
+                           xty_s + threadIdx.x, inv_s + threadIdx.x,
+                           FDT_THREADS, xs, K, lam, rho, ns, dmax, amax);
     }
     store_block_partials(dmax, amax, partials);
 }
 
-// 64 < K <= 256, TM = fdt_panel_tm(K): a block of 256 threads sweeps
-// FDT_TILE_SPOTS window columns, thread t column w0 + blockIdx.x *
+// FDT_REGISTER_MAX_K < K <= 256, TM = fdt_panel_tm(K): a block of 256
+// threads sweeps FDT_TILE_SPOTS window columns, thread t column w0 + blockIdx.x *
 // FDT_TILE_SPOTS + fdt_panel_spot() (the spot layout of gs_pass_panel.cuh).
 template <int TM, bool REST>
 __global__ void
@@ -251,26 +305,45 @@ extern "C" long long fdt_fused_banded_sweep_blocks(long long n_cols, int K)
         float lam, float rho, float *partials, size_t smem,                 \
         cudaStream_t stream
 
-// K <= 64: the register kernel of KMAX, with the rest input iff ns_rest.
-// With it the smallest instance is KMAX = 16: at KMAX = 8 ptxas (CUDA 12.8,
-// sm_90a) held the kernel to 40 registers and spilled 20 bytes. A larger
-// KMAX runs the same operations for every k < K, so the bits are the same.
-template <int KMAX>
+// Dynamic shared memory of the register kernel of KMAX at K, in bytes.
+static size_t register_smem(int KMAX, int K)
+{
+    return fdt_register_smem_floats(KMAX, K) * sizeof(float)
+           + FDT_MAX_BANDS * sizeof(int);
+}
+
+// The KMAX of the register kernel that runs K's KMAX, with the rest input
+// iff REST. With it the smallest instance is KMAX = 16: at KMAX = 8 ptxas
+// (CUDA 12.8, sm_90a) held the first form of this kernel to 40 registers
+// and spilled 20 bytes. A larger KMAX runs the same operations for every
+// k < K, so the bits are the same.
+template <int KMAX, bool REST>
+constexpr int register_kmax()
+{
+    return REST && KMAX < 16 ? 16 : KMAX;
+}
+template <int KMAX, bool REST>
+static auto register_kernel()
+{
+    return fused_banded_sweep_kernel<register_kmax<KMAX, REST>(), REST>;
+}
+
+// K <= FDT_REGISTER_MAX_K: the register kernel of KMAX; its shared memory
+// passes 48 KB from K = 22, so the attribute is set before every launch.
+template <int KMAX, bool REST>
 static int launch(FDT_SWEEP_PARAMS)
 {
+    const auto kernel = register_kernel<KMAX, REST>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
     const unsigned blocks = (unsigned)fdt_blocks(n_cols);
-    constexpr int KREST = KMAX < 16 ? 16 : KMAX;
-    if (ns_rest)
-        fused_banded_sweep_kernel<KREST, true>
-            <<<blocks, FDT_THREADS, smem, stream>>>(FDT_SWEEP_ARGS);
-    else
-        fused_banded_sweep_kernel<KMAX, false>
-            <<<blocks, FDT_THREADS, smem, stream>>>(FDT_SWEEP_ARGS);
+    kernel<<<blocks, FDT_THREADS, smem, stream>>>(FDT_SWEEP_ARGS);
     return (int)cudaGetLastError();
 }
 
-// 64 < K <= 256: the panel kernel of TM; its shared memory may pass 48 KB,
-// so the attribute is set before every launch.
+// FDT_REGISTER_MAX_K < K <= 256: the panel kernel of TM; its shared
+// memory may pass 48 KB, so the attribute is set before every launch.
 template <int TM, bool REST>
 static int launch_panel(FDT_SWEEP_PARAMS)
 {
@@ -292,21 +365,35 @@ static size_t panel_smem(int K)
            + FDT_MAX_BANDS * sizeof(int);
 }
 
-// Blocks of the panel kernel at 64 < K <= 256 (with the rest input iff
-// rest) that one SM holds at once, by registers and shared memory; a
-// negative cudaError_t if the query fails.
+// Blocks of the panel kernel at FDT_REGISTER_MAX_K < K <= 256 (with the
+// rest input iff rest) that one SM holds at once, by registers and shared
+// memory; a negative cudaError_t if the query fails.
 extern "C" int fdt_fused_banded_sweep_panel_occupancy(int K, int rest)
 {
     if (K <= FDT_REGISTER_MAX_K || K > FDT_PANEL_MAX_K)
         return -(int)cudaErrorInvalidValue;
     return fdt_panel_dispatch(K, [&](auto tm) {
         constexpr int TM = decltype(tm)::value;
-        return rest ? fdt_panel_occupancy(
+        return rest ? fdt_occupancy(
                           fused_banded_sweep_panel_kernel<TM, true>,
                           panel_smem(K))
-                    : fdt_panel_occupancy(
+                    : fdt_occupancy(
                           fused_banded_sweep_panel_kernel<TM, false>,
                           panel_smem(K));
+    });
+}
+
+// The same for the register kernel at 1 <= K <= FDT_REGISTER_MAX_K.
+extern "C" int fdt_fused_banded_sweep_register_occupancy(int K, int rest)
+{
+    if (K < 1 || K > FDT_REGISTER_MAX_K) return -(int)cudaErrorInvalidValue;
+    return fdt_register_dispatch(K, [&](auto kmax) {
+        constexpr int KMAX = decltype(kmax)::value;
+        return rest ? fdt_occupancy(
+                          register_kernel<KMAX, true>(),
+                          register_smem(register_kmax<KMAX, true>(), K))
+                    : fdt_occupancy(register_kernel<KMAX, false>(),
+                                    register_smem(KMAX, K));
     });
 }
 
@@ -356,12 +443,13 @@ extern "C" int fdt_fused_banded_sweep(
                            : launch_panel<TM, false>(FDT_SWEEP_ARGS, smem, s);
         });
     }
-    // XtX is 16 KB at K = 64, under the 48 KB a block gets without
-    // cudaFuncSetAttribute.
-    const size_t smem = (size_t)K * K * sizeof(float)
-                        + FDT_MAX_BANDS * sizeof(int);
-    if (K <= 8) return launch<8>(FDT_SWEEP_ARGS, smem, s);
-    if (K <= 16) return launch<16>(FDT_SWEEP_ARGS, smem, s);
-    if (K <= 32) return launch<32>(FDT_SWEEP_ARGS, smem, s);
-    return launch<64>(FDT_SWEEP_ARGS, smem, s);
+    return fdt_register_dispatch(K, [&](auto kmax) {
+        constexpr int KMAX = decltype(kmax)::value;
+        return ns_rest
+                   ? launch<KMAX, true>(
+                         FDT_SWEEP_ARGS,
+                         register_smem(register_kmax<KMAX, true>(), K), s)
+                   : launch<KMAX, false>(FDT_SWEEP_ARGS,
+                                         register_smem(KMAX, K), s);
+    });
 }

@@ -1,4 +1,4 @@
-// The Gauss-Seidel coordinate pass at 64 < K <= 256, in panels of 16
+// The Gauss-Seidel coordinate pass at 32 < K <= 256, in panels of 16
 // coordinates, shared by both sweep kernels (fused_banded_sweep.cu and
 // cd_block_sweep.cu) so that the fused and unfused banded sweeps stay
 // bitwise equal on the card at every K.
@@ -16,7 +16,8 @@
 //           + beta_old_k
 // Only the schedule differs: gs_pass_spot keeps beta_old and r of one spot
 // in two register arrays of KMAX floats, which at K = 128 would need more
-// than the 255 registers a thread may have.
+// than the 255 registers a thread may have, and above K = 32 hold too few
+// blocks an SM to hide its loads.
 //
 // What bounds it on an H100: at 1M spots about 3K^2 f32 operations per
 // spot (the prologue's K^2 multiply-adds and the corrections' K^2/2)
@@ -37,8 +38,8 @@
 //     the recurrence run there. In the tile layout thread t owns a
 //     register tile of TM rows x 8 spots of the (RP, 64) numerator matrix
 //     R, rows TM*(t/8) .. +TM-1, spots 8*(t%8) .. +7, RP = 32*TM >= K
-//     (TM = ceil(K/32): 3 at K = 96, 4 at 128, 8 at 256); the two tile
-//     products run there.
+//     (TM = ceil(K/32): 2 at K = 33-64, 3 at 96, 4 at 128, 8 at 256); the
+//     two tile products run there.
 //   - (1) The prologue is one tile product over all rows at once,
 //     P = XtX[:RP, :kp] . B_old (kp = K rounded up to 16). XtX is streamed
 //     through shared memory in strips of 16 columns, stored transposed so
@@ -95,7 +96,6 @@
 #define FDT_TILE_TN (FDT_TILE_SPOTS / 8)     // spots of a register tile
 #define FDT_SPOT_WARPS (FDT_TILE_SPOTS / 32) // warps of a spot-layout row
 #define FDT_SPOT_ROWS (FDT_THREADS / 32 / FDT_SPOT_WARPS)  // rows a pass
-#define FDT_REGISTER_MAX_K 64   // largest K of gs_pass_spot
 #define FDT_PANEL_MAX_K 256
 
 static_assert(FDT_THREADS == 256 && FDT_TILE_TN % 4 == 0 &&
@@ -140,12 +140,14 @@ __host__ __device__ __forceinline__ int fdt_panel_smem_floats(int K)
            + 3 * FDT_PANEL * FDT_TILE_SPOTS;
 }
 
-// f(std::integral_constant<int, TM>{}) with TM = fdt_panel_tm(K), 3..8 at
-// 64 < K <= 256: the launchers' choice of the pass's instance.
+// f(std::integral_constant<int, TM>{}) with TM = fdt_panel_tm(K), 2..8 at
+// FDT_REGISTER_MAX_K < K <= 256: the launchers' choice of the pass's
+// instance.
 template <class F>
 static int fdt_panel_dispatch(const int K, F f)
 {
     switch (fdt_panel_tm(K)) {
+    case 2: return f(std::integral_constant<int, 2>{});
     case 3: return f(std::integral_constant<int, 3>{});
     case 4: return f(std::integral_constant<int, 4>{});
     case 5: return f(std::integral_constant<int, 5>{});
@@ -155,10 +157,10 @@ static int fdt_panel_dispatch(const int K, F f)
     }
 }
 
-// Blocks of a panel `kernel` one SM holds at once with smem bytes of
-// dynamic shared memory; a negative cudaError_t if a query fails.
+// Blocks of a `kernel` one SM holds at once with smem bytes of dynamic
+// shared memory; a negative cudaError_t if a query fails.
 template <class Kernel>
-static int fdt_panel_occupancy(Kernel kernel, const size_t smem)
+static int fdt_occupancy(Kernel kernel, const size_t smem)
 {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -3,15 +3,20 @@
 // CUDA thread, a std::barrier for __syncthreads, round-to-nearest float
 // operations for the __f*_rn intrinsics (compile with -ffp-contract=off).
 // A launch `kernel<<<blocks, FDT_THREADS, smem, stream>>>(args)` becomes
-// fdt_emu_launch(blocks, [&] { kernel(args); }) in the host copy of a
+// fdt_emu_launch(blocks, smem, [&] { kernel(args); }) in the host copy of a
 // source: its CUDA blocks run one after another, so a block's shared
-// memory is one static buffer.
+// memory is one static buffer. The FDT_EMU_GUARD bytes after the launch's
+// smem bytes are filled with 0xff (a NaN as f32) before each block and
+// checked after it: a block that writes past its dynamic shared memory
+// fails the launch (cudaGetLastError returns cudaErrorIllegalAddress), and
+// one that reads there reads NaN.
 #pragma once
 
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 
@@ -45,7 +50,11 @@ inline float4 make_float4(float x, float y, float z, float w)
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum {
+    cudaSuccess = 0,
+    cudaErrorInvalidValue = 1,
+    cudaErrorIllegalAddress = 700
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class T>
 inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int)
@@ -61,7 +70,13 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+extern cudaError_t fdt_emu_error;  // the last launch's, as on the card
+inline cudaError_t cudaGetLastError()
+{
+    const cudaError_t err = fdt_emu_error;
+    fdt_emu_error = cudaSuccess;
+    return err;
+}
 
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -70,6 +85,8 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 extern std::barrier<>* fdt_emu_barrier;
 extern float fdt_emu_lanes[];
 extern float4 fdt_emu_smem[];
+#define FDT_EMU_SMEM_BYTES (1 << 20)
+#define FDT_EMU_GUARD 4096
 
 inline void __syncthreads() { fdt_emu_barrier->arrive_and_wait(); }
 
@@ -85,15 +102,22 @@ inline float __shfl_xor_sync(unsigned, float v, int offset)
 }
 
 // Runs `body` as `blocks` CUDA blocks of FDT_THREADS threads, one block
-// after another.
+// after another, each with smem bytes of dynamic shared memory.
 template <class Body>
-inline void fdt_emu_launch(unsigned blocks, Body body)
+inline void fdt_emu_launch(unsigned blocks, std::size_t smem, Body body)
 {
     std::barrier<> bar(FDT_THREADS);
     fdt_emu_barrier = &bar;
     blockDim = {FDT_THREADS, 1, 1};
     gridDim = {blocks, 1, 1};
+    if (smem + FDT_EMU_GUARD > FDT_EMU_SMEM_BYTES) {
+        fdt_emu_error = cudaErrorInvalidValue;
+        return;
+    }
+    unsigned char* guard =
+        reinterpret_cast<unsigned char*>(fdt_emu_smem) + smem;
     for (unsigned b = 0; b < blocks; ++b) {
+        std::memset(guard, 0xff, FDT_EMU_GUARD);
         blockIdx = {b, 0, 0};
         std::vector<std::thread> threads;
         for (unsigned t = 0; t < FDT_THREADS; ++t)
@@ -102,5 +126,7 @@ inline void fdt_emu_launch(unsigned blocks, Body body)
                 body();
             });
         for (auto& th : threads) th.join();
+        for (int i = 0; i < FDT_EMU_GUARD; ++i)
+            if (guard[i] != 0xff) fdt_emu_error = cudaErrorIllegalAddress;
     }
 }

@@ -8,16 +8,21 @@ g++ against host stand-ins for the CUDA names: one std::thread per CUDA
 thread, a barrier for ``__syncthreads``, blocks one after another. The
 copy differs from the source only where a host compiler must: dynamic
 shared memory points at a static buffer, each ``<<<...>>>`` launch becomes
-a call of the emulator's block loop, and the PTX ``max.NaN.f32`` becomes a
-NaN-propagating ``fmax``. The library exports the sources' own C entry
-points, driven by the wrappers' own launch code
-(``ops/bcd.fused_sweep_launch`` / ``cd_sweep_launch``), so this runs the
-C entries' range checks and dispatch and the kernels' indexing, tiling,
-synchronisation and arithmetic — the register pass at K <= 64 and the
-panel pass above, the whole sweep and its sub-range form, each with and
-without the rest stream's ``ns_rest`` input — at small sizes. Bounds as on the card (tests/test_torch_kernels.py): atol 5e-5 /
-rtol 1e-4 against the plain versions, rtol 1e-4 on the statistics, fused
-== unfused banded bitwise, a split sweep == the whole sweep bitwise.
+a call of the emulator's block loop, the PTX ``max.NaN.f32`` becomes a
+NaN-propagating ``fmax``, the PTX ``cp.async`` copy a plain one and an
+empty ``asm`` statement (one that hides an address from nvcc) nothing. The
+library exports the sources' own C entry points, driven by the wrappers'
+own launch code (``ops/bcd.fused_sweep_launch`` / ``cd_sweep_launch``), so
+this runs the C entries' range checks and dispatch and the kernels'
+indexing, tiling, synchronisation and arithmetic — the register pass at
+K <= 32 and the panel pass above, the whole sweep and its sub-range form,
+each with and without the rest stream's ``ns_rest`` input — at small
+sizes. The emulation of ``cd_block_sweep.cu`` also exports two test-only
+entries (``tests/cuda_emulation/emulate.cpp``) that run its register pass
+and its panel pass on the same operands at any K <= 64, which must agree
+bit for bit. Bounds as on the card (tests/test_torch_kernels.py): atol
+5e-5 / rtol 1e-4 against the plain versions, rtol 1e-4 on the statistics,
+fused == unfused banded bitwise, a split sweep == the whole sweep bitwise.
 """
 
 import ctypes
@@ -38,18 +43,20 @@ EMULATION = Path(__file__).resolve().with_name("cuda_emulation")
 CSRC = Path(tbcd.__file__).resolve().with_name("csrc")
 # Source text -> host text; each must occur in the sources.
 HOST_EDITS = {
-    "gs_pass.cuh": [(
-        'asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));',
-        "m = (a != a || b != b) ? NAN : std::fmax(a, b);",
-    )],
+    "gs_pass.cuh": [
+        ('asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));',
+         "m = (a != a || b != b) ? NAN : std::fmax(a, b);"),
+        ("    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);\n"
+         '    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"\n'
+         '                 : : "r"(s), "l"(src) : "memory");',
+         "    *dst = *src;"),
+        ('asm volatile("cp.async.wait_all;" : : : "memory");', ""),
+        ('asm volatile("" : "+l"(p));', ""),
+    ],
     "fused_banded_sweep.cu": [
-        ("extern __shared__ float smem[];",
-         "float* smem = reinterpret_cast<float*>(fdt_emu_smem);"),
         ("extern __shared__ float4 smem4[];", "float4* smem4 = fdt_emu_smem;"),
     ],
     "cd_block_sweep.cu": [
-        ("extern __shared__ float xtx_s[];",
-         "float* xtx_s = reinterpret_cast<float*>(fdt_emu_smem);"),
         ("extern __shared__ float4 smem4[];", "float4* smem4 = fdt_emu_smem;"),
     ],
 }
@@ -66,7 +73,7 @@ def _host_copy(src: Path, dst: Path) -> None:
         text = text.replace(old, new)
     if src.suffix == ".cu":
         text, n = LAUNCH.subn(
-            r"fdt_emu_launch(blocks, [&] { \1(\2); });", text)
+            r"fdt_emu_launch(blocks, smem, [&] { \1(\2); });", text)
         assert n >= 2, f"{src.name}: expected its launches"
         assert "<<<" not in text, f"{src.name}: a launch was not emulated"
     dst.write_text(text)
@@ -131,11 +138,14 @@ def _close(got, ref):
                                    equal_nan=True)
 
 
-@pytest.mark.parametrize("K", [20, 65, 80, 96, 129, 255, 256])
+@pytest.mark.parametrize("K", [20, 24, 33, 48, 64, 65, 80, 96, 129, 255,
+                               256])
 def test_emulated_cd_kernel_matches_plain_version(emulator, K):
-    """100 spots: a ragged last block at every K; above K = 64 a whole
-    number of panels (80, 96, 256), a ragged last panel (65, 129, 255) and
-    register tiles of 3 to 8 rows whose last rows pass K (65, 129, 255)."""
+    """100 spots: a ragged last block at every K; the register pass at
+    K = 20 (KMAX = 24) and 24 (KMAX = K); above K = 32 a whole number of
+    panels (48, 64, 80, 96, 256), a ragged last panel (33, 65, 129, 255)
+    and register tiles of 2 to 8 rows whose last rows pass K (33, 48, 65,
+    129, 255)."""
     p = gather_problem(n=100, n_types=K, seed=K)
     t = {k: torch.from_numpy(v) for k, v in p.items() if k != "coords"}
     ns = tbcd.neighbor_sum(tbcd.with_sentinel(t["beta_t"]), t["nbr_t"])
@@ -147,7 +157,8 @@ def test_emulated_cd_kernel_matches_plain_version(emulator, K):
     assert (got[0] >= 0).all()
 
 
-@pytest.mark.parametrize("K", [20, 65, 80, 96, 129, 255, 256])
+@pytest.mark.parametrize("K", [20, 24, 33, 48, 64, 65, 80, 96, 129, 255,
+                               256])
 def test_emulated_fused_kernel_matches_plain_and_unfused(emulator, K):
     """A 20 x 20 grid with a 40-spot pad, which splits a 64-spot block of
     the panel form: the plain version within the card's bounds, pad slabs
@@ -202,7 +213,7 @@ def _split_problem(K):
     return p, args
 
 
-@pytest.mark.parametrize("K", [20, 128, 256])
+@pytest.mark.parametrize("K", [20, 24, 33, 48, 64, 128, 256])
 def test_emulated_sub_range_recomposes_the_whole_sweep(emulator, K):
     """The interior and both boundary calls, each into one full carry:
     bit for bit the whole sweep's data columns, the statistics' max equal
@@ -271,7 +282,7 @@ def _rest_problem(K, seed):
     return p, t, args, nsr
 
 
-@pytest.mark.parametrize("K", [6, 20, 96, 256])
+@pytest.mark.parametrize("K", [6, 20, 24, 33, 48, 64, 96, 256])
 def test_emulated_fused_kernel_with_rest_matches_plain_and_unfused(emulator,
                                                                    K):
     """The kernel with ``ns_rest``: the plain version within the card's
@@ -292,7 +303,7 @@ def test_emulated_fused_kernel_with_rest_matches_plain_and_unfused(emulator,
     assert not torch.equal(no_rest[0], got[0])
 
 
-@pytest.mark.parametrize("K", [20, 128])
+@pytest.mark.parametrize("K", [20, 48, 128])
 def test_emulated_sub_range_with_rest_recomposes_the_whole_sweep(emulator,
                                                                  K):
     """The interior and both boundary calls with ``ns_rest`` (indexed by
@@ -316,7 +327,8 @@ def test_emulated_sub_range_with_rest_recomposes_the_whole_sweep(emulator,
     assert max(s[1] for s in stats) == whole[2]
 
 
-@pytest.mark.parametrize("K,nbytes", [(65, 45_568), (96, 49_664),
+@pytest.mark.parametrize("K,nbytes", [(33, 33_280), (64, 37_376),
+                                      (65, 45_568), (96, 49_664),
                                       (128, 61_952), (256, 111_104)])
 def test_emulated_panel_queries(emulator, K, nbytes):
     """The C entries ``chip_smoke.py --large-k`` reads: the panel pass's
@@ -334,3 +346,57 @@ def test_emulated_panel_queries(emulator, K, nbytes):
     for bad in (tbcd.REGISTER_PASS_MAX_K, tbcd.KERNEL_MAX_K + 1):
         assert fused.fdt_fused_banded_sweep_panel_occupancy(bad, 0) == -1
         assert cd.fdt_cd_block_sweep_panel_occupancy(bad) == -1
+
+
+@pytest.mark.parametrize("K", [1, 6, 8, 20, 24, 32])
+def test_emulated_register_queries(emulator, K):
+    """The register forms' occupancy entries ``chip_smoke.py --small-k``
+    reads: an answer from the instance of K's KMAX (the emulator's
+    stand-in holds one block an SM) through ``REGISTER_PASS_MAX_K``, and a
+    refusal outside 1..REGISTER_PASS_MAX_K."""
+    fused, cd = emulator["fused"], emulator["cd"]
+    assert fused.fdt_fused_banded_sweep_register_occupancy(K, 0) == 1
+    assert fused.fdt_fused_banded_sweep_register_occupancy(K, 1) == 1
+    assert cd.fdt_cd_block_sweep_register_occupancy(K) == 1
+    for bad in (0, tbcd.REGISTER_PASS_MAX_K + 1):
+        assert fused.fdt_fused_banded_sweep_register_occupancy(bad, 0) == -1
+        assert cd.fdt_cd_block_sweep_register_occupancy(bad) == -1
+
+
+def _emulated_pass(emulator, form, beta_t, Xty_t, XtX, ns_t, inv_den_t, lam,
+                   rho):
+    """Kernel #2's register or panel pass through the emulation's
+    test-only entry ``fdt_emu_<form>_pass``: (new beta, max_diff,
+    max_abs)."""
+    fn = getattr(emulator["cd"], f"fdt_emu_{form}_pass")
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    K, n = beta_t.shape
+    spots = 256 if form == "register" else 64
+    out = torch.full_like(beta_t, 7.0)
+    partials = torch.empty((2, -(-n // spots)))
+    assert fn(beta_t.data_ptr(), out.data_ptr(), Xty_t.data_ptr(),
+              ns_t.data_ptr(), inv_den_t.data_ptr(), XtX.data_ptr(), K, n,
+              lam, rho, partials.data_ptr()) == 0
+    return (out, *_stats(partials))
+
+
+@pytest.mark.parametrize("K", [6, 20, 24, 32, 33, 48, 64])
+def test_emulated_register_and_panel_passes_are_bitwise_equal(emulator, K):
+    """The register pass (``gs_pass_spot``) and the panel pass
+    (``gs_pass_panel``) have one association, so on the same operands
+    they give the same beta and statistics bit for bit at every K <= 64,
+    either side of the crossover; both within the card's bounds of the
+    plain version. 300 spots: a ragged last block of each form."""
+    p = gather_problem(n=300, n_types=K, seed=K + 40)
+    t = {k: torch.from_numpy(v) for k, v in p.items() if k != "coords"}
+    ns = tbcd.neighbor_sum(tbcd.with_sentinel(t["beta_t"]), t["nbr_t"])
+    inv = tbcd.gs_inv_den(t["XtX"], t["nnb"], 0.5).contiguous()
+    args = (t["beta_t"], t["Xty_t"], t["XtX"], ns, inv, 0.5, 0.1)
+    reg = _emulated_pass(emulator, "register", *args)
+    panel = _emulated_pass(emulator, "panel", *args)
+    assert torch.equal(reg[0], panel[0])
+    assert reg[1] == panel[1] and reg[2] == panel[2]
+    _close(reg, tbcd.coordinate_descent_block_reference(*args))

@@ -9,7 +9,7 @@ the plain versions: atol 5e-5 / rtol 1e-4 on beta and rtol 1e-4 on the
 statistics — the kernels contract multiply-adds into FMAs and sum the
 XtX @ beta product in their own order, so they are not bitwise equal to
 them. The two kernels run one Gauss-Seidel device function (the register
-pass at K <= 64, the panel pass of 16 coordinates at 64 < K <= 256), so
+pass at K <= 32, the panel pass of 16 coordinates at 32 < K <= 256), so
 the fused and unfused banded sweeps are bitwise equal to each other, and
 two launches on the same operands are bitwise equal. The
 CountSketch kernel is held to 2e-5 * max(max|ref|, 1) against its plain
@@ -41,9 +41,10 @@ from torch_problems import (
 pytestmark = pytest.mark.cuda
 
 
-# Above K = 64: whole panels (80, 96, 128, 256) and a ragged last panel
-# and register tile (65, 129, 255).
-KS = [6, 20, 64, 65, 80, 96, 128, 129, 255, 256]
+# The register pass at K = 6, 20, 24 (KMAX = K) and 32 (its last K); the
+# panel pass from K = 33: whole panels (48, 64, 80, 96, 128, 256) and a
+# ragged last panel and register tile (33, 65, 129, 255).
+KS = [6, 20, 24, 32, 33, 48, 64, 65, 80, 96, 128, 129, 255, 256]
 
 
 @pytest.fixture
@@ -55,7 +56,7 @@ def cuda_device():
 
 def _launches(wrapper, K):
     """The count of the kernel ``wrapper`` launches at K: its register
-    form at K <= 64, its panel form above."""
+    form at K <= ``REGISTER_PASS_MAX_K`` (32), its panel form above."""
     if K > tbcd.REGISTER_PASS_MAX_K:
         return wrapper.large_k_launches
     return wrapper.launches
