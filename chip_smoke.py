@@ -17,8 +17,23 @@ counts set to 0 just before it and read just after:
 
 1. the fused banded tier: a 1M-spot (1000 x 1000 grid, K = 20, sketch
    512, kNN-6) prepare and solve, and a 262,144-spot ``fit_transform`` of
-   synthetic Poisson counts; the grid takes the fused tier with no rest
-   tables and launches only the kernel's plain form;
+   synthetic Poisson counts (on the host path, ``device_outputs=False``,
+   as every fit before this list's last phase); the grid takes the fused
+   tier with no rest tables and launches only the kernel's plain form;
+1a. the fit's outputs, on the same 262k counts (a second counted run of
+   kernel #1): the host-path fit, and fits with device outputs (the
+   default on the card), ``outputs=("dominant",)`` and
+   ``fetch_dtype="float16"``, each held to the JAX package's bounds
+   against it; ``fit_lambda_path`` at its 5 default lambdas beside a cold
+   solve at each lambda on one prepared problem; and the counts stacked
+   twice on a 512 x 1024 grid (524,288 spots), whose Xty streams to the
+   card in row chunks, bitwise the same fit unstreamed. Before it the
+   ``[fetch]`` lines time, on the 1M grid's beta and in turns over 5 warm
+   rounds, ``solve()``, ``solve(return_device=True)`` and the fetch of
+   beta alone, the former way (f64 cast on the card, pageable copy)
+   against ``fetch_to_host`` (pinned, cast on the host), after one cold
+   fetch; the same on the 1M irregular problem, and the fetches alone at
+   K = 256;
 1b. the fused tier's rest stream (kernel #1's ``ns_rest`` input): the
    1000 x 1000 grid with 1 % of its bins dropped at random (990,042
    spots, K = 20), prepared and solved, bitwise the unfused banded tier;
@@ -79,9 +94,12 @@ has the entry ``fused_banded_sweep_rest``, timed on the 1 %-dropped 1M
 grid. Needs no JAX and no network.
 
 ``--profile`` builds, prepares the 1M grid and the 1M irregular problems
-and, for each, runs three warm solves under ``torch.profiler``, each split
-by the host clock into the device solve and the fetch of beta; it prints
-that split and the profiler's table. Then it makes the dense fit's
+(K = 20) and the 1M grid at K = 256 and, for each, runs warm solves
+under ``torch.profiler``, each split by the host clock into the device
+solve and the fetch of beta, beside the fetch's parts alone (the
+contiguous copy on the card, the pinned allocation, the copy into it,
+the host cast into a fresh and into a written array); it prints that
+split and the profiler's table. Then it makes the dense fit's
 normalised 100,000 x 5,001 counts and runs the fit's ``sketch_data`` on
 them, timed by the host clock and once under ``torch.profiler``. It
 prints no result line.
@@ -798,34 +816,48 @@ def phase_solve(prob, prepare_s: float, label: str) -> int:
 def phase_profile(prob, label: str, reps: int = 3) -> None:
     """Warm solves of ``prob``, split as ``BCDProblem.solve`` is:
     ``fused_solve`` (ended by a synchronize) and the fetch of beta to host
-    f64; beside them the f32 copy of the same beta made contiguous first.
-    ``reps`` solves are timed by the host clock with no profiler, then
-    ``reps`` more run under ``torch.profiler``, whose table is printed."""
+    f64 (``fetch_to_host``); beside them the fetch's parts alone, on the
+    same beta: the contiguous copy on the card, the copy of its f32 bytes
+    into one pinned buffer, and the host cast to f64 into a fresh array
+    and into one already written (no page faults). ``reps`` solves are
+    timed by the host clock with no profiler, then ``reps`` more run under
+    ``torch.profiler``, whose table is printed."""
     from torch.profiler import ProfilerActivity, profile
 
+    from flashdeconv_tpu_torch.core.solver import fetch_to_host
     from flashdeconv_tpu_torch.ops import bcd
 
     lam, rho = bcd.f32(0.1), bcd.f32(0.01 * prob.mean_diag)
+    touched = torch.zeros((prob.n_spots, prob.n_types), dtype=torch.float64)
 
     def timed_solve(run):
-        t0 = time.perf_counter()
+        t = [time.perf_counter()]
         beta_d, n_iter = bcd.fused_solve(
             None, prob.tier, prob._inv_perm_d, lam, rho, 1e-4, 100,
             prob.n_spots,
         )[:2]
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        beta_d.to("cpu", torch.float64)
-        t2 = time.perf_counter()
+        t.append(time.perf_counter())
+        fetch_to_host(beta_d)
+        t.append(time.perf_counter())
         flat = beta_d.contiguous()
         torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        flat.cpu()
-        t4 = time.perf_counter()
+        t.append(time.perf_counter())
+        pinned = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        t.append(time.perf_counter())
+        pinned.copy_(flat)
+        t.append(time.perf_counter())
+        pinned.to(torch.float64)
+        t.append(time.perf_counter())
+        touched.copy_(pinned)
+        t.append(time.perf_counter())
+        ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
         log(f"[profile] {label} {run}: {n_iter} sweeps; fused_solve "
-            f"{(t1 - t0) * 1e3:.3f} ms; fetch of beta to host f64 "
-            f"{(t2 - t1) * 1e3:.3f} ms; f32 copy of beta made contiguous "
-            f"{(t4 - t3) * 1e3:.3f} ms")
+            f"{ms[0]:.3f} ms; fetch_to_host {ms[1]:.3f} ms; its parts "
+            f"alone: contiguous on the card {ms[2]:.3f} ms, pinned "
+            f"allocation {ms[3]:.3f} ms, copy to pinned {ms[4]:.3f} ms, "
+            f"host cast to a fresh f64 array {ms[5]:.3f} ms, to a written "
+            f"one {ms[6]:.3f} ms")
 
     timed_solve("warm-up solve")
     for rep in range(reps):
@@ -855,7 +887,8 @@ def phase_fit(label: str, coords, extent: float, n_genes: int,
     """``fit_transform`` of synthetic counts (CSR, or dense with ``dense``;
     ``recipe`` goes to :func:`synthetic_counts`; or ``counts()``, which
     returns them, made once) over ``coords`` by a
-    ``FlashDeconv(**model_kw)``; Pearson against the generating
+    ``FlashDeconv(**model_kw)`` on the host path (``device_outputs=False``
+    unless ``model_kw`` says otherwise); Pearson against the generating
     proportions must pass 0.9. Returns sweeps."""
     from flashdeconv_tpu_torch import FlashDeconv
     from flashdeconv_tpu_torch.utils import compute_correlation
@@ -877,7 +910,7 @@ def phase_fit(label: str, coords, extent: float, n_genes: int,
     sweeps = 0
     for name in runs:  # the first includes first-use host builds
         model = FlashDeconv(sketch_dim=SKETCH, n_hvg=n_hvg,
-                            **(model_kw or {}))
+                            **{"device_outputs": False, **(model_kw or {})})
         t0 = time.perf_counter()
         props = model.fit_transform(Y, X, coords)
         torch.cuda.synchronize()
@@ -896,6 +929,227 @@ def phase_fit(label: str, coords, extent: float, n_genes: int,
             raise AssertionError(f"{label}: pearson {pearson} <= 0.9")
         sweeps += info["n_iterations"]
     return sweeps
+
+
+def phase_fetch(prob, label: str, reps: int = 5,
+                solves: bool = True) -> None:
+    """The fetch of beta, the old way against the new, on one device beta
+    of ``prob`` (the view ``fused_solve`` leaves, as ``solve`` fetches it):
+    the former f64 cast on the card and pageable copy, against
+    ``fetch_to_host`` (a contiguous f32 copy on the card, the pinned
+    staging ring, the cast on the host); both bit for bit ``.cpu()``. A
+    cold fetch first, with torch's pinned-host cache emptied. Then, in
+    turns over ``reps`` warm rounds: with ``solves``, ``solve()`` and
+    ``solve(return_device=True)`` ended by a synchronize, and the two
+    fetches alone. Host clock, each call ended by a synchronize."""
+    from flashdeconv_tpu_torch.core.solver import fetch_to_host
+    from flashdeconv_tpu_torch.ops import bcd
+
+    lam, rho = bcd.f32(SOLVE["lambda_"]), bcd.f32(SOLVE["rho"]
+                                                  * prob.mean_diag)
+    view = bcd.fused_solve(None, prob.tier, prob._inv_perm_d, lam, rho,
+                           SOLVE["tol"], SOLVE["max_iter"], prob.n_spots)[0]
+    torch.cuda.synchronize()
+    ref = view.cpu().double().numpy()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    calls = {
+        "old fetch": lambda: view.to("cpu", torch.float64).numpy(),
+        "new fetch": lambda: fetch_to_host(view),
+    }
+    if solves:
+        calls["solve()"] = lambda: prob.solve(**SOLVE)[0]
+        calls["solve(return_device=True)"] = lambda: prob.solve(
+            return_device=True, **SOLVE)[0]
+    empty_cache = getattr(torch._C, "_host_emptyCache", None)
+    if empty_cache is not None:
+        empty_cache()
+        ms, got = timed(calls["new fetch"])
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"{label}: the cold fetch is not .cpu()")
+        alloc = torch.cuda.host_memory_stats().get("host_alloc_time.total")
+        log(f"[fetch] {label}: cold new fetch {ms:.3f} ms (pinned staging "
+            f"allocated in the call; torch's pinned allocations so far took "
+            f"{alloc} us), {view.numel() * 4} B of f32")
+    else:
+        log(f"[fetch] {label}: cold fetch not measured (no pinned-host "
+            "cache to empty in this torch)")
+    times = {name: [] for name in calls}
+    for rep in range(reps):
+        order = list(calls) if rep % 2 == 0 else list(calls)[::-1]
+        for name in order:
+            ms, got = timed(calls[name])
+            times[name].append(ms)
+            if name.endswith("fetch") or name == "solve()":
+                if not np.array_equal(got, ref):
+                    raise AssertionError(f"{label}: {name} is not .cpu()")
+            else:
+                if not torch.equal(got.double().cpu(),
+                                   torch.from_numpy(ref)):
+                    raise AssertionError(f"{label}: {name} differs")
+    for name, ms in times.items():
+        log(f"[fetch] {label}: {name} warm ms "
+            f"{' '.join(f'{t:.3f}' for t in ms)} (median "
+            f"{float(np.median(ms)):.3f})")
+    log(f"[fetch] {label}: every fetch bit for bit .cpu() of the device "
+        "beta")
+
+
+def grid_outputs_model(**kw):
+    from flashdeconv_tpu_torch import FlashDeconv
+
+    return FlashDeconv(sketch_dim=SKETCH, **kw)
+
+
+def outputs_fit(label: str, model, Y, X, coords, truth):
+    """One timed ``fit`` of ``model``: (model, what the fit left on the card
+    — {"beta", "proportions"} -> bool, read before Pearson > 0.9 reads the
+    proportions)."""
+    from flashdeconv_tpu_torch.utils import compute_correlation
+
+    t0 = time.perf_counter()
+    model.fit(Y, X, coords)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    on_card = {"beta": model._beta_dev is not None,
+               "proportions": model._props_dev is not None}
+    pearson = float(compute_correlation(model.proportions_, truth))
+    log(f"[outputs] {label}: fit {dt:.3f} s, {model.info_['n_iterations']} "
+        f"sweeps, pearson {pearson:.4f}; stages " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in model.timings_.items()))
+    if not pearson > 0.9:
+        raise AssertionError(f"{label}: pearson {pearson} <= 0.9")
+    return model, on_card
+
+
+def phase_outputs() -> int:
+    """The fit's outputs on the 262k grid fit's counts (no second draw):
+    the host-path fit, then three device-output fits held to the JAX
+    package's bounds against it (the default ``cuda`` fit: row sums within
+    1e-5, proportions and the lazy beta within 1e-6; ``outputs=
+    ("dominant",)``: the argmax where the host top two differ by > 1e-5,
+    lazy proportions within 1e-6; ``fetch_dtype="float16"``: within
+    5e-4); ``fit_lambda_path`` at its 5 default lambdas against a cold
+    solve at each lambda on one prepared problem; and the counts stacked
+    twice on a 512 x 1024 grid (524,288 spots), which stream their Xty to
+    the card in chunks, against the same fit unstreamed (beta bit for
+    bit). Returns the sweeps of every solve."""
+    from scipy import sparse
+
+    from flashdeconv_tpu_torch.utils import grid_coords
+    from flashdeconv_tpu_torch.utils.timing import StageTimer
+
+    Y, X, truth = grid_fit_counts()
+    coords = grid_coords(side=FIT_SIDE)
+    host, _ = outputs_fit("262k grid, host path (device_outputs=False)",
+                          grid_outputs_model(device_outputs=False), Y, X,
+                          coords, truth)
+    sweeps = host.info_["n_iterations"]
+    P = host.proportions_
+
+    dev, on_card = outputs_fit("262k grid, default (device outputs)",
+                               grid_outputs_model(), Y, X, coords, truth)
+    if not on_card["beta"]:
+        raise AssertionError("the default cuda fit fetched beta")
+    rows = float(np.abs(dev.proportions_.sum(axis=1) - 1.0).max())
+    dp = float(np.abs(dev.proportions_ - P).max())
+    t0 = time.perf_counter()
+    beta = dev.beta_
+    lazy_ms = (time.perf_counter() - t0) * 1e3
+    db = float(np.abs(beta - host.beta_).max())
+    log(f"[outputs] default: max |row sum - 1| {rows:.3e}, max |P - "
+        f"P_host| {dp:.3e}, lazy beta_ fetched in {lazy_ms:.3f} ms, max "
+        f"|beta - beta_host| {db:.3e} (bitwise {np.array_equal(beta, host.beta_)})")
+    if not (rows <= 1e-5 and dp <= 1e-6 and db <= 1e-6):
+        raise AssertionError("device outputs outside their bounds")
+    sweeps += dev.info_["n_iterations"]
+
+    dom, on_card = outputs_fit("262k grid, outputs=('dominant',)",
+                               grid_outputs_model(outputs=("dominant",)), Y,
+                               X, coords, truth)
+    top2 = np.sort(P, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-5
+    agree = np.array_equal(dom.dominant_[clear], np.argmax(P, 1)[clear])
+    if not on_card["proportions"]:
+        raise AssertionError("outputs=('dominant',) fetched proportions")
+    dpl = float(np.abs(dom.proportions_ - P).max())
+    log(f"[outputs] dominant: {dom.dominant_.dtype} argmax agrees with the "
+        f"host path's at {int(clear.sum())} of {clear.size} spots whose top "
+        f"two differ by > 1e-5: {agree}; lazy proportions max |P - P_host| "
+        f"{dpl:.3e}")
+    if not (agree and dpl <= 1e-6):
+        raise AssertionError("outputs=('dominant',) outside its bounds")
+    sweeps += dom.info_["n_iterations"]
+
+    f16, _ = outputs_fit("262k grid, fetch_dtype='float16'",
+                         grid_outputs_model(fetch_dtype="float16"), Y, X,
+                         coords, truth)
+    d16 = float(np.abs(f16.proportions_ - P).max())
+    log(f"[outputs] float16: max |P - P_host| {d16:.3e} (bound 5e-4)")
+    if not d16 <= 5e-4:
+        raise AssertionError("fetch_dtype='float16' outside its bound")
+    sweeps += f16.info_["n_iterations"]
+    del dev, dom, f16
+
+    # The lambda path, and a cold solve at each lambda on one prepared
+    # problem (stages 1-4 and the prepare of the model's own path code).
+    model = grid_outputs_model()
+    t0 = time.perf_counter()
+    path = model.fit_lambda_path(Y, X, coords)
+    torch.cuda.synchronize()
+    log(f"[lambda path] 5 default lambdas: {time.perf_counter() - t0:.3f} s "
+        "with stages 1-4 and one prepare; stages " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in model.timings_.items()))
+    cold_model = grid_outputs_model()
+    operands = cold_model._pipeline_operands(Y, X, coords, None,
+                                             StageTimer())
+    prob = cold_model._prepare(*operands, coords)
+    for r in path:
+        t0 = time.perf_counter()
+        beta, info = prob.solve(lambda_=r["lambda"],
+                                rho=cold_model.rho_sparsity,
+                                max_iter=cold_model.max_iter,
+                                tol=cold_model.tol)
+        dt = time.perf_counter() - t0
+        diff = float(np.abs(beta - r["beta"]).max())
+        log(f"[lambda path] lambda {r['lambda']:.6g}: warm-started "
+            f"{r['info']['n_iterations']} sweeps, cold {info['n_iterations']}"
+            f" ({dt:.3f} s), max |beta_path - beta_cold| {diff:.3e}")
+        if not (info["converged"] and r["info"]["converged"]):
+            raise AssertionError("a lambda-path solve did not converge")
+        sweeps += r["info"]["n_iterations"] + info["n_iterations"]
+    del prob, operands
+
+    # The streamed feed: the counts twice over (524,288 spots).
+    t0 = time.perf_counter()
+    Y2 = sparse.vstack([Y, Y], format="csr")
+    coords2 = np.vstack([coords, coords + [0.0, FIT_SIDE]])
+    truth2 = np.vstack([truth, truth])
+    log(f"[streamed] counts stacked twice: {Y2.shape}, nnz {Y2.nnz}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    streamed = grid_outputs_model()
+    if not streamed._streams_xty(Y2.shape[0]):
+        raise AssertionError("the 524,288-spot fit does not stream")
+    streamed, _ = outputs_fit("524k grid, streamed Xty", streamed, Y2, X,
+                              coords2, truth2)
+    whole = grid_outputs_model()
+    whole._streams_xty = lambda n_rows: False
+    whole, _ = outputs_fit("524k grid, Xty copied whole", whole, Y2, X,
+                           coords2, truth2)
+    same = np.array_equal(streamed.beta_, whole.beta_)
+    log(f"[streamed] beta of the streamed fit bit for bit the unstreamed "
+        f"fit's: {same}; sweeps {streamed.info_['n_iterations']} / "
+        f"{whole.info_['n_iterations']}")
+    if not same:
+        raise AssertionError("the streamed feed changed beta")
+    return sweeps + streamed.info_["n_iterations"] \
+        + whole.info_["n_iterations"]
 
 
 def phase_dense_fit() -> dict:
@@ -1462,6 +1716,7 @@ def main() -> None:
     if args.profile:
         for label, irregular in (("1M grid", False), ("1M irregular", True)):
             phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)
+        phase_profile(prepare(SPOTS, 256)[0], "1M grid K=256", reps=2)
         phase_profile_dense_sketch()
         return
     kernels = {
@@ -1496,6 +1751,10 @@ def main() -> None:
         + phase_fit("262k grid", grid_coords(side=FIT_SIDE),
                     float(FIT_SIDE), FIT_GENES, counts=grid_fit_counts))
     })["fused_banded_sweep"]
+    phase_fetch(grid, "1M grid")
+    # The fit's outputs, the lambda path and the streamed feed (kernel #1).
+    fused_launches += counted(kernels, lambda: {
+        "fused_banded_sweep": phase_outputs()})["fused_banded_sweep"]
 
     # Kernel 1 with the rest stream: grids whose banded split leaves a
     # small remainder.
@@ -1547,6 +1806,8 @@ def main() -> None:
                 "fused_banded_sweep_large_k": phase_solve(
                     prob, prob_s, f"1M grid K={K}")
             })["fused_banded_sweep_large_k"]
+        if K == 256:
+            phase_fetch(prob, f"1M grid K={K}", reps=3, solves=False)
         del prob
         torch.cuda.empty_cache()
     # Domains of 0.1 x extent and deeper spots keep 96 types identifiable
@@ -1568,6 +1829,7 @@ def main() -> None:
         raise AssertionError("the 1M irregular problem did not take the "
                              "gather tier")
     cd_row = phase_cd_kernel(irr, "1M irregular (main path)")
+    phase_fetch(irr, "1M irregular")
     cd_launches = counted(kernels, lambda: {"coordinate_descent_block": (
         phase_solve(irr, irr_s, "1M irregular")
         + phase_fit("Visium-like hex", hex_coords(VISIUM_COLS, VISIUM_ROWS),

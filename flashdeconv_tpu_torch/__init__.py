@@ -1,20 +1,34 @@
-"""flashdeconv_tpu_torch: the FlashDeconv solve on PyTorch and CUDA.
+"""flashdeconv_tpu_torch: the FlashDeconv pipeline on PyTorch and CUDA.
 
-A port of :mod:`flashdeconv_tpu` to one NVIDIA H100 (Hopper, ``sm_90a``):
-the single-device fit on any spatial graph, with each BCD sweep one launch
-of a hand-written CUDA kernel — the fused banded sweep on wholly banded
-grids, the coordinate-descent pass after plain-PyTorch neighbour sums on
-every other graph. The host stages (gene selection, normalisation,
-CountSketch, the spatial graph) are the port's own copies of the JAX
-package's numpy/scipy/C++ modules; the port imports nothing of JAX or of
-the JAX package.
+A port of :mod:`flashdeconv_tpu` to NVIDIA Hopper cards (``sm_90a``): the
+single-device fit on any spatial graph and the spot-sharded fit over a
+mesh of torch devices, with each BCD sweep one launch of a hand-written
+CUDA kernel — the fused banded sweep on banded grids, the
+coordinate-descent pass after plain-PyTorch neighbour sums on every other
+graph — and dense counts sketched by a CUDA CountSketch kernel. On the
+card the fit keeps beta there and fetches only the proportions (in
+``fetch_dtype``) or the dominant type; ``FlashDeconv`` also has warm
+starts, ``fit_lambda_path`` and ``save`` / ``load``, and ``tl.deconvolve``
+runs it on AnnData. The host stages (gene selection, normalisation,
+CountSketch, the spatial graph, the AnnData layer) are the port's own
+copies of the JAX package's numpy/scipy/C++ modules; the port imports
+nothing of JAX or of the JAX package.
 
-Quick start::
+Quick start (array API)::
 
     from flashdeconv_tpu_torch import FlashDeconv
     proportions = FlashDeconv(sketch_dim=512).fit_transform(Y, X, coords)
+
+Quick start (scanpy-style API)::
+
+    import flashdeconv_tpu_torch as fdt
+    fdt.tl.deconvolve(adata_st, adata_ref, cell_type_key="cell_type")
+    adata_st.obsm["flashdeconv"]                       # proportions
 """
 
-from flashdeconv_tpu_torch.core.deconv import FlashDeconv
+__version__ = "0.5.0"
 
-__all__ = ["FlashDeconv"]
+from flashdeconv_tpu_torch.core.deconv import FlashDeconv
+from flashdeconv_tpu_torch import tl
+
+__all__ = ["FlashDeconv", "tl", "__version__"]

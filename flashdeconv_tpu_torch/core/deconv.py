@@ -1,30 +1,35 @@
 """FlashDeconv orchestrator of the port — the array-level API on a torch device.
 
-Counterpart of :class:`flashdeconv_tpu.core.deconv.FlashDeconv` for a
-single-device fit on any spatial graph. Stages 1-5 — gene selection,
-normalisation, CountSketch (through the native fused Xty pass for CSR
-counts; on ``device`` for dense counts, through the CUDA CountSketch kernel
-when G >= 4096 and N >= 1024), the spatial graph and the lambda auto-tune —
-are the port's own copies of the JAX package's host functions; stage 6 is
-the solve of :mod:`flashdeconv_tpu_torch.core.solver` on ``device``, on
-whichever of its three tiers the graph takes (fused banded, unfused
-banded, gather), or, with ``mesh`` or ``n_shards > 1``, the spot-sharded
-solve of :mod:`flashdeconv_tpu_torch.parallel` (banded mesh or halo plan).
+Counterpart of :class:`flashdeconv_tpu.core.deconv.FlashDeconv`. Stages
+1-5 — gene selection, normalisation, CountSketch (through the native fused
+Xty pass for CSR counts, streamed to the card in row chunks above
+``native.XTY_STREAM_CHUNK_ROWS`` spots; on ``device`` for dense counts,
+through the CUDA CountSketch kernel when G >= 4096 and N >= 1024), the
+spatial graph and the lambda auto-tune — are the port's own copies of the
+JAX package's host functions; stage 6 is the solve of
+:mod:`flashdeconv_tpu_torch.core.solver` on ``device``, on whichever of its
+three tiers the graph takes (fused banded, unfused banded, gather), or,
+with ``mesh`` or ``n_shards > 1``, the spot-sharded solve of
+:mod:`flashdeconv_tpu_torch.parallel` (banded mesh or halo plan).
 
-The constructor takes every keyword of the JAX class; a value the port
-cannot honour yet raises ``NotImplementedError`` naming its ``ROADMAP.md``
-entry: an f64 ``solver_dtype``, ``warm_start=True``,
-``device_outputs=True``, a ``fetch_dtype`` and ``outputs`` with
-``"dominant"``. Not ported either (``ROADMAP.md``): ``fit_distributed``
-(multi-process), ``fit_lambda_path`` and ``save``/``load``.
+The fit's outputs follow the JAX class: on a single-device ``cuda`` fit
+(or wherever ``device_outputs=True``) beta stays on the device, the
+proportions are normalised there and fetched in ``fetch_dtype``, the
+dominant type is a device argmax, and ``beta_`` / ``proportions_`` fetch
+lazily. Besides :meth:`FlashDeconv.fit` the class has ``warm_start``,
+:meth:`~FlashDeconv.fit_lambda_path`, the getters, ``summary`` and
+``save`` / ``load`` (the JAX package's ``.npz`` keys). An f64
+``solver_dtype`` raises ``NotImplementedError`` naming its ``ROADMAP.md``
+entry; ``fit_distributed`` (multi-process) is not ported.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
 from scipy import sparse
 
 from flashdeconv_tpu_torch import native
@@ -43,8 +48,10 @@ from flashdeconv_tpu_torch.core.sketching import (
 from flashdeconv_tpu_torch.core.solver import (
     GraphDecomposition,
     _not_ported,
-    bcd_solve,
+    fetch_to_host,
     normalize_proportions,
+    normalize_proportions_device,
+    prepare_bcd,
     resolve_device,
 )
 from flashdeconv_tpu_torch.core.spatial import auto_tune_lambda
@@ -53,6 +60,46 @@ from flashdeconv_tpu_torch.utils.graph import coords_to_adjacency
 from flashdeconv_tpu_torch.utils.timing import StageTimer
 
 ArrayLike = Union[np.ndarray, sparse.spmatrix]
+
+_FETCH_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+                 "float32": torch.float32}
+
+
+def stream_xty(chunks, n_rows: int, n_types: int,
+               device: torch.device) -> Tuple[torch.Tensor, float]:
+    """The (n_rows, n_types) f32 Xty on ``device`` and YtY from the chunks
+    of a native ``*_xty_chunks`` generator.
+
+    Each chunk is cast to f32 on the host into one of two staging buffers
+    (pinned for a CUDA device) and its copy to the device is queued at
+    once, so it runs while the generator computes the next chunk. A buffer
+    is refilled only after the event recorded behind its last copy has
+    completed, so no host bytes are overwritten or freed under a copy in
+    flight. The f32 values are those of ``np.float32(xty)``, the cast
+    :class:`~flashdeconv_tpu_torch.core.solver.BCDProblem` makes of a host
+    Xty.
+    """
+    xty = torch.empty((n_rows, n_types), dtype=torch.float32, device=device)
+    cuda = xty.is_cuda
+    stage, events, yty = [None, None], [None, None], 0.0
+    for i, (a, b, part, yty_part) in enumerate(chunks):
+        slot = i % 2
+        if events[slot] is not None:
+            events[slot].synchronize()
+        if stage[slot] is None or stage[slot].shape[0] < b - a:
+            stage[slot] = torch.empty((b - a, n_types), dtype=torch.float32,
+                                      pin_memory=cuda)
+        buf = stage[slot][:b - a]
+        buf.copy_(torch.from_numpy(part))
+        xty[a:b].copy_(buf, non_blocking=cuda)
+        if cuda:
+            events[slot] = torch.cuda.Event()
+            events[slot].record(torch.cuda.current_stream(device))
+        yty += yty_part
+    for event in events:
+        if event is not None:
+            event.synchronize()
+    return xty, yty
 
 
 class FlashDeconv:
@@ -65,15 +112,22 @@ class FlashDeconv:
     devices, one per shard, a device possibly repeated) or ``n_shards > 1``
     (the first ``n_shards`` cards, or ``n_shards`` shards on the CPU with
     ``device="cpu"``) sends stage 6 to
-    :func:`flashdeconv_tpu_torch.parallel.prepare_sharded_bcd`. The fit
-    always takes the host path of the JAX class's ``device_outputs=False``
-    (beta fetched as f64, normalised on the host); the values of
-    ``solver_dtype``, ``warm_start``, ``device_outputs``, ``fetch_dtype``
-    and ``outputs`` that need more raise ``NotImplementedError``.
+    :func:`flashdeconv_tpu_torch.parallel.prepare_sharded_bcd`.
 
-    Attributes (after fit): ``beta_``, ``proportions_``, ``gene_idx_``,
-    ``info_``, ``lambda_used_``, ``adjacency_``, ``timings_``,
-    ``n_spots_``, ``n_genes_``, ``n_cell_types_`` and
+    ``device_outputs``: None (auto) keeps beta on the device on a
+    single-device ``cuda`` fit, normalises the proportions there in f32
+    and fetches only them; False always fetches beta as f64 and normalises
+    on the host; True forces the device path on the CPU and on meshes.
+    On that path ``fetch_dtype`` ("float16", "bfloat16", "float32") casts
+    the proportions on the device before the fetch, and ``outputs``
+    chooses what is fetched: "proportions" and/or "dominant" (the device
+    argmax, uint8 on the wire). ``warm_start`` starts each fit from the
+    previous fit's ``beta_`` when the shapes match. An f64 ``solver_dtype``
+    raises ``NotImplementedError`` naming its ``ROADMAP.md`` entry.
+
+    Attributes (after fit): ``beta_``, ``proportions_``, ``dominant_``,
+    ``gene_idx_``, ``info_``, ``lambda_used_``, ``adjacency_``,
+    ``timings_``, ``n_spots_``, ``n_genes_``, ``n_cell_types_`` and
     ``cell_type_names_``.
     """
 
@@ -158,16 +212,6 @@ class FlashDeconv:
         if np.dtype(solver_dtype) != np.float32:
             raise _not_ported(f"solver_dtype={np.dtype(solver_dtype).name}",
                               "f64 on the GPU")
-        if warm_start:
-            raise _not_ported("warm_start=True",
-                              "the rest of the FlashDeconv surface")
-        for what, given in (("device_outputs=True", device_outputs is True),
-                            (f"fetch_dtype={fetch_dtype!r}",
-                             fetch_dtype is not None),
-                            ("outputs with 'dominant'", "dominant" in outputs)):
-            if given:
-                raise _not_ported(what, "the fetch of beta, and device "
-                                  "outputs")
         self.device = resolve_device(device)
         self.sketch_dim = sketch_dim
         self.lambda_spatial = lambda_spatial
@@ -192,11 +236,13 @@ class FlashDeconv:
 
         self.beta_ = None
         self.proportions_ = None
+        self.dominant_ = None
         self.gene_idx_ = None
         self.info_ = None
         self.lambda_used_ = None
         self.adjacency_ = None
         self.timings_ = None
+        self._fitted = False
 
     def _validate(self, Y, X, coords, cell_type_names):
         if Y.shape[1] != X.shape[1]:
@@ -220,10 +266,56 @@ class FlashDeconv:
                 f"match number of cell types in X ({X.shape[0]})."
             )
 
+    def _pipeline_operands(self, Y, X, coords, cell_type_names, timer):
+        """Stages 1-4 (validation, gene selection, normalisation, sketch,
+        graph), shared by :meth:`fit` and :meth:`fit_lambda_path`. Returns
+        ``(Y_sketch, X_sketch, A)``; the canonical CSR path leaves
+        ``Y_sketch`` None and keeps the fused pass's Xty and YtY, and a
+        single-device fit the graph's banded analysis (a future), as
+        consume-once state for the solve."""
+        if sparse.issparse(Y) and not sparse.isspmatrix_csr(Y):
+            Y = Y.tocsr()
+        coords = np.asarray(coords)
+        self._validate(Y, X, coords, cell_type_names)
+        self.n_spots_ = Y.shape[0]
+        self.n_genes_ = Y.shape[1]
+        self.n_cell_types_ = X.shape[0]
+        self.cell_type_names_ = cell_type_names
+        self._log(f"FlashDeconv (torch, {self.device}): {Y.shape[0]} spots "
+                  f"x {Y.shape[1]} genes, {X.shape[0]} cell types")
+        # A previous aborted fit's operands describe that fit, not this.
+        self._clear_consume_once()
+
+        # The spatial graph and its banded analysis depend only on coords:
+        # build them on background threads while stages 1-3 run; the solve
+        # joins the analysis.
+        pool = concurrent.futures.ThreadPoolExecutor(2)
+        graph_f = pool.submit(
+            coords_to_adjacency, coords, method=self.spatial_method,
+            k=self.k_neighbors, radius=self.radius,
+        )
+        if not self._is_sharded:
+            self._graph_plan_future = pool.submit(
+                lambda: GraphDecomposition(graph_f.result(), Y.shape[0],
+                                           coords))
+        pool.shutdown(wait=False)
+        try:
+            X_sketch, Y_sketch = self._sketch(Y, X, timer)
+        except BaseException:
+            graph_f.cancel()
+            plan_f = self.__dict__.pop("_graph_plan_future", None)
+            if plan_f is not None:
+                plan_f.cancel()
+            raise
+        with timer.stage("spatial_graph"):
+            A = graph_f.result()
+        self.adjacency_ = A
+        return Y_sketch, X_sketch, A
+
     def _sketch(self, Y, X, timer):
-        """Stages 1-3. Returns ``(X_sketch, Y_sketch, xty, yty)``: the
-        canonical CSR path leaves ``Y_sketch`` None and hands the host
-        (N, K) Xty and YtY of the native fused pass instead."""
+        """Stages 1-3. Returns ``(X_sketch, Y_sketch)``; the canonical CSR
+        path returns ``Y_sketch`` None and keeps the (N, K) Xty and YtY of
+        the native fused pass as ``_fused_xty`` / ``_fused_yty``."""
         if self.preprocess == "log_cpm":
             use_fused = native.fused_available(Y)
         else:
@@ -265,7 +357,7 @@ class FlashDeconv:
                     random_state=self.random_state, backend="auto",
                     device=self.device,
                 )
-                return X_sketch, Y_sketch, None, None
+                return X_sketch, Y_sketch
             op = make_countsketch_op(
                 len(gene_idx), self.sketch_dim, leverage_scores=leverage,
                 random_state=self.random_state,
@@ -280,22 +372,44 @@ class FlashDeconv:
                     Y, gene_idx, logcpm=self.preprocess == "log_cpm"
                 )
                 if Y_rep is not None:
+                    # Release the poisoned Xty (on the streamed path an
+                    # (N, K) device buffer) before making the repaired one.
+                    xty = None
                     xty, yty = self._fused_xty_feed(Y_rep, gene_idx, op,
                                                     X_sketch, colscale)
-            return X_sketch, None, xty, yty
+            self._fused_xty, self._fused_yty = xty, yty
+            return X_sketch, None
+
+    def _streams_xty(self, n_rows: int) -> bool:
+        """True when the fused Xty pass streams to the device: a
+        single-device ``cuda`` fit of more than
+        ``native.XTY_STREAM_CHUNK_ROWS`` spots."""
+        return (not self._is_sharded and self.device.type == "cuda"
+                and n_rows > native.XTY_STREAM_CHUNK_ROWS)
 
     def _fused_xty_feed(self, Y, gene_idx, op, X_sketch, colscale=None):
-        """Host (N, K) Xty and YtY from the native fused sketch pass; the
-        solver copies Xty to the device once."""
+        """``(Xty, YtY)`` from the native fused sketch pass: the log-CPM
+        kernels for "log_cpm", the column-scale kernels for "pearson"
+        (``colscale`` = 1/sigma per subset gene) and "raw" (None). When
+        :meth:`_streams_xty`, the pass runs in row chunks and Xty is an
+        f32 device tensor, each chunk's copy to the device running while
+        the next chunk computes (:func:`stream_xty`); else a host (N, K)
+        f64 array, which the solver copies once."""
+        args = (Y, gene_idx) + (() if self.preprocess == "log_cpm"
+                                else (colscale,))
+        args += (op.buckets, op.weights, op.sketch_dim, X_sketch)
         if self.preprocess == "log_cpm":
-            res = native.fused_log1pcpm_xty(
-                Y, gene_idx, op.buckets, op.weights, op.sketch_dim, X_sketch,
-            )
+            full, chunked = (native.fused_log1pcpm_xty,
+                             native.fused_log1pcpm_xty_chunks)
         else:
-            res = native.fused_colscale_xty(
-                Y, gene_idx, colscale, op.buckets, op.weights,
-                op.sketch_dim, X_sketch,
-            )
+            full, chunked = (native.fused_colscale_xty,
+                             native.fused_colscale_xty_chunks)
+        if self._streams_xty(Y.shape[0]):
+            chunks = chunked(*args, chunk_rows=native.XTY_STREAM_CHUNK_ROWS)
+            res = None if chunks is None else stream_xty(
+                chunks, Y.shape[0], X_sketch.shape[0], self.device)
+        else:
+            res = full(*args)
         if res is None:
             raise RuntimeError(
                 "native fused xty kernel returned None despite its gate "
@@ -303,65 +417,317 @@ class FlashDeconv:
             )
         return res
 
-    def fit(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray,
-            cell_type_names: Optional[np.ndarray] = None) -> "FlashDeconv":
-        """Run the full pipeline; stores results on the instance.
-        ``cell_type_names`` (one per row of X) is kept as
-        ``cell_type_names_``."""
-        if sparse.issparse(Y) and not sparse.isspmatrix_csr(Y):
-            Y = Y.tocsr()
-        coords = np.asarray(coords)
-        self._validate(Y, X, coords, cell_type_names)
-        self.n_spots_ = Y.shape[0]
-        self.n_genes_ = Y.shape[1]
-        self.n_cell_types_ = X.shape[0]
-        self.cell_type_names_ = cell_type_names
-        self._log(f"FlashDeconv (torch, {self.device}): {Y.shape[0]} spots "
-                  f"x {Y.shape[1]} genes, {X.shape[0]} cell types")
-        timer = StageTimer()
-
-        # The spatial graph and its banded analysis depend only on coords:
-        # build them on a background thread while stages 1-3 run.
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            graph_f = pool.submit(
-                coords_to_adjacency, coords, method=self.spatial_method,
-                k=self.k_neighbors, radius=self.radius,
-            )
-            plan_f = pool.submit(
-                lambda: None if self._is_sharded else GraphDecomposition(
-                    graph_f.result(), Y.shape[0], coords)
-            )
-            try:
-                X_sketch, Y_sketch, xty, yty = self._sketch(Y, X, timer)
-            except BaseException:
-                graph_f.cancel()
-                plan_f.cancel()
-                raise
-            with timer.stage("spatial_graph"):
-                A = graph_f.result()
-                plan = plan_f.result()
-        self.adjacency_ = A
-
+    def _resolve_lambda(self, Y_sketch, X_sketch, A, timer) -> float:
+        """Stage 5: ``lambda_spatial``, or its auto-tuned value."""
         with timer.stage("lambda_tuning"):
             if self.lambda_spatial == "auto":
                 lambda_ = auto_tune_lambda(Y_sketch, X_sketch, A)
             else:
                 lambda_ = float(self.lambda_spatial)
-        self.lambda_used_ = lambda_
         self._log(f"  lambda = {lambda_:.4f}")
+        return lambda_
 
-        with timer.stage("solve"):
-            beta, info = self._solve(Y_sketch, X_sketch, A, coords, lambda_,
-                                     plan, xty, yty)
-        self.beta_ = beta
-        self.proportions_ = normalize_proportions(beta)
+    def _prepare(self, Y_sketch, X_sketch, A, coords):
+        """Stage 6's prepared problem, for :meth:`fit` and
+        :meth:`fit_lambda_path`, consuming the pipeline's consume-once
+        operands: a single-device ``BCDProblem``, or the spot-sharded
+        ``ShardedBCDProblem``."""
+        coords = np.asarray(coords)
+        xty = self.__dict__.pop("_fused_xty", None)
+        yty = self.__dict__.pop("_fused_yty", None)
+        if not self._is_sharded:
+            return prepare_bcd(
+                Y_sketch, X_sketch, A, coords=coords, xty=xty, yty=yty,
+                graph_plan=self.__dict__.pop("_graph_plan_future", None),
+                device=self.device,
+            )
+        from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
+
+        self._log("  solving on a spot-sharded mesh")
+        return prepare_sharded_bcd(
+            Y_sketch, X_sketch, A, coords=coords, mesh=self.mesh,
+            n_shards=self.n_shards, verbose=self.verbose, xty=xty, yty=yty,
+            device=self.device,
+        )
+
+    def _device_out(self) -> bool:
+        """Whether this fit takes the device-outputs path."""
+        if self.device_outputs is None:
+            return not self._is_sharded and self.device.type == "cuda"
+        return bool(self.device_outputs)
+
+    def fit(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray,
+            cell_type_names: Optional[np.ndarray] = None) -> "FlashDeconv":
+        """Run the full pipeline; stores results on the instance.
+        ``cell_type_names`` (one per row of X) is kept as
+        ``cell_type_names_``."""
+        timer = StageTimer()
+        try:
+            Y_sketch, X_sketch, A = self._pipeline_operands(
+                Y, X, coords, cell_type_names, timer)
+            lambda_ = self._resolve_lambda(Y_sketch, X_sketch, A, timer)
+            self.lambda_used_ = lambda_
+            beta_init = None
+            if (self.warm_start and self.beta_ is not None
+                    and self.beta_.shape == (Y.shape[0], X.shape[0])):
+                beta_init = self.beta_
+                self._log("  warm start from the previous beta_")
+            device_out = self._device_out()
+            with timer.stage("solve"):
+                beta, info = self._prepare(Y_sketch, X_sketch, A,
+                                           coords).solve(
+                    lambda_=lambda_, rho=self.rho_sparsity,
+                    max_iter=self.max_iter, tol=self.tol,
+                    verbose=self.verbose, beta_init=beta_init,
+                    return_device=device_out)
+                props = props_dev = dominant = None
+                if device_out:
+                    # Normalise on the device; fetch the proportions in
+                    # fetch_dtype and/or the argmax, per ``outputs``.
+                    props_dev = normalize_proportions_device(
+                        beta if isinstance(beta, torch.Tensor)
+                        else torch.as_tensor(beta, dtype=torch.float32,
+                                             device=self.device))
+                    if "dominant" in self.outputs:
+                        # One byte a spot: every tier takes K <= 256.
+                        dom = torch.argmax(props_dev, dim=1).to(torch.uint8)
+                        dominant = fetch_to_host(dom, np.int64)
+                    if "proportions" in self.outputs:
+                        props = fetch_to_host(self._fetch_cast(props_dev))
+                        props_dev = None
+        except BaseException:
+            # A failed fit must not pin the consume-once operands (on the
+            # streamed path an (N, K) device buffer).
+            self._clear_consume_once()
+            raise
+
+        if device_out:
+            host = isinstance(beta, np.ndarray)
+            self._beta_host = beta if host else None
+            self._beta_dev = None if host else beta
+            self._props_host = props
+            self._props_dev = props_dev
+            self.dominant_ = dominant
+        else:
+            self.beta_ = beta
+            self.proportions_ = normalize_proportions(beta)
+            self.dominant_ = None
         self.info_ = info
         self.timings_ = timer.timings
+        self._fitted = True
         self._log(f"  converged={info['converged']} after "
                   f"{info['n_iterations']} sweeps")
         if self.verbose:
             print(timer.report())
         return self
+
+    def fit_transform(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray,
+                      **kwargs) -> np.ndarray:
+        """Fit (``kwargs`` go to :meth:`fit`) and return the (n_spots,
+        n_cell_types) proportions."""
+        return self.fit(Y, X, coords, **kwargs).proportions_
+
+    def fit_lambda_path(self, Y: ArrayLike, X: np.ndarray,
+                        coords: np.ndarray,
+                        lambdas: Optional[np.ndarray] = None,
+                        cell_type_names: Optional[np.ndarray] = None) -> list:
+        """Solve along a path of spatial-regularisation strengths.
+
+        Runs stages 1-4 once and prepares the solve once (on one device or
+        on the mesh), then solves each lambda in ascending order, each
+        solve warm-started from the previous lambda's beta. ``lambdas``
+        defaults to the auto-tuned lambda times [0.1, 0.3, 1, 3, 10]. The
+        model is left fitted at the last lambda. Returns one dict a lambda:
+        {"lambda", "beta", "proportions", "info"} (host f64 arrays).
+        """
+        timer = StageTimer()
+        try:
+            Y_sketch, X_sketch, A = self._pipeline_operands(
+                Y, X, coords, cell_type_names, timer)
+            if lambdas is None:
+                base = self._resolve_lambda(Y_sketch, X_sketch, A, timer)
+                lambdas = base * np.array([0.1, 0.3, 1.0, 3.0, 10.0])
+            lambdas = np.sort(np.asarray(lambdas, dtype=float))
+            if lambdas.size == 0:
+                raise ValueError("lambdas must be non-empty")
+            if lambdas[0] < 0:
+                raise ValueError(
+                    f"lambdas must be non-negative, got min {lambdas[0]}"
+                )
+            with timer.stage("solver_prepare"):
+                problem = self._prepare(Y_sketch, X_sketch, A, coords)
+        except BaseException:
+            self._clear_consume_once()
+            raise
+
+        results = []
+        beta_prev = None
+        with timer.stage("solve"):
+            for lam in lambdas:
+                self._log(f"  lambda-path solve at lambda = {lam:.4f}")
+                beta, info = problem.solve(
+                    lambda_=float(lam), rho=self.rho_sparsity,
+                    max_iter=self.max_iter, tol=self.tol,
+                    verbose=self.verbose, beta_init=beta_prev,
+                )
+                beta_prev = beta
+                results.append({
+                    "lambda": float(lam),
+                    "beta": beta,
+                    "proportions": normalize_proportions(beta),
+                    "info": info,
+                })
+
+        last = results[-1]
+        self.lambda_used_ = last["lambda"]
+        self.beta_ = last["beta"]
+        self.proportions_ = last["proportions"]
+        # A previous device-output fit's argmax describes that fit.
+        self.dominant_ = None
+        self.info_ = last["info"]
+        self.timings_ = timer.timings
+        self._fitted = True
+        return results
+
+    def get_cell_type_proportions(self) -> np.ndarray:
+        """Normalised proportions; raises if not fitted."""
+        self._check_fitted()
+        return self.proportions_
+
+    def get_abundances(self) -> np.ndarray:
+        """Raw (unnormalised) abundances; raises if not fitted."""
+        self._check_fitted()
+        return self.beta_
+
+    def get_dominant_cell_type(self) -> np.ndarray:
+        """Index of the highest-proportion cell type per spot: the fit's
+        device argmax when it fetched one (``outputs`` with "dominant"),
+        else the argmax of the (possibly lazily fetched) proportions."""
+        self._check_fitted()
+        if self.dominant_ is not None:
+            return self.dominant_
+        return np.argmax(self.proportions_, axis=1)
+
+    def summary(self) -> Dict[str, Any]:
+        """Dictionary summary of parameters and fit statistics."""
+        if not self._fitted:
+            return {"fitted": False}
+        return {
+            "fitted": True,
+            "n_spots": self.n_spots_,
+            "n_cell_types": self.n_cell_types_,
+            "n_genes_used": len(self.gene_idx_),
+            "sketch_dim": self.sketch_dim,
+            "lambda_spatial": self.lambda_used_,
+            "rho_sparsity": self.rho_sparsity,
+            "preprocess_method": self.preprocess,
+            "converged": self.info_["converged"],
+            "n_iterations": self.info_["n_iterations"],
+            "final_objective": self.info_["final_objective"],
+        }
+
+    def save(self, path: str) -> None:
+        """Checkpoint the fitted state to an ``.npz`` file, under the JAX
+        package's keys (either package loads the other's file):
+        beta_, proportions_, gene_idx_, lambda_used_, the convergence
+        record, the sizes, the adjacency and the cell-type names."""
+        self._check_fitted()
+        A = self.adjacency_.tocsr() if self.adjacency_ is not None else None
+        extra = {}
+        if A is not None:
+            extra.update(
+                adj_data=A.data, adj_indices=A.indices, adj_indptr=A.indptr
+            )
+        if self.cell_type_names_ is not None:
+            extra["cell_type_names"] = np.asarray(self.cell_type_names_)
+        np.savez_compressed(
+            path,
+            beta=self.beta_,
+            proportions=self.proportions_,
+            gene_idx=self.gene_idx_,
+            lambda_used=self.lambda_used_,
+            converged=self.info_["converged"],
+            n_iterations=self.info_["n_iterations"],
+            final_objective=self.info_["final_objective"],
+            final_change=self.info_["final_change"],
+            n_spots=self.n_spots_,
+            n_genes=self.n_genes_,
+            n_cell_types=self.n_cell_types_,
+            **extra,
+        )
+
+    @classmethod
+    def load(cls, path: str, **init_kwargs) -> "FlashDeconv":
+        """Restore a fitted model from :meth:`save` output (this package's
+        or the JAX package's); ``init_kwargs`` go to the constructor
+        (``device="cpu"`` on a machine without a card)."""
+        data = np.load(path, allow_pickle=False)
+        model = cls(**init_kwargs)
+        model.beta_ = data["beta"]
+        model.proportions_ = data["proportions"]
+        model.gene_idx_ = data["gene_idx"]
+        model.lambda_used_ = float(data["lambda_used"])
+        model.n_spots_ = int(data["n_spots"])
+        model.n_genes_ = int(data["n_genes"])
+        model.n_cell_types_ = int(data["n_cell_types"])
+        model.cell_type_names_ = (
+            data["cell_type_names"] if "cell_type_names" in data else None
+        )
+        if "adj_data" in data:
+            n = model.n_spots_
+            model.adjacency_ = sparse.csr_matrix(
+                (data["adj_data"], data["adj_indices"], data["adj_indptr"]),
+                shape=(n, n),
+            )
+        else:
+            model.adjacency_ = None
+        model.info_ = {
+            "converged": bool(data["converged"]),
+            "n_iterations": int(data["n_iterations"]),
+            "final_objective": float(data["final_objective"]),
+            "objectives": [],
+            "final_change": float(data["final_change"]),
+        }
+        model._fitted = True
+        return model
+
+    @property
+    def beta_(self):
+        """(n_spots, n_cell_types) float64 abundances. On the
+        device-outputs path the first access fetches beta (then caches
+        the host copy and releases the device tensor)."""
+        if self._beta_host is None and self._beta_dev is not None:
+            self._beta_host = fetch_to_host(self._beta_dev)
+            self._beta_dev = None
+        return self._beta_host
+
+    @beta_.setter
+    def beta_(self, value):
+        self._beta_host = value
+        self._beta_dev = None
+
+    @property
+    def proportions_(self):
+        """(n_spots, n_cell_types) float64 proportions. With
+        ``outputs=("dominant",)`` they stay on the device until the first
+        access, which fetches them in ``fetch_dtype``."""
+        if self._props_host is None and self._props_dev is not None:
+            self._props_host = fetch_to_host(
+                self._fetch_cast(self._props_dev))
+            self._props_dev = None
+        return self._props_host
+
+    @proportions_.setter
+    def proportions_(self, value):
+        self._props_host = value
+        self._props_dev = None
+
+    def _fetch_cast(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` cast on its device to ``fetch_dtype`` (unchanged when
+        unset), so only the narrowed bytes cross to the host."""
+        if self.fetch_dtype is None:
+            return t
+        return t.to(_FETCH_DTYPES[self.fetch_dtype])
 
     @property
     def _is_sharded(self) -> bool:
@@ -370,30 +736,24 @@ class FlashDeconv:
             self.n_shards is not None and self.n_shards > 1
         )
 
-    def _solve(self, Y_sketch, X_sketch, A, coords, lambda_, plan, xty, yty):
-        """Stage 6: the single-device solve, or the spot-sharded one."""
-        kw = dict(lambda_=lambda_, rho=self.rho_sparsity,
-                  max_iter=self.max_iter, tol=self.tol, verbose=self.verbose)
-        if not self._is_sharded:
-            return bcd_solve(Y_sketch, X_sketch, A, coords=coords,
-                             graph_plan=plan, xty=xty, yty=yty,
-                             device=self.device, **kw)
-        from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
+    def _clear_consume_once(self):
+        """Drop the consume-once operands: the fused Xty / YtY (a device
+        tensor on the streamed path) and the graph-plan future."""
+        for name in ("_fused_xty", "_fused_yty", "_graph_plan_future"):
+            self.__dict__.pop(name, None)
 
-        self._log("  solving on a spot-sharded mesh")
-        problem = prepare_sharded_bcd(
-            Y_sketch, X_sketch, A, coords=coords, mesh=self.mesh,
-            n_shards=self.n_shards, verbose=self.verbose, xty=xty, yty=yty,
-            device=self.device,
-        )
-        return problem.solve(**kw)
-
-    def fit_transform(self, Y: ArrayLike, X: np.ndarray, coords: np.ndarray,
-                      **kwargs) -> np.ndarray:
-        """Fit (``kwargs`` go to :meth:`fit`) and return the (n_spots,
-        n_cell_types) proportions."""
-        return self.fit(Y, X, coords, **kwargs).proportions_
+    def _check_fitted(self):
+        if not self._fitted:
+            raise RuntimeError("Model has not been fitted. Call fit() first.")
 
     def _log(self, msg: str):
         if self.verbose:
             print(msg)
+
+    def __repr__(self) -> str:
+        status = "fitted" if self._fitted else "not fitted"
+        return (
+            f"FlashDeconv(sketch_dim={self.sketch_dim}, "
+            f"lambda_spatial={self.lambda_spatial}, "
+            f"status={status})"
+        )

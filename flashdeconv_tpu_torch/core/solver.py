@@ -29,6 +29,13 @@ every K. f64 and K > 256 raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` entry that will port them. The host passes (Gram matrix,
 graph decomposition, YtY) are the port's own copies of the JAX package's
 functions.
+
+Every solve ends either on the device (``return_device=True``: the
+(n_spots, K) f32 beta, un-padded and un-permuted) or in one fetch,
+:func:`fetch_to_host`: the solve-dtype bytes copy into pinned host memory
+in chunks, each cast to f64 on the host while the next one copies — what
+the JAX package's ``device_get`` followed by ``np.asarray(..., float64)``
+does, with the same bits (f32 to f64 is exact).
 """
 
 from __future__ import annotations
@@ -250,6 +257,58 @@ def normalize_proportions(beta: np.ndarray) -> np.ndarray:
     return proportions
 
 
+#: Bytes of one chunk of :func:`fetch_to_host`'s pinned staging ring.
+FETCH_CHUNK_BYTES = 1 << 25
+
+_HOST_DTYPES = {np.dtype(np.float64): torch.float64,
+                np.dtype(np.int64): torch.int64}
+
+
+def fetch_to_host(t: torch.Tensor, dtype=np.float64,
+                  chunk_bytes: int = FETCH_CHUNK_BYTES) -> np.ndarray:
+    """``t`` as a host numpy array of ``dtype`` (float64, or int64 for
+    indices).
+
+    ``t`` keeps its own dtype on the wire: its bytes copy to the host in
+    chunks of ``chunk_bytes`` through two staging buffers, pinned for a
+    CUDA tensor, and each chunk is cast into the output on the host (by
+    torch, on its threads) while the next one copies. A chunk is read
+    only after the event recorded behind its copy has completed, and a
+    buffer is refilled only after its last chunk was cast. The values are
+    those of ``t.to(dtype)`` (every cast used here is exact or rounds
+    once, as on the card), bf16 included, which numpy lacks. A failed pin
+    or copy raises.
+    """
+    src = t.detach().contiguous().reshape(-1)
+    out = torch.empty(src.numel(), dtype=_HOST_DTYPES[np.dtype(dtype)])
+    step = max(1, chunk_bytes // src.element_size())
+    cuda = src.is_cuda
+    stage = [torch.empty(min(step, src.numel()), dtype=src.dtype,
+                         pin_memory=cuda) for _ in range(2)]
+
+    def copy(i):
+        a = i * step
+        chunk = src[a:a + step]
+        buf = stage[i % 2][:chunk.numel()]
+        buf.copy_(chunk, non_blocking=cuda)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(src.device))
+        return a, buf, event
+
+    n_chunks = -(-src.numel() // step)
+    pending = copy(0) if n_chunks else None
+    for i in range(n_chunks):
+        a, buf, event = pending
+        if i + 1 < n_chunks:
+            pending = copy(i + 1)
+        if event is not None:
+            event.synchronize()
+        out[a:a + buf.numel()].copy_(buf)
+    return out.numpy().reshape(tuple(t.shape))
+
+
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``; raises when CUDA is asked for and absent."""
     dev = torch.device(device)
@@ -281,8 +340,9 @@ class BCDProblem:
     the graph. :meth:`solve` then runs only the device loop.
 
     Parameters follow :class:`flashdeconv_tpu.core.solver.BCDProblem`
-    (``max_degree`` caps the gather tier's neighbour table), plus
-    ``device`` ("cuda" by default; raises without a card).
+    (``max_degree`` caps the gather tier's neighbour table; ``xty`` may be
+    an (N, K) tensor, cast and guarded where it lies), plus ``device``
+    ("cuda" by default; raises without a card).
     """
 
     def __init__(
@@ -326,11 +386,15 @@ class BCDProblem:
                               "K > 256")
 
         XtX = precompute_gram_matrix(np.asarray(X_sketch, dtype=np.float64))
-        if xty is None:
-            xty = Y_sketch @ X_sketch.T
-        Xty_raw = torch.from_numpy(
-            np.ascontiguousarray(xty, dtype=np.float32)
-        ).to(dev)
+        if isinstance(xty, torch.Tensor):
+            # Already on the card (the pipeline's streamed feed): cast there.
+            Xty_raw = xty.to(dev, torch.float32)
+        else:
+            if xty is None:
+                xty = Y_sketch @ X_sketch.T
+            Xty_raw = torch.from_numpy(
+                np.ascontiguousarray(xty, dtype=np.float32)
+            ).to(dev)
 
         if graph_plan is not None and hasattr(graph_plan, "result"):
             graph_plan = graph_plan.result()
@@ -478,10 +542,14 @@ class BCDProblem:
         tol: float = 1e-4,
         verbose: bool = False,
         beta_init: Optional[np.ndarray] = None,
+        return_device: bool = False,
     ) -> Tuple[np.ndarray, Dict]:
         """Run the solve; returns ``(beta (n_spots, K) float64, info)``
         with ``info`` = {"converged", "n_iterations", "final_objective",
-        "objectives", "final_change"}."""
+        "objectives", "final_change"}. With ``return_device`` beta stays on
+        the device: the contiguous (n_spots, K) f32 tensor, un-padded and
+        un-permuted (an empty or zero-sweep problem still returns host
+        f64, as in the JAX solver)."""
         if self._degenerate or max_iter == 0:
             return _degenerate_result(self.n_spots, self.n_types)
         lam, rho_eff = f32(lambda_), f32(rho * self.mean_diag)
@@ -489,7 +557,9 @@ class BCDProblem:
             self._beta0(beta_init), self.tier, self._inv_perm_d, lam,
             rho_eff, tol, max_iter, self.n_spots, verbose=verbose,
         )
-        beta = beta_d.to("cpu", torch.float64).numpy()
+        # A contiguous copy: the fused tier's beta is a view of its carry.
+        beta = (beta_d.contiguous() if return_device
+                else fetch_to_host(beta_d))
         return beta, {
             "converged": converged,
             "n_iterations": int(n_iter),
@@ -575,10 +645,12 @@ def bcd_solve(
     xty: Optional[np.ndarray] = None,
     yty: Optional[float] = None,
     device="cuda",
+    return_device: bool = False,
 ) -> Tuple[np.ndarray, Dict]:
     """Solve min 0.5||Y - beta X||^2 + 0.5*lambda Tr(beta^T L beta)
     + rho||beta||_1, beta >= 0, on ``device``; parameters as in
-    :func:`flashdeconv_tpu.core.solver.bcd_solve`."""
+    :func:`flashdeconv_tpu.core.solver.bcd_solve` (``xty`` may be a
+    tensor; ``return_device`` as in :meth:`BCDProblem.solve`)."""
     n_spots = (Y_sketch if Y_sketch is not None else xty).shape[0]
     n_types = X_sketch.shape[0]
     if n_spots == 0 or n_types == 0 or max_iter == 0:
@@ -590,7 +662,7 @@ def bcd_solve(
     )
     return problem.solve(
         lambda_=lambda_, rho=rho, max_iter=max_iter, tol=tol,
-        verbose=verbose, beta_init=beta_init,
+        verbose=verbose, beta_init=beta_init, return_device=return_device,
     )
 
 

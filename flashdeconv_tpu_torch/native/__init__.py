@@ -465,6 +465,43 @@ def _fused_xty_call(ctx, row_start: int, row_end: int, sketch_dim: int,
     return float(out_yty[0])
 
 
+#: Default row-chunk size for the streamed fused-Xty pass — also the
+#: threshold above which the pipeline streams (core/deconv._fused_xty_feed).
+XTY_STREAM_CHUNK_ROWS = 262_144
+
+
+def fused_log1pcpm_xty_chunks(
+    Y, gene_idx: np.ndarray, buckets: np.ndarray, weights: np.ndarray,
+    sketch_dim: int, X_sketch: np.ndarray,
+    chunk_rows: int = XTY_STREAM_CHUNK_ROWS,
+):
+    """Chunked variant of :func:`fused_log1pcpm_xty` for streaming consumers.
+
+    Returns a generator of ``(row_start, row_end, xty_chunk, yty_partial)``
+    — or None when the native path is unavailable. Per-row Xty values are
+    bit-identical to the single-call variant (rows are independent); only
+    the YtY partial-sum association differs, and YtY feeds nothing but the
+    objective constant. The point of chunking: a pipeline can enqueue each
+    chunk's host->device transfer while the kernel computes the next one,
+    hiding the (N, K) upload behind the O(nnz) pass.
+    """
+    ctx = _fused_xty_setup(Y, gene_idx, buckets, weights, X_sketch)
+    if ctx is None:
+        return None
+    return _xty_chunk_gen(ctx, Y.shape[0], sketch_dim, chunk_rows)
+
+
+def _xty_chunk_gen(ctx, n_rows: int, sketch_dim: int, chunk_rows: int):
+    def gen():
+        for a in range(0, n_rows, chunk_rows):
+            b = min(a + chunk_rows, n_rows)
+            out = np.empty((b - a, ctx["n_types"]), dtype=np.float64)
+            yty = _fused_xty_call(ctx, a, b, sketch_dim, out)
+            yield a, b, out, yty
+
+    return gen()
+
+
 def colscale_available(Y) -> bool:
     """True iff the fused subset->column-scale->CountSketch kernels
     (:func:`flashdeconv_tpu.native.fused_colscale_project` /
@@ -536,6 +573,23 @@ def fused_colscale_xty(
     out_xty = np.empty((n_rows, ctx["n_types"]), dtype=np.float64)
     yty = _fused_xty_call(ctx, 0, n_rows, sketch_dim, out_xty)
     return out_xty, yty
+
+
+
+def fused_colscale_xty_chunks(
+    Y, gene_idx: np.ndarray, colscale: Optional[np.ndarray],
+    buckets: np.ndarray, weights: np.ndarray, sketch_dim: int,
+    X_sketch: np.ndarray, chunk_rows: int = XTY_STREAM_CHUNK_ROWS,
+):
+    """Chunked streaming variant of :func:`fused_colscale_xty` (see
+    :func:`fused_log1pcpm_xty_chunks` for the streaming rationale and the
+    chunk-boundary YtY caveat). Returns a generator of
+    ``(row_start, row_end, xty_chunk, yty_partial)`` or None."""
+    ctx = _fused_xty_setup(Y, gene_idx, buckets, weights, X_sketch,
+                           kind="colscale", colscale=colscale)
+    if ctx is None:
+        return None
+    return _xty_chunk_gen(ctx, Y.shape[0], sketch_dim, chunk_rows)
 
 
 def csr_row_sums(Y) -> Optional[np.ndarray]:

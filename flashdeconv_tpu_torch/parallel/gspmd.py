@@ -36,6 +36,7 @@ from scipy import sparse
 from flashdeconv_tpu_torch.core.solver import (
     FUSED_BLOCK,
     FUSED_MAX_H,
+    fetch_to_host,
     precompute_gram_matrix,
     sanitize_yty,
 )
@@ -382,10 +383,12 @@ class GspmdBandedProblem:
         tol: float = 1e-4,
         verbose: bool = False,
         beta_init: Optional[np.ndarray] = None,
+        return_device: bool = False,
     ) -> Tuple[np.ndarray, dict]:
         """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``
         with ``n_shards``, ``n_bands``, ``halo_width`` and
-        ``fused_kernel``."""
+        ``fused_kernel``; with ``return_device`` beta is a contiguous
+        (n_spots, K) f32 tensor on the mesh's main device."""
         extra = dict(n_shards=self.n_shards, n_bands=len(self.offsets),
                      halo_width=self.halo)
         if max_iter == 0:
@@ -411,7 +414,7 @@ class GspmdBandedProblem:
                     max_iter, tol, verbose))
             beta_d = torch.cat(self.mesh.gather(self._data(state[0])),
                                dim=1)[:, :self.n_spots].T
-        beta = beta_d.to("cpu", torch.float64).numpy()
+        beta = beta_d.contiguous() if return_device else fetch_to_host(beta_d)
         return beta, info_dict(n_iter, rel, final_obj, converged, objectives,
                                fused_kernel=self.use_fused, **extra)
 

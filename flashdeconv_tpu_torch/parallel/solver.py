@@ -26,6 +26,7 @@ from scipy import sparse
 
 from flashdeconv_tpu_torch.core.solver import (
     _not_ported,
+    fetch_to_host,
     precompute_gram_matrix,
     resolve_device,
     sanitize_yty,
@@ -304,8 +305,11 @@ class HaloShardedProblem:
         tol: float = 1e-4,
         verbose: bool = False,
         beta_init: Optional[np.ndarray] = None,
+        return_device: bool = False,
     ) -> Tuple[np.ndarray, dict]:
-        """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``."""
+        """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``,
+        or with ``return_device`` beta as an (n_spots, K) f32 tensor on the
+        mesh's main device, un-permuted there."""
         n_spots, n_types, plan = self.n_spots, self.n_types, self.plan
         extra = dict(n_shards=self.n_shards, halo_width=plan.halo_width)
         if max_iter == 0:
@@ -334,7 +338,7 @@ class HaloShardedProblem:
             beta_pad = torch.cat(self.mesh.gather(state[0]), dim=1).T
             beta_d = device_unpermute(self, beta_pad[:n_spots], plan.perm,
                                       n_spots)
-        beta = beta_d.to("cpu", torch.float64).numpy()
+        beta = beta_d if return_device else fetch_to_host(beta_d)
         return beta, info_dict(n_iter, rel, final_obj, converged, objectives,
                                **extra)
 
@@ -392,19 +396,25 @@ class ShardedBCDProblem:
         tol: float = 1e-4,
         verbose: bool = False,
         beta_init: Optional[np.ndarray] = None,
+        return_device: bool = False,
     ) -> Tuple[np.ndarray, dict]:
+        """The inner problem's solve, beta in the original spot order: on
+        the device with ``return_device`` (un-permuted there), else host
+        f64 fetched after the un-permute."""
         perm = self._perm
         validate_beta_init(beta_init, self.n_spots, self.n_types)
         if beta_init is not None and perm is not None:
             beta_init = beta_init[perm]
         beta, info = self._inner.solve(
             lambda_=lambda_, rho=rho, max_iter=max_iter, tol=tol,
-            verbose=verbose, beta_init=beta_init,
+            verbose=verbose, beta_init=beta_init, return_device=True,
         )
-        if perm is not None:
-            out = np.empty_like(beta)
-            out[perm] = beta
-            beta = out
+        # A zero-sweep solve returns uniform host rows: nothing to permute.
+        if isinstance(beta, torch.Tensor):
+            if perm is not None:
+                beta = device_unpermute(self, beta, perm, self.n_spots)
+            if not return_device:
+                beta = fetch_to_host(beta)
         return beta, info
 
 

@@ -142,15 +142,25 @@ def test_wrong_cell_type_names_length_raises(named_fits, model):
         model(**kw).fit(Y, X, coords, cell_type_names=NAMES[:4])
 
 
-@pytest.mark.parametrize("kw", [
-    {"solver_dtype": np.float64}, {"warm_start": True},
-    {"device_outputs": True}, {"fetch_dtype": "float16"},
-    {"fetch_dtype": np.float32}, {"outputs": ("dominant",)},
-    {"outputs": ("proportions", "dominant")},
-])
+@pytest.mark.parametrize("kw", [{"solver_dtype": np.float64}])
 def test_unported_constructor_values_name_their_roadmap_entry(kw):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md, Queue 1: f64 on the GPU"):
         flashdeconv_tpu_torch.FlashDeconv(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"warm_start": True}, {"device_outputs": True},
+    {"fetch_dtype": "float16"}, {"fetch_dtype": np.float32},
+    {"outputs": ("dominant",)}, {"outputs": ("proportions", "dominant")},
+])
+def test_constructor_keeps_the_output_and_surface_keywords(kw):
+    """``warm_start``, ``device_outputs``, ``fetch_dtype`` (by name) and
+    ``outputs`` are kept as the JAX class keeps them."""
+    model = flashdeconv_tpu_torch.FlashDeconv(device="cpu", **kw)
+    ref = flashdeconv_tpu.FlashDeconv(**kw)
+    for key in kw:
+        assert getattr(model, key) == getattr(ref, key)
 
 
 @pytest.mark.parametrize("kw", [

@@ -29,7 +29,7 @@ import torch
 
 from flashdeconv_tpu_torch.core import solver as tsolver
 from flashdeconv_tpu_torch.ops import bcd as tbcd
-from flashdeconv_tpu_torch.utils.graph import build_knn_graph
+from flashdeconv_tpu_torch.utils.graph import build_knn_graph, grid_coords
 from torch_problems import (
     as_torch,
     dropped_grid_coords,
@@ -537,3 +537,55 @@ def test_dense_sketch_data_launches_the_kernel_once(cuda_device):
     hy, hx, _ = sketch_data(Y, X, 256, lev, random_state=0, backend="host")
     np.testing.assert_allclose(ys, hy, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(xs, hx, rtol=1e-5, atol=1e-5)
+
+
+# -- the fetch of beta, return_device and the streamed Xty feed ----------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16", "uint8"])
+@pytest.mark.parametrize("chunk", [1 << 12, 1 << 25])
+def test_fetch_is_bitwise_the_host_copy(cuda_device, dtype, chunk):
+    """``fetch_to_host`` through the pinned staging ring (many chunks, and
+    one), each read only after its copy's event: bit for bit
+    ``tensor.cpu()`` cast on the host, on a tensor a kernel just wrote."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    t = torch.rand((3001, 7), generator=g, device=cuda_device) * 200.0
+    t = t.to(getattr(torch, dtype))
+    want, out = ((torch.int64, np.int64) if dtype == "uint8"
+                 else (torch.float64, np.float64))
+    got = tsolver.fetch_to_host(t * 1, out, chunk_bytes=chunk)
+    np.testing.assert_array_equal(got, t.cpu().to(want).numpy())
+
+
+@pytest.mark.parametrize("grid", [True, False])
+def test_return_device_is_the_host_solve(cuda_device, grid):
+    """The fused (a 96 x 96 grid) and gather tiers: ``return_device`` gives
+    the contiguous f32 beta on the card, whose host copy is the default
+    solve's f64 beta bit for bit."""
+    rng = np.random.RandomState(7)
+    coords = grid_coords(side=96) if grid else rng.rand(5000, 2) * 70
+    X = rng.randn(10, 48)
+    Y = np.abs(rng.randn(coords.shape[0], 10)) @ X \
+        + 0.05 * rng.randn(coords.shape[0], 48)
+    prob = tsolver.prepare_bcd(Y, X, build_knn_graph(coords, k=6),
+                               coords=coords, device=cuda_device)
+    assert prob.use_fused_banded == grid
+    host, info = prob.solve()
+    dev, info_d = prob.solve(return_device=True)
+    assert dev.is_cuda and dev.dtype == torch.float32 and dev.is_contiguous()
+    assert info == info_d
+    np.testing.assert_array_equal(dev.cpu().double().numpy(), host)
+
+
+def test_streamed_xty_is_the_host_cast(cuda_device):
+    """Chunks of a host Xty streamed through two pinned buffers land on the
+    card as their f32 cast, bit for bit, with the partial YtY summed."""
+    from flashdeconv_tpu_torch.core.deconv import stream_xty
+
+    rng = np.random.RandomState(3)
+    xty = rng.randn(10_000, 20) * 100.0
+    chunks = ((a, min(a + 3000, 10_000), xty[a:a + 3000], float(a))
+              for a in range(0, 10_000, 3000))
+    got, yty = stream_xty(chunks, 10_000, 20, cuda_device)
+    assert got.is_cuda and yty == 0.0 + 3000 + 6000 + 9000
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  xty.astype(np.float32))

@@ -7,9 +7,11 @@ A fresh interpreter whose import system refuses the top-level modules
 coordinates) and one fused-tier problem (a 96 x 96 grid) on the CPU, and
 two spot-sharded solves on a mesh of two CPU shards (``parallel/``: the
 banded mesh and the halo plan), then imports ``chip_smoke.py`` and fits
-its dense counts through the dense sketch route (``ops/countsketch.py``).
-A static check holds every module of the port, ``parallel/`` among them,
-and ``chip_smoke.py``, to the same rule.
+its dense counts through the dense sketch route (``ops/countsketch.py``),
+and runs ``tl.deconvolve`` (``tl/`` and ``io/``) on those counts through
+tests/fake_anndata.py. A static check holds every module of the port,
+``parallel/``, ``tl/`` and ``io/`` among them, and ``chip_smoke.py``, to
+the same rule.
 """
 
 import ast
@@ -81,6 +83,22 @@ props = FlashDeconv(device="cpu", n_hvg=300).fit_transform(Y, X, coords)
 assert props.shape == (1500, 6) and np.isfinite(props).all()
 assert "countsketch_project_kernel" in dir(countsketch)
 print("dense", props.shape)
+
+# The AnnData layer: tl.deconvolve on the duck-typed stand-in of
+# tests/fake_anndata.py (pandas only).
+import flashdeconv_tpu_torch as fdt
+from fake_anndata import make_reference_adata, make_spatial_adata
+
+genes = [f"g{i}" for i in range(300)]
+st = make_spatial_adata(Y, coords, gene_names=genes)
+cells = np.vstack([rng.poisson(X[k] / X[k].sum() * 1500, size=(10, 300))
+                   for k in range(6)]).astype(float)
+ref = make_reference_adata(cells, np.repeat([f"t{k}" for k in range(6)], 10),
+                           gene_names=genes)
+fdt.tl.deconvolve(st, ref, n_hvg=300, device="cpu")
+P = np.asarray(st.obsm["flashdeconv"])
+assert P.shape == (1500, 6) and np.allclose(P.sum(axis=1), 1.0)
+print("tl", P.shape, fdt.__version__)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("flashdeconv_tpu", "bench")
              or m.startswith("jax"))
@@ -92,7 +110,8 @@ print("NOJAX_OK")
 def test_port_imports_and_solves_without_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p]
+        [str(ROOT), str(ROOT / "tests")]
+        + [p for p in [env.get("PYTHONPATH")] if p]
     )
     proc = subprocess.run(
         [sys.executable, "-c", CHILD], cwd=ROOT, env=env,
@@ -116,6 +135,9 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert len(files) > 10
     assert ROOT / "flashdeconv_tpu_torch" / "ops" / "countsketch.py" in files
     assert ROOT / "flashdeconv_tpu_torch" / "parallel" / "gspmd.py" in files
+    for module in ("tl/_deconvolve.py", "tl/__init__.py", "io/loader.py",
+                   "io/__init__.py"):
+        assert ROOT / "flashdeconv_tpu_torch" / module in files
     found = [
         f"{path.relative_to(ROOT)}: {name}"
         for path in files for name in _imported_modules(path)
