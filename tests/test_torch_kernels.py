@@ -20,7 +20,10 @@ mesh with several shards on one card bitwise against the single-device
 fused tier, and the halo plan within 1e-5 of the gather tier. Kernel #1
 with the rest stream's ``ns_rest`` input is held against its plain
 version, and the fused tier with the rest stream bitwise against the
-unfused banded tier with the same rest table.
+unfused banded tier with the same rest table. The fetch of a card tensor
+to the host (``fetch_to_host``, through pinned staging buffers) is held
+bit for bit against ``tensor.cpu()``, ``return_device`` against the host
+solve, and the streamed Xty feed against the host cast.
 """
 
 import numpy as np
