@@ -76,7 +76,24 @@ counts set to 0 just before it and read just after:
    them kernel #1's sub-range form is held against its plain version on
    the 1M grid operands at K = 20 and 128 (an interior call and both
    boundary calls, each alone and into one full carry), the three calls'
-   recomposition bitwise equal to the whole sweep, and timed against it.
+   recomposition bitwise equal to the whole sweep, and timed against it;
+6. the XLA tier in f64 (no kernel takes f64, as no Pallas kernel does in
+   the JAX package): the 1M grid at K = 20 prepared in f64 (the unfused
+   banded form), a cold ``solve()`` and warm ``solve()`` and
+   ``solve(return_device=True)`` timed, with sweeps and peak memory; the
+   262,144-spot grid solved in f64 on the card and by the port on the
+   CPU, the same sweeps and beta within 1e-12 of max|beta|; and the
+   262k-grid fit with ``solver_dtype=np.float64``, Pearson > 0.9;
+7. the XLA tier at K = 338 (the Allen whole-mouse-brain atlas's
+   subclasses; no kernel takes K > 256): the 1M grid in f32, the same
+   three solves, each capped at 10 sweeps (the cap is printed when it
+   binds); a 4,096-spot irregular problem (the gather form) on the card
+   and on the CPU, the same sweeps and beta within 1e-5 of max|beta|; and
+   a 4,096-cell fit with ``outputs=("proportions", "dominant")``, whose
+   argmax is fetched as int32 and equals the host argmax. Phases 6 and 7
+   run with every launch count at 0 and must leave them there; each
+   checks that its operands lie on the card and that its tier runs no
+   kernel.
 
 The CountSketch kernel is held against its plain version at 262,144 x
 5,001 -> 512 (and at edge shapes), bitwise against itself, against an f64
@@ -156,6 +173,8 @@ TYPES = 20
 LARGE_TYPES = (96, 128, 256)        # the large-K kernel rows at 1M spots
 SMALL_TYPES = (6, 20, 32, 48, 64)   # the K <= 64 rows at 1M spots
 FIT_LARGE_TYPES = 96
+ATLAS_TYPES = 338                   # Allen whole-mouse-brain subclasses
+XLA_CAP = 10                        # sweeps timed of the 1M x 338 solve
 SKETCH = 512
 FIT_SIDE, FIT_GENES = 512, 2000
 DENSE_GENES = 5001                  # a 10x Xenium Prime 5K panel
@@ -317,16 +336,17 @@ def with_rescue_edges(A):
     return ((A + extra.tocsr()) > 0).astype(np.float64)
 
 
-def prepare_on(coords, A, n_types: int, grid: bool = False):
+def prepare_on(coords, A, n_types: int, grid: bool = False,
+               dtype=np.float32):
     """The port's prepare of a synthetic problem over ``coords`` and graph
     ``A`` (with ``grid``, the numbers of ``bench.make_problem`` for a full
-    grid): (problem, seconds)."""
+    grid) in ``dtype``: (problem, seconds)."""
     from flashdeconv_tpu_torch.core.solver import prepare_bcd
 
     Y, X, _ = make_problem(coords.shape[0], n_types, SKETCH,
                            coords=None if grid else coords)
     t0 = time.perf_counter()
-    prob = prepare_bcd(Y, X, A, coords=coords, device="cuda")
+    prob = prepare_bcd(Y, X, A, coords=coords, dtype=dtype, device="cuda")
     torch.cuda.synchronize()
     return prob, time.perf_counter() - t0
 
@@ -672,8 +692,8 @@ def phase_rest_kernel(prob, label: str) -> dict:
 
     unfused = t.unfused()
     beta_t = bcd.from_fused_carry(carry, t.h, t.block).T.contiguous()
-    uargs = (beta_t, t.Xty_t, t.XtX, t.offsets, unfused.masks, unfused.rest,
-             inv, lam, rho)
+    uargs = (beta_t, t.Xty_t, t.offsets, unfused.masks, unfused.rest,
+             bcd.gs_pass_fn(t.XtX, t.nnb, lam, rho))
     with bcd.full_f32_matmul():
         err = check_rest_kernel(args, nsr, label)
         ms = in_turns(functools.partial(bcd.fused_banded_sweep_reference,
@@ -1411,6 +1431,8 @@ def phase_halo_split(inner, reps: int = 5) -> None:
     ops = dict(inner._ops)
     ops["inv_den"] = [bcd.gs_inv_den(x, n, lam) for x, n in
                       zip(ops["XtX"], ops["nnb"])]
+    ops["gs"] = [bcd.gs_pass_fn(x, n, lam, rho) for x, n in
+                 zip(ops["XtX"], ops["nnb"])]
     betas = inner._beta0(None)
     spares = [torch.empty_like(b) for b in betas]
 
@@ -1436,8 +1458,7 @@ def phase_halo_split(inner, reps: int = 5) -> None:
                     ops["inv_den"][s], lam, rho, out=spares[s])
         mesh.gather([])
 
-    fns = {"sweep": lambda: psolver._sharded_sweep(mesh, betas, spares, ops,
-                                                   lam, rho),
+    fns = {"sweep": lambda: psolver._sharded_sweep(mesh, betas, spares, ops),
            "neighbour sums": neighbour_sums, "kernel #2": kernels}
     ms = {}
     with bcd.full_f32_matmul():
@@ -1453,6 +1474,152 @@ def phase_halo_split(inner, reps: int = 5) -> None:
             ms[name] = start.elapsed_time(stop) / reps
     log(f"[mesh] 1M irregular halo sweep on 2 shards, ms per sweep (CUDA "
         f"events, {reps} sweeps each): {ms}")
+
+
+# -- the XLA tier: f64 at any K, and K > 256 ------------------------------------
+
+def xla_tier(prob, label: str) -> None:
+    """``prob`` must lie on the card and have taken the XLA tier (no
+    kernel takes its dtype or K)."""
+    t = prob.tier
+    if not (t.Xty_t.is_cuda and t.XtX.is_cuda and t.nnb.is_cuda):
+        raise AssertionError(f"{label}: operands are not on the card")
+    if t.uses_kernel or type(t).__name__ == "FusedBandedTier":
+        raise AssertionError(f"{label}: a kernel's tier took the problem")
+    log(f"[xla tier] {label}: {type(t).__name__}, {prob.n_spots} spots, "
+        f"K={prob.n_types}, {t.Xty_t.dtype}")
+
+
+def timed_solves(prob, label: str, **solve) -> dict:
+    """A cold ``solve()``, then warm ``solve()`` and
+    ``solve(return_device=True)``, each ended by a synchronize and timed
+    by the host clock, with the peak memory; the device beta must be the
+    host one, in the solve dtype. Returns the last info."""
+    runs = {}
+    for name, ret in (("cold solve()", False), ("warm solve()", False),
+                      ("warm solve(return_device=True)", True)):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beta, info = prob.solve(return_device=ret, **solve)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[name] = beta
+        log(f"[{label}] {name}: {dt:.4f} s, {info['n_iterations']} sweeps "
+            f"({dt / info['n_iterations'] * 1e3:.3f} ms a sweep, the fetch "
+            f"included where there is one), converged {info['converged']}, "
+            f"objective {info['final_objective']:.9g}, peak "
+            f"{torch.cuda.max_memory_allocated()} B allocated")
+    dev = runs["warm solve(return_device=True)"]
+    if not (dev.is_cuda and dev.dtype == prob.tier.Xty_t.dtype):
+        raise AssertionError(f"{label}: return_device gave {dev.dtype} on "
+                             f"{dev.device}")
+    if not (np.array_equal(dev.cpu().double().numpy(), runs["warm solve()"])
+            and np.array_equal(runs["cold solve()"], runs["warm solve()"])):
+        raise AssertionError(f"{label}: the solves disagree")
+    if not np.isfinite(runs["warm solve()"]).all():
+        raise AssertionError(f"{label}: non-finite beta")
+    return info
+
+
+def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str) -> None:
+    """The same problem solved on the card and by the port on the CPU: the
+    same sweeps and beta within ``bound`` of max|beta|."""
+    from flashdeconv_tpu_torch.core.solver import prepare_bcd
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        prob = prepare_bcd(Y, X, A, coords=coords, dtype=dtype, device=dev)
+        if dev == "cuda":
+            xla_tier(prob, f"{label} on the card")
+        beta, info = prob.solve(**SOLVE)
+        out[dev] = (beta, info["n_iterations"], time.perf_counter() - t0)
+    (bc, ic, tc), (bh, ih, th) = out["cuda"], out["cpu"]
+    err = float(np.abs(bc - bh).max() / np.abs(bh).max())
+    log(f"[{label}] card vs CPU: {ic} vs {ih} sweeps, max |beta_card - "
+        f"beta_cpu| / max|beta_cpu| = {err:.3e} (bound {bound:g}); "
+        f"prepare + solve {tc:.2f} s on the card, {th:.2f} s on the CPU")
+    if ic != ih or not err <= bound:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+
+
+def phase_f64() -> dict:
+    """The f64 solve on the card (see the module docstring, item 6).
+    Returns {} (no kernel may launch)."""
+    t_phase = time.perf_counter()
+    coords, A = knn_graph(SPOTS, False)
+    prob, prob_s = prepare_on(coords, A, TYPES, grid=True, dtype=np.float64)
+    xla_tier(prob, "1M grid f64")
+    log(f"[f64] 1M grid prepare {prob_s:.3f} s")
+    timed_solves(prob, "f64", **SOLVE)
+    del prob
+    torch.cuda.empty_cache()
+    from flashdeconv_tpu_torch.utils import build_knn_graph, grid_coords
+
+    c262 = grid_coords(side=FIT_SIDE)
+    Y, X, _ = make_problem(FIT_SIDE ** 2, TYPES, SKETCH)
+    card_vs_cpu(Y, X, build_knn_graph(c262, k=6), c262, np.float64, 1e-12,
+                "f64")
+    phase_fit("262k grid f64", c262, float(FIT_SIDE), FIT_GENES,
+              runs=("once",), counts=grid_fit_counts,
+              model_kw={"solver_dtype": np.float64})
+    log(f"[f64] phase {time.perf_counter() - t_phase:.1f} s")
+    return {}
+
+
+def phase_atlas_k() -> dict:
+    """K = 338 on the card (see the module docstring, item 7). Returns {}
+    (no kernel may launch)."""
+    from flashdeconv_tpu_torch import FlashDeconv
+    from flashdeconv_tpu_torch.core import deconv
+    from flashdeconv_tpu_torch.utils import build_knn_graph
+
+    t_phase = time.perf_counter()
+    coords, A = knn_graph(SPOTS, False)
+    prob, prob_s = prepare_on(coords, A, ATLAS_TYPES, grid=True)
+    xla_tier(prob, f"1M grid K={ATLAS_TYPES}")
+    log(f"[large K] 1M grid K={ATLAS_TYPES} prepare {prob_s:.3f} s; "
+        f"(K, N) f32 buffer {4 * ATLAS_TYPES * SPOTS} B")
+    info = timed_solves(prob, "large K", **dict(SOLVE, max_iter=XLA_CAP))
+    log(f"[large K] 1M grid K={ATLAS_TYPES}: "
+        + ("converged" if info["converged"] else
+           f"capped at max_iter={XLA_CAP} sweeps (rel "
+           f"{info['final_change']:.3e} > tol {SOLVE['tol']})"))
+    del prob
+    torch.cuda.empty_cache()
+
+    c4k = irregular_coords(4096)
+    A4k = build_knn_graph(c4k, k=6)
+    Y, X, _ = make_problem(4096, ATLAS_TYPES, SKETCH, coords=c4k)
+    card_vs_cpu(Y, X, A4k, c4k, np.float32, 1e-5, "large K")
+
+    Yc, Xc, truth = synthetic_counts(c4k, 64.0, FIT_GENES, ATLAS_TYPES,
+                                     width=0.1, depth=6000.0)
+    wire = []
+    fetch = deconv.fetch_to_host
+
+    def spy(t, *a, **k):
+        wire.append(t.dtype)
+        return fetch(t, *a, **k)
+
+    deconv.fetch_to_host = spy
+    try:
+        model = FlashDeconv(sketch_dim=SKETCH, n_hvg=FIT_GENES,
+                            outputs=("proportions", "dominant"))
+        model.fit(Yc, Xc, c4k)
+    finally:
+        deconv.fetch_to_host = fetch
+    agree = np.array_equal(model.dominant_,
+                           np.argmax(model.proportions_, axis=1))
+    log(f"[large K] 4096-cell K={ATLAS_TYPES} fit: dominant fetched as "
+        f"{[str(d) for d in wire]}, equal to the host argmax {agree}, "
+        f"{model.info_['n_iterations']} sweeps")
+    if torch.int32 not in wire or torch.uint8 in wire or not agree:
+        raise AssertionError("the K = 338 dominant is not int32 or "
+                             "disagrees with the host argmax")
+    log(f"[large K] phase {time.perf_counter() - t_phase:.1f} s")
+    return {}
 
 
 # -- the panel kernels alone (--large-k) -----------------------------------------
@@ -1860,6 +2027,10 @@ def main() -> None:
     halo = {}
     sharded_launches = counted(kernels, lambda: phase_sharded(halo))
     phase_halo_split(halo.pop("prob"))
+
+    # The XLA tier (f64, and K > 256): no kernel launches.
+    counted(kernels, phase_f64)
+    counted(kernels, phase_atlas_k)
     knn_graph.cache_clear()
     grid_fit_counts.cache_clear()
     REFERENCE.clear()

@@ -18,9 +18,9 @@ proportions are normalised there and fetched in ``fetch_dtype``, the
 dominant type is a device argmax, and ``beta_`` / ``proportions_`` fetch
 lazily. Besides :meth:`FlashDeconv.fit` the class has ``warm_start``,
 :meth:`~FlashDeconv.fit_lambda_path`, the getters, ``summary`` and
-``save`` / ``load`` (the JAX package's ``.npz`` keys). An f64
-``solver_dtype`` raises ``NotImplementedError`` naming its ``ROADMAP.md``
-entry; ``fit_distributed`` (multi-process) is not ported.
+``save`` / ``load`` (the JAX package's ``.npz`` keys). ``solver_dtype``
+float64, or more than 256 cell types, solves on the JAX package's XLA
+tier; ``fit_distributed`` (multi-process) is not ported.
 """
 
 from __future__ import annotations
@@ -47,12 +47,12 @@ from flashdeconv_tpu_torch.core.sketching import (
 )
 from flashdeconv_tpu_torch.core.solver import (
     GraphDecomposition,
-    _not_ported,
     fetch_to_host,
     normalize_proportions,
     normalize_proportions_device,
     prepare_bcd,
     resolve_device,
+    solve_dtype,
 )
 from flashdeconv_tpu_torch.core.spatial import auto_tune_lambda
 from flashdeconv_tpu_torch.utils.genes import select_informative_genes
@@ -65,21 +65,22 @@ _FETCH_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
                  "float32": torch.float32}
 
 
-def stream_xty(chunks, n_rows: int, n_types: int,
-               device: torch.device) -> Tuple[torch.Tensor, float]:
-    """The (n_rows, n_types) f32 Xty on ``device`` and YtY from the chunks
-    of a native ``*_xty_chunks`` generator.
+def stream_xty(chunks, n_rows: int, n_types: int, device: torch.device,
+               dtype: torch.dtype = torch.float32
+               ) -> Tuple[torch.Tensor, float]:
+    """The (n_rows, n_types) Xty in ``dtype`` (the solve's) on ``device``
+    and YtY from the chunks of a native ``*_xty_chunks`` generator.
 
-    Each chunk is cast to f32 on the host into one of two staging buffers
-    (pinned for a CUDA device) and its copy to the device is queued at
-    once, so it runs while the generator computes the next chunk. A buffer
-    is refilled only after the event recorded behind its last copy has
-    completed, so no host bytes are overwritten or freed under a copy in
-    flight. The f32 values are those of ``np.float32(xty)``, the cast
+    Each chunk is cast to ``dtype`` on the host into one of two staging
+    buffers (pinned for a CUDA device) and its copy to the device is queued
+    at once, so it runs while the generator computes the next chunk. A
+    buffer is refilled only after the event recorded behind its last copy
+    has completed, so no host bytes are overwritten or freed under a copy
+    in flight. The values are those of the cast
     :class:`~flashdeconv_tpu_torch.core.solver.BCDProblem` makes of a host
     Xty.
     """
-    xty = torch.empty((n_rows, n_types), dtype=torch.float32, device=device)
+    xty = torch.empty((n_rows, n_types), dtype=dtype, device=device)
     cuda = xty.is_cuda
     stage, events, yty = [None, None], [None, None], 0.0
     for i, (a, b, part, yty_part) in enumerate(chunks):
@@ -87,7 +88,7 @@ def stream_xty(chunks, n_rows: int, n_types: int,
         if events[slot] is not None:
             events[slot].synchronize()
         if stage[slot] is None or stage[slot].shape[0] < b - a:
-            stage[slot] = torch.empty((b - a, n_types), dtype=torch.float32,
+            stage[slot] = torch.empty((b - a, n_types), dtype=dtype,
                                       pin_memory=cuda)
         buf = stage[slot][:b - a]
         buf.copy_(torch.from_numpy(part))
@@ -121,9 +122,10 @@ class FlashDeconv:
     On that path ``fetch_dtype`` ("float16", "bfloat16", "float32") casts
     the proportions on the device before the fetch, and ``outputs``
     chooses what is fetched: "proportions" and/or "dominant" (the device
-    argmax, uint8 on the wire). ``warm_start`` starts each fit from the
-    previous fit's ``beta_`` when the shapes match. An f64 ``solver_dtype``
-    raises ``NotImplementedError`` naming its ``ROADMAP.md`` entry.
+    argmax, uint8 on the wire at K <= 256, int32 above). ``warm_start``
+    starts each fit from the previous fit's ``beta_`` when the shapes
+    match. ``solver_dtype`` (float32 or float64) is the solve's dtype, of
+    its operands and of the device beta.
 
     Attributes (after fit): ``beta_``, ``proportions_``, ``dominant_``,
     ``gene_idx_``, ``info_``, ``lambda_used_``, ``adjacency_``,
@@ -209,9 +211,7 @@ class FlashDeconv:
                 "outputs must be a non-empty subset of "
                 f"('proportions', 'dominant'); got {outputs!r}"
             )
-        if np.dtype(solver_dtype) != np.float32:
-            raise _not_ported(f"solver_dtype={np.dtype(solver_dtype).name}",
-                              "f64 on the GPU")
+        solve_dtype(solver_dtype)
         self.device = resolve_device(device)
         self.sketch_dim = sketch_dim
         self.lambda_spatial = lambda_spatial
@@ -407,7 +407,8 @@ class FlashDeconv:
         if self._streams_xty(Y.shape[0]):
             chunks = chunked(*args, chunk_rows=native.XTY_STREAM_CHUNK_ROWS)
             res = None if chunks is None else stream_xty(
-                chunks, Y.shape[0], X_sketch.shape[0], self.device)
+                chunks, Y.shape[0], X_sketch.shape[0], self.device,
+                solve_dtype(self.solver_dtype))
         else:
             res = full(*args)
         if res is None:
@@ -437,7 +438,8 @@ class FlashDeconv:
         yty = self.__dict__.pop("_fused_yty", None)
         if not self._is_sharded:
             return prepare_bcd(
-                Y_sketch, X_sketch, A, coords=coords, xty=xty, yty=yty,
+                Y_sketch, X_sketch, A, dtype=self.solver_dtype,
+                coords=coords, xty=xty, yty=yty,
                 graph_plan=self.__dict__.pop("_graph_plan_future", None),
                 device=self.device,
             )
@@ -446,8 +448,8 @@ class FlashDeconv:
         self._log("  solving on a spot-sharded mesh")
         return prepare_sharded_bcd(
             Y_sketch, X_sketch, A, coords=coords, mesh=self.mesh,
-            n_shards=self.n_shards, verbose=self.verbose, xty=xty, yty=yty,
-            device=self.device,
+            n_shards=self.n_shards, dtype=self.solver_dtype,
+            verbose=self.verbose, xty=xty, yty=yty, device=self.device,
         )
 
     def _device_out(self) -> bool:
@@ -486,11 +488,14 @@ class FlashDeconv:
                     # fetch_dtype and/or the argmax, per ``outputs``.
                     props_dev = normalize_proportions_device(
                         beta if isinstance(beta, torch.Tensor)
-                        else torch.as_tensor(beta, dtype=torch.float32,
-                                             device=self.device))
+                        else torch.as_tensor(
+                            beta, dtype=solve_dtype(self.solver_dtype),
+                            device=self.device))
                     if "dominant" in self.outputs:
-                        # One byte a spot: every tier takes K <= 256.
-                        dom = torch.argmax(props_dev, dim=1).to(torch.uint8)
+                        # One byte a spot where K allows it, as in JAX.
+                        dom = torch.argmax(props_dev, dim=1).to(
+                            torch.uint8 if beta.shape[1] <= 256
+                            else torch.int32)
                         dominant = fetch_to_host(dom, np.int64)
                     if "proportions" in self.outputs:
                         props = fetch_to_host(self._fetch_cast(props_dev))

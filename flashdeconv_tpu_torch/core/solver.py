@@ -22,16 +22,20 @@ on an explicit torch device:
   degree-capped padded neighbour table with an overflow list for hubs,
   then the coordinate-descent kernel.
 
-Every tier takes f32 and 1 <= K <= 256: its kernel runs the register
-Gauss-Seidel pass at K <= 64 and the panel pass (panels of 16
-coordinates) above, with the fused tier's 4096-spot block and halo rule at
-every K. f64 and K > 256 raise ``NotImplementedError`` naming the
-``ROADMAP.md`` entry that will port them. The host passes (Gram matrix,
-graph decomposition, YtY) are the port's own copies of the JAX package's
-functions.
+At f32 with 1 <= K <= 256 every tier launches its kernel, which runs the
+register Gauss-Seidel pass at K <= 32 and the panel pass above, with the
+fused tier's 4096-spot block and halo rule at every K. An f64 solve, or
+one of K > 256, runs the JAX package's XLA tier instead
+(:func:`flashdeconv_tpu_torch.ops.bcd.coordinate_descent`), as the JAX
+solver does wherever its Pallas kernels do not take the problem: the
+unfused banded form on a banded graph (a grid the fused tier would take
+at f32 included), the gather form on any other. The host passes (Gram
+matrix, graph decomposition, YtY) are the port's own copies of the JAX
+package's functions.
 
 Every solve ends either on the device (``return_device=True``: the
-(n_spots, K) f32 beta, un-padded and un-permuted) or in one fetch,
+(n_spots, K) beta in the solve dtype, un-padded and un-permuted) or in one
+fetch,
 :func:`fetch_to_host`: the solve-dtype bytes copy into pinned host memory
 in chunks, each cast to f64 on the host while the next one copies — what
 the JAX package's ``device_get`` followed by ``np.asarray(..., float64)``
@@ -49,15 +53,15 @@ from scipy import sparse
 from flashdeconv_tpu_torch import native
 from flashdeconv_tpu_torch.ops.bcd import (
     KERNEL_MAX_BANDS,
-    KERNEL_MAX_K,
     BandedTier,
     FusedBandedTier,
     GatherTier,
     Tier,
     build_fused_rest_tables,
-    f32,
     fused_solve,
+    kernel_takes,
     overflow_table,
+    scalar,
 )
 from flashdeconv_tpu_torch.utils.graph import (
     adjacency_to_padded,
@@ -91,6 +95,45 @@ def precompute_gram_matrix(X_sketch: np.ndarray) -> np.ndarray:
             "preprocessing."
         )
     return XtX
+
+
+def soft_threshold(x: float, threshold: float) -> float:
+    """Scalar soft-thresholding prox (host convenience / parity helper)."""
+    if x > threshold:
+        return x - threshold
+    if x < -threshold:
+        return x + threshold
+    return 0.0
+
+
+def precompute_XtY(X_sketch: np.ndarray, Y_sketch: np.ndarray) -> np.ndarray:
+    """H = X_sketch @ Y_sketch.T, shape (K, N) — computed once per solve."""
+    return X_sketch @ Y_sketch.T
+
+
+def compute_objective(
+    beta: np.ndarray,
+    H: np.ndarray,
+    XtX: np.ndarray,
+    YtY: float,
+    L: sparse.spmatrix,
+    lambda_: float,
+    rho: float,
+) -> float:
+    """Objective via the algebraic expansion (host/numpy reference form).
+
+    0.5*(YtY - 2 Tr(Y^T beta X) + Tr(beta^T beta XtX))
+    + 0.5*lambda*Tr(beta^T L beta) + rho*||beta||_1
+
+    The 0.5 on the Laplacian term matches the coordinate-update convention
+    used by :func:`bcd_solve` (lambda enters the denominator undoubled).
+    """
+    cross = float(np.sum(beta * H.T))
+    quad = float(np.sum((beta.T @ beta) * XtX))
+    fidelity = 0.5 * (YtY - 2.0 * cross + quad)
+    spatial = 0.5 * lambda_ * float(np.sum(beta * (L @ beta)))
+    sparsity = rho * float(np.sum(np.abs(beta)))
+    return fidelity + spatial + sparsity
 
 
 def sanitize_yty(
@@ -263,6 +306,20 @@ FETCH_CHUNK_BYTES = 1 << 25
 _HOST_DTYPES = {np.dtype(np.float64): torch.float64,
                 np.dtype(np.int64): torch.int64}
 
+#: The solve dtypes, numpy to torch: f32 (the kernels' and the default) and
+#: f64 (the XLA tier at any K).
+SOLVE_DTYPES = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.float64): torch.float64}
+
+
+def solve_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a solve ``dtype`` (float32 or float64)."""
+    try:
+        return SOLVE_DTYPES[np.dtype(dtype)]
+    except KeyError:
+        raise ValueError(f"solve dtype must be float32 or float64, got "
+                         f"{np.dtype(dtype).name}") from None
+
 
 def fetch_to_host(t: torch.Tensor, dtype=np.float64,
                   chunk_bytes: int = FETCH_CHUNK_BYTES) -> np.ndarray:
@@ -322,13 +379,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, entry: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to flashdeconv_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1: {entry}); use flashdeconv_tpu for this problem"
-    )
-
-
 class BCDProblem:
     """A prepared solve: the tier's device operands + graph layout.
 
@@ -340,7 +390,8 @@ class BCDProblem:
     the graph. :meth:`solve` then runs only the device loop.
 
     Parameters follow :class:`flashdeconv_tpu.core.solver.BCDProblem`
-    (``max_degree`` caps the gather tier's neighbour table; ``xty`` may be
+    (``dtype`` float32 or float64, the operands' and the solve's;
+    ``max_degree`` caps the gather tier's neighbour table; ``xty`` may be
     an (N, K) tensor, cast and guarded where it lies), plus ``device``
     ("cuda" by default; raises without a card).
     """
@@ -359,6 +410,7 @@ class BCDProblem:
         device="cuda",
     ):
         dev = resolve_device(device)
+        tdtype = solve_dtype(dtype)
         if Y_sketch is None and (xty is None or yty is None):
             raise ValueError(
                 "Y_sketch=None requires both xty and yty precomputed"
@@ -374,26 +426,20 @@ class BCDProblem:
                       else xty.shape[0])
         n_types = int(X_sketch.shape[0])
         self.n_spots, self.n_types = n_spots, n_types
-        self.device = dev
+        self.device, self.dtype = dev, tdtype
         self._degenerate = n_spots == 0 or n_types == 0
         if self._degenerate:
             return
-        if np.dtype(dtype) != np.float32:
-            raise _not_ported(f"dtype={np.dtype(dtype).name}",
-                              "f64 on the GPU")
-        if n_types > KERNEL_MAX_K:
-            raise _not_ported(f"K = {n_types} > {KERNEL_MAX_K}",
-                              "K > 256")
 
         XtX = precompute_gram_matrix(np.asarray(X_sketch, dtype=np.float64))
         if isinstance(xty, torch.Tensor):
             # Already on the card (the pipeline's streamed feed): cast there.
-            Xty_raw = xty.to(dev, torch.float32)
+            Xty_raw = xty.to(dev, tdtype)
         else:
             if xty is None:
                 xty = Y_sketch @ X_sketch.T
             Xty_raw = torch.from_numpy(
-                np.ascontiguousarray(xty, dtype=np.float32)
+                np.ascontiguousarray(xty, dtype=np.dtype(dtype))
             ).to(dev)
 
         if graph_plan is not None and hasattr(graph_plan, "result"):
@@ -402,7 +448,9 @@ class BCDProblem:
             graph_plan = GraphDecomposition(A, n_spots, coords=coords)
         A_solve = graph_plan.A_solve.tocsr()
         fused = None
-        if graph_plan.use_banded:
+        # The fused tier is a kernel's: f32 with K <= 256 only (JAX plans
+        # it only on its Pallas tier).
+        if graph_plan.use_banded and kernel_takes(tdtype, n_types):
             fused = fused_decomposition(graph_plan.offsets, graph_plan.masks,
                                         graph_plan.A_rest, A_solve.nnz)
         n_solve = (-(-n_spots // FUSED_BLOCK) * FUSED_BLOCK if fused
@@ -459,8 +507,7 @@ class BCDProblem:
             else:
                 rest = np.zeros((0, n_spots), dtype=np.int32)
             tier = self._tier(
-                BandedTier, masks=self._to_dev(graph_plan.masks,
-                                               torch.float32),
+                BandedTier, masks=self._to_dev(graph_plan.masks, tdtype),
                 offsets=tuple(int(o) for o in graph_plan.offsets),
                 rest=self._to_dev(rest, torch.int32), **common)
         else:
@@ -495,11 +542,11 @@ class BCDProblem:
                     rest_slot_cols=self._to_dev(slot_cols, torch.int64))
 
     def _tier(self, cls, *, Xty_t, XtX, nnb, YtY, **graph) -> Tier:
-        """A ``cls`` tier over device copies of the shared operands and
-        the given graph operands."""
-        return cls(Xty_t=self._to_dev(Xty_t, torch.float32),
-                   XtX=self._to_dev(XtX, torch.float32),
-                   nnb=self._to_dev(nnb, torch.float32), YtY=float(YtY),
+        """A ``cls`` tier over device copies of the shared operands, in the
+        solve dtype, and the given graph operands."""
+        return cls(Xty_t=self._to_dev(Xty_t, self.dtype),
+                   XtX=self._to_dev(XtX, self.dtype),
+                   nnb=self._to_dev(nnb, self.dtype), YtY=float(YtY),
                    **graph)
 
     def _attach(self, tier: Tier, *, mean_diag: float, inv_perm):
@@ -527,10 +574,11 @@ class BCDProblem:
                 f"beta_init shape {beta_init.shape} does not match "
                 f"({self.n_spots}, {self.n_types})"
             )
-        b0 = np.maximum(np.asarray(beta_init, dtype=np.float32), 0.0)
+        np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        b0 = np.maximum(np.asarray(beta_init, dtype=np_dtype), 0.0)
         if self.perm is not None:
             b0 = b0[self.perm]
-        full = np.zeros((self.n_solve, self.n_types), dtype=np.float32)
+        full = np.zeros((self.n_solve, self.n_types), dtype=np_dtype)
         full[: self.n_spots] = b0
         return torch.from_numpy(full).to(self.device)
 
@@ -547,12 +595,13 @@ class BCDProblem:
         """Run the solve; returns ``(beta (n_spots, K) float64, info)``
         with ``info`` = {"converged", "n_iterations", "final_objective",
         "objectives", "final_change"}. With ``return_device`` beta stays on
-        the device: the contiguous (n_spots, K) f32 tensor, un-padded and
-        un-permuted (an empty or zero-sweep problem still returns host
-        f64, as in the JAX solver)."""
+        the device: the contiguous (n_spots, K) tensor in the solve dtype,
+        un-padded and un-permuted (an empty or zero-sweep problem still
+        returns host f64, as in the JAX solver)."""
         if self._degenerate or max_iter == 0:
             return _degenerate_result(self.n_spots, self.n_types)
-        lam, rho_eff = f32(lambda_), f32(rho * self.mean_diag)
+        lam = scalar(lambda_, self.dtype)
+        rho_eff = scalar(rho * self.mean_diag, self.dtype)
         beta_d, n_iter, rel, converged, objectives = fused_solve(
             self._beta0(beta_init), self.tier, self._inv_perm_d, lam,
             rho_eff, tol, max_iter, self.n_spots, verbose=verbose,
@@ -589,6 +638,7 @@ def problem_from_arrays(
     K = np.shape(arrays["Xty_t_d"])[0]
     prob.n_spots, prob.n_types = int(n_spots), int(K)
     prob.device = resolve_device(device)
+    prob.dtype = torch.float32
     prob._degenerate = False
     prob.perm = None
     inv_perm = arrays.get("_inv_perm_d")

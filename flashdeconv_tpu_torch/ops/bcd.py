@@ -15,10 +15,14 @@ coordinates of each spot) with the per-solve reciprocal denominator
   only (:func:`build_fused_rest_tables`, :func:`rest_ns_update`);
 - the unfused banded tier (:func:`bcd_sweep_banded`) and the gather tier
   (:func:`bcd_sweep`) form the neighbour sums in plain PyTorch — shifted
-  slices times f32 masks plus a rest table, or a padded neighbour table
-  with a zero sentinel column and an overflow table for degree-capped
-  hubs — and then launch ``csrc/cd_block_sweep.cu``
-  (:func:`coordinate_descent_block`).
+  slices times masks plus a rest table, or a padded neighbour table with a
+  zero sentinel column and an overflow table for degree-capped hubs — and
+  then run their Gauss-Seidel pass (:func:`gs_pass_fn`): at f32 with
+  K <= 256 a launch of ``csrc/cd_block_sweep.cu``
+  (:func:`coordinate_descent_block`), otherwise :func:`coordinate_descent`,
+  the JAX package's XLA tier (f64 at any K, and K > 256): one coordinate
+  at a time for all spots, a maintained residual ``r = XtX^T beta`` with a
+  rank-1 refresh, its denominator formed inside the sweep.
 
 Both kernels run one Gauss-Seidel device function — ``csrc/gs_pass.cuh``
 at K <= 32, the panel pass of ``csrc/gs_pass_panel.cuh`` at 32 < K <= 256
@@ -82,6 +86,26 @@ def f32(x) -> float:
     return float(np.float32(x))
 
 
+def scalar(x, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (float32 or float64), as a Python float:
+    the solve's scalars (lambda, rho, tol) in its dtype, as the JAX solver
+    makes them ``jnp.asarray(x, dtype)``."""
+    return f32(x) if dtype == torch.float32 else float(x)
+
+
+def kernel_takes(dtype: torch.dtype, n_types: int) -> bool:
+    """Whether the sweep kernels take a solve of this dtype and K: f32 with
+    K <= ``KERNEL_MAX_K``. Every other solve runs :func:`coordinate_descent`,
+    as the JAX package runs its XLA tier on every problem its Pallas
+    kernels do not take."""
+    return dtype == torch.float32 and n_types <= KERNEL_MAX_K
+
+
+def soft_threshold(x: torch.Tensor, threshold) -> torch.Tensor:
+    """Elementwise soft-thresholding prox for the L1 penalty."""
+    return torch.sign(x) * torch.clamp_min(torch.abs(x) - threshold, 0.0)
+
+
 def _gs_panel_width(n_types: int) -> Optional[int]:
     """Panel width :func:`gs_pass` uses at this K — None = classic pass."""
     if n_types <= _GS_PANEL_ENGAGE_K:
@@ -96,7 +120,7 @@ def gs_inv_den(XtX: torch.Tensor, n_nbrs: torch.Tensor, lam) -> torch.Tensor:
     without a branch. ``n_nbrs``: (B,) or (1, B) degrees. Returns (K, B).
     """
     diag = torch.diagonal(XtX)[:, None]
-    den = diag + f32(lam) * n_nbrs.reshape(1, -1).to(XtX.dtype)
+    den = diag + scalar(lam, XtX.dtype) * n_nbrs.reshape(1, -1).to(XtX.dtype)
     return torch.where(den > 1e-10, 1.0 / den, torch.zeros_like(den))
 
 
@@ -719,26 +743,96 @@ coordinate_descent_block.launches = 0
 coordinate_descent_block.large_k_launches = 0
 
 
-def bcd_sweep(beta_t, Xty_t, XtX, nbr_t, inv_den_t, lambda_, rho,
-              overflow=None, out=None):
+def _coord_update(beta, r, k: int, Xty_t, XtX, ns_t, lam_nnb, lambda_,
+                  rho) -> None:
+    """Gauss-Seidel update of coordinate k for every spot at once, in place
+    on ``beta`` and the maintained residual ``r`` (both (K, n)): the JAX
+    ``_coord_update``. ``lam_nnb`` is ``lambda * degree`` (n,)."""
+    old = beta[k]
+    diag_k = XtX[k, k]
+    # Partial residual without coordinate k's own term, plus the pull
+    # toward the neighbour sum; relu(resid - rho) / denom is the
+    # soft-thresholded, clamped 1-D minimiser.
+    resid = Xty_t[k] - r[k] + diag_k * old + lambda_ * ns_t[k]
+    denom = diag_k + lam_nnb
+    new = torch.where(denom > 1e-10, torch.clamp_min(resid - rho, 0.0) / denom,
+                      torch.zeros_like(old))
+    r.addcmul_(XtX[k][:, None], (new - old)[None, :])  # rank-1 refresh
+    beta[k] = new
+
+
+def coordinate_descent(beta_t, Xty_t, XtX, ns_t, nnb, lambda_, rho,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One Gauss-Seidel pass over the K coordinates of every spot: the JAX
+    package's XLA tier (``coordinate_descent``) on the (K, n) carry, in the
+    carry's dtype.
+
+    ``beta_t`` (K, n) is the Jacobi read buffer the neighbour sums ``ns_t``
+    (K, n) were formed from; ``nnb`` (n,) the degrees. The residual ``r =
+    XtX^T beta`` is formed once (full f32 in f32); coordinate k then moves
+    for all spots at once (:func:`_coord_update`): ``resid = xty_k - r_k +
+    diag_k * old + lambda * ns_k`` (in that order), ``new = max(resid -
+    rho, 0) / (diag_k + lambda * nnb)`` where the denominator is above
+    1e-10 (else 0), and the rank-1 refresh ``r += XtX[k]^T (x) (new -
+    old)``. One loop over K (the JAX unrolled / ``fori_loop`` split is an
+    XLA compile-time device, one rule). Returns the new beta, written into
+    ``out`` (distinct from ``beta_t``) when given. Plain PyTorch: no kernel
+    takes f64 or K > 256, as no Pallas kernel does in the JAX package.
+    """
+    if out is None:
+        out = torch.empty_like(beta_t)
+    beta = out.copy_(beta_t)
+    with full_f32_matmul():
+        r = XtX.T @ beta_t
+    lam_nnb = lambda_ * nnb.reshape(-1).to(beta.dtype)
+    for k in range(beta.shape[0]):
+        _coord_update(beta, r, k, Xty_t, XtX, ns_t, lam_nnb, lambda_, rho)
+    return beta
+
+
+def gs_pass_fn(XtX: torch.Tensor, nnb: torch.Tensor, lambda_, rho
+               ) -> Callable:
+    """The Gauss-Seidel pass of the unfused sweeps on these operands, as
+    ``fn(beta_t, Xty_t, ns_t, out) -> (beta, max_diff, max_abs)``.
+
+    Where :func:`kernel_takes` the solve (f32, K <= 256) it is kernel #2,
+    :func:`coordinate_descent_block`, with the per-solve
+    :func:`gs_inv_den` computed here; otherwise :func:`coordinate_descent`,
+    whose denominator is formed inside the sweep, as the JAX XLA tier's.
+    ``lambda_`` and ``rho`` are the solve's scalars in its dtype.
+    """
+    if kernel_takes(XtX.dtype, XtX.shape[0]):
+        inv_den_t = gs_inv_den(XtX, nnb, lambda_)
+
+        def kernel_pass(beta_t, Xty_t, ns_t, out):
+            return coordinate_descent_block(beta_t, Xty_t, XtX, ns_t,
+                                            inv_den_t, lambda_, rho, out=out)
+        return kernel_pass
+
+    def xla_pass(beta_t, Xty_t, ns_t, out):
+        beta = coordinate_descent(beta_t, Xty_t, XtX, ns_t, nnb, lambda_,
+                                  rho, out=out)
+        return (beta, *sweep_stats(beta, beta_t))
+    return xla_pass
+
+
+def bcd_sweep(beta_t, Xty_t, nbr_t, gs: Callable, overflow=None, out=None):
     """One gather-tier sweep: padded-table neighbour sums (plus the
-    overflow hubs' sums), then :func:`coordinate_descent_block`.
+    overflow hubs' sums), then the pass ``gs`` of :func:`gs_pass_fn`.
     ``overflow``: None or the ``(rows, table)`` of :func:`overflow_table`
     as tensors. Returns ``(beta, max_diff, max_abs)``."""
     beta_ext_t = with_sentinel(beta_t)
     ns = add_overflow(neighbor_sum(beta_ext_t, nbr_t), beta_ext_t, overflow)
-    return coordinate_descent_block(beta_t, Xty_t, XtX, ns, inv_den_t,
-                                    lambda_, rho, out=out)
+    return gs(beta_t, Xty_t, ns, out)
 
 
-def bcd_sweep_banded(beta_t, Xty_t, XtX, offsets, masks, rest_t, inv_den_t,
-                     lambda_, rho, out=None):
-    """One unfused banded sweep: :func:`neighbor_sum_banded`, then
-    :func:`coordinate_descent_block`. Returns ``(beta, max_diff,
+def bcd_sweep_banded(beta_t, Xty_t, offsets, masks, rest_t, gs: Callable,
+                     out=None):
+    """One unfused banded sweep: :func:`neighbor_sum_banded`, then the
+    pass ``gs`` of :func:`gs_pass_fn`. Returns ``(beta, max_diff,
     max_abs)``."""
     ns = neighbor_sum_banded(beta_t, offsets, masks, rest_t)
-    return coordinate_descent_block(beta_t, Xty_t, XtX, ns, inv_den_t,
-                                    lambda_, rho, out=out)
+    return gs(beta_t, Xty_t, ns, out)
 
 
 # ---------------------------------------------------------------------------
@@ -767,8 +861,8 @@ def objective_from_sums(sums, BtB, XtX, YtY, lambda_, rho):
     quad = torch.sum(BtB * XtX)
     YtY = torch.as_tensor(YtY, dtype=XtX.dtype, device=XtX.device)
     fidelity = 0.5 * (YtY - 2.0 * cross + quad)
-    spatial = 0.5 * f32(lambda_) * (deg_term - adj_term)
-    return fidelity + spatial + f32(rho) * l1
+    spatial = 0.5 * scalar(lambda_, XtX.dtype) * (deg_term - adj_term)
+    return fidelity + spatial + scalar(rho, XtX.dtype) * l1
 
 
 def _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho):
@@ -821,18 +915,25 @@ def converge_loop(
     that meets the rule is still applied. The loop ping-pongs between
     ``carry`` and one second buffer allocated here, so ``carry`` is
     overwritten from the second sweep on (it saves a carry-sized buffer).
-    The ratio is formed in f32 and compared with f32 ``tol``, as the JAX
-    loop does. Returns ``(carry, n_iterations, rel_change)``.
+    The ratio is formed in the statistics' dtype and compared with ``tol``
+    in the carry's dtype, as the JAX loop does. Returns ``(carry,
+    n_iterations, rel_change)``.
     """
-    tol32 = np.float32(tol)
+    tol_c = scalar(tol, carry.dtype)
     spare = torch.empty_like(carry)
-    it, rel = 0, np.float32(np.inf)
-    while it < max_iter and rel >= tol32:
+    it, rel = 0, float("inf")
+    while it < max_iter and rel >= tol_c:
         new, max_diff, max_abs = sweep_fn(carry, spare)
-        rel = np.float32((max_diff / (max_abs + 1e-10)).item())
+        rel = rel_change(max_diff, max_abs)
         carry, spare = new, carry
         it += 1
-    return carry, it, float(rel)
+    return carry, it, rel
+
+
+def rel_change(max_diff: torch.Tensor, max_abs: torch.Tensor) -> float:
+    """The stopping statistic ``max_diff / (max_abs + 1e-10)``, formed in
+    the statistics' dtype on their device, as a Python float (one read)."""
+    return (max_diff / (max_abs + 1e-10)).item()
 
 
 def bcd_iterate_banded_fused(
@@ -865,12 +966,12 @@ def bcd_iterate_banded_fused(
 def bcd_iterate(beta0_t, Xty_t, XtX, nbr_t, nnb, lambda_, rho, tol,
                 max_iter: int, overflow=None):
     """Gather-tier solve loop on the (K, n) carry ``beta0_t`` (overwritten,
-    see :func:`converge_loop`). Returns ``(beta_t, n_iterations,
-    rel_change)``."""
-    inv_den_t = gs_inv_den(XtX, nnb, lambda_)
+    see :func:`converge_loop`), its pass chosen by :func:`gs_pass_fn`.
+    Returns ``(beta_t, n_iterations, rel_change)``."""
+    gs = gs_pass_fn(XtX, nnb, lambda_, rho)
     return converge_loop(
-        lambda b, out: bcd_sweep(b, Xty_t, XtX, nbr_t, inv_den_t, lambda_,
-                                 rho, overflow=overflow, out=out),
+        lambda b, out: bcd_sweep(b, Xty_t, nbr_t, gs, overflow=overflow,
+                                 out=out),
         beta0_t, tol, max_iter,
     )
 
@@ -878,12 +979,12 @@ def bcd_iterate(beta0_t, Xty_t, XtX, nbr_t, nnb, lambda_, rho, tol,
 def bcd_iterate_banded(beta0_t, Xty_t, XtX, offsets, masks, rest_t, nnb,
                        lambda_, rho, tol, max_iter: int):
     """Unfused banded solve loop on the (K, n) carry ``beta0_t``
-    (overwritten). Returns ``(beta_t, n_iterations, rel_change)``."""
-    inv_den_t = gs_inv_den(XtX, nnb, lambda_)
+    (overwritten), its pass chosen by :func:`gs_pass_fn`. Returns
+    ``(beta_t, n_iterations, rel_change)``."""
+    gs = gs_pass_fn(XtX, nnb, lambda_, rho)
     return converge_loop(
-        lambda b, out: bcd_sweep_banded(b, Xty_t, XtX, offsets, masks,
-                                        rest_t, inv_den_t, lambda_, rho,
-                                        out=out),
+        lambda b, out: bcd_sweep_banded(b, Xty_t, offsets, masks, rest_t,
+                                        gs, out=out),
         beta0_t, tol, max_iter,
     )
 
@@ -892,13 +993,20 @@ def bcd_iterate_banded(beta0_t, Xty_t, XtX, offsets, masks, rest_t, nnb,
 class Tier:
     """The device operands of a prepared solve, shared by every tier:
     ``Xty_t`` (K, n_solve), ``XtX`` (K, K), the degrees ``nnb`` (n_solve,)
-    and the objective's constant ``YtY``. A tier adds its graph and says
-    how beta is carried; :func:`fused_solve` drives any of them."""
+    and the objective's constant ``YtY``, all in the solve's dtype. A tier
+    adds its graph and says how beta is carried; :func:`fused_solve`
+    drives any of them. ``uses_kernel``: whether its sweeps launch a kernel
+    (f32, K <= 256) or run :func:`coordinate_descent` (the unfused tiers
+    take both; the fused tier only the first)."""
 
     Xty_t: torch.Tensor
     XtX: torch.Tensor
     nnb: torch.Tensor
     YtY: float
+
+    @property
+    def uses_kernel(self) -> bool:
+        return kernel_takes(self.XtX.dtype, self.XtX.shape[0])
 
     def carry(self, beta0: torch.Tensor) -> torch.Tensor:
         """(n_solve, K) beta -> the tier's carry."""
@@ -1027,7 +1135,7 @@ def fused_solve(
     K), n_iterations, rel_change, converged, objectives)``, beta on the
     operands' device and ``objectives[-1]`` the final objective.
     """
-    tol32 = np.float32(tol)
+    tol_c = scalar(tol, tier.Xty_t.dtype)
     objectives: List[float] = []
     n_iter, rel = 0, float("inf")
     chunk = 1 if verbose else max_iter
@@ -1035,7 +1143,7 @@ def fused_solve(
         if beta0 is None:
             beta0 = uniform_beta0(tier.Xty_t, n_spots)
         carry = tier.carry(beta0)
-        while n_iter < max_iter and not rel < tol32:
+        while n_iter < max_iter and not rel < tol_c:
             carry, done, rel = tier.iterate(carry, lambda_, rho, tol,
                                             min(chunk, max_iter - n_iter))
             n_iter += done
@@ -1044,7 +1152,7 @@ def fused_solve(
             if verbose:
                 print(f"Iteration {n_iter - 1}: objective = "
                       f"{objectives[-1]:.6f}, rel_change = {rel:.6e}")
-    converged = bool(rel < tol32)
+    converged = bool(rel < tol_c)
     if verbose and converged:
         print(f"Converged at iteration {n_iter - 1}")
     beta = tier.beta(carry)[:n_spots]

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from flashdeconv_tpu_torch.core.solver import resolve_device
+from flashdeconv_tpu_torch.ops.bcd import rel_change, scalar
 
 
 class Mesh:
@@ -122,11 +123,11 @@ def validate_beta_init(beta_init, n_spots: int, n_types: int) -> None:
         )
 
 
-def sanitize_xty_rows(xty: np.ndarray) -> Tuple[np.ndarray, int]:
-    """An f32 copy of ``xty`` with its non-finite rows zeroed, and their
-    count: a poisoned spot becomes a zero observation, as on the
+def sanitize_xty_rows(xty: np.ndarray, dtype) -> Tuple[np.ndarray, int]:
+    """A copy of ``xty`` in ``dtype`` with its non-finite rows zeroed, and
+    their count: a poisoned spot becomes a zero observation, as on the
     single-device tiers (``BCDProblem``)."""
-    xty = np.array(xty, dtype=np.float32)
+    xty = np.array(xty, dtype=dtype)
     bad = ~np.isfinite(xty).all(axis=1)
     xty[bad] = 0.0
     return xty, int(bad.sum())
@@ -146,19 +147,19 @@ def device_unpermute(obj, beta_d: torch.Tensor, perm: np.ndarray,
 
 
 def converge(sweep: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
-             tol: float, max_iter: int) -> Tuple[int, float]:
+             tol: float, max_iter: int, dtype: torch.dtype
+             ) -> Tuple[int, float]:
     """Run ``sweep()`` (every shard's sweep; returns the max over shards of
     ``(max|delta|, max|beta_old|)``) until ``max_diff / (max_abs + 1e-10)
-    < tol``, formed and compared in f32, or ``max_iter`` sweeps: the rule
-    and the one host read per sweep of ``ops.bcd.converge_loop``. Returns
-    ``(n_iterations, rel_change)``."""
-    tol32 = np.float32(tol)
-    it, rel = 0, np.float32(np.inf)
-    while it < max_iter and rel >= tol32:
-        max_diff, max_abs = sweep()
-        rel = np.float32((max_diff / (max_abs + 1e-10)).item())
+    < tol``, formed and compared in the solve ``dtype``, or ``max_iter``
+    sweeps: the rule and the one host read per sweep of
+    ``ops.bcd.converge_loop``. Returns ``(n_iterations, rel_change)``."""
+    tol_c = scalar(tol, dtype)
+    it, rel = 0, float("inf")
+    while it < max_iter and rel >= tol_c:
+        rel = rel_change(*sweep())
         it += 1
-    return it, float(rel)
+    return it, rel
 
 
 def run_prepared_solve(
@@ -167,6 +168,7 @@ def run_prepared_solve(
     max_iter: int,
     tol: float,
     verbose: bool,
+    dtype: torch.dtype,
 ) -> Tuple[int, float, float, bool, list]:
     """The sweeps and the objective of a prepared sharded solve.
 
@@ -178,12 +180,13 @@ def run_prepared_solve(
     followed by the objective, printed (the JAX ``chunked_verbose_solve``
     cadence). Returns ``(n_iterations, rel_change, final_objective,
     converged, objectives)``; ``objectives`` is empty without ``verbose``.
+    ``tol`` is compared in the solve ``dtype``.
     """
-    tol32 = np.float32(tol)
+    tol_c = scalar(tol, dtype)
     objectives: list = []
     n_iter, rel = 0, float("inf")
     chunk = 1 if verbose else max_iter
-    while n_iter < max_iter and not rel < tol32:
+    while n_iter < max_iter and not rel < tol_c:
         done, rel = run_chunk(min(chunk, max_iter - n_iter))
         n_iter += done
         chunk = 10
@@ -191,7 +194,7 @@ def run_prepared_solve(
             objectives.append(float(eval_objective()))
             print(f"Iteration {n_iter - 1}: objective = {objectives[-1]:.6f}, "
                   f"rel_change = {rel:.6e}")
-    converged = bool(rel < tol32)
+    converged = bool(rel < tol_c)
     if verbose and converged:
         print(f"Converged at iteration {n_iter - 1}")
     final = objectives[-1] if verbose else float(eval_objective())

@@ -19,10 +19,13 @@ data column sees the same window and the same per-column arithmetic as in
 the single-device fused tier, so the mesh's iterate and sweeps are bitwise
 equal to it at any shard count, split or not.
 
-Where the fused kernel does not take the problem (a halo wider than
-``FUSED_MAX_H`` blocks or than a shard), :func:`_gspmd_iterate` forms each
-shard's banded neighbour sums in plain PyTorch over a window of its
-neighbours' columns and launches kernel #2 (``coordinate_descent_block``).
+Where the fused kernel does not take the problem (an f64 or K > 256
+solve, or a halo wider than ``FUSED_MAX_H`` blocks or than a shard),
+:func:`_gspmd_iterate` forms each shard's banded neighbour sums in plain
+PyTorch over a window of its neighbours' columns and runs the pass of
+``ops/bcd.gs_pass_fn``: kernel #2 (``coordinate_descent_block``) at f32
+with K <= 256, else the XLA tier's ``coordinate_descent``, as the JAX
+mesh runs ``coordinate_descent`` off its Pallas tier.
 """
 
 from __future__ import annotations
@@ -39,16 +42,18 @@ from flashdeconv_tpu_torch.core.solver import (
     fetch_to_host,
     precompute_gram_matrix,
     sanitize_yty,
+    solve_dtype,
 )
 from flashdeconv_tpu_torch.ops.bcd import (
     KERNEL_MAX_BANDS,
-    coordinate_descent_block,
-    f32,
     full_f32_matmul,
     fused_banded_sweep,
     gs_inv_den,
+    gs_pass_fn,
+    kernel_takes,
     objective_from_sums,
     objective_sums,
+    scalar,
 )
 from flashdeconv_tpu_torch.parallel._runner import (
     Mesh,
@@ -60,7 +65,6 @@ from flashdeconv_tpu_torch.parallel._runner import (
     validate_beta_init,
 )
 from flashdeconv_tpu_torch.parallel.solver import (
-    _check_solvable,
     _prepared_xty,
     default_mesh,
 )
@@ -106,14 +110,15 @@ def _banded_ns_window(betas, s: int, offsets, masks, halo: int):
     return ns
 
 
-def _gspmd_iterate(betas, spares, Xty_t, XtX, masks, inv_den, lam, rho, tol,
-                   max_iter: int, offsets: Tuple[int, ...], halo: int,
-                   mesh: Mesh):
+def _gspmd_iterate(betas, spares, Xty_t, masks, gs, tol, max_iter: int,
+                   offsets: Tuple[int, ...], halo: int, mesh: Mesh):
     """Sharded solve loop of the unfused banded mesh: per sweep and shard,
-    the banded neighbour sums in plain PyTorch, then kernel #2 into the
-    shard's spare beta. ``betas``/``spares`` and the operands are per-shard
-    lists ((K, n_local); ``masks`` f32 (U, n_local)). Returns ``(betas,
-    spares, n_iterations, rel_change)`` with ``betas`` the result."""
+    the banded neighbour sums in plain PyTorch, then the shard's pass
+    ``gs[s]`` (:func:`~flashdeconv_tpu_torch.ops.bcd.gs_pass_fn`) into its
+    spare beta. ``betas``/``spares`` and the operands are per-shard lists
+    ((K, n_local); ``masks`` (U, n_local) in the solve dtype). Returns
+    ``(betas, spares, n_iterations, rel_change)`` with ``betas`` the
+    result."""
     state = [betas, spares]
 
     def sweep():
@@ -123,13 +128,11 @@ def _gspmd_iterate(betas, spares, Xty_t, XtX, masks, inv_den, lam, rho, tol,
         for s in range(len(cur)):
             with mesh.on(s):
                 ns = _banded_ns_window(cur, s, offsets, masks[s], halo)
-                stats += coordinate_descent_block(
-                    cur[s], Xty_t[s], XtX[s], ns, inv_den[s], lam, rho,
-                    out=nxt[s])[1:]
+                stats += gs[s](cur[s], Xty_t[s], ns, nxt[s])[1:]
         state.reverse()
         return mesh.join_max(stats)
 
-    n_iter, rel = converge(sweep, tol, max_iter)
+    n_iter, rel = converge(sweep, tol, max_iter, betas[0].dtype)
     return state[0], state[1], n_iter, rel
 
 
@@ -198,7 +201,7 @@ def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
         state.reverse()
         return mesh.join_max(stats)
 
-    n_iter, rel = converge(sweep, tol, max_iter)
+    n_iter, rel = converge(sweep, tol, max_iter, torch.float32)
     return state[0], state[1], n_iter, rel
 
 
@@ -210,11 +213,12 @@ class GspmdBandedProblem:
     devices; ``fused_block`` the fused kernel's block, ``FUSED_BLOCK`` by
     default), plus ``device`` for the default mesh.
 
-    The fused loop takes the problem when ``1 <= h <= FUSED_MAX_H`` and
-    ``h * block <= n_local`` (h = the halo in blocks, rounded up; the halo
-    must lie in one neighbour shard), with the spot axis padded to a
-    multiple of ``n_shards * block``; otherwise the unfused loop runs on
-    shards padded to a multiple of ``n_shards``. ``use_fused`` says which.
+    The fused loop takes the problem when the kernels take it (f32, K <=
+    256), ``1 <= h <= FUSED_MAX_H`` and ``h * block <= n_local`` (h = the
+    halo in blocks, rounded up; the halo must lie in one neighbour shard),
+    with the spot axis padded to a multiple of ``n_shards * block``;
+    otherwise the unfused loop runs on shards padded to a multiple of
+    ``n_shards``. ``use_fused`` says which.
     Raises ``ValueError`` if the graph is not wholly banded within 32
     offsets: use the halo plan then.
     """
@@ -236,8 +240,9 @@ class GspmdBandedProblem:
         from flashdeconv_tpu_torch.utils.graph import banded_split
 
         n_types = int(X_sketch.shape[0])
+        self.dtype = tdtype = solve_dtype(dtype)
         Xty_np, self.n_nonfinite_spots = _prepared_xty(Y_sketch, X_sketch, A,
-                                                       xty, yty)
+                                                       xty, yty, dtype)
         n_spots = Xty_np.shape[0]
         self.n_spots, self.n_types = n_spots, n_types
         offsets_np, masks_np, A_rest = (
@@ -248,7 +253,6 @@ class GspmdBandedProblem:
                 "Graph is not fully banded; use sharded_bcd_solve instead "
                 f"(rest edges: {A_rest.nnz})."
             )
-        _check_solvable(dtype, n_types)
         self.mesh = mesh = (as_mesh(mesh) if mesh is not None
                             else default_mesh(device=device))
         self.n_shards = P = len(mesh)
@@ -258,7 +262,8 @@ class GspmdBandedProblem:
         block = int(fused_block) if fused_block is not None else FUSED_BLOCK
         h = -(-self.halo // block)
         n_local_c = -(-n_spots // (P * block)) * block
-        self.use_fused = (1 <= h <= FUSED_MAX_H and h * block <= n_local_c
+        self.use_fused = (kernel_takes(tdtype, n_types)
+                          and 1 <= h <= FUSED_MAX_H and h * block <= n_local_c
                           and len(self.offsets) <= KERNEL_MAX_BANDS)
         if not self.use_fused:
             block, h = 1, 0
@@ -274,24 +279,25 @@ class GspmdBandedProblem:
         nnb[:n_spots] = np.diff(A.tocsr().indptr)
         masks = np.zeros((len(self.offsets), self.n_pad), np.uint8)
         masks[:, :n_spots] = masks_np
-        Xty_t = np.zeros((n_types, self.n_pad), np.float32)
+        Xty_t = np.zeros((n_types, self.n_pad), Xty_np.dtype)
         Xty_t[:, :n_spots] = Xty_np.T
-        XtX = {dev: torch.tensor(XtX64, dtype=torch.float32, device=dev)
+        XtX = {dev: torch.tensor(XtX64, dtype=tdtype, device=dev)
                for dev in set(mesh.devices)}
 
         def cols(arr, s, dtype):
             part = np.ascontiguousarray(arr[..., s * n_local:(s + 1) * n_local])
             return torch.from_numpy(part).to(mesh[s], dtype)
 
-        self.Xty_t = [cols(Xty_t, s, torch.float32) for s in range(P)]
-        self.nnb = [cols(nnb, s, torch.float32) for s in range(P)]
+        self.Xty_t = [cols(Xty_t, s, tdtype) for s in range(P)]
+        self.nnb = [cols(nnb, s, tdtype) for s in range(P)]
         # The fused kernel reads the uint8 masks; the unfused sums multiply
         # by them every band, so they are widened once, here.
         self.masks = [cols(masks, s, torch.uint8 if self.use_fused
-                           else torch.float32) for s in range(P)]
+                           else tdtype) for s in range(P)]
         self.XtX = [XtX[mesh[s]] for s in range(P)]
         if verbose:
-            kernel = "fused CUDA" if self.use_fused else "CUDA CD"
+            kernel = ("fused CUDA" if self.use_fused else "CUDA CD"
+                      if kernel_takes(tdtype, n_types) else "XLA-tier")
             print(
                 f"GSPMD banded solve: {P} shards x {n_local} spots, "
                 f"{len(self.offsets)} bands, halo {self.halo}, {kernel} "
@@ -306,14 +312,15 @@ class GspmdBandedProblem:
         if beta_init is None:
             out = []
             for s in range(self.n_shards):
-                b = torch.zeros((self.n_types, n), device=self.mesh[s])
+                b = torch.zeros((self.n_types, n), dtype=self.dtype,
+                                device=self.mesh[s])
                 b[:, :max(min(self.n_spots - s * n, n), 0)] = 1.0 / self.n_types
                 out.append(b)
             return out
-        b0 = np.zeros((self.n_types, self.n_pad), np.float32)
+        b0 = np.zeros((self.n_types, self.n_pad), np.float64)
         b0[:, :self.n_spots] = np.maximum(beta_init, 0.0).T
         return [torch.from_numpy(np.ascontiguousarray(b0[:, s * n:(s + 1) * n]))
-                .to(self.mesh[s]) for s in range(self.n_shards)]
+                .to(self.mesh[s], self.dtype) for s in range(self.n_shards)]
 
     def _state(self, betas) -> list:
         """The loop state of ``betas``: ``[current, spare]`` per-shard
@@ -329,29 +336,40 @@ class GspmdBandedProblem:
         pad = self._fused_h * self._fused_block
         return [c[:, pad:pad + self.n_local] for c in state]
 
-    def _inv_den(self, lam) -> list:
-        return [gs_inv_den(x, n, lam) for x, n in zip(self.XtX, self.nnb)]
+    def _sweep_ops(self, lam, rho) -> list:
+        """Per shard, what one sweep needs beyond the shared operands: the
+        fused kernel's reciprocal denominator, or the unfused loop's pass
+        (:func:`~flashdeconv_tpu_torch.ops.bcd.gs_pass_fn`)."""
+        if self.use_fused:
+            return [gs_inv_den(x, n, lam) for x, n in zip(self.XtX, self.nnb)]
+        return [gs_pass_fn(x, n, lam, rho) for x, n in zip(self.XtX, self.nnb)]
 
-    def _iterate(self, state, lam, rho, tol, n, inv_den, overlap="auto"):
+    def _iterate(self, state, lam, rho, tol, n, sweep_ops, overlap="auto"):
         if self.use_fused:
             return _gspmd_iterate_fused(
-                *state, self.Xty_t, self.XtX, self.masks, inv_den, lam, rho,
+                *state, self.Xty_t, self.XtX, self.masks, sweep_ops, lam, rho,
                 tol, n, self.offsets, self._fused_h, self._fused_block,
                 self.mesh, overlap=overlap)
         return _gspmd_iterate(
-            *state, self.Xty_t, self.XtX, self.masks, inv_den, lam, rho, tol,
-            n, self.offsets, self.halo, self.mesh)
+            *state, self.Xty_t, self.masks, sweep_ops, tol, n, self.offsets,
+            self.halo, self.mesh)
+
+    def _scalars(self, lambda_, rho):
+        """``(lambda, rho * mean diag(XtX))`` in the solve dtype."""
+        return (scalar(lambda_, self.dtype),
+                scalar(rho * self.rho_scale, self.dtype))
 
     def _run(self, lambda_, rho, tol, max_iter: int, overlap="auto"):
         """The sweeps alone from the uniform start, with the fused loop's
         ``overlap`` forced (tests and ``chip_smoke.py`` hold the split
-        against the unsplit loop): ``(beta (n_spots, K) f32 on the main
+        against the unsplit loop): ``(beta (n_spots, K) on the main
         device, n_iterations, rel_change)``."""
-        lam, rho_eff = f32(lambda_), f32(rho * self.rho_scale)
+        lam, rho_eff = self._scalars(lambda_, rho)
         state = self._state(self._beta0(None))
         with full_f32_matmul():
             cur, _, it, rel = self._iterate(state, lam, rho_eff, tol,
-                                            max_iter, self._inv_den(lam),
+                                            max_iter,
+                                            self._sweep_ops(lam, rho_eff),
                                             overlap=overlap)
         beta = torch.cat(self.mesh.gather(self._data(cur)), dim=1)
         return beta[:, :self.n_spots].T, it, rel
@@ -365,7 +383,8 @@ class GspmdBandedProblem:
         for s in range(self.n_shards):
             with mesh.on(s):
                 ns = _banded_ns_window(betas, s, self.offsets,
-                                       self.masks[s].float(), self.halo)
+                                       self.masks[s].to(self.dtype),
+                                       self.halo)
                 sm, btb = objective_sums(betas[s], self.Xty_t[s], ns,
                                          self.nnb[s])
                 sums.append(sm)
@@ -388,21 +407,22 @@ class GspmdBandedProblem:
         """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``
         with ``n_shards``, ``n_bands``, ``halo_width`` and
         ``fused_kernel``; with ``return_device`` beta is a contiguous
-        (n_spots, K) f32 tensor on the mesh's main device."""
+        (n_spots, K) tensor in the solve dtype on the mesh's main
+        device."""
         extra = dict(n_shards=self.n_shards, n_bands=len(self.offsets),
                      halo_width=self.halo)
         if max_iter == 0:
             return uniform_result(self.n_spots, self.n_types,
                                   converged=False, **extra)
         validate_beta_init(beta_init, self.n_spots, self.n_types)
-        lam, rho_eff = f32(lambda_), f32(rho * self.rho_scale)
+        lam, rho_eff = self._scalars(lambda_, rho)
         state = self._state(self._beta0(beta_init))
         with full_f32_matmul():
-            inv_den = self._inv_den(lam)
+            sweep_ops = self._sweep_ops(lam, rho_eff)
 
             def run_chunk(n):
                 cur, spare, it, rel = self._iterate(state, lam, rho_eff, tol,
-                                                    n, inv_den)
+                                                    n, sweep_ops)
                 state[:] = [cur, spare]
                 return it, rel
 
@@ -411,7 +431,7 @@ class GspmdBandedProblem:
                     run_chunk,
                     lambda: self._objective(self._data(state[0]), lam,
                                             rho_eff),
-                    max_iter, tol, verbose))
+                    max_iter, tol, verbose, self.dtype))
             beta_d = torch.cat(self.mesh.gather(self._data(state[0])),
                                dim=1)[:, :self.n_spots].T
         beta = beta_d.contiguous() if return_device else fetch_to_host(beta_d)

@@ -5,15 +5,18 @@ spots are cut into contiguous shards of a Morton order
 (:func:`flashdeconv_tpu_torch.parallel.partition.plan_shards`); each sweep
 pools every shard's boundary rows (the JAX ``all_gather``,
 :func:`_halo_exchange`), forms each shard's neighbour sums over ``[local |
-pool | zero]`` in plain PyTorch and launches the coordinate-descent kernel
-(``ops/bcd.coordinate_descent_block``, kernel #2) on the shard; the
-convergence statistics are the max over shards (the JAX ``pmax``). The
-halo plan takes any graph; a wholly banded one goes to the banded mesh of
-:mod:`flashdeconv_tpu_torch.parallel.gspmd` when the strategy allows.
+pool | zero]`` in plain PyTorch and runs the Gauss-Seidel pass of
+``ops/bcd.gs_pass_fn`` on the shard — the coordinate-descent kernel
+(kernel #2) at f32 with K <= 256, the XLA tier's
+``ops/bcd.coordinate_descent`` on an f64 or K > 256 solve, as the JAX plan
+runs it; the convergence statistics are the max over shards (the JAX
+``pmax``). The halo plan takes any graph; a wholly banded one goes to the
+banded mesh of :mod:`flashdeconv_tpu_torch.parallel.gspmd` when the
+strategy allows.
 
 The iterate is the single-device gather tier's up to the order of the
-neighbour slots (the Morton remap reorders them), so the two agree to f32
-rounding with the same sweeps.
+neighbour slots (the Morton remap reorders them), so the two agree to the
+rounding of the solve dtype with the same sweeps.
 """
 
 from __future__ import annotations
@@ -25,21 +28,19 @@ import torch
 from scipy import sparse
 
 from flashdeconv_tpu_torch.core.solver import (
-    _not_ported,
     fetch_to_host,
     precompute_gram_matrix,
     resolve_device,
     sanitize_yty,
+    solve_dtype,
 )
 from flashdeconv_tpu_torch.ops.bcd import (
-    KERNEL_MAX_K,
-    coordinate_descent_block,
-    f32,
     full_f32_matmul,
-    gs_inv_den,
+    gs_pass_fn,
     neighbor_sum,
     objective_from_sums,
     objective_sums,
+    scalar,
     with_sentinel,
 )
 from flashdeconv_tpu_torch.parallel._runner import (
@@ -111,19 +112,18 @@ def _shard_ns(beta, pool, nbr):
     return neighbor_sum(torch.cat([beta, pool, zero], dim=1), nbr)
 
 
-def _sharded_sweep(mesh: Mesh, betas, spares, ops, lam, rho):
-    """One sweep of every shard: halo exchange, neighbour sums, kernel #2
-    into ``spares``, the spot mask (padding columns of the last shard stay
-    zero), and the max over shards of the statistics."""
+def _sharded_sweep(mesh: Mesh, betas, spares, ops):
+    """One sweep of every shard: halo exchange, neighbour sums, the shard's
+    pass ``ops["gs"]`` into ``spares``, the spot mask (padding columns of
+    the last shard stay zero), and the max over shards of the
+    statistics."""
     pools = _halo_exchange(mesh, betas, ops["send"])
     mesh.fork()
     stats = []
     for s, beta in enumerate(betas):
         with mesh.on(s):
             ns = _shard_ns(beta, pools[mesh[s]], ops["nbr"][s])
-            out, d, a = coordinate_descent_block(
-                beta, ops["Xty_t"][s], ops["XtX"][s], ns, ops["inv_den"][s],
-                lam, rho, out=spares[s])
+            out, d, a = ops["gs"][s](beta, ops["Xty_t"][s], ns, spares[s])
             n_valid = ops["n_valid"][s]
             if n_valid < out.shape[1]:
                 # Padding columns: zero Xty, degree and beta give a zero
@@ -150,13 +150,6 @@ def _sharded_objective(mesh: Mesh, betas, ops, YtY, lam, rho):
     return objective_from_sums(torch.stack(sums).sum(0),
                                torch.stack(btbs).sum(0), ops["XtX"][0], YtY,
                                lam, rho)
-
-
-def _check_solvable(dtype, n_types: int) -> None:
-    if np.dtype(dtype) != np.float32:
-        raise _not_ported(f"dtype={np.dtype(dtype).name}", "f64 on the GPU")
-    if n_types > KERNEL_MAX_K:
-        raise _not_ported(f"K = {n_types} > {KERNEL_MAX_K}", "K > 256")
 
 
 def sharded_bcd_solve(
@@ -215,7 +208,8 @@ class HaloShardedProblem:
     :meth:`solve` runs only the sweeps. Parameters as the JAX
     ``HaloShardedProblem`` (``mesh`` a :class:`Mesh` or a sequence of
     devices), plus ``device`` for the default mesh. The plan is built
-    with ``pad_shard_to=1``: kernel #2 takes any shard width."""
+    with ``pad_shard_to=1``: kernel #2 and the XLA tier take any shard
+    width."""
 
     def __init__(
         self,
@@ -234,10 +228,10 @@ class HaloShardedProblem:
         device="cuda",
     ):
         n_types = int(X_sketch.shape[0])
+        self.dtype = tdtype = solve_dtype(dtype)
         Xty_np, self.n_nonfinite_spots = _prepared_xty(Y_sketch, X_sketch, A,
-                                                       xty, yty)
+                                                       xty, yty, dtype)
         self.n_spots, self.n_types = Xty_np.shape[0], n_types
-        _check_solvable(dtype, n_types)
         self.mesh = mesh = (as_mesh(mesh) if mesh is not None
                             else default_mesh(n_shards, device))
         self.n_shards = P = len(mesh)
@@ -260,7 +254,7 @@ class HaloShardedProblem:
 
         S, hw = plan.shard_size, plan.halo_width
         Xty = plan.scatter(Xty_np)
-        XtX = {dev: torch.tensor(XtX64, dtype=torch.float32, device=dev)
+        XtX = {dev: torch.tensor(XtX64, dtype=tdtype, device=dev)
                for dev in set(mesh.devices)}
 
         def cols(arr, s, dtype):
@@ -270,9 +264,9 @@ class HaloShardedProblem:
             return torch.from_numpy(part).to(mesh[s], dtype)
 
         self._ops = {
-            "Xty_t": [cols(Xty, s, torch.float32) for s in range(P)],
+            "Xty_t": [cols(Xty, s, tdtype) for s in range(P)],
             "nbr": [cols(plan.nbr_idx, s, torch.int64) for s in range(P)],
-            "nnb": [cols(plan.n_nbrs, s, torch.float32) for s in range(P)],
+            "nnb": [cols(plan.n_nbrs, s, tdtype) for s in range(P)],
             "send": [torch.from_numpy(plan.send_idx[s * hw:(s + 1) * hw]
                                       .astype(np.int64)).to(mesh[s])
                      for s in range(P)],
@@ -289,13 +283,13 @@ class HaloShardedProblem:
         if beta_init is None:
             out = []
             for s, n_valid in enumerate(self._ops["n_valid"]):
-                b = torch.zeros((K, S), device=self.mesh[s])
+                b = torch.zeros((K, S), dtype=self.dtype, device=self.mesh[s])
                 b[:, :n_valid] = 1.0 / K
                 out.append(b)
             return out
-        b0 = plan.scatter(np.maximum(beta_init, 0.0).astype(np.float32))
+        b0 = plan.scatter(np.maximum(beta_init, 0.0))
         return [torch.from_numpy(np.ascontiguousarray(b0[s * S:(s + 1) * S].T))
-                .to(self.mesh[s]) for s in range(self.n_shards)]
+                .to(self.mesh[s], self.dtype) for s in range(self.n_shards)]
 
     def solve(
         self,
@@ -308,33 +302,33 @@ class HaloShardedProblem:
         return_device: bool = False,
     ) -> Tuple[np.ndarray, dict]:
         """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``,
-        or with ``return_device`` beta as an (n_spots, K) f32 tensor on the
-        mesh's main device, un-permuted there."""
+        or with ``return_device`` beta as an (n_spots, K) tensor in the
+        solve dtype on the mesh's main device, un-permuted there."""
         n_spots, n_types, plan = self.n_spots, self.n_types, self.plan
         extra = dict(n_shards=self.n_shards, halo_width=plan.halo_width)
         if max_iter == 0:
             return uniform_result(n_spots, n_types, converged=False, **extra)
         validate_beta_init(beta_init, n_spots, n_types)
-        lam, rho_eff = f32(lambda_), f32(rho * self.rho_scale)
+        lam = scalar(lambda_, self.dtype)
+        rho_eff = scalar(rho * self.rho_scale, self.dtype)
         ops = dict(self._ops)
-        ops["inv_den"] = [gs_inv_den(xtx, nnb, lam) for xtx, nnb in
-                          zip(ops["XtX"], ops["nnb"])]
         state = [self._beta0(beta_init)]
         state.append([torch.empty_like(b) for b in state[0]])
 
         def sweep():
-            d, a = _sharded_sweep(self.mesh, state[0], state[1], ops, lam,
-                                  rho_eff)
+            d, a = _sharded_sweep(self.mesh, state[0], state[1], ops)
             state.reverse()
             return d, a
 
         with full_f32_matmul():
+            ops["gs"] = [gs_pass_fn(xtx, nnb, lam, rho_eff) for xtx, nnb in
+                         zip(ops["XtX"], ops["nnb"])]
             n_iter, rel, final_obj, converged, objectives = (
                 run_prepared_solve(
-                    lambda n: converge(sweep, tol, n),
+                    lambda n: converge(sweep, tol, n, self.dtype),
                     lambda: _sharded_objective(self.mesh, state[0], ops,
                                                self.YtY, lam, rho_eff),
-                    max_iter, tol, verbose))
+                    max_iter, tol, verbose, self.dtype))
             beta_pad = torch.cat(self.mesh.gather(state[0]), dim=1).T
             beta_d = device_unpermute(self, beta_pad[:n_spots], plan.perm,
                                       n_spots)
@@ -343,10 +337,10 @@ class HaloShardedProblem:
                                **extra)
 
 
-def _prepared_xty(Y_sketch, X_sketch, A, xty, yty):
-    """The f32 (N, K) Xty of a sharded problem, non-finite rows zeroed,
-    and their count; validates the sketch / precomputed-reduction inputs
-    as the JAX constructors do."""
+def _prepared_xty(Y_sketch, X_sketch, A, xty, yty, dtype):
+    """The (N, K) Xty of a sharded problem in ``dtype``, non-finite rows
+    zeroed, and their count; validates the sketch / precomputed-reduction
+    inputs as the JAX constructors do."""
     if Y_sketch is None and (xty is None or yty is None):
         raise ValueError(
             "Y_sketch=None requires both xty and yty precomputed."
@@ -358,7 +352,7 @@ def _prepared_xty(Y_sketch, X_sketch, A, xty, yty):
             f"signature dimensions ({A.shape[0]}, {n_types})"
         )
     return sanitize_xty_rows(xty if xty is not None
-                             else Y_sketch @ X_sketch.T)
+                             else Y_sketch @ X_sketch.T, dtype)
 
 
 class ShardedBCDProblem:

@@ -353,3 +353,17 @@ def banded_split(
         (A_coo.data[rest], (A_coo.row[rest], A_coo.col[rest])), shape=(n, n)
     )
     return offsets, masks, A_rest
+
+
+def get_neighbor_counts(A: sparse.spmatrix) -> np.ndarray:
+    """Number of neighbors per spot (row sums of a binary adjacency)."""
+    return np.asarray(A.sum(axis=1)).ravel().astype(np.int32)
+
+
+def get_neighbor_indices(A: sparse.spmatrix) -> list:
+    """Per-spot neighbor index arrays (host-side convenience accessor)."""
+    A_csr = A.tocsr()
+    return [
+        A_csr.indices[A_csr.indptr[i] : A_csr.indptr[i + 1]].copy()
+        for i in range(A_csr.shape[0])
+    ]

@@ -142,13 +142,6 @@ def test_wrong_cell_type_names_length_raises(named_fits, model):
         model(**kw).fit(Y, X, coords, cell_type_names=NAMES[:4])
 
 
-@pytest.mark.parametrize("kw", [{"solver_dtype": np.float64}])
-def test_unported_constructor_values_name_their_roadmap_entry(kw):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, Queue 1: f64 on the GPU"):
-        flashdeconv_tpu_torch.FlashDeconv(device="cpu", **kw)
-
-
 @pytest.mark.parametrize("kw", [
     {"warm_start": True}, {"device_outputs": True},
     {"fetch_dtype": "float16"}, {"fetch_dtype": np.float32},

@@ -216,7 +216,8 @@ def test_deconvolve_runs_on_the_card_unless_asked(monkeypatch):
 
 
 def test_package_exports_tl_and_version_as_jax():
-    assert set(flashdeconv_tpu_torch.__all__) == {"FlashDeconv", "tl",
+    assert set(flashdeconv_tpu_torch.__all__) == set(flashdeconv_tpu.__all__)
+    assert set(flashdeconv_tpu_torch.__all__) == {"FlashDeconv", "tl", "pl",
                                                   "__version__"}
     assert flashdeconv_tpu_torch.__version__ == flashdeconv_tpu.__version__
     assert flashdeconv_tpu_torch.tl.__all__ == flashdeconv_tpu.tl.__all__

@@ -592,3 +592,73 @@ def test_streamed_xty_is_the_host_cast(cuda_device):
     assert got.is_cuda and yty == 0.0 + 3000 + 6000 + 9000
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   xty.astype(np.float32))
+
+
+def _kernel_counts():
+    return tuple(getattr(w, c) for w in (tbcd.fused_banded_sweep,
+                                         tbcd.coordinate_descent_block)
+                 for c in ("launches", "large_k_launches", "sub_launches",
+                           "rest_launches") if hasattr(w, c))
+
+
+@pytest.mark.parametrize("dtype,K", [(np.float64, 20), (np.float32, 257),
+                                     (np.float64, 257)])
+@pytest.mark.parametrize("grid", [True, False])
+def test_xla_tier_on_the_card_matches_the_cpu(cuda_device, grid, dtype, K):
+    """f64, and K > 256, take the XLA tier on the card (the unfused banded
+    form on a 96 x 96 grid, the gather form on irregular coordinates),
+    launch no kernel, and give the CPU solve's sweeps with beta within
+    1e-12 (f64) or 1e-5 (f32) of max|beta|: only the FMA contraction of
+    the card's elementwise kernels differs. ``return_device`` keeps the
+    solve dtype."""
+    rng = np.random.RandomState(9)
+    coords = grid_coords(side=96) if grid else rng.rand(3000, 2) * 55
+    n = coords.shape[0]
+    X = rng.randn(K, K + 32)
+    Y = rng.dirichlet(np.ones(K), size=n) @ X + 0.05 * rng.randn(n, K + 32)
+    A = build_knn_graph(coords, k=6)
+    probs = [tsolver.prepare_bcd(Y, X, A, coords=coords, dtype=dtype,
+                                 device=d) for d in ("cpu", cuda_device)]
+    assert [type(p.tier).__name__ for p in probs] == [
+        "BandedTier" if grid else "GatherTier"] * 2
+    assert not probs[1].tier.uses_kernel
+    ref, rinfo = probs[0].solve(max_iter=60)
+    before = _kernel_counts()
+    dev, info = probs[1].solve(max_iter=60, return_device=True)
+    assert _kernel_counts() == before
+    assert dev.is_cuda and dev.dtype == (
+        torch.float64 if dtype == np.float64 else torch.float32)
+    assert info["n_iterations"] == rinfo["n_iterations"]
+    bound = 1e-12 if dtype == np.float64 else 1e-5
+    got = dev.cpu().double().numpy()
+    assert np.abs(got - ref).max() <= bound * np.abs(ref).max()
+
+
+def test_large_k_dominant_on_the_card_is_int32(cuda_device):
+    """A K = 257 fit on the card takes the XLA tier and fetches its argmax
+    as int32, equal to the host argmax of its proportions."""
+    from flashdeconv_tpu_torch import FlashDeconv
+    from flashdeconv_tpu_torch.core import deconv as tdeconv
+
+    rng = np.random.RandomState(11)
+    K, n, g = 257, 2000, 900
+    X = rng.gamma(2.0, 1.0, size=(K, g))
+    Y = rng.poisson(rng.dirichlet(np.ones(K), size=n) @ X * 20).astype(float)
+    wire = []
+    real = tdeconv.fetch_to_host
+
+    def spy(t, *a, **k):
+        wire.append(t.dtype)
+        return real(t, *a, **k)
+
+    tdeconv.fetch_to_host = spy
+    try:
+        model = FlashDeconv(outputs=("proportions", "dominant"),
+                            sketch_dim=512, n_hvg=800, n_markers_per_type=2,
+                            max_iter=10, device=cuda_device)
+        model.fit(Y, X, rng.rand(n, 2) * 45)
+    finally:
+        tdeconv.fetch_to_host = real
+    assert torch.int32 in wire and torch.uint8 not in wire
+    np.testing.assert_array_equal(model.dominant_,
+                                  np.argmax(model.proportions_, axis=1))

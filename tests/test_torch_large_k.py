@@ -146,8 +146,8 @@ def test_wrappers_take_k256_and_refuse_k257(kernel):
 
 
 def test_solver_takes_k256_on_the_cpu():
-    """K = 256 prepares and solves (the gather tier, 500 spots); K = 257
-    raises (tests/test_torch_solver.py::test_unported_tiers_raise)."""
+    """K = 256 prepares and solves (the gather tier, 500 spots; K = 257
+    and above take the XLA tier, tests/test_torch_xla_tier.py)."""
     rng = np.random.RandomState(7)
     coords = rng.rand(500, 2) * 22.0
     A = build_knn_graph(coords, k=6)

@@ -6,12 +6,14 @@ A fresh interpreter whose import system refuses the top-level modules
 ``flashdeconv_tpu_torch`` and solves one gather-tier problem (irregular
 coordinates) and one fused-tier problem (a 96 x 96 grid) on the CPU, and
 two spot-sharded solves on a mesh of two CPU shards (``parallel/``: the
-banded mesh and the halo plan), then imports ``chip_smoke.py`` and fits
+banded mesh and the halo plan), two solves on the XLA tier (an f64 grid
+and a K = 257 gather problem), then imports ``chip_smoke.py`` and fits
 its dense counts through the dense sketch route (``ops/countsketch.py``),
-and runs ``tl.deconvolve`` (``tl/`` and ``io/``) on those counts through
-tests/fake_anndata.py. A static check holds every module of the port,
-``parallel/``, ``tl/`` and ``io/`` among them, and ``chip_smoke.py``, to
-the same rule.
+runs ``tl.deconvolve`` (``tl/`` and ``io/``) on those counts through
+tests/fake_anndata.py, imports every name the subpackages export and draws
+the fit with ``pl/`` on the Agg backend. A static check holds every module
+of the port, ``parallel/``, ``tl/``, ``io/`` and ``pl/`` among them, and
+``chip_smoke.py``, to the same rule.
 """
 
 import ast
@@ -68,6 +70,21 @@ for coords, strategy in ((grid_coords(side=40), "banded"),
     assert np.isfinite(beta).all() and (beta >= 0).all()
     print(strategy, info["n_iterations"])
 
+# The XLA tier: f64 on a grid (the unfused banded form) and K = 257 on an
+# irregular graph (the gather form).
+for coords, K, dtype, tier in ((grid_coords(side=96), 8, np.float64,
+                                "BandedTier"),
+                               (rng.random((300, 2)) * 17, 257, np.float32,
+                                "GatherTier")):
+    Xk = rng.standard_normal((K, K + 32))
+    Y = rng.dirichlet(np.ones(K), size=coords.shape[0]) @ Xk
+    prob = prepare_bcd(Y, Xk, build_knn_graph(coords, k=6), coords=coords,
+                       dtype=dtype, device="cpu")
+    assert type(prob.tier).__name__ == tier and not prob.tier.uses_kernel
+    beta, info = prob.solve(max_iter=30)
+    assert np.isfinite(beta).all() and (beta >= 0).all()
+    print(tier, np.dtype(dtype).name, info["n_iterations"])
+
 # The dense-count route: chip_smoke's dense counts, projected through the
 # device route (forced on the CPU, where it runs the plain versions).
 import chip_smoke
@@ -99,6 +116,21 @@ fdt.tl.deconvolve(st, ref, n_hvg=300, device="cpu")
 P = np.asarray(st.obsm["flashdeconv"])
 assert P.shape == (1500, 6) and np.allclose(P.sum(axis=1), 1.0)
 print("tl", P.shape, fdt.__version__)
+
+# The subpackages' exports, and the plots of that fit.
+import matplotlib
+matplotlib.use("Agg")
+import flashdeconv_tpu_torch.core
+import flashdeconv_tpu_torch.ops
+import flashdeconv_tpu_torch.utils
+
+for pkg in (fdt, fdt.core, fdt.ops, fdt.utils, fdt.pl):
+    for name in pkg.__all__:
+        getattr(pkg, name)
+ax = fdt.pl.spatial(st, color="dominant")
+assert sum(len(c.get_offsets()) for c in ax.collections) == 1500
+assert len(fdt.pl.composition(st).patches) == 6
+print("pl", len(ax.collections))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("flashdeconv_tpu", "bench")
              or m.startswith("jax"))
@@ -136,7 +168,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert ROOT / "flashdeconv_tpu_torch" / "ops" / "countsketch.py" in files
     assert ROOT / "flashdeconv_tpu_torch" / "parallel" / "gspmd.py" in files
     for module in ("tl/_deconvolve.py", "tl/__init__.py", "io/loader.py",
-                   "io/__init__.py"):
+                   "io/__init__.py", "pl/_plots.py", "pl/__init__.py"):
         assert ROOT / "flashdeconv_tpu_torch" / module in files
     found = [
         f"{path.relative_to(ROOT)}: {name}"

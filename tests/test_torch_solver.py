@@ -20,8 +20,7 @@ import torch
 from flashdeconv_tpu.core import solver as jsolver
 from flashdeconv_tpu.ops import bcd as jbcd
 from flashdeconv_tpu_torch.core import solver as tsolver
-from flashdeconv_tpu_torch.utils.graph import build_knn_graph, grid_coords
-from torch_problems import with_long_edges
+from flashdeconv_tpu_torch.utils.graph import build_knn_graph
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from bench import make_problem  # noqa: E402
@@ -119,31 +118,6 @@ def test_verbose_samples_the_objective_on_the_reference_cadence(capsys):
                                info["final_objective"], rtol=1e-6)
     np.testing.assert_array_equal(beta_v, beta)
     assert "Iteration 0: objective" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("case", [
-    "float64", "large_k_fused", "large_k_banded", "large_k_gather",
-])
-def test_unported_tiers_raise(case):
-    """f64, and K = 257 on each of the three tiers, name their ROADMAP entry
-    (the problems that solve now are in tests/test_torch_gather.py and,
-    at 64 < K <= 256, tests/test_torch_large_k.py)."""
-    rng = np.random.RandomState(3)
-    n, K, kw = SIDE * SIDE, 8, {}
-    coords = grid_coords(side=SIDE)
-    if case == "float64":
-        kw["dtype"] = np.float64
-    else:
-        K = 257
-    if case == "large_k_gather":
-        coords = rng.rand(n, 2) * 100
-    A = build_knn_graph(coords, k=6)
-    if case == "large_k_banded":
-        A = with_long_edges(A, n_edges=800)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md, Queue 1: (f64 on|K > 256)"):
-        tsolver.prepare_bcd(rng.randn(n, 16), rng.randn(K, 16), A,
-                            coords=coords, device="cpu", **kw)
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
