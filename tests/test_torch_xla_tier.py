@@ -23,8 +23,8 @@ problem (x64 on, as tests/conftest.py sets), so it is the reference here:
   same sweeps;
 - ``FlashDeconv(solver_dtype=np.float64)`` against the JAX f64 fit within
   1e-10, its device outputs (f64 on the device, the fetch, ``fetch_dtype``,
-  ``save`` / ``load``), and the device argmax of a K = 257 fit fetched as
-  int32;
+  ``save`` / ``load``), the device argmax of a K = 257 fit fetched as
+  int32, and ``tl.deconvolve`` with a 257-type reference against JAX's;
 - the problems that raised before this tier was ported (f64, and K = 257
   on each tier), now solved against JAX, under their old case names.
 """
@@ -40,6 +40,7 @@ import torch
 import flashdeconv_tpu
 import flashdeconv_tpu_torch
 from conftest import make_synthetic
+from fake_anndata import make_reference_adata, make_spatial_adata
 from flashdeconv_tpu.core import solver as jsolver
 from flashdeconv_tpu.ops import bcd as jbcd
 from flashdeconv_tpu_torch.core import deconv as tdeconv
@@ -269,6 +270,34 @@ def test_large_k_dominant_is_fetched_as_int32(monkeypatch):
     assert torch.int32 in wire and torch.uint8 not in wire
     np.testing.assert_array_equal(model.dominant_,
                                   np.argmax(model.proportions_, axis=1))
+
+
+def test_deconvolve_at_k257_matches_jax():
+    """``tl.deconvolve`` with a 257-type reference (fake AnnData) takes the
+    XLA tier in both packages: the same parameters and sweeps, proportions
+    within 1e-5."""
+    Y, X, coords, _ = make_synthetic(n_spots=300, n_genes=1200, n_types=257,
+                                     seed=4)
+    genes = [f"g{i}" for i in range(Y.shape[1])]
+    rng = np.random.RandomState(5)
+    cells = np.vstack([rng.poisson(X[k] / (X[k].sum() + 1e-12) * 1500,
+                                   size=(2, X.shape[1]))
+                       for k in range(X.shape[0])]).astype(float)
+    labels = np.repeat([f"t{k:03d}" for k in range(X.shape[0])], 2)
+    out = []
+    for pkg, kw in ((flashdeconv_tpu, {}),
+                    (flashdeconv_tpu_torch, {"device": "cpu"})):
+        st = make_spatial_adata(Y, coords, gene_names=genes)
+        ref = make_reference_adata(cells, labels, gene_names=genes)
+        pkg.tl.deconvolve(st, ref, sketch_dim=512, n_hvg=800,
+                          n_markers_per_type=2, max_iter=30, **kw)
+        out.append(st)
+    ref_st, st = out
+    assert st.uns["flashdeconv_params"] == ref_st.uns["flashdeconv_params"]
+    P = st.obsm["flashdeconv"].to_numpy()
+    assert P.shape == (300, 257)
+    np.testing.assert_allclose(P, ref_st.obsm["flashdeconv"].to_numpy(),
+                               atol=1e-5)
 
 
 # The problems that raised NotImplementedError before this tier was ported
