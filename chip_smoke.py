@@ -8,6 +8,10 @@
                                      # alone
     python3 chip_smoke.py --small-k [--against DIR]
                                      # the sweep kernels at K <= 64 alone
+    python3 chip_smoke.py --multihost-child RANK WORLD PORT DIR
+                                     # one process of the [multihost]
+                                     # phase's job (the smoke run starts
+                                     # them)
 
 Builds the three CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, in parallel), holds each against its plain PyTorch version
@@ -77,6 +81,21 @@ counts set to 0 just before it and read just after:
    the 1M grid operands at K = 20 and 128 (an interior call and both
    boundary calls, each alone and into one full carry), the three calls'
    recomposition bitwise equal to the whole sweep, and timed against it;
+5a. the mesh across processes (``parallel/multihost.py``): the script
+   writes the 1M grid's Xty, YtY, X and adjacency and the 262,144-spot
+   grid fit's counts to a temporary directory and starts two processes of
+   itself (``--multihost-child``) on ``cuda:0``, joined in a Gloo group on
+   localhost (NCCL refuses two ranks on one card), each one shard of
+   ``global_spot_mesh``: the 1M grid's banded mesh (split: kernel #1's
+   sub-range form, the pads through host memory while the interior call
+   runs) and halo plan (kernel #2), each a cold ``solve`` and then
+   solves of 2 and 22 sweeps in turns, and ``fit_distributed`` on the
+   counts split at row 130,072; beta, sweeps and lambda must be bitwise
+   those of one process's 2-shard mesh (solved and fitted here before the
+   job, the same way), and each process's launches exactly 3 sub-range
+   calls a sweep and one kernel #2 call a sweep. The per-sweep times (the
+   medians' difference over 20 sweeps) of both are printed; a process
+   that fails or outlasts 300 s fails the run;
 6. the XLA tier in f64 (no kernel takes f64, as no Pallas kernel does in
    the JAX package): the 1M grid at K = 20 prepared in f64 (the unfused
    banded form), a cold ``solve()`` and warm ``solve()`` and
@@ -157,8 +176,10 @@ import ctypes
 import functools
 import json
 import re
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -195,6 +216,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SOLVE = dict(lambda_=0.1, rho=0.01, max_iter=100, tol=1e-4)
 MESH_SHARDS = (1, 2, 4)             # shards of the 1M grid on the one card
+PROCESSES = 2                       # the [multihost] job's processes
+SWEEP_RUNS = (2, 22, 22, 2, 2, 22)  # sweeps of the timed mesh solves
+MULTIHOST_TIMEOUT = 300             # seconds the parent waits for the job
 DROP = 0.01                         # share of bins dropped from a grid
 RESCUE_EDGES = 100                  # long-range edges of the rescue case
 # The single-device solves' (beta on the host, sweeps) by label, which the
@@ -1476,6 +1500,265 @@ def phase_halo_split(inner, reps: int = 5) -> None:
         f"events, {reps} sweeps each): {ms}")
 
 
+# -- the multi-process mesh: two processes on the one card --------------------
+
+def timed_runs(prob, tag: str) -> dict:
+    """A cold ``solve()`` of a prepared sharded problem (its ``beta`` and
+    ``info`` are the result), then the sweep's time: solves of
+    ``SWEEP_RUNS`` sweeps (tol 0, so each runs them all) in turns, the
+    difference of the medians of the long and the short ones over the
+    sweeps between them (the objective, the gather and the fetch of beta
+    are in both and cancel). Host clock ending in
+    ``torch.cuda.synchronize()``."""
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prob.solve(**{**SOLVE, **kw})
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    cold, (beta, info) = timed()
+    runs = {n: [] for n in SWEEP_RUNS}
+    for n in SWEEP_RUNS:
+        runs[n].append(timed(max_iter=n, tol=0.0)[0])
+    short, long = min(runs), max(runs)
+    sweep_ms = 1e3 * (np.median(runs[long]) - np.median(runs[short])) / (
+        long - short)
+    log(f"[multihost] {tag}: cold solve {cold:.4f} s, {info['n_iterations']}"
+        f" sweeps; solves of {short} / {long} sweeps {runs[short]} / "
+        f"{runs[long]} s: {sweep_ms:.3f} ms a sweep")
+    return {"beta": beta, "info": info, "cold": cold, "sweep_ms": sweep_ms,
+            "runs": {str(n): t for n, t in runs.items()}}
+
+
+def multihost_operands(workdir: Path):
+    """The [multihost] job's operands, as the parent wrote them: the 1M
+    grid's (xty, yty, X, coords, A) and the 262k grid fit's (CSR counts,
+    memory-mapped, X, coords)."""
+    from scipy import sparse
+
+    ld = functools.partial(np.load, mmap_mode="r")
+    grid = [np.load(workdir / f"{k}.npy") for k in ("xty", "X", "coords")]
+    A = sparse.csr_matrix(
+        tuple(np.load(workdir / f"A_{k}.npy")
+              for k in ("data", "indices", "indptr")),
+        shape=(grid[0].shape[0],) * 2)
+    counts = tuple(ld(workdir / f"Y_{k}.npy")
+                   for k in ("data", "indices", "indptr"))
+    fit = (counts, np.load(workdir / "Y_X.npy"),
+           np.load(workdir / "Y_coords.npy"))
+    return (*grid, float(np.load(workdir / "yty.npy")), A), fit
+
+
+def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
+    """One process of the [multihost] job (``--multihost-child``): joins a
+    Gloo group of ``world`` processes on ``localhost:port``, takes one shard
+    of ``global_spot_mesh`` on ``cuda:0``, runs the 1M grid's banded mesh and
+    halo plan and ``fit_distributed`` on its rows of the 262k counts, and
+    writes its beta, times and launches under ``workdir``."""
+    import torch.distributed as dist
+    from scipy import sparse
+
+    from flashdeconv_tpu_torch import FlashDeconv
+    from flashdeconv_tpu_torch.ops import _build, bcd
+    from flashdeconv_tpu_torch.parallel import multihost, prepare_sharded_bcd
+
+    workdir = Path(workdir)
+    for name in _build.build():  # the parent built them: this loads
+        _build.load(name)
+    # NCCL refuses two ranks on one card ("Duplicate GPU detected").
+    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    (xty, X, coords, yty, A), ((data, indices, indptr), Xc, fit_coords) = (
+        multihost_operands(workdir))
+    card = torch.device("cuda", 0)
+    mesh = multihost.global_spot_mesh(1, device=card)
+    if not (mesh.spans_processes and mesh.main == card
+            and mesh.local == (rank,)):
+        raise AssertionError(f"rank {rank}: not a mesh across processes on "
+                             f"the card: {mesh}")
+    record = {}
+    for strategy in ("banded", "halo"):
+        t0 = time.perf_counter()
+        prob = prepare_sharded_bcd(None, X, A, coords=coords, mesh=mesh,
+                                   xty=xty, yty=yty, strategy=strategy)
+        torch.cuda.synchronize()
+        prep = time.perf_counter() - t0
+        if strategy == "banded" and not prob._inner.use_fused:
+            raise AssertionError("the banded mesh is not the fused one")
+        runs = timed_runs(prob, f"p{rank} 1M grid {strategy}, prepare "
+                                f"{prep:.3f} s")
+        np.save(workdir / f"beta_{strategy}_p{rank}.npy", runs.pop("beta"))
+        record[strategy] = {"prepare_s": prep, "sweeps": runs.pop(
+            "info")["n_iterations"], **runs}
+        del prob
+
+    # The fit on this process's rows, split at an uneven row.
+    n = indptr.shape[0] - 1
+    cut = n // world - 1000
+    lo, hi = (0, cut) if rank == 0 else (cut, n)
+    a, b = int(indptr[lo]), int(indptr[hi])
+    Y_local = sparse.csr_matrix(
+        (np.asarray(data[a:b]), np.asarray(indices[a:b]),
+         np.asarray(indptr[lo:hi + 1]) - a), shape=(hi - lo, Xc.shape[1]))
+    model = FlashDeconv(sketch_dim=SKETCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit_distributed(Y_local, Xc, fit_coords[lo:hi])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    np.save(workdir / f"beta_fit_p{rank}.npy", model.beta_)
+    record["fit"] = {"rows": list(model.host_rows_), "seconds": fit_s,
+                     "sweeps": model.info_["n_iterations"],
+                     "lambda": model.lambda_used_,
+                     "stages": model.timings_}
+    log(f"[multihost] p{rank} fit_distributed rows [{lo}, {hi}): "
+        f"{fit_s:.3f} s, {model.info_['n_iterations']} sweeps, stages "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in model.timings_.items()))
+    fb, cd = bcd.fused_banded_sweep, bcd.coordinate_descent_block
+    record["launches"] = {
+        "fused_banded_sweep_sub": fb.sub_launches,
+        "fused_banded_sweep": fb.launches,
+        "coordinate_descent_block": cd.launches,
+    }
+    # Every sweep of a split mesh is 3 sub-range calls a shard; the halo
+    # plan's one kernel #2 call a shard.
+    timed = sum(SWEEP_RUNS)
+    want = {"fused_banded_sweep_sub": 3 * (record["banded"]["sweeps"] + timed
+                                           + record["fit"]["sweeps"]),
+            "fused_banded_sweep": 0,
+            "coordinate_descent_block": record["halo"]["sweeps"] + timed}
+    if record["launches"] != want:
+        raise AssertionError(f"rank {rank}: launches {record['launches']}, "
+                             f"expected {want}")
+    (workdir / f"record_p{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+
+
+def phase_multihost(children: dict) -> dict:
+    """The multi-process main path (see the module docstring, item 5a).
+    Leaves the job's launches in ``children``; returns the launches this
+    process's single-process references must show."""
+    from scipy import sparse
+
+    from flashdeconv_tpu_torch import FlashDeconv
+    from flashdeconv_tpu_torch.core.solver import sanitize_yty
+    from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
+    from flashdeconv_tpu_torch.utils import grid_coords
+
+    t_phase = time.perf_counter()
+    coords, A = knn_graph(SPOTS, False)
+    Y, X, _ = make_problem(SPOTS, TYPES, SKETCH)
+    xty, yty = Y @ X.T, sanitize_yty(None, Y)
+    del Y
+    counts, Xc, _ = grid_fit_counts()
+    fit_coords = grid_coords(side=FIT_SIDE)
+
+    # The single-process 2-shard references.
+    refs, want = {}, {"fused_banded_sweep": 0, "coordinate_descent_block": 0}
+    for strategy, kernel in (("banded", "fused_banded_sweep"),
+                             ("halo", "coordinate_descent_block")):
+        prob = prepare_sharded_bcd(None, X, A, coords=coords,
+                                   mesh=card_mesh(PROCESSES), xty=xty,
+                                   yty=yty, strategy=strategy)
+        refs[strategy] = timed_runs(prob, f"1 process, 2 shards, 1M grid "
+                                          f"{strategy}")
+        want[kernel] += PROCESSES * (
+            refs[strategy]["info"]["n_iterations"] + sum(SWEEP_RUNS))
+        del prob
+    ref_fit = FlashDeconv(sketch_dim=SKETCH, mesh=card_mesh(PROCESSES),
+                          device_outputs=False).fit(counts, Xc, fit_coords)
+    want["fused_banded_sweep"] += PROCESSES * ref_fit.info_["n_iterations"]
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        t0 = time.perf_counter()
+        for name, arr in (("xty", xty), ("X", X), ("coords", coords),
+                          ("yty", np.asarray(yty)), ("A_data", A.data),
+                          ("A_indices", A.indices), ("A_indptr", A.indptr),
+                          ("Y_data", counts.data),
+                          ("Y_indices", counts.indices),
+                          ("Y_indptr", counts.indptr), ("Y_X", Xc),
+                          ("Y_coords", fit_coords)):
+            np.save(workdir / f"{name}.npy", arr)
+        log(f"[multihost] operands written in {time.perf_counter() - t0:.1f}"
+            f" s; {PROCESSES} processes on cuda:0 over Gloo (NCCL refuses "
+            "two ranks on one card, 'Duplicate GPU detected')")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        logs = [open(workdir / f"log_p{r}.txt", "w+") for r in
+                range(PROCESSES)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--multihost-child", str(r), str(PROCESSES), str(port),
+             str(workdir)], stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(PROCESSES)]
+        try:
+            deadline = time.perf_counter() + MULTIHOST_TIMEOUT
+            while any(p.poll() is None for p in procs):
+                failed = [p for p in procs if p.poll() not in (None, 0)]
+                if failed or time.perf_counter() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        job_s = time.perf_counter() - t0
+        for r, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines():
+                log(f"[multihost p{r}] {line}")
+            f.close()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(
+                "[multihost] the job failed: return codes "
+                f"{[p.returncode for p in procs]} after {job_s:.1f} s")
+        records = [json.loads((workdir / f"record_p{r}.json").read_text())
+                   for r in range(PROCESSES)]
+        cut = FIT_SIDE ** 2 // PROCESSES - 1000
+        for r, rec in enumerate(records):
+            for strategy in ("banded", "halo"):
+                beta = np.load(workdir / f"beta_{strategy}_p{r}.npy")
+                ref = refs[strategy]
+                if not (rec[strategy]["sweeps"]
+                        == ref["info"]["n_iterations"]
+                        and np.array_equal(beta, ref["beta"])):
+                    raise AssertionError(
+                        f"[multihost] p{r} {strategy}: not bitwise the "
+                        "single-process 2-shard mesh")
+            beta = np.load(workdir / f"beta_fit_p{r}.npy")
+            rows = [0, cut] if r == 0 else [cut, FIT_SIDE ** 2]
+            if not (rec["fit"]["rows"] == rows
+                    and rec["fit"]["sweeps"] == ref_fit.info_["n_iterations"]
+                    and rec["fit"]["lambda"] == ref_fit.lambda_used_
+                    and np.array_equal(beta, ref_fit.beta_)):
+                raise AssertionError(
+                    f"[multihost] p{r} fit_distributed: not bitwise the "
+                    "single-process fit on the 2-shard mesh")
+    for key in records[0]["launches"]:
+        children[key] = sum(rec["launches"][key] for rec in records)
+    for strategy in ("banded", "halo"):
+        ms = [rec[strategy]["sweep_ms"] for rec in records]
+        log(f"[multihost] 1M grid {strategy}: {PROCESSES} processes cold "
+            f"solve {[rec[strategy]['cold'] for rec in records]} s, {ms} ms "
+            f"a sweep, against 1 process 2 shards "
+            f"{refs[strategy]['cold']:.4f} s, "
+            f"{refs[strategy]['sweep_ms']:.3f} ms a sweep "
+            f"({refs[strategy]['info']['n_iterations']} sweeps); beta "
+            "bitwise in every process")
+    log(f"[multihost] 262k fit: {PROCESSES} processes "
+        f"{[rec['fit']['seconds'] for rec in records]} s, 1 process "
+        f"{sum(ref_fit.timings_.values()):.3f} s of stages, "
+        f"{ref_fit.info_['n_iterations']} sweeps, beta bitwise; the job "
+        f"{job_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s; "
+        f"launches in the job {children}")
+    return want
+
+
 # -- the XLA tier: f64 at any K, and K > 256 ------------------------------------
 
 def xla_tier(prob, label: str) -> None:
@@ -1860,7 +2143,15 @@ def main() -> None:
                         help="with --large-k or --small-k: time the sweep "
                              "kernels of the checkout at DIR in turns with "
                              "this one's (repeatable)")
+    parser.add_argument("--multihost-child", nargs=4,
+                        metavar=("RANK", "WORLD", "PORT", "DIR"),
+                        help="run one process of the [multihost] phase's "
+                             "job (the smoke run starts them)")
     args = parser.parse_args()
+    if args.multihost_child:
+        rank, world, port, workdir = args.multihost_child
+        multihost_child(int(rank), int(world), int(port), workdir)
+        return
     if args.against and not (args.large_k or args.small_k):
         parser.error("--against goes with --large-k or --small-k")
     t_start = time.perf_counter()
@@ -2028,6 +2319,12 @@ def main() -> None:
     sharded_launches = counted(kernels, lambda: phase_sharded(halo))
     phase_halo_split(halo.pop("prob"))
 
+    # The mesh across processes: two processes on the card (kernel #1's
+    # sub-range form and kernel #2 in each), against one process's 2-shard
+    # mesh.
+    job = {}
+    counted(kernels, lambda: phase_multihost(job))
+
     # The XLA tier (f64, and K > 256): no kernel launches.
     counted(kernels, phase_f64)
     counted(kernels, phase_atlas_k)
@@ -2059,7 +2356,8 @@ def main() -> None:
         entry("fused_banded_sweep", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:650", fused_launches, fused_row),
         entry("coordinate_descent_block", "cd_block_sweep.cu",
-              "flashdeconv_tpu/ops/bcd.py:449", cd_launches, cd_row),
+              "flashdeconv_tpu/ops/bcd.py:449",
+              cd_launches + job["coordinate_descent_block"], cd_row),
         entry("fused_banded_sweep_large_k", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:376", large_fused_launches,
               large_fused_rows[128]),
@@ -2070,7 +2368,8 @@ def main() -> None:
               "flashdeconv_tpu/ops/countsketch.py:112", cs_launches, cs_row),
         entry("fused_banded_sweep_sub", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:851",
-              sharded_launches["fused_banded_sweep_sub"], sub_row),
+              sharded_launches["fused_banded_sweep_sub"]
+              + job["fused_banded_sweep_sub"], sub_row),
         entry("fused_banded_sweep_rest", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:724", rest_launches, rest_row),
     ]}), flush=True)

@@ -20,7 +20,10 @@ lazily. Besides :meth:`FlashDeconv.fit` the class has ``warm_start``,
 :meth:`~FlashDeconv.fit_lambda_path`, the getters, ``summary`` and
 ``save`` / ``load`` (the JAX package's ``.npz`` keys). ``solver_dtype``
 float64, or more than 256 cell types, solves on the JAX package's XLA
-tier; ``fit_distributed`` (multi-process) is not ported.
+tier. :meth:`~FlashDeconv.fit_distributed` is the multi-process fit: each
+process of a ``torch.distributed`` job passes only its slice of the spots,
+and stage 6 runs on a mesh whose shards span the processes
+(:mod:`flashdeconv_tpu_torch.parallel.multihost`).
 """
 
 from __future__ import annotations
@@ -387,14 +390,15 @@ class FlashDeconv:
         return (not self._is_sharded and self.device.type == "cuda"
                 and n_rows > native.XTY_STREAM_CHUNK_ROWS)
 
-    def _fused_xty_feed(self, Y, gene_idx, op, X_sketch, colscale=None):
+    def _fused_xty_feed(self, Y, gene_idx, op, X_sketch, colscale=None,
+                        stream: bool = True):
         """``(Xty, YtY)`` from the native fused sketch pass: the log-CPM
         kernels for "log_cpm", the column-scale kernels for "pearson"
         (``colscale`` = 1/sigma per subset gene) and "raw" (None). When
-        :meth:`_streams_xty`, the pass runs in row chunks and Xty is an
-        f32 device tensor, each chunk's copy to the device running while
-        the next chunk computes (:func:`stream_xty`); else a host (N, K)
-        f64 array, which the solver copies once."""
+        ``stream`` and :meth:`_streams_xty`, the pass runs in row chunks
+        and Xty is an f32 device tensor, each chunk's copy to the device
+        running while the next chunk computes (:func:`stream_xty`); else a
+        host (N, K) f64 array, which the solver copies once."""
         args = (Y, gene_idx) + (() if self.preprocess == "log_cpm"
                                 else (colscale,))
         args += (op.buckets, op.weights, op.sketch_dim, X_sketch)
@@ -404,7 +408,7 @@ class FlashDeconv:
         else:
             full, chunked = (native.fused_colscale_xty,
                              native.fused_colscale_xty_chunks)
-        if self._streams_xty(Y.shape[0]):
+        if stream and self._streams_xty(Y.shape[0]):
             chunks = chunked(*args, chunk_rows=native.XTY_STREAM_CHUNK_ROWS)
             res = None if chunks is None else stream_xty(
                 chunks, Y.shape[0], X_sketch.shape[0], self.device,
@@ -531,6 +535,198 @@ class FlashDeconv:
         """Fit (``kwargs`` go to :meth:`fit`) and return the (n_spots,
         n_cell_types) proportions."""
         return self.fit(Y, X, coords, **kwargs).proportions_
+
+    def fit_distributed(
+        self,
+        Y_local: ArrayLike,
+        X: np.ndarray,
+        coords_local: np.ndarray,
+        cell_type_names: Optional[np.ndarray] = None,
+    ) -> "FlashDeconv":
+        """One-call multi-process fit: every process passes only its spots.
+
+        Run the same script on every process of a ``torch.distributed`` job
+        (after :func:`flashdeconv_tpu_torch.parallel.multihost.initialize`),
+        with ``Y_local`` / ``coords_local`` holding process p's contiguous
+        block of global spot rows (process 0's rows first, then process
+        1's, ...). The full count matrix never exists in one process; per
+        stage:
+
+        1. gene selection — per-process O(local nnz) HVG moment passes, one
+           cross-process reduction
+           (``multihost.distributed_select_informative_genes``);
+        2. normalisation + sketch + Xty — the per-process fused native pass
+           over the local CSR slice (log-CPM is row-local; pearson's global
+           gene means are one reduction), or the staged host pass for
+           other input; only the (N, K) Xty rows and the YtY parts are
+           gathered;
+        3. spatial graph — the coordinates (16 B/spot) are gathered once,
+           each process runs the kNN queries of its own rows, and the edge
+           lists are gathered and symmetrised
+           (``multihost.distributed_adjacency``);
+        4. lambda — the replicated closed form;
+        5. solve — the spot-sharded solve on ``mesh``, or on
+           ``multihost.global_spot_mesh(n_shards or 1, device)``: each
+           process holds only its shards' operands, and every process ends
+           with the same fitted state (beta gathered to the host in f64).
+
+        The result is bitwise single-process :meth:`fit` on the
+        concatenated inputs over the same mesh when the canonical native
+        fused path applies (CSR counts and ``log_cpm``); pearson, raw and
+        the staged pass agree to f64 rounding (the cross-process sums
+        reassociate), and the objective to f64 rounding everywhere (YtY is
+        a cross-process sum). ``device_outputs``, ``fetch_dtype`` and
+        ``outputs`` are ignored: no process holds the other processes'
+        device shards, so the host f64 path runs. The stages run in order
+        on one thread, since every process must issue the same collectives
+        in the same order. Sets ``host_rows_`` = ``(row_start,
+        row_stop)``.
+
+        Without a process group this is the sharded :meth:`fit` over that
+        mesh.
+        """
+        from flashdeconv_tpu_torch.core.solver import sanitize_yty
+        from flashdeconv_tpu_torch.parallel import (
+            multihost,
+            prepare_sharded_bcd,
+        )
+
+        timer = StageTimer()
+        if sparse.issparse(Y_local) and not sparse.isspmatrix_csr(Y_local):
+            Y_local = Y_local.tocsr()
+        coords_local = np.asarray(coords_local, dtype=np.float64)
+        self._validate(Y_local, X, coords_local, cell_type_names)
+
+        mesh = self.mesh if self.mesh is not None else (
+            multihost.global_spot_mesh(self.n_shards or 1, self.device))
+        row_start, row_stop, n_global = multihost.process_row_offsets(
+            Y_local.shape[0])
+        if n_global == 0:
+            raise ValueError("fit_distributed requires at least one spot.")
+        self._log(f"FlashDeconv (torch, distributed): rows [{row_start}, "
+                  f"{row_stop}) of {n_global} spots x {Y_local.shape[1]} "
+                  f"genes, {X.shape[0]} cell types")
+        self.n_spots_ = n_global
+        self.n_genes_ = Y_local.shape[1]
+        self.n_cell_types_ = X.shape[0]
+        self.cell_type_names_ = cell_type_names
+        self.host_rows_ = (row_start, row_stop)
+        self._clear_consume_once()
+
+        with timer.stage("gene_selection"):
+            gene_idx, leverage = (
+                multihost.distributed_select_informative_genes(
+                    Y_local, X, n_hvg=self.n_hvg,
+                    n_markers_per_type=self.n_markers_per_type))
+        self.gene_idx_ = gene_idx
+        self._log(f"  Selected {len(gene_idx)} genes (HVG + markers)")
+
+        # The signature's normalisation; the counts' is folded into the
+        # per-process sketch pass below.
+        X_subset = X[:, gene_idx]
+        colscale = None
+        with timer.stage("preprocess"):
+            if self.preprocess == "log_cpm":
+                X_tilde = _log_cpm_dense(X_subset)
+            elif self.preprocess == "pearson":
+                mu = multihost.distributed_subset_col_mean(
+                    Y_local, gene_idx) + 1e-6
+                colscale = 1.0 / _pearson_sigma(mu)
+                X_tilde = _pearson_dense(X_subset)
+            else:  # raw
+                X_tilde = X_subset.astype(np.float64, copy=False)
+
+        with timer.stage("sketch"):
+            # The operator is built from the seed alike on every process;
+            # each contracts only its own rows.
+            op = make_countsketch_op(
+                len(gene_idx), self.sketch_dim, leverage_scores=leverage,
+                random_state=self.random_state)
+            X_sketch = np.asarray(X_tilde @ op.to_csr())
+            res = None
+            if Y_local.shape[0] > 0 and (
+                    native.fused_available(Y_local)
+                    if self.preprocess == "log_cpm"
+                    else native.colscale_available(Y_local)):
+                res = self._fused_xty_feed(Y_local, gene_idx, op, X_sketch,
+                                           colscale, stream=False)
+                if not np.isfinite(res[1]):
+                    # The poisoned-YtY repair of fit(), row-local: zero this
+                    # process's poisoned rows and run the pass again.
+                    Y_rep = _zero_poisoned_csr_rows(
+                        Y_local, gene_idx,
+                        logcpm=self.preprocess == "log_cpm")
+                    if Y_rep is not None:
+                        res = self._fused_xty_feed(Y_rep, gene_idx, op,
+                                                   X_sketch, colscale,
+                                                   stream=False)
+            if res is not None:
+                xty_local, yty_local = res
+            else:
+                # Staged pass (non-CSR or non-float input): subset and
+                # normalise the local rows, project, contract. Row-local
+                # too; the GEMM may reassociate, so it agrees with the
+                # single-process staged path to f64 rounding.
+                Y_sub = Y_local[:, gene_idx]
+                if sparse.issparse(Y_sub) and not sparse.isspmatrix_csr(
+                        Y_sub):
+                    Y_sub = Y_sub.tocsr()
+                if self.preprocess == "pearson":
+                    Y_tilde = (Y_sub.multiply(colscale).tocsr()
+                               if sparse.issparse(Y_sub) else
+                               np.asarray(Y_sub, dtype=np.float64) * colscale)
+                else:
+                    Y_tilde, _ = preprocess_data(Y_sub, X_subset,
+                                                 self.preprocess)
+                Y_sk = Y_tilde @ op.to_csr()
+                if sparse.issparse(Y_sk):
+                    Y_sk = np.asarray(Y_sk.todense())
+                Y_sk = np.asarray(Y_sk, dtype=np.float64)
+                xty_local = Y_sk @ X_sketch.T
+                yty_local = sanitize_yty(None, Y_sk)
+            xty = multihost.allgather_rows(
+                np.ascontiguousarray(xty_local, dtype=np.float64))
+            yty = float(np.sum(multihost.allgather_rows(
+                np.asarray([yty_local], dtype=np.float64))))
+
+        with timer.stage("spatial_graph"):
+            A, coords_global = multihost.distributed_adjacency(
+                coords_local, method=self.spatial_method,
+                k=self.k_neighbors, radius=self.radius)
+        self.adjacency_ = A
+
+        with timer.stage("lambda_tuning"):
+            if self.lambda_spatial == "auto":
+                lambda_ = auto_tune_lambda(None, X_sketch, A)
+            else:
+                lambda_ = float(self.lambda_spatial)
+        self._log(f"  lambda = {lambda_:.4f}")
+        self.lambda_used_ = lambda_
+
+        beta_init = None
+        if (self.warm_start and self.beta_ is not None
+                and self.beta_.shape == (n_global, X.shape[0])):
+            beta_init = self.beta_
+            self._log("  warm start from the previous beta_")
+
+        with timer.stage("solve"):
+            beta, info = prepare_sharded_bcd(
+                None, X_sketch, A, coords=coords_global, mesh=mesh,
+                dtype=self.solver_dtype, verbose=self.verbose, xty=xty,
+                yty=yty, device=self.device,
+            ).solve(lambda_=lambda_, rho=self.rho_sparsity,
+                    max_iter=self.max_iter, tol=self.tol,
+                    verbose=self.verbose, beta_init=beta_init)
+
+        self.beta_ = beta
+        self.proportions_ = normalize_proportions(beta)
+        self.dominant_ = None
+        self.info_ = info
+        self.timings_ = timer.timings
+        self._fitted = True
+        self._log(f"  converged={info['converged']} after "
+                  f"{info['n_iterations']} sweeps")
+        return self
 
     def fit_lambda_path(self, Y: ArrayLike, X: np.ndarray,
                         coords: np.ndarray,

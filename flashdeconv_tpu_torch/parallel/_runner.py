@@ -1,17 +1,28 @@
 """The mesh and the shared solve tail of the port's sharded solvers.
 
-Counterpart of :mod:`flashdeconv_tpu.parallel._runner`, single-process
-only. A :class:`Mesh` is an ordered tuple of torch devices, one per shard;
-a device may appear more than once (several shards on one card, or on the
-CPU, as the JAX package's tests run several virtual CPU devices). On CUDA
-every shard has its own stream, and a second one for the halo copies of
-the banded mesh's overlap split. A sweep forks from the main device's
-current stream (:meth:`Mesh.fork`), queues each shard's work on its own
-streams (:meth:`Mesh.on`) and joins back (:meth:`Mesh.join_max`); the
-solve loop reads one pair of statistics per sweep on the host, as the
-single-device loop does. Within a sweep the shards write only their own
-buffers, and read other shards' buffers only where no shard of that sweep
-writes, so fork and join are the only cross-stream orderings needed.
+Counterpart of :mod:`flashdeconv_tpu.parallel._runner`. A :class:`Mesh` is
+an ordered tuple of torch devices, one per shard; a device may appear more
+than once (several shards on one card, or on the CPU, as the JAX package's
+tests run several virtual CPU devices). On CUDA every shard has its own
+stream, and a second one for the halo copies of the banded mesh's overlap
+split. A sweep forks from the main device's current stream
+(:meth:`Mesh.fork`), queues each shard's work on its own streams
+(:meth:`Mesh.on`) and joins back (:meth:`Mesh.join_max`); the solve loop
+reads one pair of statistics per sweep on the host, as the single-device
+loop does. Within a sweep the shards write only their own buffers, and
+read other shards' buffers only where no shard of that sweep writes, so
+fork and join are the only cross-stream orderings needed.
+
+A mesh whose shards span processes (``owners``, one ``torch.distributed``
+rank per shard; :func:`flashdeconv_tpu_torch.parallel.multihost.
+global_spot_mesh` builds it host-major) is the counterpart of a JAX mesh
+over several processes' devices: each process holds operands only for the
+shards it owns (:attr:`Mesh.local`, the others are None in every
+per-shard list), and what the shards exchange travels by
+``all_gather`` (:meth:`Mesh.exchange`): through host memory over Gloo, or
+on the device under NCCL. Every process gathers the same values in the
+same shard order, so the maxima, sums and beta it forms are those of the
+single-process mesh, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,17 +32,63 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from flashdeconv_tpu_torch.core.solver import resolve_device
+from flashdeconv_tpu_torch.core.solver import fetch_to_host, resolve_device
 from flashdeconv_tpu_torch.ops.bcd import rel_change, scalar
+
+
+def process_count() -> int:
+    """The world size of the ``torch.distributed`` default group, 1 when
+    no group is up."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank in the default group, 0 when no group is up."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+# One Gloo group per NCCL default group, for host tensors (NCCL moves only
+# device tensors); created on first use, which every rank reaches in the
+# same collective.
+_GLOO_GROUPS: dict = {}
+
+
+def _host_group():
+    """The group host tensors travel through: the default group under
+    Gloo, else a Gloo group over the same ranks."""
+    if dist.get_backend() == "gloo":
+        return None
+    key = id(dist.distributed_c10d._get_default_group())
+    if key not in _GLOO_GROUPS:
+        _GLOO_GROUPS[key] = dist.new_group(backend="gloo")
+    return _GLOO_GROUPS[key]
+
+
+def all_gather_host(t: torch.Tensor):
+    """Every process's CPU tensor ``t`` (one shape and dtype on all of
+    them), in rank order. ``all_gather``, never a reduction: Gloo's MAX
+    drops a NaN, and a SUM's order depends on the ranks."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(process_count())]
+    dist.all_gather(parts, t, group=_host_group())
+    return parts
 
 
 class Mesh:
     """An ordered tuple of torch devices, one per shard (see the module
     docstring). All CUDA or all CPU; a CUDA device without an index is the
-    current card. Iterates, indexes and has a length like its tuple."""
+    current card. Iterates, indexes and has a length like its tuple.
 
-    def __init__(self, devices: Iterable):
+    ``owners``: the ``torch.distributed`` rank that owns each shard (each
+    rank the same number of shards), for a mesh that spans processes; this
+    process's shards are :attr:`local`, and a shard another process owns is
+    listed with this process's device, which nothing here uses for it.
+    Without ``owners`` every shard is this process's.
+    """
+
+    def __init__(self, devices: Iterable, owners: Optional[Iterable] = None):
         devs = []
         for d in devices:
             dev = resolve_device(d)
@@ -44,7 +101,26 @@ class Mesh:
             raise ValueError(f"a mesh's devices must be all CUDA or all CPU, "
                              f"got {devs}")
         self.devices: Tuple[torch.device, ...] = tuple(devs)
-        self.main = devs[0]
+        self.owners: Optional[Tuple[int, ...]] = None
+        self.local: Tuple[int, ...] = tuple(range(len(devs)))
+        if owners is not None:
+            owners = tuple(int(r) for r in owners)
+            counts = np.bincount(owners) if owners and min(owners) >= 0 else []
+            if len(owners) != len(devs) or len(set(counts)) != 1:
+                raise ValueError(
+                    f"owners must name a rank 0..W-1 for each of the "
+                    f"{len(devs)} shards, each rank as often, got {owners}")
+            self.owners = owners
+            self._by_rank = [[s for s, r in enumerate(owners) if r == rank]
+                             for rank in range(len(counts))]
+            self.local = tuple(self._by_rank[process_index()]
+                               if process_index() < len(counts) else ())
+            if not self.local:
+                raise ValueError(f"process {process_index()} owns no shard "
+                                 f"of the mesh (owners {owners})")
+        self.spans_processes = self.owners is not None and len(
+            set(self.owners)) > 1
+        self.main = devs[self.local[0]]
         self.cuda = self.main.type == "cuda"
         self._streams = self._side = None
 
@@ -58,7 +134,14 @@ class Mesh:
         return self.devices[s]
 
     def __repr__(self) -> str:
-        return f"Mesh({', '.join(str(d) for d in self.devices)})"
+        owners = "" if self.owners is None else f", owners={self.owners}"
+        return f"Mesh({', '.join(str(d) for d in self.devices)}{owners})"
+
+    def per_shard(self, fn: Callable[[int], object]) -> list:
+        """A list over the shards: ``fn(s)`` for this process's shards,
+        None for the others."""
+        return [fn(s) if s in self.local else None
+                for s in range(len(self.devices))]
 
     def _ensure_streams(self) -> None:
         if self._streams is None:
@@ -93,21 +176,81 @@ class Mesh:
         if self.cuda:
             self._streams[s].wait_stream(self._side[s])
 
-    def join_max(self, stats: Sequence[torch.Tensor]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Join; ``stats`` is the flat ``[max_diff, max_abs, max_diff,
-        ...]`` of the shards' calls. Returns both maxima over them on the
-        main device (``torch.amax`` keeps a NaN, as ``pmax`` does)."""
-        vals = torch.stack(self.gather(stats))
-        return torch.amax(vals[0::2]), torch.amax(vals[1::2])
-
-    def gather(self, tensors: Sequence[torch.Tensor]):
-        """Join, then ``tensors`` on the main device."""
-        if self.cuda:
+    def join(self) -> None:
+        """The main device's current stream waits for every shard's
+        streams."""
+        if self.cuda and self._streams is not None:
             main = torch.cuda.current_stream(self.main)
             for stream in (*self._streams, *self._side):
                 main.wait_stream(stream)
+
+    def join_max(self, stats: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Join; ``stats`` is the flat ``[max_diff, max_abs, max_diff,
+        ...]`` of this process's shards' calls. Returns both maxima over
+        them, and over every process's on a mesh that spans processes, on
+        the main device (``torch.amax`` keeps a NaN, as ``pmax`` does)."""
+        vals = torch.stack(self.gather(stats))
+        if not self.spans_processes:
+            return torch.amax(vals[0::2]), torch.amax(vals[1::2])
+        pair = torch.stack([torch.amax(vals[0::2]), torch.amax(vals[1::2])])
+        pair = torch.amax(torch.stack(self._all_gather(pair)).to(self.main),
+                          dim=0)
+        return pair[0], pair[1]
+
+    def gather(self, tensors: Sequence[torch.Tensor]):
+        """Join, then ``tensors`` on the main device."""
+        self.join()
         return [t.to(self.main) for t in tensors]
+
+    def gather_all(self, tensors: Sequence[Optional[torch.Tensor]]) -> list:
+        """Join, then every shard's tensor on the main device: ``tensors``
+        holds one per shard, None where another process owns it (on a mesh
+        that spans processes; all of one shape and dtype there)."""
+        if not self.spans_processes:
+            return self.gather(tensors)
+        self.join()
+        return [t.to(self.main) for t in self.exchange(tensors)]
+
+    def exchange(self, tensors: Sequence[Optional[torch.Tensor]],
+                 side: bool = False) -> list:
+        """Every shard's tensor, from the process that owns it, on a mesh
+        that spans processes: ``tensors`` as :meth:`gather_all` takes them.
+        Over Gloo each local tensor is copied to the host on the main
+        device's current stream, or on its shard's halo-copy stream with
+        ``side`` (which then waits for no other stream), and the result is
+        CPU tensors; under NCCL a CUDA mesh joins and gathers on the main
+        device (no overlap) and its shards' streams wait for the result."""
+        local = [tensors[s] for s in self.local]
+        if self._device_collectives():
+            self.join()
+            parts = self._all_gather(torch.stack(
+                [t.to(self.main) for t in local]))
+            self.fork()
+        else:
+            host = []
+            for s, t in zip(self.local, local):
+                with (self.on(s, side=True) if side
+                      else contextlib.nullcontext()):
+                    host.append(t.to("cpu"))
+            parts = self._all_gather(torch.stack(host))
+        out = [None] * len(self.devices)
+        for shards, part in zip(self._by_rank, parts):
+            for s, t in zip(shards, part):
+                out[s] = t
+        return out
+
+    def _device_collectives(self) -> bool:
+        return self.cuda and dist.get_backend() == "nccl"
+
+    def _all_gather(self, t: torch.Tensor) -> list:
+        """Every process's ``t``, in rank order: on the device under NCCL
+        (a CUDA mesh), else through host memory."""
+        if self._device_collectives():
+            parts = [torch.empty_like(t) for _ in range(process_count())]
+            dist.all_gather(parts, t.contiguous())
+            return parts
+        return all_gather_host(t.to("cpu"))
 
 
 def as_mesh(mesh) -> Mesh:
@@ -121,6 +264,28 @@ def validate_beta_init(beta_init, n_spots: int, n_types: int) -> None:
             f"beta_init shape {beta_init.shape} does not match "
             f"({n_spots}, {n_types})"
         )
+
+
+def check_return_device(mesh: Mesh, return_device: bool) -> None:
+    """``return_device=True`` needs a mesh within one process."""
+    if return_device and mesh.spans_processes:
+        raise ValueError(
+            "return_device=True is not available on a mesh whose shards span "
+            "processes: the device beta of the other processes' shards lies "
+            "in their memory (the JAX package cannot fetch it from one "
+            "process either); solve() returns the whole beta on the host on "
+            "every process"
+        )
+
+
+def fetched(result, return_device: bool):
+    """``(beta, info)`` of a prepared problem's ``_solve``: a device beta
+    made contiguous with ``return_device``, else fetched to host f64; a host
+    (zero-sweep) beta as it is."""
+    beta, info = result
+    if isinstance(beta, torch.Tensor):
+        beta = beta.contiguous() if return_device else fetch_to_host(beta)
+    return beta, info
 
 
 def sanitize_xty_rows(xty: np.ndarray, dtype) -> Tuple[np.ndarray, int]:

@@ -39,7 +39,6 @@ from scipy import sparse
 from flashdeconv_tpu_torch.core.solver import (
     FUSED_BLOCK,
     FUSED_MAX_H,
-    fetch_to_host,
     precompute_gram_matrix,
     sanitize_yty,
     solve_dtype,
@@ -58,7 +57,9 @@ from flashdeconv_tpu_torch.ops.bcd import (
 from flashdeconv_tpu_torch.parallel._runner import (
     Mesh,
     as_mesh,
+    check_return_device,
     converge,
+    fetched,
     info_dict,
     run_prepared_solve,
     uniform_result,
@@ -123,17 +124,43 @@ def _gspmd_iterate(betas, spares, Xty_t, masks, gs, tol, max_iter: int,
 
     def sweep():
         cur, nxt = state
+        view = _with_remote_edges(mesh, cur, halo)
         mesh.fork()
         stats = []
-        for s in range(len(cur)):
+        for s in mesh.local:
             with mesh.on(s):
-                ns = _banded_ns_window(cur, s, offsets, masks[s], halo)
+                ns = _banded_ns_window(view, s, offsets, masks[s], halo)
                 stats += gs[s](cur[s], Xty_t[s], ns, nxt[s])[1:]
         state.reverse()
         return mesh.join_max(stats)
 
-    n_iter, rel = converge(sweep, tol, max_iter, betas[0].dtype)
+    n_iter, rel = converge(sweep, tol, max_iter,
+                           betas[mesh.local[0]].dtype)
     return state[0], state[1], n_iter, rel
+
+
+def _with_remote_edges(mesh: Mesh, betas, halo: int) -> list:
+    """``betas`` (each shard's (K, n_local) beta, None where another
+    process owns the shard) with each such shard replaced by a tensor on
+    the main device that holds its first and last ``halo`` columns, zero
+    between: all that a window of ``halo`` columns around this process's
+    shards reads of it (:func:`_window`). Unchanged on a mesh within one
+    process."""
+    if not mesh.spans_processes:
+        return betas
+    local = betas[mesh.local[0]]
+    n_local = local.shape[1]
+    w = min(halo, n_local)
+    edges = mesh.gather_all(mesh.per_shard(lambda s: torch.cat(
+        [betas[s][:, :w], betas[s][:, n_local - w:]], dim=1)))
+    out = list(betas)
+    for t, b in enumerate(betas):
+        if b is None:
+            out[t] = local.new_zeros((local.shape[0], n_local),
+                                     device=mesh.main)
+            out[t][:, :w] = edges[t][:, :w]
+            out[t][:, n_local - w:] = edges[t][:, w:]
+    return out
 
 
 def _refresh_pads(carries, s: int, h_cols: int) -> None:
@@ -149,6 +176,30 @@ def _refresh_pads(carries, s: int, h_cols: int) -> None:
             carries[s + 1][:, h_cols:2 * h_cols])
 
 
+def _exchange_pads(mesh: Mesh, carries, h_cols: int) -> None:
+    """:func:`_refresh_pads` of this process's shards on a mesh that spans
+    processes, queued on each shard's halo-copy stream: every shard's first
+    and last data blocks go through :meth:`Mesh.exchange`, and each local
+    shard's pads are copied from its neighbours' (the global ends stay
+    zero)."""
+    P = len(carries)
+    n_local = carries[mesh.local[0]].shape[1] - 2 * h_cols
+    edges = [None] * P
+    for s in mesh.local:
+        with mesh.on(s, side=True):
+            edges[s] = torch.cat([carries[s][:, h_cols:2 * h_cols],
+                                  carries[s][:, n_local:n_local + h_cols]],
+                                 dim=1)
+    edges = mesh.exchange(edges, side=True)
+    for s in mesh.local:
+        with mesh.on(s, side=True):
+            if s > 0:
+                carries[s][:, :h_cols].copy_(edges[s - 1][:, h_cols:])
+            if s < P - 1:
+                carries[s][:, h_cols + n_local:].copy_(
+                    edges[s + 1][:, :h_cols])
+
+
 def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
                          rho, tol, max_iter: int, offsets: Tuple[int, ...],
                          h: int, block: int, mesh: Mesh, overlap="auto"):
@@ -156,17 +207,22 @@ def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
 
     ``carries``/``spares``: per-shard (K, n_local + 2*h*block) carries, the
     spares' global-end pads zero; ``Xty_t``, ``masks`` (uint8),
-    ``inv_den``, ``XtX``: per-shard operands. ``overlap``: ``"auto"``
-    splits each sweep when ``n_local <= 16384`` and a shard has at least
-    ``2h + 1`` blocks (the JAX rule), ``True`` whenever it has, ``False``
-    never. Either way the result is bitwise the same. Returns ``(carries,
-    spares, n_iterations, rel_change)`` with ``carries`` the result.
+    ``inv_den``, ``XtX``: per-shard operands (None where another process
+    owns the shard). ``overlap``: ``"auto"`` splits each sweep when a
+    shard has at least ``2h + 1`` blocks and ``n_local <= 16384`` (the JAX
+    rule) or the mesh spans processes, ``True`` whenever a shard has them,
+    ``False`` never. Either way the result is bitwise the same. Across
+    processes the pads travel through :func:`_exchange_pads`, after the
+    interior calls are queued when the sweep is split. Returns
+    ``(carries, spares, n_iterations, rel_change)`` with ``carries`` the
+    result.
     """
     hB = h * block
-    n_local = Xty_t[0].shape[1]
+    n_local = Xty_t[mesh.local[0]].shape[1]
     m = n_local // block
     if overlap == "auto":
-        split = n_local <= _OVERLAP_AUTO_MAX_LOCAL and m >= 2 * h + 1
+        split = m >= 2 * h + 1 and (n_local <= _OVERLAP_AUTO_MAX_LOCAL
+                                    or mesh.spans_processes)
     else:
         split = bool(overlap) and m >= 2 * h + 1
     state = [carries, spares]
@@ -176,6 +232,26 @@ def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
         return fused_banded_sweep(
             cur[s], Xty_t[s], XtX[s], masks[s], inv_den[s], lam, rho,
             offsets, h, block, out=nxt[s], sub=sub)[1:]
+
+    def sweep_across_processes():
+        cur = state[0]
+        mesh.fork()
+        stats = []
+        if split:
+            for s in mesh.local:
+                with mesh.on(s):
+                    stats += run(s, (h, h, m - 2 * h))
+        _exchange_pads(mesh, cur, hB)
+        for s in mesh.local:
+            mesh.wait_side(s)
+            with mesh.on(s):
+                if split:
+                    stats += run(s, (0, 0, h))
+                    stats += run(s, (m - h, m - h, h))
+                else:
+                    stats += run(s)
+        state.reverse()
+        return mesh.join_max(stats)
 
     def sweep():
         cur = state[0]
@@ -201,7 +277,9 @@ def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
         state.reverse()
         return mesh.join_max(stats)
 
-    n_iter, rel = converge(sweep, tol, max_iter, torch.float32)
+    n_iter, rel = converge(
+        sweep_across_processes if mesh.spans_processes else sweep, tol,
+        max_iter, torch.float32)
     return state[0], state[1], n_iter, rel
 
 
@@ -284,17 +362,18 @@ class GspmdBandedProblem:
         XtX = {dev: torch.tensor(XtX64, dtype=tdtype, device=dev)
                for dev in set(mesh.devices)}
 
-        def cols(arr, s, dtype):
-            part = np.ascontiguousarray(arr[..., s * n_local:(s + 1) * n_local])
-            return torch.from_numpy(part).to(mesh[s], dtype)
+        def cols(arr, dtype):
+            """Per shard of this process, its columns of ``arr``."""
+            return mesh.per_shard(lambda s: torch.from_numpy(
+                np.ascontiguousarray(arr[..., s * n_local:(s + 1) * n_local])
+            ).to(mesh[s], dtype))
 
-        self.Xty_t = [cols(Xty_t, s, tdtype) for s in range(P)]
-        self.nnb = [cols(nnb, s, tdtype) for s in range(P)]
+        self.Xty_t = cols(Xty_t, tdtype)
+        self.nnb = cols(nnb, tdtype)
         # The fused kernel reads the uint8 masks; the unfused sums multiply
         # by them every band, so they are widened once, here.
-        self.masks = [cols(masks, s, torch.uint8 if self.use_fused
-                           else tdtype) for s in range(P)]
-        self.XtX = [XtX[mesh[s]] for s in range(P)]
+        self.masks = cols(masks, torch.uint8 if self.use_fused else tdtype)
+        self.XtX = mesh.per_shard(lambda s: XtX[mesh[s]])
         if verbose:
             kernel = ("fused CUDA" if self.use_fused else "CUDA CD"
                       if kernel_takes(tdtype, n_types) else "XLA-tier")
@@ -310,39 +389,46 @@ class GspmdBandedProblem:
         device); padding zero."""
         n = self.n_local
         if beta_init is None:
-            out = []
-            for s in range(self.n_shards):
+            def uniform(s):
                 b = torch.zeros((self.n_types, n), dtype=self.dtype,
                                 device=self.mesh[s])
                 b[:, :max(min(self.n_spots - s * n, n), 0)] = 1.0 / self.n_types
-                out.append(b)
-            return out
+                return b
+
+            return self.mesh.per_shard(uniform)
         b0 = np.zeros((self.n_types, self.n_pad), np.float64)
         b0[:, :self.n_spots] = np.maximum(beta_init, 0.0).T
-        return [torch.from_numpy(np.ascontiguousarray(b0[:, s * n:(s + 1) * n]))
-                .to(self.mesh[s], self.dtype) for s in range(self.n_shards)]
+        return self.mesh.per_shard(lambda s: torch.from_numpy(
+            np.ascontiguousarray(b0[:, s * n:(s + 1) * n])
+        ).to(self.mesh[s], self.dtype))
 
     def _state(self, betas) -> list:
         """The loop state of ``betas``: ``[current, spare]`` per-shard
         buffers (the fused loop's carries, the spares' pads zero)."""
+        per_shard = self.mesh.per_shard
         if not self.use_fused:
-            return [betas, [torch.empty_like(b) for b in betas]]
+            return [betas, per_shard(lambda s: torch.empty_like(betas[s]))]
         pad = self._fused_h * self._fused_block
-        carries = [torch.nn.functional.pad(b, (pad, pad)) for b in betas]
-        return [carries, [torch.zeros_like(c) for c in carries]]
+        carries = per_shard(lambda s: torch.nn.functional.pad(betas[s],
+                                                              (pad, pad)))
+        return [carries, per_shard(lambda s: torch.zeros_like(carries[s]))]
 
     def _data(self, state) -> list:
-        """Each shard's (K, n_local) beta of a loop state (views)."""
+        """Each shard's (K, n_local) beta of a loop state (views; None
+        where another process owns the shard)."""
         pad = self._fused_h * self._fused_block
-        return [c[:, pad:pad + self.n_local] for c in state]
+        return [None if c is None else c[:, pad:pad + self.n_local]
+                for c in state]
 
     def _sweep_ops(self, lam, rho) -> list:
         """Per shard, what one sweep needs beyond the shared operands: the
         fused kernel's reciprocal denominator, or the unfused loop's pass
         (:func:`~flashdeconv_tpu_torch.ops.bcd.gs_pass_fn`)."""
         if self.use_fused:
-            return [gs_inv_den(x, n, lam) for x, n in zip(self.XtX, self.nnb)]
-        return [gs_pass_fn(x, n, lam, rho) for x, n in zip(self.XtX, self.nnb)]
+            return self.mesh.per_shard(
+                lambda s: gs_inv_den(self.XtX[s], self.nnb[s], lam))
+        return self.mesh.per_shard(
+            lambda s: gs_pass_fn(self.XtX[s], self.nnb[s], lam, rho))
 
     def _iterate(self, state, lam, rho, tol, n, sweep_ops, overlap="auto"):
         if self.use_fused:
@@ -371,28 +457,29 @@ class GspmdBandedProblem:
                                             max_iter,
                                             self._sweep_ops(lam, rho_eff),
                                             overlap=overlap)
-        beta = torch.cat(self.mesh.gather(self._data(cur)), dim=1)
+        beta = torch.cat(self.mesh.gather_all(self._data(cur)), dim=1)
         return beta[:, :self.n_spots].T, it, rel
 
     def _objective(self, betas, lam, rho) -> torch.Tensor:
         """The objective: each shard's sums over its own columns, added on
-        the main device."""
+        the main device in shard order (every process, on a mesh that spans
+        processes)."""
         mesh = self.mesh
+        view = _with_remote_edges(mesh, betas, self.halo)
         mesh.fork()
-        sums, btbs = [], []
-        for s in range(self.n_shards):
+        sums, btbs = [None] * self.n_shards, [None] * self.n_shards
+        for s in mesh.local:
             with mesh.on(s):
-                ns = _banded_ns_window(betas, s, self.offsets,
+                ns = _banded_ns_window(view, s, self.offsets,
                                        self.masks[s].to(self.dtype),
                                        self.halo)
-                sm, btb = objective_sums(betas[s], self.Xty_t[s], ns,
-                                         self.nnb[s])
-                sums.append(sm)
-                btbs.append(btb)
-        sums, btbs = mesh.gather(sums), mesh.gather(btbs)
+                sums[s], btbs[s] = objective_sums(betas[s], self.Xty_t[s],
+                                                  ns, self.nnb[s])
+        sums, btbs = mesh.gather_all(sums), mesh.gather_all(btbs)
         return objective_from_sums(torch.stack(sums).sum(0),
-                                   torch.stack(btbs).sum(0), self.XtX[0],
-                                   self.YtY, lam, rho)
+                                   torch.stack(btbs).sum(0),
+                                   self.XtX[mesh.local[0]], self.YtY, lam,
+                                   rho)
 
     def solve(
         self,
@@ -407,8 +494,16 @@ class GspmdBandedProblem:
         """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``
         with ``n_shards``, ``n_bands``, ``halo_width`` and
         ``fused_kernel``; with ``return_device`` beta is a contiguous
-        (n_spots, K) tensor in the solve dtype on the mesh's main
-        device."""
+        (n_spots, K) tensor in the solve dtype on the mesh's main device
+        (not on a mesh that spans processes, where every process gets the
+        host beta)."""
+        check_return_device(self.mesh, return_device)
+        return fetched(self._solve(lambda_, rho, max_iter, tol, verbose,
+                                   beta_init), return_device)
+
+    def _solve(self, lambda_, rho, max_iter, tol, verbose, beta_init):
+        """The sweeps; beta on the main device (every shard's, on every
+        process), or the zero-sweep host result."""
         extra = dict(n_shards=self.n_shards, n_bands=len(self.offsets),
                      halo_width=self.halo)
         if max_iter == 0:
@@ -432,11 +527,11 @@ class GspmdBandedProblem:
                     lambda: self._objective(self._data(state[0]), lam,
                                             rho_eff),
                     max_iter, tol, verbose, self.dtype))
-            beta_d = torch.cat(self.mesh.gather(self._data(state[0])),
+            beta_d = torch.cat(self.mesh.gather_all(self._data(state[0])),
                                dim=1)[:, :self.n_spots].T
-        beta = beta_d.contiguous() if return_device else fetch_to_host(beta_d)
-        return beta, info_dict(n_iter, rel, final_obj, converged, objectives,
-                               fused_kernel=self.use_fused, **extra)
+        return beta_d, info_dict(n_iter, rel, final_obj, converged,
+                                 objectives, fused_kernel=self.use_fused,
+                                 **extra)
 
 
 def gspmd_banded_solve(

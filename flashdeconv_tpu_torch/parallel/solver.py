@@ -28,7 +28,6 @@ import torch
 from scipy import sparse
 
 from flashdeconv_tpu_torch.core.solver import (
-    fetch_to_host,
     precompute_gram_matrix,
     resolve_device,
     sanitize_yty,
@@ -46,8 +45,10 @@ from flashdeconv_tpu_torch.ops.bcd import (
 from flashdeconv_tpu_torch.parallel._runner import (
     Mesh,
     as_mesh,
+    check_return_device,
     converge,
     device_unpermute,
+    fetched,
     info_dict,
     run_prepared_solve,
     sanitize_xty_rows,
@@ -92,17 +93,18 @@ def default_mesh(n_shards: Optional[int] = None, device="cuda") -> Mesh:
 def _halo_exchange(mesh: Mesh, betas, sends) -> dict:
     """Every shard's boundary rows, pooled: ``{device: (K, n_shards *
     halo_width)}``, one pool per distinct device of the mesh (the JAX
-    ``all_gather``). ``betas``: each shard's (K, shard_size) beta;
-    ``sends``: its (halo_width,) local rows, padding == shard_size (the
-    zero sentinel column). Returns after a join: the pools are on the main
-    device's stream."""
+    ``all_gather``; across processes through :meth:`Mesh.gather_all`).
+    ``betas``: each shard's (K, shard_size) beta; ``sends``: its
+    (halo_width,) local rows, padding == shard_size (the zero sentinel
+    column). Returns after a join: the pools are on the main device's
+    stream."""
     mesh.fork()
-    parts = []
-    for s, (beta, idx) in enumerate(zip(betas, sends)):
+    parts = [None] * len(mesh)
+    for s in mesh.local:
         with mesh.on(s):
-            parts.append(torch.index_select(with_sentinel(beta), 1, idx))
-    parts = mesh.gather(parts)
-    pool = torch.cat(parts, dim=1)
+            parts[s] = torch.index_select(with_sentinel(betas[s]), 1,
+                                          sends[s])
+    pool = torch.cat(mesh.gather_all(parts), dim=1)
     return {dev: pool.to(dev) for dev in set(mesh.devices)}
 
 
@@ -120,7 +122,8 @@ def _sharded_sweep(mesh: Mesh, betas, spares, ops):
     pools = _halo_exchange(mesh, betas, ops["send"])
     mesh.fork()
     stats = []
-    for s, beta in enumerate(betas):
+    for s in mesh.local:
+        beta = betas[s]
         with mesh.on(s):
             ns = _shard_ns(beta, pools[mesh[s]], ops["nbr"][s])
             out, d, a = ops["gs"][s](beta, ops["Xty_t"][s], ns, spares[s])
@@ -135,21 +138,20 @@ def _sharded_sweep(mesh: Mesh, betas, spares, ops):
 
 def _sharded_objective(mesh: Mesh, betas, ops, YtY, lam, rho):
     """The objective: each shard's sums over its own columns (its
-    neighbour sums after a halo exchange), added on the main device."""
+    neighbour sums after a halo exchange), added on the main device in
+    shard order (every process, on a mesh that spans processes)."""
     pools = _halo_exchange(mesh, betas, ops["send"])
     mesh.fork()
-    sums, btbs = [], []
-    for s, beta in enumerate(betas):
+    sums, btbs = [None] * len(mesh), [None] * len(mesh)
+    for s in mesh.local:
         with mesh.on(s):
-            ns = _shard_ns(beta, pools[mesh[s]], ops["nbr"][s])
-            sm, btb = objective_sums(beta, ops["Xty_t"][s], ns,
-                                     ops["nnb"][s])
-            sums.append(sm)
-            btbs.append(btb)
-    sums, btbs = mesh.gather(sums), mesh.gather(btbs)
+            ns = _shard_ns(betas[s], pools[mesh[s]], ops["nbr"][s])
+            sums[s], btbs[s] = objective_sums(betas[s], ops["Xty_t"][s], ns,
+                                              ops["nnb"][s])
+    sums, btbs = mesh.gather_all(sums), mesh.gather_all(btbs)
     return objective_from_sums(torch.stack(sums).sum(0),
-                               torch.stack(btbs).sum(0), ops["XtX"][0], YtY,
-                               lam, rho)
+                               torch.stack(btbs).sum(0),
+                               ops["XtX"][mesh.local[0]], YtY, lam, rho)
 
 
 def sharded_bcd_solve(
@@ -257,20 +259,21 @@ class HaloShardedProblem:
         XtX = {dev: torch.tensor(XtX64, dtype=tdtype, device=dev)
                for dev in set(mesh.devices)}
 
-        def cols(arr, s, dtype):
-            """Shard s's rows of a padded (n_pad, ...) array, transposed to
-            (..., S), on its device."""
-            part = np.ascontiguousarray(np.asarray(arr[s * S:(s + 1) * S]).T)
-            return torch.from_numpy(part).to(mesh[s], dtype)
+        def cols(arr, dtype):
+            """Per shard of this process, its rows of a padded (n_pad, ...)
+            array, transposed to (..., S), on its device."""
+            return mesh.per_shard(lambda s: torch.from_numpy(
+                np.ascontiguousarray(np.asarray(arr[s * S:(s + 1) * S]).T)
+            ).to(mesh[s], dtype))
 
         self._ops = {
-            "Xty_t": [cols(Xty, s, tdtype) for s in range(P)],
-            "nbr": [cols(plan.nbr_idx, s, torch.int64) for s in range(P)],
-            "nnb": [cols(plan.n_nbrs, s, tdtype) for s in range(P)],
-            "send": [torch.from_numpy(plan.send_idx[s * hw:(s + 1) * hw]
-                                      .astype(np.int64)).to(mesh[s])
-                     for s in range(P)],
-            "XtX": [XtX[mesh[s]] for s in range(P)],
+            "Xty_t": cols(Xty, tdtype),
+            "nbr": cols(plan.nbr_idx, torch.int64),
+            "nnb": cols(plan.n_nbrs, tdtype),
+            "send": mesh.per_shard(lambda s: torch.from_numpy(
+                plan.send_idx[s * hw:(s + 1) * hw].astype(np.int64)
+            ).to(mesh[s])),
+            "XtX": mesh.per_shard(lambda s: XtX[mesh[s]]),
             "n_valid": [int(plan.spot_mask[s * S:(s + 1) * S].sum())
                         for s in range(P)],
         }
@@ -281,15 +284,16 @@ class HaloShardedProblem:
         spots (made on the device); padding zero."""
         plan, K, S = self.plan, self.n_types, self.plan.shard_size
         if beta_init is None:
-            out = []
-            for s, n_valid in enumerate(self._ops["n_valid"]):
+            def uniform(s):
                 b = torch.zeros((K, S), dtype=self.dtype, device=self.mesh[s])
-                b[:, :n_valid] = 1.0 / K
-                out.append(b)
-            return out
+                b[:, :self._ops["n_valid"][s]] = 1.0 / K
+                return b
+
+            return self.mesh.per_shard(uniform)
         b0 = plan.scatter(np.maximum(beta_init, 0.0))
-        return [torch.from_numpy(np.ascontiguousarray(b0[s * S:(s + 1) * S].T))
-                .to(self.mesh[s], self.dtype) for s in range(self.n_shards)]
+        return self.mesh.per_shard(lambda s: torch.from_numpy(
+            np.ascontiguousarray(b0[s * S:(s + 1) * S].T)
+        ).to(self.mesh[s], self.dtype))
 
     def solve(
         self,
@@ -303,7 +307,16 @@ class HaloShardedProblem:
     ) -> Tuple[np.ndarray, dict]:
         """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``,
         or with ``return_device`` beta as an (n_spots, K) tensor in the
-        solve dtype on the mesh's main device, un-permuted there."""
+        solve dtype on the mesh's main device, un-permuted there (not on a
+        mesh that spans processes, where every process gets the host
+        beta)."""
+        check_return_device(self.mesh, return_device)
+        return fetched(self._solve(lambda_, rho, max_iter, tol, verbose,
+                                    beta_init), return_device)
+
+    def _solve(self, lambda_, rho, max_iter, tol, verbose, beta_init):
+        """The sweeps; beta un-permuted on the main device (every shard's,
+        on every process), or the zero-sweep host result."""
         n_spots, n_types, plan = self.n_spots, self.n_types, self.plan
         extra = dict(n_shards=self.n_shards, halo_width=plan.halo_width)
         if max_iter == 0:
@@ -311,30 +324,29 @@ class HaloShardedProblem:
         validate_beta_init(beta_init, n_spots, n_types)
         lam = scalar(lambda_, self.dtype)
         rho_eff = scalar(rho * self.rho_scale, self.dtype)
-        ops = dict(self._ops)
+        mesh, ops = self.mesh, dict(self._ops)
         state = [self._beta0(beta_init)]
-        state.append([torch.empty_like(b) for b in state[0]])
+        state.append(mesh.per_shard(lambda s: torch.empty_like(state[0][s])))
 
         def sweep():
-            d, a = _sharded_sweep(self.mesh, state[0], state[1], ops)
+            d, a = _sharded_sweep(mesh, state[0], state[1], ops)
             state.reverse()
             return d, a
 
         with full_f32_matmul():
-            ops["gs"] = [gs_pass_fn(xtx, nnb, lam, rho_eff) for xtx, nnb in
-                         zip(ops["XtX"], ops["nnb"])]
+            ops["gs"] = mesh.per_shard(lambda s: gs_pass_fn(
+                ops["XtX"][s], ops["nnb"][s], lam, rho_eff))
             n_iter, rel, final_obj, converged, objectives = (
                 run_prepared_solve(
                     lambda n: converge(sweep, tol, n, self.dtype),
-                    lambda: _sharded_objective(self.mesh, state[0], ops,
+                    lambda: _sharded_objective(mesh, state[0], ops,
                                                self.YtY, lam, rho_eff),
                     max_iter, tol, verbose, self.dtype))
-            beta_pad = torch.cat(self.mesh.gather(state[0]), dim=1).T
+            beta_pad = torch.cat(mesh.gather_all(state[0]), dim=1).T
             beta_d = device_unpermute(self, beta_pad[:n_spots], plan.perm,
                                       n_spots)
-        beta = beta_d if return_device else fetch_to_host(beta_d)
-        return beta, info_dict(n_iter, rel, final_obj, converged, objectives,
-                               **extra)
+        return beta_d, info_dict(n_iter, rel, final_obj, converged,
+                                 objectives, **extra)
 
 
 def _prepared_xty(Y_sketch, X_sketch, A, xty, yty, dtype):
@@ -393,23 +405,20 @@ class ShardedBCDProblem:
         return_device: bool = False,
     ) -> Tuple[np.ndarray, dict]:
         """The inner problem's solve, beta in the original spot order: on
-        the device with ``return_device`` (un-permuted there), else host
-        f64 fetched after the un-permute."""
+        the device with ``return_device`` (un-permuted there; not on a mesh
+        that spans processes), else host f64 fetched after the
+        un-permute."""
+        check_return_device(self._inner.mesh, return_device)
         perm = self._perm
         validate_beta_init(beta_init, self.n_spots, self.n_types)
         if beta_init is not None and perm is not None:
             beta_init = beta_init[perm]
-        beta, info = self._inner.solve(
-            lambda_=lambda_, rho=rho, max_iter=max_iter, tol=tol,
-            verbose=verbose, beta_init=beta_init, return_device=True,
-        )
+        beta, info = self._inner._solve(lambda_, rho, max_iter, tol, verbose,
+                                        beta_init)
         # A zero-sweep solve returns uniform host rows: nothing to permute.
-        if isinstance(beta, torch.Tensor):
-            if perm is not None:
-                beta = device_unpermute(self, beta, perm, self.n_spots)
-            if not return_device:
-                beta = fetch_to_host(beta)
-        return beta, info
+        if isinstance(beta, torch.Tensor) and perm is not None:
+            beta = device_unpermute(self, beta, perm, self.n_spots)
+        return fetched((beta, info), return_device)
 
 
 def _check_strategy(strategy: str, plan) -> None:

@@ -6,7 +6,10 @@ A fresh interpreter whose import system refuses the top-level modules
 ``flashdeconv_tpu_torch`` and solves one gather-tier problem (irregular
 coordinates) and one fused-tier problem (a 96 x 96 grid) on the CPU, and
 two spot-sharded solves on a mesh of two CPU shards (``parallel/``: the
-banded mesh and the halo plan), two solves on the XLA tier (an f64 grid
+banded mesh and the halo plan), ``fit_distributed`` on a 2-shard
+``global_spot_mesh`` without a process group (``parallel/multihost.py``;
+tests/test_torch_multihost.py runs it in jobs of 2 and 4 processes that
+refuse the same imports), two solves on the XLA tier (an f64 grid
 and a K = 257 gather problem), then imports ``chip_smoke.py`` and fits
 its dense counts through the dense sketch route (``ops/countsketch.py``),
 runs ``tl.deconvolve`` (``tl/`` and ``io/``) on those counts through
@@ -69,6 +72,24 @@ for coords, strategy in ((grid_coords(side=40), "banded"),
     assert info["converged"] and info["n_shards"] == 2, info
     assert np.isfinite(beta).all() and (beta >= 0).all()
     print(strategy, info["n_iterations"])
+
+# The multi-process layer without a process group: a 2-shard mesh of this
+# process, and fit_distributed, which is then the sharded fit.
+from scipy import sparse
+from flashdeconv_tpu_torch import FlashDeconv
+from flashdeconv_tpu_torch.parallel import multihost
+
+multihost.initialize()
+mesh = multihost.global_spot_mesh(2, device="cpu")
+coords = grid_coords(side=20)
+counts = sparse.csr_matrix(rng.poisson(
+    rng.dirichlet(np.ones(8), size=coords.shape[0]) @ np.abs(X) * 20.0
+).astype(np.float64))
+model = FlashDeconv(device="cpu", mesh=mesh, sketch_dim=32, n_hvg=40,
+                    n_markers_per_type=4)
+model.fit_distributed(counts, np.abs(X), coords)
+assert model.host_rows_ == (0, 400) and model.info_["n_shards"] == 2
+print("multihost", model.info_["n_iterations"])
 
 # The XLA tier: f64 on a grid (the unfused banded form) and K = 257 on an
 # irregular graph (the gather form).
@@ -167,6 +188,7 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert len(files) > 10
     assert ROOT / "flashdeconv_tpu_torch" / "ops" / "countsketch.py" in files
     assert ROOT / "flashdeconv_tpu_torch" / "parallel" / "gspmd.py" in files
+    assert ROOT / "flashdeconv_tpu_torch" / "parallel" / "multihost.py" in files
     for module in ("tl/_deconvolve.py", "tl/__init__.py", "io/loader.py",
                    "io/__init__.py", "pl/_plots.py", "pl/__init__.py"):
         assert ROOT / "flashdeconv_tpu_torch" / module in files

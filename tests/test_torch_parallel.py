@@ -406,8 +406,8 @@ def test_default_mesh_and_mesh():
 
 
 def test_exports_match_the_jax_package():
-    """The JAX package's names without ``multihost``, plus ``Mesh``."""
-    assert set(tpar.__all__) == (set(jpar.__all__) - {"multihost"}) | {"Mesh"}
+    """The JAX package's names, plus ``Mesh``."""
+    assert set(tpar.__all__) == set(jpar.__all__) | {"Mesh"}
 
 
 # -- FlashDeconv(mesh=..., n_shards=...) ------------------------------------------------
