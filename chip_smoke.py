@@ -88,14 +88,17 @@ counts set to 0 just before it and read just after:
    localhost (NCCL refuses two ranks on one card), each one shard of
    ``global_spot_mesh``: the 1M grid's banded mesh (split: kernel #1's
    sub-range form, the pads through host memory while the interior call
-   runs) and halo plan (kernel #2), each a cold ``solve`` and then
-   solves of 2 and 22 sweeps in turns, and ``fit_distributed`` on the
-   counts split at row 130,072; beta, sweeps and lambda must be bitwise
-   those of one process's 2-shard mesh (solved and fitted here before the
-   job, the same way), and each process's launches exactly 3 sub-range
-   calls a sweep and one kernel #2 call a sweep. The per-sweep times (the
-   medians' difference over 20 sweeps) of both are printed; a process
-   that fails or outlasts 300 s fails the run;
+   runs) and halo plan (kernel #2), each a cold ``solve``, and
+   ``fit_distributed`` on the counts split at row 130,072; beta, sweeps
+   and lambda must be bitwise those of one process's 2-shard mesh (solved
+   and fitted here before the job, the same way), and each process's
+   launches exactly 3 sub-range calls a sweep and one kernel #2 call a
+   sweep. A sweep's time, there and here, is the difference of the
+   medians of 10 runs of 22 and 10 of 2 sweeps, in turns, over 20, with
+   its spread over the turns' pairs: of ``solve()`` on the halo plan, and
+   of the banded mesh's sweep loop alone, split across processes, and
+   unsplit and split (``overlap=True``) in one process; a process that
+   fails or outlasts 300 s fails the run;
 6. the XLA tier in f64 (no kernel takes f64, as no Pallas kernel does in
    the JAX package): the 1M grid at K = 20 prepared in f64 (the unfused
    banded form), a cold ``solve()`` and warm ``solve()`` and
@@ -217,7 +220,7 @@ F32_OPS_PER_S = 67e12
 SOLVE = dict(lambda_=0.1, rho=0.01, max_iter=100, tol=1e-4)
 MESH_SHARDS = (1, 2, 4)             # shards of the 1M grid on the one card
 PROCESSES = 2                       # the [multihost] job's processes
-SWEEP_RUNS = (2, 22, 22, 2, 2, 22)  # sweeps of the timed mesh solves
+SWEEP_RUNS = (2, 22, 22, 2) * 5     # sweeps of the timed runs, in turns
 MULTIHOST_TIMEOUT = 300             # seconds the parent waits for the job
 DROP = 0.01                         # share of bins dropped from a grid
 RESCUE_EDGES = 100                  # long-range edges of the rescue case
@@ -1502,33 +1505,60 @@ def phase_halo_split(inner, reps: int = 5) -> None:
 
 # -- the multi-process mesh: two processes on the one card --------------------
 
-def timed_runs(prob, tag: str) -> dict:
-    """A cold ``solve()`` of a prepared sharded problem (its ``beta`` and
-    ``info`` are the result), then the sweep's time: solves of
-    ``SWEEP_RUNS`` sweeps (tol 0, so each runs them all) in turns, the
-    difference of the medians of the long and the short ones over the
-    sweeps between them (the objective, the gather and the fetch of beta
-    are in both and cancel). Host clock ending in
+def timed(fn):
+    """``(seconds, fn())``, on the host clock ending in
     ``torch.cuda.synchronize()``."""
-    def timed(**kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = prob.solve(**{**SOLVE, **kw})
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
 
-    cold, (beta, info) = timed()
-    runs = {n: [] for n in SWEEP_RUNS}
+
+def sweep_time(run, tag: str) -> dict:
+    """The time of a sweep from ``run(n)``, which runs ``n`` sweeps (tol
+    0, so it runs them all) and whatever else it does once: runs of
+    ``SWEEP_RUNS`` sweeps in turns; the difference of the medians of the
+    long and the short runs over the sweeps between them (the rest
+    cancels), and its spread, the least and the most of the same
+    difference taken over each turn's pair of runs."""
+    short, long = min(SWEEP_RUNS), max(SWEEP_RUNS)
+    runs = {short: [], long: []}
     for n in SWEEP_RUNS:
-        runs[n].append(timed(max_iter=n, tol=0.0)[0])
-    short, long = min(runs), max(runs)
-    sweep_ms = 1e3 * (np.median(runs[long]) - np.median(runs[short])) / (
-        long - short)
-    log(f"[multihost] {tag}: cold solve {cold:.4f} s, {info['n_iterations']}"
-        f" sweeps; solves of {short} / {long} sweeps {runs[short]} / "
-        f"{runs[long]} s: {sweep_ms:.3f} ms a sweep")
-    return {"beta": beta, "info": info, "cold": cold, "sweep_ms": sweep_ms,
+        runs[n].append(timed(lambda: run(n))[0])
+    per = 1e3 / (long - short)
+    ms = per * (np.median(runs[long]) - np.median(runs[short]))
+    pairs = [per * (b - a) for a, b in zip(runs[short], runs[long])]
+    log(f"[multihost] {tag}: runs of {short} / {long} sweeps, medians "
+        f"{np.median(runs[short]):.4f} / {np.median(runs[long]):.4f} s "
+        f"(ranges {min(runs[short]):.4f}-{max(runs[short]):.4f} / "
+        f"{min(runs[long]):.4f}-{max(runs[long]):.4f} s): {ms:.3f} ms a "
+        f"sweep, {min(pairs):.3f} to {max(pairs):.3f} ms over the "
+        f"{len(pairs)} pairs")
+    return {"sweep_ms": ms, "pair_ms": [min(pairs), max(pairs)],
             "runs": {str(n): t for n, t in runs.items()}}
+
+
+def timed_runs(prob, strategy: str, tag: str, overlaps=()) -> dict:
+    """A cold ``solve()`` of a prepared sharded problem (its ``beta`` and
+    ``info`` are the result), then :func:`sweep_time` of ``solve()`` for
+    the halo plan; for the banded mesh, of its sweep loop alone (``_run``:
+    the sweeps and one gather of beta on the device, no objective and no
+    fetch to the host) with each overlap in ``overlaps`` ("auto" splits
+    across processes)."""
+    cold, (beta, info) = timed(lambda: prob.solve(**SOLVE))
+    log(f"[multihost] {tag}: cold solve {cold:.4f} s, "
+        f"{info['n_iterations']} sweeps")
+    out = {"beta": beta, "info": info, "cold": cold}
+    lam, rho = SOLVE["lambda_"], SOLVE["rho"]
+    if strategy == "halo":
+        out["solve"] = sweep_time(lambda n: prob.solve(
+            **{**SOLVE, "max_iter": n, "tol": 0.0}), f"{tag}, solve()")
+    for overlap in overlaps:
+        out[f"loop_{overlap}"] = sweep_time(
+            lambda n: prob._inner._run(lam, rho, 0.0, n, overlap=overlap),
+            f"{tag}, sweep loop (overlap={overlap})")
+    return out
 
 
 def multihost_operands(workdir: Path):
@@ -1585,8 +1615,9 @@ def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
         prep = time.perf_counter() - t0
         if strategy == "banded" and not prob._inner.use_fused:
             raise AssertionError("the banded mesh is not the fused one")
-        runs = timed_runs(prob, f"p{rank} 1M grid {strategy}, prepare "
-                                f"{prep:.3f} s")
+        runs = timed_runs(prob, strategy, f"p{rank} 1M grid {strategy}, "
+                          f"prepare {prep:.3f} s",
+                          ("auto",) if strategy == "banded" else ())
         np.save(workdir / f"beta_{strategy}_p{rank}.npy", runs.pop("beta"))
         record[strategy] = {"prepare_s": prep, "sweeps": runs.pop(
             "info")["n_iterations"], **runs}
@@ -1620,13 +1651,15 @@ def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
         "fused_banded_sweep": fb.launches,
         "coordinate_descent_block": cd.launches,
     }
-    # Every sweep of a split mesh is 3 sub-range calls a shard; the halo
-    # plan's one kernel #2 call a shard.
-    timed = sum(SWEEP_RUNS)
-    want = {"fused_banded_sweep_sub": 3 * (record["banded"]["sweeps"] + timed
+    # Every sweep of a split mesh (the banded mesh across processes) is 3
+    # sub-range calls a shard; the halo plan's one kernel #2 call a shard.
+    timed_sweeps = sum(SWEEP_RUNS)
+    want = {"fused_banded_sweep_sub": 3 * (record["banded"]["sweeps"]
+                                           + timed_sweeps
                                            + record["fit"]["sweeps"]),
             "fused_banded_sweep": 0,
-            "coordinate_descent_block": record["halo"]["sweeps"] + timed}
+            "coordinate_descent_block": record["halo"]["sweeps"]
+            + timed_sweeps}
     if record["launches"] != want:
         raise AssertionError(f"rank {rank}: launches {record['launches']}, "
                              f"expected {want}")
@@ -1654,17 +1687,23 @@ def phase_multihost(children: dict) -> dict:
     fit_coords = grid_coords(side=FIT_SIDE)
 
     # The single-process 2-shard references.
-    refs, want = {}, {"fused_banded_sweep": 0, "coordinate_descent_block": 0}
-    for strategy, kernel in (("banded", "fused_banded_sweep"),
-                             ("halo", "coordinate_descent_block")):
+    # The banded mesh's loop unsplit (what "auto" picks for one process's
+    # shards of 500k spots) and split, as across processes.
+    refs = {}
+    timed_sweeps = PROCESSES * sum(SWEEP_RUNS)
+    for strategy in ("banded", "halo"):
         prob = prepare_sharded_bcd(None, X, A, coords=coords,
                                    mesh=card_mesh(PROCESSES), xty=xty,
                                    yty=yty, strategy=strategy)
-        refs[strategy] = timed_runs(prob, f"1 process, 2 shards, 1M grid "
-                                          f"{strategy}")
-        want[kernel] += PROCESSES * (
-            refs[strategy]["info"]["n_iterations"] + sum(SWEEP_RUNS))
+        refs[strategy] = timed_runs(
+            prob, strategy, f"1 process, 2 shards, 1M grid {strategy}",
+            (False, True) if strategy == "banded" else ())
         del prob
+    want = {"fused_banded_sweep": PROCESSES
+            * refs["banded"]["info"]["n_iterations"] + timed_sweeps,
+            "fused_banded_sweep_sub": 3 * timed_sweeps,
+            "coordinate_descent_block": PROCESSES
+            * refs["halo"]["info"]["n_iterations"] + timed_sweeps}
     ref_fit = FlashDeconv(sketch_dim=SKETCH, mesh=card_mesh(PROCESSES),
                           device_outputs=False).fit(counts, Xc, fit_coords)
     want["fused_banded_sweep"] += PROCESSES * ref_fit.info_["n_iterations"]
@@ -1741,14 +1780,19 @@ def phase_multihost(children: dict) -> dict:
                     "single-process fit on the 2-shard mesh")
     for key in records[0]["launches"]:
         children[key] = sum(rec["launches"][key] for rec in records)
-    for strategy in ("banded", "halo"):
-        ms = [rec[strategy]["sweep_ms"] for rec in records]
+    for strategy, key, against in (
+            ("banded", "loop_auto", ("loop_False", "loop_True")),
+            ("halo", "solve", ("solve",))):
+        ms = [(rec[strategy][key]["sweep_ms"], rec[strategy][key]["pair_ms"])
+              for rec in records]
+        ref = refs[strategy]
         log(f"[multihost] 1M grid {strategy}: {PROCESSES} processes cold "
-            f"solve {[rec[strategy]['cold'] for rec in records]} s, {ms} ms "
-            f"a sweep, against 1 process 2 shards "
-            f"{refs[strategy]['cold']:.4f} s, "
-            f"{refs[strategy]['sweep_ms']:.3f} ms a sweep "
-            f"({refs[strategy]['info']['n_iterations']} sweeps); beta "
+            f"solve {[rec[strategy]['cold'] for rec in records]} s, "
+            f"(ms a sweep, [its spread]) {ms}, against 1 process 2 shards "
+            f"{ref['cold']:.4f} s, "
+            + ", ".join(f"{k} {ref[k]['sweep_ms']:.3f} {ref[k]['pair_ms']}"
+                        for k in against)
+            + f" ms a sweep ({ref['info']['n_iterations']} sweeps); beta "
             "bitwise in every process")
     log(f"[multihost] 262k fit: {PROCESSES} processes "
         f"{[rec['fit']['seconds'] for rec in records]} s, 1 process "

@@ -385,17 +385,18 @@ class FlashDeconv:
 
     def _streams_xty(self, n_rows: int) -> bool:
         """True when the fused Xty pass streams to the device: a
-        single-device ``cuda`` fit of more than
-        ``native.XTY_STREAM_CHUNK_ROWS`` spots."""
+        single-device ``cuda`` fit (not :meth:`fit_distributed`, which
+        gathers Xty on the host and solves on ``_distributed_mesh``) of
+        more than ``native.XTY_STREAM_CHUNK_ROWS`` spots."""
         return (not self._is_sharded and self.device.type == "cuda"
+                and "_distributed_mesh" not in self.__dict__
                 and n_rows > native.XTY_STREAM_CHUNK_ROWS)
 
-    def _fused_xty_feed(self, Y, gene_idx, op, X_sketch, colscale=None,
-                        stream: bool = True):
+    def _fused_xty_feed(self, Y, gene_idx, op, X_sketch, colscale=None):
         """``(Xty, YtY)`` from the native fused sketch pass: the log-CPM
         kernels for "log_cpm", the column-scale kernels for "pearson"
         (``colscale`` = 1/sigma per subset gene) and "raw" (None). When
-        ``stream`` and :meth:`_streams_xty`, the pass runs in row chunks
+        :meth:`_streams_xty`, the pass runs in row chunks
         and Xty is an f32 device tensor, each chunk's copy to the device
         running while the next chunk computes (:func:`stream_xty`); else a
         host (N, K) f64 array, which the solver copies once."""
@@ -408,7 +409,7 @@ class FlashDeconv:
         else:
             full, chunked = (native.fused_colscale_xty,
                              native.fused_colscale_xty_chunks)
-        if stream and self._streams_xty(Y.shape[0]):
+        if self._streams_xty(Y.shape[0]):
             chunks = chunked(*args, chunk_rows=native.XTY_STREAM_CHUNK_ROWS)
             res = None if chunks is None else stream_xty(
                 chunks, Y.shape[0], X_sketch.shape[0], self.device,
@@ -612,6 +613,8 @@ class FlashDeconv:
         self.cell_type_names_ = cell_type_names
         self.host_rows_ = (row_start, row_stop)
         self._clear_consume_once()
+        # Consumed by the solve; while it is set, Xty stays on the host.
+        self._distributed_mesh = mesh
 
         with timer.stage("gene_selection"):
             gene_idx, leverage = (
@@ -649,7 +652,7 @@ class FlashDeconv:
                     if self.preprocess == "log_cpm"
                     else native.colscale_available(Y_local)):
                 res = self._fused_xty_feed(Y_local, gene_idx, op, X_sketch,
-                                           colscale, stream=False)
+                                           colscale)
                 if not np.isfinite(res[1]):
                     # The poisoned-YtY repair of fit(), row-local: zero this
                     # process's poisoned rows and run the pass again.
@@ -658,8 +661,7 @@ class FlashDeconv:
                         logcpm=self.preprocess == "log_cpm")
                     if Y_rep is not None:
                         res = self._fused_xty_feed(Y_rep, gene_idx, op,
-                                                   X_sketch, colscale,
-                                                   stream=False)
+                                                   X_sketch, colscale)
             if res is not None:
                 xty_local, yty_local = res
             else:
@@ -711,7 +713,8 @@ class FlashDeconv:
 
         with timer.stage("solve"):
             beta, info = prepare_sharded_bcd(
-                None, X_sketch, A, coords=coords_global, mesh=mesh,
+                None, X_sketch, A, coords=coords_global,
+                mesh=self.__dict__.pop("_distributed_mesh"),
                 dtype=self.solver_dtype, verbose=self.verbose, xty=xty,
                 yty=yty, device=self.device,
             ).solve(lambda_=lambda_, rho=self.rho_sparsity,
@@ -939,8 +942,10 @@ class FlashDeconv:
 
     def _clear_consume_once(self):
         """Drop the consume-once operands: the fused Xty / YtY (a device
-        tensor on the streamed path) and the graph-plan future."""
-        for name in ("_fused_xty", "_fused_yty", "_graph_plan_future"):
+        tensor on the streamed path), the graph-plan future and
+        :meth:`fit_distributed`'s mesh."""
+        for name in ("_fused_xty", "_fused_yty", "_graph_plan_future",
+                     "_distributed_mesh"):
             self.__dict__.pop(name, None)
 
     def _check_fitted(self):

@@ -1,6 +1,8 @@
 """Spot-sharded BCD solve of wholly banded (grid) graphs: the banded mesh.
 
-Counterpart of :mod:`flashdeconv_tpu.parallel.gspmd`, in one process. The
+Counterpart of :mod:`flashdeconv_tpu.parallel.gspmd`, on a
+:class:`~flashdeconv_tpu_torch.parallel._runner.Mesh` within one process
+or across the processes of a ``torch.distributed`` job. The
 spot axis is cut into equal contiguous shards, one per mesh device. The
 banded neighbour sum reads ``beta[j + off]`` for a few static offsets, so
 a shard needs only ``max|off|`` columns of each adjacent shard per sweep.
@@ -75,37 +77,61 @@ from flashdeconv_tpu_torch.parallel.solver import (
 _OVERLAP_AUTO_MAX_LOCAL = 16384
 
 
-def _window(betas, s: int, lo: int, hi: int) -> torch.Tensor:
-    """Columns ``[lo, hi)`` of the global (K, P * n_local) beta held by the
-    shards' ``betas`` (each (K, n_local)), zero outside it, on shard
-    ``s``'s device."""
-    n_local = betas[0].shape[1]
-    total = len(betas) * n_local
-    dev = betas[s].device
-    parts = []
-    if lo < 0:
-        parts.append(betas[s].new_zeros((betas[s].shape[0], -lo)))
-    c = max(lo, 0)
-    while c < min(hi, total):
-        t, off = divmod(c, n_local)
-        e = min(hi, (t + 1) * n_local)
-        parts.append(betas[t][:, off:off + e - c].to(dev))
-        c = e
-    if hi > total:
-        parts.append(betas[s].new_zeros((betas[s].shape[0], hi - total)))
-    return torch.cat(parts, dim=1)
+def _halo_window(own: torch.Tensor, edges, s: int, halo: int
+                 ) -> torch.Tensor:
+    """Shard ``s``'s beta ``own`` (K, n_local) with ``halo`` columns of
+    the global beta each side, (K, halo + n_local + halo) on its device:
+    read from the other shards' ``edges`` (:func:`_shard_edges`), zero
+    beyond the global ends."""
+    K, n_local = own.shape
+    left, right = [], []
+    need, t = halo, s - 1
+    while need > 0:
+        if t < 0:
+            left.insert(0, own.new_zeros((K, need)))
+            break
+        take = min(need, n_local)
+        tail = edges[t][1]
+        left.insert(0, tail[:, tail.shape[1] - take:].to(own.device))
+        need, t = need - take, t - 1
+    need, t = halo, s + 1
+    while need > 0:
+        if t >= len(edges):
+            right.append(own.new_zeros((K, need)))
+            break
+        take = min(need, n_local)
+        right.append(edges[t][0][:, :take].to(own.device))
+        need, t = need - take, t + 1
+    return torch.cat([*left, own, *right], dim=1)
 
 
-def _banded_ns_window(betas, s: int, offsets, masks, halo: int):
-    """Shard ``s``'s banded neighbour sums (K, n_local): bands in
-    ``offsets`` order from zero, ``masks[u] * beta[j + off]`` over a window
-    of ``halo`` neighbour columns each side (the masks are 0 where ``j +
-    off`` leaves the problem), as ``ops.bcd.neighbor_sum_banded`` sums."""
-    n_local = betas[s].shape[1]
-    ns = torch.zeros_like(betas[s])
+def _shard_edges(mesh: Mesh, betas, halo: int) -> list:
+    """Per shard, ``(head, tail)``: its first and last ``min(halo,
+    n_local)`` beta columns, all that a window of ``halo`` columns around
+    another shard reads of it. This process's shards' are views of
+    ``betas`` (None where another process owns the shard); on a mesh that
+    spans processes the others' are all-gathered onto the main device."""
+    n_local = betas[mesh.local[0]].shape[1]
+    w = min(halo, n_local)
+    remote = [None] * len(betas)
+    if mesh.spans_processes and w > 0:
+        remote = mesh.gather_all(mesh.per_shard(lambda s: torch.cat(
+            [betas[s][:, :w], betas[s][:, n_local - w:]], dim=1)))
+    return [(b[:, :w], b[:, n_local - w:]) if b is not None
+            else (r[:, :w], r[:, w:]) for b, r in zip(betas, remote)]
+
+
+def _banded_ns_window(own, edges, s: int, offsets, masks, halo: int):
+    """Shard ``s``'s banded neighbour sums (K, n_local) of its beta
+    ``own``: bands in ``offsets`` order from zero, ``masks[u] * beta[j +
+    off]`` over a window of ``halo`` neighbour columns each side (the
+    masks are 0 where ``j + off`` leaves the problem), as
+    ``ops.bcd.neighbor_sum_banded`` sums."""
+    n_local = own.shape[1]
+    ns = torch.zeros_like(own)
     if not offsets:
         return ns
-    ext = _window(betas, s, s * n_local - halo, (s + 1) * n_local + halo)
+    ext = _halo_window(own, edges, s, halo)
     for u, off in enumerate(offsets):
         ns += masks[u] * ext[:, halo + off:halo + off + n_local]
     return ns
@@ -124,12 +150,13 @@ def _gspmd_iterate(betas, spares, Xty_t, masks, gs, tol, max_iter: int,
 
     def sweep():
         cur, nxt = state
-        view = _with_remote_edges(mesh, cur, halo)
+        edges = _shard_edges(mesh, cur, halo)
         mesh.fork()
         stats = []
         for s in mesh.local:
             with mesh.on(s):
-                ns = _banded_ns_window(view, s, offsets, masks[s], halo)
+                ns = _banded_ns_window(cur[s], edges, s, offsets, masks[s],
+                                       halo)
                 stats += gs[s](cur[s], Xty_t[s], ns, nxt[s])[1:]
         state.reverse()
         return mesh.join_max(stats)
@@ -139,65 +166,35 @@ def _gspmd_iterate(betas, spares, Xty_t, masks, gs, tol, max_iter: int,
     return state[0], state[1], n_iter, rel
 
 
-def _with_remote_edges(mesh: Mesh, betas, halo: int) -> list:
-    """``betas`` (each shard's (K, n_local) beta, None where another
-    process owns the shard) with each such shard replaced by a tensor on
-    the main device that holds its first and last ``halo`` columns, zero
-    between: all that a window of ``halo`` columns around this process's
-    shards reads of it (:func:`_window`). Unchanged on a mesh within one
-    process."""
-    if not mesh.spans_processes:
-        return betas
-    local = betas[mesh.local[0]]
-    n_local = local.shape[1]
-    w = min(halo, n_local)
-    edges = mesh.gather_all(mesh.per_shard(lambda s: torch.cat(
-        [betas[s][:, :w], betas[s][:, n_local - w:]], dim=1)))
-    out = list(betas)
-    for t, b in enumerate(betas):
-        if b is None:
-            out[t] = local.new_zeros((local.shape[0], n_local),
-                                     device=mesh.main)
-            out[t][:, :w] = edges[t][:, :w]
-            out[t][:, n_local - w:] = edges[t][:, w:]
-    return out
-
-
-def _refresh_pads(carries, s: int, h_cols: int) -> None:
-    """Shard ``s``'s carry pads from its neighbours' boundary data: the
-    left neighbour's last and the right neighbour's first ``h_cols``
-    columns. The global ends are not written (they stay zero)."""
-    n_local = carries[s].shape[1] - 2 * h_cols
-    if s > 0:
-        carries[s][:, :h_cols].copy_(carries[s - 1][:, n_local:n_local
-                                                    + h_cols])
-    if s < len(carries) - 1:
-        carries[s][:, h_cols + n_local:].copy_(
-            carries[s + 1][:, h_cols:2 * h_cols])
-
-
-def _exchange_pads(mesh: Mesh, carries, h_cols: int) -> None:
-    """:func:`_refresh_pads` of this process's shards on a mesh that spans
-    processes, queued on each shard's halo-copy stream: every shard's first
-    and last data blocks go through :meth:`Mesh.exchange`, and each local
-    shard's pads are copied from its neighbours' (the global ends stay
-    zero)."""
+def _refresh_pads(mesh: Mesh, carries, h_cols: int) -> None:
+    """Each of this process's shards' carry pads from its neighbours'
+    boundary data (the left neighbour's last and the right neighbour's
+    first ``h_cols`` data columns), queued on the shard's halo-copy
+    stream; the global ends are not written (they stay zero). Within one
+    process the neighbours' carries are read in place; across processes
+    every shard's first and last data blocks go through
+    :meth:`Mesh.exchange` first."""
     P = len(carries)
     n_local = carries[mesh.local[0]].shape[1] - 2 * h_cols
-    edges = [None] * P
-    for s in mesh.local:
-        with mesh.on(s, side=True):
-            edges[s] = torch.cat([carries[s][:, h_cols:2 * h_cols],
-                                  carries[s][:, n_local:n_local + h_cols]],
-                                 dim=1)
-    edges = mesh.exchange(edges, side=True)
+    if mesh.spans_processes:
+        edges = [None] * P
+        for s in mesh.local:
+            with mesh.on(s, side=True):
+                edges[s] = torch.cat(
+                    [carries[s][:, h_cols:2 * h_cols],
+                     carries[s][:, n_local:n_local + h_cols]], dim=1)
+        edges = mesh.exchange(edges, side=True)
+        first = [None if e is None else e[:, :h_cols] for e in edges]
+        last = [None if e is None else e[:, h_cols:] for e in edges]
+    else:
+        first = [c[:, h_cols:2 * h_cols] for c in carries]
+        last = [c[:, n_local:n_local + h_cols] for c in carries]
     for s in mesh.local:
         with mesh.on(s, side=True):
             if s > 0:
-                carries[s][:, :h_cols].copy_(edges[s - 1][:, h_cols:])
+                carries[s][:, :h_cols].copy_(last[s - 1])
             if s < P - 1:
-                carries[s][:, h_cols + n_local:].copy_(
-                    edges[s + 1][:, :h_cols])
+                carries[s][:, h_cols + n_local:].copy_(first[s + 1])
 
 
 def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
@@ -211,9 +208,9 @@ def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
     owns the shard). ``overlap``: ``"auto"`` splits each sweep when a
     shard has at least ``2h + 1`` blocks and ``n_local <= 16384`` (the JAX
     rule) or the mesh spans processes, ``True`` whenever a shard has them,
-    ``False`` never. Either way the result is bitwise the same. Across
-    processes the pads travel through :func:`_exchange_pads`, after the
-    interior calls are queued when the sweep is split. Returns
+    ``False`` never. Either way the result is bitwise the same. The pads
+    (:func:`_refresh_pads`, across processes through the host) are queued
+    after every shard's interior call when the sweep is split. Returns
     ``(carries, spares, n_iterations, rel_change)`` with ``carries`` the
     result.
     """
@@ -233,15 +230,18 @@ def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
             cur[s], Xty_t[s], XtX[s], masks[s], inv_den[s], lam, rho,
             offsets, h, block, out=nxt[s], sub=sub)[1:]
 
-    def sweep_across_processes():
+    def sweep():
         cur = state[0]
         mesh.fork()
         stats = []
         if split:
+            # The interior's windows never reach the pads, so it needs no
+            # halo: it is queued before the pads, which run on each shard's
+            # second stream; the boundary calls wait for them.
             for s in mesh.local:
                 with mesh.on(s):
                     stats += run(s, (h, h, m - 2 * h))
-        _exchange_pads(mesh, cur, hB)
+        _refresh_pads(mesh, cur, hB)
         for s in mesh.local:
             mesh.wait_side(s)
             with mesh.on(s):
@@ -253,33 +253,7 @@ def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
         state.reverse()
         return mesh.join_max(stats)
 
-    def sweep():
-        cur = state[0]
-        mesh.fork()
-        stats = []
-        for s in range(len(cur)):
-            if split:
-                # The interior's windows never reach the pads, so it needs
-                # no halo: it is queued before the copies, which run on the
-                # shard's second stream; the boundary calls wait for them.
-                with mesh.on(s):
-                    stats += run(s, (h, h, m - 2 * h))
-                with mesh.on(s, side=True):
-                    _refresh_pads(cur, s, hB)
-                mesh.wait_side(s)
-                with mesh.on(s):
-                    stats += run(s, (0, 0, h))
-                    stats += run(s, (m - h, m - h, h))
-            else:
-                with mesh.on(s):
-                    _refresh_pads(cur, s, hB)
-                    stats += run(s)
-        state.reverse()
-        return mesh.join_max(stats)
-
-    n_iter, rel = converge(
-        sweep_across_processes if mesh.spans_processes else sweep, tol,
-        max_iter, torch.float32)
+    n_iter, rel = converge(sweep, tol, max_iter, torch.float32)
     return state[0], state[1], n_iter, rel
 
 
@@ -465,12 +439,12 @@ class GspmdBandedProblem:
         the main device in shard order (every process, on a mesh that spans
         processes)."""
         mesh = self.mesh
-        view = _with_remote_edges(mesh, betas, self.halo)
+        edges = _shard_edges(mesh, betas, self.halo)
         mesh.fork()
         sums, btbs = [None] * self.n_shards, [None] * self.n_shards
         for s in mesh.local:
             with mesh.on(s):
-                ns = _banded_ns_window(view, s, self.offsets,
+                ns = _banded_ns_window(betas[s], edges, s, self.offsets,
                                        self.masks[s].to(self.dtype),
                                        self.halo)
                 sums[s], btbs[s] = objective_sums(betas[s], self.Xty_t[s],

@@ -1,6 +1,8 @@
 """Spot-sharded BCD solve over a mesh of torch devices: the halo plan.
 
-Counterpart of :mod:`flashdeconv_tpu.parallel.solver`, in one process. The
+Counterpart of :mod:`flashdeconv_tpu.parallel.solver`, on a
+:class:`~flashdeconv_tpu_torch.parallel._runner.Mesh` within one process
+or across the processes of a ``torch.distributed`` job. The
 spots are cut into contiguous shards of a Morton order
 (:func:`flashdeconv_tpu_torch.parallel.partition.plan_shards`); each sweep
 pools every shard's boundary rows (the JAX ``all_gather``,

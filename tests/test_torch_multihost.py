@@ -11,9 +11,9 @@ bound: the same lambda and sweeps, proportions within 1e-4).
 The jobs are 2 and 4 real processes that form a Gloo group over localhost
 and split 8 global CPU shards (``global_spot_mesh(8 // n, "cpu")``), as
 ``tests/test_multihost_exec.py`` splits 8 virtual devices. Their solves
-(banded mesh, fused with and without the overlap split and unfused, and
-halo plan, in f32 and f64) must be bitwise the single-process 8-shard
-mesh's, with the same sweeps; a 2-process ``fit_distributed`` on CSR
+(banded mesh, fused with and without the overlap split and unfused, also
+on shards narrower than its halo, and halo plan, in f32 and f64) must be
+bitwise the single-process 8-shard mesh's, with the same sweeps; a 2-process ``fit_distributed`` on CSR
 counts with ``log_cpm`` bitwise the single-process ``fit``, pearson and
 raw within rtol 1e-9 (the cross-process sums reassociate). A NaN in one
 process's statistics must reach every process (``Mesh.join_max`` gathers,
@@ -49,6 +49,7 @@ from torch_multihost_inputs import (
     cuts,
     fit_inputs,
     gene_counts,
+    narrow_inputs,
     solve_inputs,
 )
 
@@ -117,6 +118,14 @@ for strategy in ("banded", "halo"):
         save(name, beta)
         record[name] = {k: info[k] for k in ("n_shards", "n_iterations",
                                              "final_objective", "converged")}
+# The unfused banded mesh on shards narrower than its halo.
+Yn, Xn, cn = narrow_inputs()
+beta, info = sharded_bcd_solve(Yn, Xn, build_knn_graph(cn, k=4), coords=cn,
+                               mesh=mesh, strategy="banded",
+                               dtype=np.float64, device="cpu", **SOLVE_KW)
+save("banded_narrow", beta)
+record["banded_narrow"] = {k: info[k] for k in (
+    "n_shards", "n_iterations", "final_objective", "converged")}
 # The fused banded mesh on 16-spot blocks: 18 blocks a shard, h = 6 (the
 # kNN-4 graph's edges reach two grid rows), so each sweep splits (interior
 # calls, pad exchange, boundary calls).
@@ -391,6 +400,7 @@ def test_single_process_fit_distributed_is_bitwise_fit(single_process_fits,
                                                        layout):
     port, fit, _ = single_process_fits[layout]
     assert port._fitted and port.host_rows_ == (0, port.n_spots_)
+    assert "_distributed_mesh" not in port.__dict__  # consumed by the solve
     np.testing.assert_array_equal(port.gene_idx_, fit.gene_idx_)
     assert port.lambda_used_ == fit.lambda_used_
     np.testing.assert_array_equal(port.beta_, fit.beta_)
@@ -400,6 +410,21 @@ def test_single_process_fit_distributed_is_bitwise_fit(single_process_fits,
     assert port.info_["n_shards"] == 2
     assert set(port.timings_) >= {"gene_selection", "sketch",
                                   "spatial_graph", "solve"}
+
+
+def test_fit_distributed_keeps_xty_on_the_host():
+    """While fit_distributed's mesh is pending the fused Xty pass does not
+    stream to the device: that Xty is all-gathered on the host."""
+    from flashdeconv_tpu_torch import native
+
+    model = flashdeconv_tpu_torch.FlashDeconv(device="cpu")
+    model.device = torch.device("cuda")  # the rule alone; nothing runs
+    n = native.XTY_STREAM_CHUNK_ROWS + 1
+    assert model._streams_xty(n)
+    model._distributed_mesh = tpar.Mesh(["cpu"])
+    assert not model._streams_xty(n)
+    model._clear_consume_once()
+    assert model._streams_xty(n)
 
 
 @pytest.mark.parametrize("layout", ["grid", "irregular"])
@@ -436,6 +461,10 @@ def solve_refs():
             refs[f"{strategy}_{np.dtype(dtype).name}"] = sharded_bcd_solve(
                 Y, X, A, coords=coords, mesh=CPU8, strategy=strategy,
                 dtype=dtype, device="cpu", **SOLVE_KW)
+    Yn, Xn, cn = narrow_inputs()
+    refs["banded_narrow"] = sharded_bcd_solve(
+        Yn, Xn, build_knn_graph(cn, k=4), coords=cn, mesh=CPU8,
+        strategy="banded", dtype=np.float64, device="cpu", **SOLVE_KW)
     refs["fused_split"] = GspmdBandedProblem(
         Y, X, A, mesh=CPU8, fused_block=16, device="cpu").solve(**SOLVE_KW)
     beta0 = np.full((Y.shape[0], X.shape[0]), 0.2)
@@ -449,7 +478,7 @@ def solve_refs():
 
 @pytest.mark.parametrize("name", ["banded_float32", "banded_float64",
                                   "halo_float32", "halo_float64",
-                                  "fused_split"])
+                                  "banded_narrow", "fused_split"])
 def test_multi_process_solve_is_bitwise_one_process(solve_job, solve_refs,
                                                     name):
     nproc, outdir, records = solve_job

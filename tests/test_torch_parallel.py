@@ -278,6 +278,22 @@ def test_unfused_banded_mesh_matches_jax(n_shards):
         assert got[1][key] == ref[1][key], key
 
 
+def test_unfused_banded_mesh_windows_span_shards():
+    """Shards narrower than the halo (a 40 x 4 grid on 8 shards: 20 spots
+    a shard, halo 40): each shard's window reads two shards each side."""
+    xs, ys = np.meshgrid(np.arange(40), np.arange(4))
+    coords = np.column_stack([xs.ravel(), ys.ravel()]).astype(float)
+    Y, X, A = sketch_problem(coords, seed=8)
+    ref = jpar.gspmd_banded_solve(Y, X, A, mesh=jpar.default_mesh(8), **KW)
+    tp = tgspmd.GspmdBandedProblem(Y, X, A, mesh=cpu_mesh(8), fused_block=1,
+                                   device="cpu")
+    assert not tp.use_fused and tp.halo > tp.n_local
+    got = tp.solve(**KW)
+    assert_matches_jax(got, ref)
+    for key in ("n_shards", "n_bands", "halo_width"):
+        assert got[1][key] == ref[1][key], key
+
+
 @pytest.mark.parametrize("K", [20, 96])
 @pytest.mark.parametrize("n_shards", SHARDS)
 def test_banded_mesh_is_bitwise_the_fused_tier(n_shards, K):

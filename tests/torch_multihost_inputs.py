@@ -17,6 +17,18 @@ def solve_inputs():
     return Y, X, coords
 
 
+def narrow_inputs():
+    """A 48 x 4 grid: on 8 shards each holds 24 spots, half the banded
+    halo (48), so a shard's window reaches two shards each side."""
+    rng = np.random.RandomState(2)
+    xs, ys = np.meshgrid(np.arange(48), np.arange(4))
+    coords = np.column_stack([xs.ravel(), ys.ravel()]).astype(float)
+    X = rng.randn(5, 32)
+    Y = np.abs(rng.randn(coords.shape[0], 5)) @ X \
+        + 0.05 * rng.randn(coords.shape[0], 32)
+    return Y, X, coords
+
+
 def fit_inputs():
     rng = np.random.RandomState(0)
     side = 16
