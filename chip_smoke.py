@@ -37,10 +37,19 @@ counts set to 0 just before it and read just after:
    beta alone, the former way (f64 cast on the card, pageable copy)
    against ``fetch_to_host`` (pinned, cast on the host), after one cold
    fetch; the same on the 1M irregular problem, and the fetches alone at
-   K = 256;
+   K = 256. After it, a third counted run of kernel #1: the sweep-timing
+   protocol of ``utils/timing`` (``fused_sweep_timer_for`` and
+   ``fori_difference_windows``: runs of 5 and 30 sweeps queued with no
+   host read, each ended by one scalar read, 12 positive windows) on the
+   1M grid, its min and median per sweep printed beside the kernel's
+   CUDA-event time (``[timing]``); and the 262k grid fit again, untraced
+   and with ``FLASHDECONV_TRACE_DIR`` set (``[trace]``), whose
+   ``bcd_solve`` Chrome trace must name kernel #1 once a sweep and whose
+   beta must be bitwise the untraced fit's;
 1b. the fused tier's rest stream (kernel #1's ``ns_rest`` input): the
    1000 x 1000 grid with 1 % of its bins dropped at random (990,042
-   spots, K = 20), prepared and solved, bitwise the unfused banded tier;
+   spots, K = 20), timed by the sweep-timing protocol (rest update
+   included) and prepared and solved, bitwise the unfused banded tier;
    the 1000 x 1000 grid plus 100 symmetric long-range edges, which takes
    the fused tier only after the band-cap rescue, solved and bitwise the
    unfused banded tier on the capped decomposition; and a
@@ -115,7 +124,14 @@ counts set to 0 just before it and read just after:
    argmax is fetched as int32 and equals the host argmax. Phases 6 and 7
    run with every launch count at 0 and must leave them there; each
    checks that its operands lie on the card and that its tier runs no
-   kernel.
+   kernel;
+8. the host arena (``utils/hostmem``), after every other phase, since
+   ``mallopt`` changes the allocator for the rest of the process: on a
+   freshly prepared 1M grid (K = 20), five warm rounds of a host-path
+   ``solve()`` and the same solve split into ``fused_solve`` and
+   ``fetch_to_host``, then ``reserve_host_arena(4)`` timed, then five
+   rounds again, every beta bitwise the first solve's (``[arena]``; a
+   last counted run of kernel #1).
 
 The CountSketch kernel is held against its plain version at 262,144 x
 5,001 -> 512 (and at edge shapes), bitwise against itself, against an f64
@@ -178,6 +194,7 @@ import concurrent.futures
 import ctypes
 import functools
 import json
+import os
 import re
 import socket
 import subprocess
@@ -223,6 +240,8 @@ PROCESSES = 2                       # the [multihost] job's processes
 SWEEP_RUNS = (2, 22, 22, 2) * 5     # sweeps of the timed runs, in turns
 MULTIHOST_TIMEOUT = 300             # seconds the parent waits for the job
 DROP = 0.01                         # share of bins dropped from a grid
+ARENA_GB = 4                        # the [arena] phase's reserved heap
+ARENA_ROUNDS = 5                    # warm solves timed before and after
 RESCUE_EDGES = 100                  # long-range edges of the rescue case
 # The single-device solves' (beta on the host, sweeps) by label, which the
 # sharded solves of the same problems are held against.
@@ -1197,6 +1216,156 @@ def phase_outputs() -> int:
         raise AssertionError("the streamed feed changed beta")
     return sweeps + streamed.info_["n_iterations"] \
         + whole.info_["n_iterations"]
+
+
+def phase_timing(prob, label: str, kernel_ms: float) -> int:
+    """The sweep-timing protocol (``utils/timing``) on ``prob``'s fused
+    tier: ``fused_sweep_timer_for`` and ``fori_difference_windows`` (runs
+    of 5 and 30 sweeps, 12 windows), each run's sweeps queued with no host
+    read and ended by one scalar read; the windows' min and median beside
+    the kernel's CUDA-event time per launch from this run. Returns the
+    sweeps the timer launched."""
+    from flashdeconv_tpu_torch.utils.timing import (
+        fori_difference_windows,
+        fused_sweep_timer_for,
+    )
+
+    timed = fused_sweep_timer_for(prob, SOLVE["lambda_"], SOLVE["rho"])
+    asked = []
+    t0 = time.perf_counter()
+    windows = fori_difference_windows(
+        lambda n: asked.append(n) or timed(n))
+    ms = [w * 1e3 for w in windows]
+    lo, med = min(ms), float(np.median(ms))
+    log(f"[timing] {label}: {len(ms)} windows of 30 less 5 sweeps "
+        f"({sum(asked)} sweeps in {len(asked)} runs, "
+        f"{time.perf_counter() - t0:.2f} s): min {lo:.4f} ms, median "
+        f"{med:.4f} ms a sweep (median / min {med / lo:.3f}); the kernel "
+        f"alone {kernel_ms:.4f} ms a launch (CUDA events); windows ms "
+        f"{' '.join(f'{m:.4f}' for m in ms)}")
+    return sum(asked)
+
+
+def phase_trace() -> int:
+    """One fit of the 262k grid's counts (``grid_fit_counts``, made once)
+    with ``FLASHDECONV_TRACE_DIR`` set to a temporary directory, beside
+    the same fit untraced: the directory must hold exactly ``sketch/`` and
+    ``bcd_solve/``, each one Chrome trace that parses; the ``bcd_solve``
+    trace must name kernel #1's ``__global__`` once a sweep (the kernels
+    are launched through ctypes, so only CUPTI's record shows them); and
+    the traced fit's beta must be bitwise the untraced one's. Prints both
+    fits' seconds. Returns the sweeps of both fits."""
+    from flashdeconv_tpu_torch import FlashDeconv
+    from flashdeconv_tpu_torch.utils import grid_coords
+
+    Y, X, _ = grid_fit_counts()
+    coords = grid_coords(side=FIT_SIDE)
+
+    def fit():
+        model = FlashDeconv(sketch_dim=SKETCH, n_hvg=2000,
+                            device_outputs=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(Y, X, coords)
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    plain, plain_s = fit()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["FLASHDECONV_TRACE_DIR"] = tmp
+        try:
+            traced, traced_s = fit()
+        finally:
+            del os.environ["FLASHDECONV_TRACE_DIR"]
+        stages = sorted(p.name for p in Path(tmp).iterdir())
+        if stages != ["bcd_solve", "sketch"]:
+            raise AssertionError(f"trace subdirectories {stages}")
+        events, sizes = {}, {}
+        for stage in stages:
+            files = list((Path(tmp) / stage).glob("*.pt.trace.json"))
+            if len(files) != 1:
+                raise AssertionError(f"{stage}: trace files {files}")
+            sizes[stage] = files[0].stat().st_size
+            events[stage] = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events["bcd_solve"] if e.get("cat") == "kernel"]
+    sweeps = [e for e in kernels
+              if "fused_banded_sweep_kernel" in e.get("name", "")]
+    names = sorted({e["name"].split("(")[0] for e in kernels})
+    n_iter = traced.info_["n_iterations"]
+    log(f"[trace] 262k grid fit: {plain_s:.3f} s untraced, {traced_s:.3f} "
+        f"s traced; trace bytes {sizes}; bcd_solve: {len(events['bcd_solve'])}"
+        f" events, {len(kernels)} device kernels, {len(sweeps)} of kernel #1 "
+        f"against {n_iter} sweeps; kernel names {names}")
+    if len(sweeps) != n_iter:
+        raise AssertionError("the bcd_solve trace does not name kernel #1 "
+                             "once a sweep")
+    if not np.array_equal(traced.beta_, plain.beta_):
+        raise AssertionError("the traced fit's beta differs")
+    log(f"[trace] sketch: {len(events['sketch'])} events; the traced fit's "
+        "beta bit for bit the untraced one's")
+    return plain.info_["n_iterations"] + n_iter
+
+
+def phase_arena() -> int:
+    """The host arena (``utils/hostmem``), last of all phases: ``mallopt``
+    changes the allocator for the rest of the process. On a freshly
+    prepared 1M x 20 grid, ``ARENA_ROUNDS`` warm rounds, each a host-path
+    ``solve()`` and the same solve split into ``fused_solve`` (ended by a
+    synchronize) and ``fetch_to_host``; then ``reserve_host_arena
+    (ARENA_GB)``, timed; then as many rounds again. Every beta must be
+    bitwise the first solve's. Host clock, each call ended by a
+    synchronize. Returns the sweeps of every solve."""
+    from flashdeconv_tpu_torch.core.solver import fetch_to_host
+    from flashdeconv_tpu_torch.ops import bcd
+    from flashdeconv_tpu_torch.utils import hostmem
+
+    prob, prep_s = prepare(SPOTS, TYPES)
+    lam, rho = bcd.f32(SOLVE["lambda_"]), bcd.f32(SOLVE["rho"]
+                                                  * prob.mean_diag)
+    ref, info = prob.solve(**SOLVE)
+    sweeps = info["n_iterations"]
+
+    def rounds(tag: str) -> None:
+        nonlocal sweeps
+        ms = {"solve()": [], "fused_solve": [], "fetch_to_host": []}
+        for _ in range(ARENA_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            beta, info = prob.solve(**SOLVE)
+            t1 = time.perf_counter()
+            if not np.array_equal(beta, ref):
+                raise AssertionError(f"[arena] {tag}: solve() differs")
+            del beta
+            t2 = time.perf_counter()
+            beta_d, n_iter = bcd.fused_solve(
+                None, prob.tier, prob._inv_perm_d, lam, rho, SOLVE["tol"],
+                SOLVE["max_iter"], prob.n_spots)[:2]
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            host = fetch_to_host(beta_d)
+            t4 = time.perf_counter()
+            if not np.array_equal(host, ref):
+                raise AssertionError(f"[arena] {tag}: the fetch differs")
+            del host, beta_d
+            sweeps += info["n_iterations"] + n_iter
+            for name, dt in (("solve()", t1 - t0), ("fused_solve", t3 - t2),
+                             ("fetch_to_host", t4 - t3)):
+                ms[name].append(dt * 1e3)
+        log(f"[arena] 1M grid {tag}: " + "; ".join(
+            f"{name} ms {' '.join(f'{t:.3f}' for t in v)} (median "
+            f"{float(np.median(v)):.3f})" for name, v in ms.items()))
+
+    log(f"[arena] 1M grid prepared in {prep_s:.3f} s; {ARENA_ROUNDS} warm "
+        f"rounds before and after reserve_host_arena({ARENA_GB})")
+    rounds("before the arena")
+    t0 = time.perf_counter()
+    if not hostmem.reserve_host_arena(ARENA_GB):
+        raise AssertionError("reserve_host_arena found no glibc mallopt")
+    log(f"[arena] reserve_host_arena({ARENA_GB}) "
+        f"{time.perf_counter() - t0:.3f} s")
+    rounds("after the arena")
+    log("[arena] every beta bit for bit the first solve's")
+    return sweeps
 
 
 def phase_dense_fit() -> dict:
@@ -2257,6 +2426,10 @@ def main() -> None:
     # The fit's outputs, the lambda path and the streamed feed (kernel #1).
     fused_launches += counted(kernels, lambda: {
         "fused_banded_sweep": phase_outputs()})["fused_banded_sweep"]
+    # The sweep-timing protocol, and a traced fit (kernel #1).
+    fused_launches += counted(kernels, lambda: {
+        "fused_banded_sweep": phase_timing(grid, "1M grid", fused_row["ms"])
+        + phase_trace()})["fused_banded_sweep"]
 
     # Kernel 1 with the rest stream: grids whose banded split leaves a
     # small remainder.
@@ -2272,6 +2445,10 @@ def main() -> None:
     dropped, dropped_s = prepare_on(dropped_coords, dropped_A, TYPES)
     rest_tier(dropped, "1M 1%-dropped grid")
     rest_row = phase_rest_kernel(dropped, "1M 1%-dropped grid (main path)")
+    rest_launches = counted(kernels, lambda: {
+        "fused_banded_sweep_rest": phase_timing(
+            dropped, "1M 1%-dropped grid", rest_row["ms"])
+    })["fused_banded_sweep_rest"]
     phase_fused_vs_unfused(dropped)
     rescue, rescue_s = prepare_on(coords, with_rescue_edges(A), TYPES,
                                   grid=True)
@@ -2279,7 +2456,7 @@ def main() -> None:
     phase_band_cap(grid, rescue)
     phase_fused_vs_unfused(rescue)
     del grid, A, dropped_A
-    rest_launches = counted(kernels, lambda: {"fused_banded_sweep_rest": (
+    rest_launches += counted(kernels, lambda: {"fused_banded_sweep_rest": (
         phase_solve(dropped, dropped_s, "1M 1%-dropped grid")
         + phase_solve(rescue, rescue_s,
                       f"1M grid + {RESCUE_EDGES} long edges")
@@ -2380,6 +2557,9 @@ def main() -> None:
     cs_row = phase_countsketch_kernel()
     torch.cuda.empty_cache()
     cs_launches = counted(kernels, phase_dense_fit)["countsketch_project"]
+    # The host arena, last: it changes the allocator for the process.
+    fused_launches += counted(kernels, lambda: {
+        "fused_banded_sweep": phase_arena()})["fused_banded_sweep"]
     if "jax" in sys.modules or "flashdeconv_tpu" in sys.modules:
         raise AssertionError("JAX or the JAX package was imported")
 

@@ -60,7 +60,7 @@ from flashdeconv_tpu_torch.core.solver import (
 from flashdeconv_tpu_torch.core.spatial import auto_tune_lambda
 from flashdeconv_tpu_torch.utils.genes import select_informative_genes
 from flashdeconv_tpu_torch.utils.graph import coords_to_adjacency
-from flashdeconv_tpu_torch.utils.timing import StageTimer
+from flashdeconv_tpu_torch.utils.timing import StageTimer, trace
 
 ArrayLike = Union[np.ndarray, sparse.spmatrix]
 
@@ -331,7 +331,14 @@ class FlashDeconv:
             )
             self.gene_idx_ = gene_idx
             X_subset = X[:, gene_idx]
-            Y_subset = None if use_fused else Y[:, gene_idx]
+            Y_subset = None
+            if not use_fused and sparse.isspmatrix_csr(Y):
+                # Threaded native column subset, bitwise scipy's fancy
+                # indexing (a selection-matrix matmul, which dominates this
+                # stage at atlas-scale nnz); None for a non-float dtype.
+                Y_subset = native.csr_column_subset(Y, gene_idx)
+            if not use_fused and Y_subset is None:
+                Y_subset = Y[:, gene_idx]
         self._log(f"  Selected {len(gene_idx)} genes (HVG + markers)")
 
         colscale = None
@@ -349,7 +356,7 @@ class FlashDeconv:
                     Y_subset, X_subset, self.preprocess
                 )
 
-        with timer.stage("sketch"):
+        with timer.stage("sketch"), trace("sketch"):
             if not use_fused:
                 # Dense counts on a CUDA device project there (the
                 # CountSketch kernel when G >= 4096 and N >= 1024); sparse
@@ -480,7 +487,7 @@ class FlashDeconv:
                 beta_init = self.beta_
                 self._log("  warm start from the previous beta_")
             device_out = self._device_out()
-            with timer.stage("solve"):
+            with timer.stage("solve"), trace("bcd_solve"):
                 beta, info = self._prepare(Y_sketch, X_sketch, A,
                                            coords).solve(
                     lambda_=lambda_, rho=self.rho_sparsity,
@@ -639,7 +646,7 @@ class FlashDeconv:
             else:  # raw
                 X_tilde = X_subset.astype(np.float64, copy=False)
 
-        with timer.stage("sketch"):
+        with timer.stage("sketch"), trace("sketch"):
             # The operator is built from the seed alike on every process;
             # each contracts only its own rows.
             op = make_countsketch_op(
@@ -711,7 +718,7 @@ class FlashDeconv:
             beta_init = self.beta_
             self._log("  warm start from the previous beta_")
 
-        with timer.stage("solve"):
+        with timer.stage("solve"), trace("bcd_solve"):
             beta, info = prepare_sharded_bcd(
                 None, X_sketch, A, coords=coords_global,
                 mesh=self.__dict__.pop("_distributed_mesh"),
@@ -766,7 +773,7 @@ class FlashDeconv:
 
         results = []
         beta_prev = None
-        with timer.stage("solve"):
+        with timer.stage("solve"), trace("bcd_lambda_path"):
             for lam in lambdas:
                 self._log(f"  lambda-path solve at lambda = {lam:.4f}")
                 beta, info = problem.solve(

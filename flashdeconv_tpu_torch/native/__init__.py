@@ -1,8 +1,8 @@
 """Native (C++) host kernels for the O(nnz) CSR pipeline stages.
 
 The port's own copy of :mod:`flashdeconv_tpu.native`: ``host_kernels.cpp``
-is copied whole, and this module binds the kernels the port's host stages
-call. The code is unchanged apart from where the library is built.
+is copied whole, and this module binds every kernel the JAX module binds.
+The code is unchanged apart from where the library is built.
 
 The TPU owns the solve; the host owns single-pass CSR reductions (HVG
 moments, CountSketch projection, row sums, the log_cpm transform, column
@@ -21,7 +21,8 @@ Build/load strategy (no pip, no pybind11):
   the CUDA kernels' build, git-ignored) and loaded via ctypes;
 * if compilation fails, ``g++`` is missing, or the libm ``log1p`` self-test
   diverges from numpy by more than 1 ULP, callers transparently fall back
-  to the pure-numpy paths.
+  to the pure-numpy paths (:func:`exact_log1p_available` reports whether
+  the match is bit-for-bit on this platform).
 """
 
 from __future__ import annotations
@@ -96,8 +97,7 @@ def _load() -> Optional[ctypes.CDLL]:
     # differ from glibc's scalar one by at most the last bit; both are
     # correctly-rounded-or-adjacent). Consequence: native log1p VALUES are
     # within 1 ULP of the numpy expressions they replace, bitwise equal
-    # iff `flashdeconv_tpu.native.exact_log1p_available()`; fused and
-    # staged NATIVE kernels are
+    # iff `exact_log1p_available()`; fused and staged NATIVE kernels are
     # always mutually bit-identical (same libm); every path is
     # individually deterministic. The gate guards against a genuinely
     # divergent libm.
@@ -186,6 +186,11 @@ def _load() -> Optional[ctypes.CDLL]:
     return _lib
 
 
+def available() -> bool:
+    """True if the native library compiled and loaded."""
+    return _load() is not None
+
+
 def _log1p_gate_ok(dtype) -> bool:
     """Dtype-aware log1p gate: the f64 kernels call libm log1p; the f32
     fused / transform kernels use the vectorized double-precision log1p
@@ -200,8 +205,8 @@ def _log1p_gate_ok(dtype) -> bool:
 
 def fused_available(Y) -> bool:
     """True iff the fused subset->log_cpm->CountSketch kernels
-    (:func:`flashdeconv_tpu.native.fused_log1pcpm_project` /
-    :func:`fused_log1pcpm_xty`) will run on ``Y``. This is the ONE authoritative pipeline gate (CSR input, float
+    (:func:`fused_log1pcpm_project` / :func:`fused_log1pcpm_xty`) will run
+    on ``Y``. This is the ONE authoritative pipeline gate (CSR input, float
     data dtype, per-dtype libm self-test); the kernels return None in
     exactly the complement, so a caller that checks this predicate may
     treat a None from them as an internal error rather than a fallback."""
@@ -213,6 +218,20 @@ def fused_available(Y) -> bool:
         and _load() is not None
         and _log1p_gate_ok(Y.data.dtype)
     )
+
+
+def moments_available() -> bool:
+    """True if the native HVG-moments kernels may be used (<= 1 ULP libm
+    gate; their only consumer is rank-based gene selection)."""
+    return _load() is not None and _log1p_matches_numpy
+
+
+def exact_log1p_available() -> bool:
+    """True when libm log1p == numpy log1p bit-for-bit on this platform —
+    i.e. the native log1p-bearing kernels reproduce the numpy fallbacks
+    exactly rather than to <= 1 ULP. Introspection only; the kernels are
+    enabled either way."""
+    return _load() is not None and _log1p_exact
 
 
 def _n_threads() -> int:
@@ -365,12 +384,55 @@ def log1p_cpm_moments_auto(
     return out_sum, out_sumsq
 
 
+def fused_log1pcpm_project(
+    Y, gene_idx: np.ndarray, buckets: np.ndarray, weights: np.ndarray,
+    sketch_dim: int,
+) -> Optional[np.ndarray]:
+    """Gene subset -> log_cpm -> CountSketch projection in ONE O(nnz) pass.
+
+    Equivalent to ``csr_column_subset(Y, gene_idx)`` ->
+    ``preprocess_data(..., "log_cpm")`` -> ``countsketch_project``:
+    bit-identical to that staged NATIVE pipeline (the subset preserves nnz
+    order; every float op runs in the same precision and order — see
+    ``host_kernels.cpp``), within 1 ULP per log1p value of the pure-numpy
+    pipeline — without ever materializing the subset CSR or the
+    normalized copy. ``buckets`` /
+    ``weights`` are indexed by SUBSET column (position in ``gene_idx``).
+    Returns the dense (n_rows, sketch_dim) float64 sketch, or None when
+    the native path is unavailable.
+    """
+    lib = _load()
+    if lib is None or not _is_csr(Y) or not _log1p_gate_ok(Y.data.dtype):
+        return None
+    n_rows, n_genes = Y.shape
+    indptr, indices, data, tag = _csr_buffers(Y)
+    new_col = _subset_map(n_genes, gene_idx)
+    _check_subset_op(buckets, weights, len(gene_idx))
+    buckets = np.ascontiguousarray(buckets, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    out = np.empty((n_rows, sketch_dim), dtype=np.float64)
+    fn = getattr(lib, f"fused_log1pcpm_project_{tag}")
+    fn(
+        indptr.ctypes.data_as(ctypes.c_void_p),
+        indices.ctypes.data_as(ctypes.c_void_p),
+        data.ctypes.data_as(ctypes.c_void_p),
+        new_col.ctypes.data_as(ctypes.c_void_p),
+        buckets.ctypes.data_as(ctypes.c_void_p),
+        weights.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_int64(n_rows),
+        ctypes.c_int64(sketch_dim),
+        ctypes.c_int(_n_threads()),
+        out.ctypes.data_as(ctypes.c_void_p),
+    )
+    return out
+
+
 def fused_log1pcpm_xty(
     Y, gene_idx: np.ndarray, buckets: np.ndarray, weights: np.ndarray,
     sketch_dim: int, X_sketch: np.ndarray,
 ) -> Optional[Tuple[np.ndarray, float]]:
-    """Like :func:`flashdeconv_tpu.native.fused_log1pcpm_project`, but
-    contracts each row's sketch against ``X_sketch`` (K, d) on the fly, returning
+    """Like :func:`fused_log1pcpm_project`, but contracts each row's sketch
+    against ``X_sketch`` (K, d) on the fly, returning
     ``(Xty = Y_sketch @ X_sketch.T as (n_rows, K) float64, YtY)`` without
     ever materializing the (n_rows, d) sketch — at atlas scale that is a
     multi-GB write plus a BLAS re-read saved. Per-value log1p/scatter
@@ -504,8 +566,7 @@ def _xty_chunk_gen(ctx, n_rows: int, sketch_dim: int, chunk_rows: int):
 
 def colscale_available(Y) -> bool:
     """True iff the fused subset->column-scale->CountSketch kernels
-    (:func:`flashdeconv_tpu.native.fused_colscale_project` /
-    :func:`fused_colscale_xty` — the
+    (:func:`fused_colscale_project` / :func:`fused_colscale_xty` — the
     pearson / raw sparse pipelines) will run on ``Y``: CSR input, float
     data dtype, native library loaded. No libm gate — these kernels contain
     no transcendentals and are bit-identical to the scipy staged pipeline
@@ -554,13 +615,60 @@ def subset_col_mean(Y, gene_idx: np.ndarray) -> Optional[np.ndarray]:
     return out
 
 
+def fused_colscale_project(
+    Y, gene_idx: np.ndarray, colscale: Optional[np.ndarray],
+    buckets: np.ndarray, weights: np.ndarray, sketch_dim: int,
+) -> Optional[np.ndarray]:
+    """Gene subset -> per-gene scale -> CountSketch projection in ONE pass.
+
+    The pearson / raw sparse pipelines' analog of
+    :func:`fused_log1pcpm_project`: equivalent to
+    ``Y[:, gene_idx].multiply(colscale)`` -> ``countsketch_project`` (or
+    ``Y[:, gene_idx].astype(float64)`` -> project when ``colscale`` is
+    None), and — since no libm is involved — bit-identical to that staged
+    *scipy* pipeline, not just the staged native one. ``colscale`` must
+    already have the data dtype (the caller owns the promotion rule; see
+    ``preprocess_data``'s pearson branch). ``buckets`` / ``weights`` are
+    indexed by SUBSET column. Returns the dense (n_rows, sketch_dim)
+    float64 sketch, or None when the native path is unavailable.
+    """
+    lib = _load()
+    if lib is None or not _is_csr(Y):
+        return None
+    if Y.data.dtype not in (np.float32, np.float64):
+        return None
+    n_rows, n_genes = Y.shape
+    indptr, indices, data, tag = _csr_buffers(Y)
+    new_col = _subset_map(n_genes, gene_idx)
+    _check_subset_op(buckets, weights, len(gene_idx))
+    if colscale is not None:
+        colscale = np.ascontiguousarray(colscale, dtype=data.dtype)
+    buckets = np.ascontiguousarray(buckets, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.float64)
+    out = np.empty((n_rows, sketch_dim), dtype=np.float64)
+    getattr(lib, f"fused_colscale_project_{tag}")(
+        indptr.ctypes.data_as(ctypes.c_void_p),
+        indices.ctypes.data_as(ctypes.c_void_p),
+        data.ctypes.data_as(ctypes.c_void_p),
+        new_col.ctypes.data_as(ctypes.c_void_p),
+        colscale.ctypes.data_as(ctypes.c_void_p)
+        if colscale is not None else None,
+        buckets.ctypes.data_as(ctypes.c_void_p),
+        weights.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_int64(n_rows),
+        ctypes.c_int64(sketch_dim),
+        ctypes.c_int(_n_threads()),
+        out.ctypes.data_as(ctypes.c_void_p),
+    )
+    return out
+
+
 def fused_colscale_xty(
     Y, gene_idx: np.ndarray, colscale: Optional[np.ndarray],
     buckets: np.ndarray, weights: np.ndarray, sketch_dim: int,
     X_sketch: np.ndarray,
 ) -> Optional[Tuple[np.ndarray, float]]:
-    """Like :func:`flashdeconv_tpu.native.fused_colscale_project`, but
-    contracts each row's sketch
+    """Like :func:`fused_colscale_project`, but contracts each row's sketch
     against ``X_sketch`` (K, d) on the fly — the pearson / raw analog of
     :func:`fused_log1pcpm_xty`, with the same contraction structure and the
     same never-materialize-the-sketch rationale. Returns ``(Xty, YtY)`` or
@@ -573,7 +681,6 @@ def fused_colscale_xty(
     out_xty = np.empty((n_rows, ctx["n_types"]), dtype=np.float64)
     yty = _fused_xty_call(ctx, 0, n_rows, sketch_dim, out_xty)
     return out_xty, yty
-
 
 
 def fused_colscale_xty_chunks(
@@ -627,8 +734,7 @@ def log1p_cpm_transform(Y, scale: np.ndarray) -> Optional[np.ndarray]:
     The sparse log_cpm preprocess map. Element-wise (no accumulation), so
     threading changes nothing; values match the numpy expression
     ``np.log1p(Y.data * np.repeat(scale, np.diff(Y.indptr)))`` to <= 1 ULP
-    (bitwise iff :func:`flashdeconv_tpu.native.exact_log1p_available`) —
-    provided ``scale``
+    (bitwise iff :func:`exact_log1p_available`) — provided ``scale``
     already has the data dtype (the caller owns that promotion rule). Returns None when unavailable (same libm/log1p gate as the
     moments kernel).
     """
@@ -693,6 +799,77 @@ def yty_f64(Y_sketch: np.ndarray) -> float:
             if out is not None:
                 return out
     return float(np.einsum("ij,ij->", Y_sketch, Y_sketch, dtype=np.float64))
+
+
+def zero_fill(arr: np.ndarray) -> bool:
+    """Zero an array with parallel page-faulting (see C++ ``zero_fill``).
+
+    Returns False (and leaves the array untouched) when the native library
+    is unavailable or the array is not C-contiguous — callers fall back to
+    single-threaded initialization. (A non-contiguous input must NOT be
+    routed through ``ascontiguousarray``: that would zero a temporary copy
+    and leave the caller's array untouched while reporting success.)
+    """
+    lib = _load()
+    if lib is None or not arr.flags.c_contiguous:
+        return False
+    lib.zero_fill(
+        arr.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_int64(arr.nbytes),
+        ctypes.c_int(_n_threads()),
+    )
+    return True
+
+
+def csr_column_subset(Y, gene_idx: np.ndarray):
+    """``Y[:, gene_idx]`` for CSR ``Y`` and sorted unique ``gene_idx``.
+
+    Bit-identical to the scipy fancy-column indexing it replaces (kept
+    entries stay in row order with unchanged values; the kernel only
+    counts, remaps, and copies — no floating-point math) but runs as two
+    threaded O(nnz) passes instead of scipy's selection-matrix matmul —
+    ~20x at atlas scale. Returns None when the native path is unavailable.
+    """
+    from scipy import sparse as _sparse
+
+    lib = _load()
+    if lib is None or not _is_csr(Y):
+        return None
+    if Y.data.dtype not in (np.float32, np.float64):
+        return None  # scipy preserves int dtypes; don't silently promote
+    n_rows, n_genes = Y.shape
+    indptr, indices, data, tag = _csr_buffers(Y)
+    new_col = _subset_map(n_genes, gene_idx)
+    row_counts = np.empty(n_rows, dtype=np.int64)
+    getattr(lib, f"csr_subset_count_{tag}")(
+        indptr.ctypes.data_as(ctypes.c_void_p),
+        indices.ctypes.data_as(ctypes.c_void_p),
+        new_col.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_int64(n_rows),
+        ctypes.c_int(_n_threads()),
+        row_counts.ctypes.data_as(ctypes.c_void_p),
+    )
+    out_indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(row_counts, out=out_indptr[1:])
+    nnz = int(out_indptr[-1])
+    out_indices = np.empty(nnz, dtype=np.int32)
+    out_data = np.empty(nnz, dtype=data.dtype)
+    getattr(lib, f"csr_subset_fill_{tag}")(
+        indptr.ctypes.data_as(ctypes.c_void_p),
+        indices.ctypes.data_as(ctypes.c_void_p),
+        data.ctypes.data_as(ctypes.c_void_p),
+        new_col.ctypes.data_as(ctypes.c_void_p),
+        out_indptr.ctypes.data_as(ctypes.c_void_p),
+        ctypes.c_int64(n_rows),
+        ctypes.c_int(_n_threads()),
+        out_indices.ctypes.data_as(ctypes.c_void_p),
+        out_data.ctypes.data_as(ctypes.c_void_p),
+    )
+    return _sparse.csr_matrix(
+        (out_data, out_indices, out_indptr),
+        shape=(n_rows, len(gene_idx)),
+        copy=False,
+    )
 
 
 def countsketch_project(

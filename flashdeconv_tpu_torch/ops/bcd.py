@@ -1126,14 +1126,18 @@ def fused_solve(
     (fused tier) and ``solve_program`` (gather and unfused banded tiers)
     and, with ``verbose``, of their chunked verbose loop.
 
-    The sweeps run as one chunk of ``max_iter``; with ``verbose`` they run
-    in chunks that end after sweeps 0, 10, 20, ... (the reference's
-    cadence) and at the converged sweep, and the objective after each
-    chunk is printed. ``beta0`` is None (uniform 1/K over the first
-    ``n_spots`` columns) or an (n_solve, K) tensor; ``inv_perm`` is None
-    (identity) or an (n_spots,) index tensor. Returns ``(beta (n_spots,
-    K), n_iterations, rel_change, converged, objectives)``, beta on the
-    operands' device and ``objectives[-1]`` the final objective.
+    The sweeps run as one chunk of ``max_iter``, which ends at the
+    converged sweep, at ``max_iter`` or after a sweep whose statistic is
+    NaN (a NaN state: the JAX one-program loop stops there too); with
+    ``verbose`` they run in chunks that end after sweeps 0, 10, 20, ...
+    (the reference's cadence) and at the converged sweep, and the
+    objective after each chunk is printed (on a NaN state each chunk is
+    one sweep, as in the JAX chunked verbose loop). ``beta0`` is None
+    (uniform 1/K over the first ``n_spots`` columns) or an (n_solve, K)
+    tensor; ``inv_perm`` is None (identity) or an (n_spots,) index tensor.
+    Returns ``(beta (n_spots, K), n_iterations, rel_change, converged,
+    objectives)``, beta on the operands' device and ``objectives[-1]`` the
+    final objective.
     """
     tol_c = scalar(tol, tier.Xty_t.dtype)
     objectives: List[float] = []
@@ -1149,9 +1153,10 @@ def fused_solve(
             n_iter += done
             chunk = 10
             objectives.append(float(tier.objective(carry, lambda_, rho)))
-            if verbose:
-                print(f"Iteration {n_iter - 1}: objective = "
-                      f"{objectives[-1]:.6f}, rel_change = {rel:.6e}")
+            if not verbose:
+                break
+            print(f"Iteration {n_iter - 1}: objective = "
+                  f"{objectives[-1]:.6f}, rel_change = {rel:.6e}")
     converged = bool(rel < tol_c)
     if verbose and converged:
         print(f"Converged at iteration {n_iter - 1}")

@@ -340,12 +340,13 @@ def run_prepared_solve(
     ``run_chunk(n)`` runs up to ``n`` sweeps on the problem's state and
     returns ``(sweeps run, rel_change)``; ``eval_objective()`` the objective
     of the current state. Without ``verbose`` the sweeps run as one chunk
-    and the objective is evaluated once; with it they run in chunks that
-    end after sweeps 0, 10, 20, ... and at the converged sweep, each
-    followed by the objective, printed (the JAX ``chunked_verbose_solve``
-    cadence). Returns ``(n_iterations, rel_change, final_objective,
-    converged, objectives)``; ``objectives`` is empty without ``verbose``.
-    ``tol`` is compared in the solve ``dtype``.
+    (which a NaN statistic ends, as it ends the single-device loops) and
+    the objective is evaluated once; with it they run in chunks that end
+    after sweeps 0, 10, 20, ... and at the converged sweep, each followed
+    by the objective, printed (the JAX ``chunked_verbose_solve`` cadence).
+    Returns ``(n_iterations, rel_change, final_objective, converged,
+    objectives)``; ``objectives`` is empty without ``verbose``. ``tol`` is
+    compared in the solve ``dtype``.
     """
     tol_c = scalar(tol, dtype)
     objectives: list = []
@@ -355,10 +356,11 @@ def run_prepared_solve(
         done, rel = run_chunk(min(chunk, max_iter - n_iter))
         n_iter += done
         chunk = 10
-        if verbose:
-            objectives.append(float(eval_objective()))
-            print(f"Iteration {n_iter - 1}: objective = {objectives[-1]:.6f}, "
-                  f"rel_change = {rel:.6e}")
+        if not verbose:
+            break
+        objectives.append(float(eval_objective()))
+        print(f"Iteration {n_iter - 1}: objective = {objectives[-1]:.6f}, "
+              f"rel_change = {rel:.6e}")
     converged = bool(rel < tol_c)
     if verbose and converged:
         print(f"Converged at iteration {n_iter - 1}")

@@ -177,3 +177,46 @@ def test_constructor_takes_the_jax_defaults():
     default = flashdeconv_tpu_torch.FlashDeconv(device="cpu")
     assert default.device_outputs is None and default.fetch_dtype is None
     assert np.dtype(default.solver_dtype) == np.float32
+
+
+# -- the staged CSR path ------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_staged_csr_path_subsets_natively_as_jax(monkeypatch, dtype):
+    """With the fused kernels' gate failing (as where the per-dtype libm
+    self-test fails), both fits take the staged CSR path: the gene subset
+    by ``native.csr_column_subset``, then normalisation and the host
+    sketch. Its sketch operands are bitwise the JAX fit's; the fits give
+    the same sweeps and proportions within 1e-4."""
+    import flashdeconv_tpu.native as j_native
+    import flashdeconv_tpu.utils.timing as j_timing
+    import flashdeconv_tpu_torch.native as t_native
+    import flashdeconv_tpu_torch.utils.timing as t_timing
+
+    Y, X, coords, _ = make_synthetic(n_spots=900, n_genes=400, n_types=6,
+                                     seed=5, grid=False, sparse_output=True)
+    Y = Y.astype(dtype)
+    subsets = []
+    real = t_native.csr_column_subset
+    monkeypatch.setattr(j_native, "fused_available", lambda Y: False)
+    monkeypatch.setattr(t_native, "fused_available", lambda Y: False)
+    monkeypatch.setattr(t_native, "csr_column_subset",
+                        lambda *a: subsets.append(real(*a)) or subsets[-1])
+    ref = flashdeconv_tpu.FlashDeconv()
+    port = flashdeconv_tpu_torch.FlashDeconv(device="cpu")
+    ref_ops = ref._pipeline_operands(Y, X, coords, None,
+                                     j_timing.StageTimer())
+    port_ops = port._pipeline_operands(Y, X, coords, None,
+                                       t_timing.StageTimer())
+    assert len(subsets) == 1 and subsets[0] is not None
+    assert subsets[0].dtype == dtype
+    np.testing.assert_array_equal(port.gene_idx_, ref.gene_idx_)
+    for got, want in zip(port_ops[:2], ref_ops[:2]):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    assert (port_ops[2] != ref_ops[2]).nnz == 0
+    ref.fit(Y, X, coords)
+    port.fit(Y, X, coords)
+    assert port.info_["n_iterations"] == ref.info_["n_iterations"]
+    np.testing.assert_allclose(port.proportions_, ref.proportions_,
+                               atol=1e-4)

@@ -93,6 +93,15 @@ def _timer(m):
     return timer.report(), timer.total
 
 
+def _zero_fill(m):
+    """A contiguous array zeroed in place; a strided view refused and left
+    as it was."""
+    arr = np.arange(1, 100_001, dtype=np.float64)
+    strided = np.arange(1, 1_001, dtype=np.float32)
+    return (m.native.zero_fill(arr), arr,
+            m.native.zero_fill(strided[::2]), strided)
+
+
 CASES = {
     "genes_select_sparse": lambda m: m.genes.select_informative_genes(
         Y_CSR, X_SIG, n_hvg=200, n_markers_per_type=20),
@@ -152,6 +161,28 @@ CASES = {
     "native_subset_col_mean": lambda m: m.native.subset_col_mean(
         Y_CSR, GENE_IDX),
     "native_yty": lambda m: m.native.yty_f64(SKETCH_Y),
+    "native_gates": lambda m: (m.native.available(),
+                               m.native.moments_available(),
+                               m.native.exact_log1p_available()),
+    "native_fused_log1pcpm_project": lambda m:
+        m.native.fused_log1pcpm_project(
+            Y_CSR, GENE_IDX, _op(m).buckets, _op(m).weights, 64),
+    "native_fused_log1pcpm_project_f32": lambda m:
+        m.native.fused_log1pcpm_project(
+            Y_CSR.astype(np.float32), GENE_IDX, _op(m).buckets,
+            _op(m).weights, 64),
+    "native_fused_colscale_project": lambda m: (
+        m.native.fused_colscale_project(
+            Y_CSR, GENE_IDX, np.linspace(0.5, 2.0, len(GENE_IDX)),
+            _op(m).buckets, _op(m).weights, 64),
+        m.native.fused_colscale_project(
+            Y_CSR, GENE_IDX, None, _op(m).buckets, _op(m).weights, 64)),
+    "native_zero_fill": _zero_fill,
+    "native_csr_column_subset": lambda m: (
+        m.native.csr_column_subset(Y_CSR, GENE_IDX),
+        m.native.csr_column_subset(Y_CSR.astype(np.float32), GENE_IDX),
+        m.native.csr_column_subset(Y_CSR.astype(np.int64), GENE_IDX),
+        m.native.csr_column_subset(Y_DENSE, GENE_IDX)),
     "native_countsketch_project": lambda m: m.native.countsketch_project(
         Y_CSR[:, GENE_IDX].tocsr(), _op(m).buckets, _op(m).weights, 64),
     "native_moments_auto": lambda m: m.native.log1p_cpm_moments_auto(Y_CSR),

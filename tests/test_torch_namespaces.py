@@ -1,6 +1,11 @@
 """The port's package namespaces against the JAX package's, and the host
 functions behind them.
 
+Every module-level function and class of every JAX module resolves on the
+port's module of the same path, or stands in ``COUNTERPARTS`` with the port
+name that does its job (the TPU-only mechanics: Pallas kernels, VMEM
+budgets, one-program solves, ``shard_map`` programs, the JAX key bridge).
+
 Every name in the ``__all__`` of ``flashdeconv_tpu``, ``flashdeconv_tpu.core``,
 ``.ops`` and ``.utils`` resolves on the port's counterpart, from the port's
 module of the same name (``utils.as_jax_key`` excepted: its counterpart is
@@ -10,7 +15,9 @@ tests/test_torch_host.py holds the other copies; the device
 ``soft_threshold`` against the JAX one.
 """
 
+import ast
 import importlib
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +59,103 @@ def test_every_jax_export_resolves_on_the_port(sub):
         obj = getattr(tpkg, name)
         if callable(obj):
             assert obj.__module__.startswith("flashdeconv_tpu_torch."), name
+
+
+_PORT = "flashdeconv_tpu_torch"
+# The JAX names with no port name of their own: (JAX module, name) -> the
+# port's "module:attribute" that does its job.
+COUNTERPARTS = {
+    # XLA's persistent compile cache: the kernels' content-hashed build.
+    ("flashdeconv_tpu", "_setup_compilation_cache"):
+        f"{_PORT}.ops._build:build",
+    # The host-side guard of Xty's non-finite rows: the meshes' copy (the
+    # single-device tiers guard on the device, in BCDProblem).
+    ("flashdeconv_tpu.core.solver", "sanitize_xty_rows"):
+        f"{_PORT}.parallel._runner:sanitize_xty_rows",
+    # The Pallas kernels and their wrappers: the CUDA kernels
+    # (ops/csrc/*.cu) and the wrappers that launch them.
+    ("flashdeconv_tpu.ops.bcd", "_make_fused_banded_kernel"):
+        f"{_PORT}.ops.bcd:fused_banded_sweep",
+    ("flashdeconv_tpu.ops.bcd", "_cd_block_kernel"):
+        f"{_PORT}.ops.bcd:coordinate_descent_block",
+    ("flashdeconv_tpu.ops.bcd", "coordinate_descent_pallas"):
+        f"{_PORT}.ops.bcd:coordinate_descent_block",
+    ("flashdeconv_tpu.ops.countsketch", "_countsketch_kernel"):
+        f"{_PORT}.ops.countsketch:countsketch_project_kernel",
+    ("flashdeconv_tpu.ops.countsketch", "countsketch_project_pallas"):
+        f"{_PORT}.ops.countsketch:countsketch_project_kernel",
+    # VMEM budgets and lane rounding: the fused tier's plan is h for its
+    # fixed block, or no fused tier; the launch's grid and shared memory
+    # come from the C entry; the CountSketch kernel's gate is the shape.
+    ("flashdeconv_tpu.ops.bcd", "plan_fused_banded"):
+        f"{_PORT}.core.solver:fused_decomposition",
+    ("flashdeconv_tpu.ops.bcd", "fused_banded_vmem_bytes"):
+        f"{_PORT}.ops.bcd:fused_sweep_launch",
+    ("flashdeconv_tpu.ops.countsketch", "_pallas_project_vmem_bytes"):
+        f"{_PORT}.ops.countsketch:kernel_route",
+    ("flashdeconv_tpu.ops.countsketch", "_round_up"):
+        f"{_PORT}.ops.countsketch:kernel_route",
+    # The one-program solves and the chunked verbose loop: the one solve
+    # loop of every tier.
+    ("flashdeconv_tpu.ops.bcd", "fused_solve_program"):
+        f"{_PORT}.ops.bcd:fused_solve",
+    ("flashdeconv_tpu.ops.bcd", "solve_program"):
+        f"{_PORT}.ops.bcd:fused_solve",
+    ("flashdeconv_tpu.ops.bcd", "chunked_verbose_solve"):
+        f"{_PORT}.ops.bcd:fused_solve",
+    # shard_map programs and sharded placement: per-shard work on the Mesh.
+    ("flashdeconv_tpu.parallel._runner", "put_addressable"):
+        f"{_PORT}.parallel._runner:Mesh.per_shard",
+    ("flashdeconv_tpu.parallel.solver", "_sharded_iterate"):
+        f"{_PORT}.parallel.solver:_sharded_sweep",
+    ("flashdeconv_tpu.parallel.solver", "_sharded_solve_jit"):
+        f"{_PORT}.parallel.solver:HaloShardedProblem",
+    ("flashdeconv_tpu.parallel.solver", "_sharded_objective_jit"):
+        f"{_PORT}.parallel.solver:_sharded_objective",
+    # The JAX key bridge.
+    ("flashdeconv_tpu.utils.random", "as_jax_key"):
+        f"{_PORT}.utils.random:as_torch_generator",
+}
+
+
+def _jax_modules():
+    root = Path(flashdeconv_tpu.__file__).resolve().parent
+    for path in sorted(root.rglob("*.py")):
+        parts = path.relative_to(root.parent).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts), path
+
+
+def _resolve(target: str):
+    module, attr = target.split(":")
+    obj = importlib.import_module(module)
+    for part in attr.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def test_every_jax_function_and_class_has_a_port_counterpart():
+    """A JAX module-level function or class resolves on the port module of
+    the same path or is in ``COUNTERPARTS``, whose targets resolve; an
+    entry for a name the port has, or for no JAX name, fails too."""
+    missing, mapped = [], set()
+    for module, path in _jax_modules():
+        port = importlib.import_module(_PORT + module[len("flashdeconv_tpu"):])
+        for node in ast.parse(path.read_text()).body:
+            if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                     ast.ClassDef)):
+                continue
+            key = (module, node.name)
+            if hasattr(port, node.name):
+                assert key not in COUNTERPARTS, f"stale entry {key}"
+            elif key in COUNTERPARTS:
+                _resolve(COUNTERPARTS[key])
+                mapped.add(key)
+            else:
+                missing.append(key)
+    assert not missing, missing
+    assert mapped == set(COUNTERPARTS)
 
 
 def test_the_documented_imports_work():

@@ -189,6 +189,8 @@ def test_no_port_module_imports_jax_or_the_jax_package():
     assert ROOT / "flashdeconv_tpu_torch" / "ops" / "countsketch.py" in files
     assert ROOT / "flashdeconv_tpu_torch" / "parallel" / "gspmd.py" in files
     assert ROOT / "flashdeconv_tpu_torch" / "parallel" / "multihost.py" in files
+    for module in ("timing.py", "hostmem.py"):
+        assert ROOT / "flashdeconv_tpu_torch" / "utils" / module in files
     for module in ("tl/_deconvolve.py", "tl/__init__.py", "io/loader.py",
                    "io/__init__.py", "pl/_plots.py", "pl/__init__.py"):
         assert ROOT / "flashdeconv_tpu_torch" / module in files
