@@ -8,10 +8,13 @@
                                      # alone
     python3 chip_smoke.py --small-k [--against DIR]
                                      # the sweep kernels at K <= 64 alone
-    python3 chip_smoke.py --multihost-child RANK WORLD PORT DIR
-                                     # one process of the [multihost]
-                                     # phase's job (the smoke run starts
-                                     # them)
+    python3 chip_smoke.py --multicard
+                                     # the [multicard] phase alone (two
+                                     # cards or more; exits 1 below two)
+    python3 chip_smoke.py --multihost-child RANK WORLD PORT DIR BACKEND
+                                     # one process of a multi-process job
+                                     # (the [multihost] and [multicard]
+                                     # phases start them)
 
 Builds the three CUDA kernels from the sources in this checkout (one
 ``nvcc`` each, in parallel), holds each against its plain PyTorch version
@@ -108,6 +111,23 @@ counts set to 0 just before it and read just after:
    of the banded mesh's sweep loop alone, split across processes, and
    unsplit and split (``overlap=True``) in one process; a process that
    fails or outlasts 300 s fails the run;
+5b. several cards (``[multicard]``, run when two cards or more are
+   visible; on one card the run prints ``[multicard] not run: 1 card
+   visible`` and goes on): with ``cuda:0`` current, the 1M grid's fused
+   solve and the 1M irregular gather solve on the last card, and the
+   100,000 x 5,001 dense sketch there, each bitwise the same on
+   ``cuda:0``; the 1M grid's banded mesh on 2 cards (and on 4 where there
+   are 4) and at K = 128 on 2, unsplit and split, 240 sweeps (tol 0) of
+   the sweep loop, each bitwise one card's mesh of as many shards; the
+   1M irregular halo plan on 2 cards and ``FlashDeconv(n_shards=2).fit``
+   of the 262k counts, each bitwise one card's 2 shards; and jobs of 2
+   (and 4) processes of this script over NCCL, one card a process, each
+   bitwise one process's mesh of as many shards on ``cuda:0``, as the
+   Gloo job of 5a is. It prints, claiming nothing, a sweep's time (as 5a
+   times it) on one card's 1 / 2 / 4 shards, on 2 / 4 cards and in the
+   NCCL processes, spots/s and their ratio to one card's, each card's
+   peak memory, and each kernel's launches by card, which must add up to
+   the wrappers' counts; the launches join the kernels line;
 6. the XLA tier in f64 (no kernel takes f64, as no Pallas kernel does in
    the JAX package): the 1M grid at K = 20 prepared in f64 (the unfused
    banded form), a cold ``solve()`` and warm ``solve()`` and
@@ -237,6 +257,7 @@ F32_OPS_PER_S = 67e12
 SOLVE = dict(lambda_=0.1, rho=0.01, max_iter=100, tol=1e-4)
 MESH_SHARDS = (1, 2, 4)             # shards of the 1M grid on the one card
 PROCESSES = 2                       # the [multihost] job's processes
+MULTICARD_SWEEPS = 240              # sweeps of each [multicard] mesh check
 SWEEP_RUNS = (2, 22, 22, 2) * 5     # sweeps of the timed runs, in turns
 MULTIHOST_TIMEOUT = 300             # seconds the parent waits for the job
 DROP = 0.01                         # share of bins dropped from a grid
@@ -246,6 +267,8 @@ RESCUE_EDGES = 100                  # long-range edges of the rescue case
 # The single-device solves' (beta on the host, sweeps) by label, which the
 # sharded solves of the same problems are held against.
 REFERENCE = {}
+# One process's P-shard references of a job of P processes, by P.
+JOB_REFS = {}
 
 
 def log(*parts) -> None:
@@ -1730,10 +1753,24 @@ def timed_runs(prob, strategy: str, tag: str, overlaps=()) -> dict:
     return out
 
 
+@functools.lru_cache(maxsize=1)
+def job_operands():
+    """The operands of a multi-process job: the 1M grid's (xty, X,
+    coords, yty, A) and the 262k grid fit's (CSR counts, X, coords)."""
+    from flashdeconv_tpu_torch.core.solver import sanitize_yty
+    from flashdeconv_tpu_torch.utils import grid_coords
+
+    coords, A = knn_graph(SPOTS, False)
+    Y, X, _ = make_problem(SPOTS, TYPES, SKETCH)
+    xty, yty = Y @ X.T, sanitize_yty(None, Y)
+    del Y
+    counts, Xc, _ = grid_fit_counts()
+    return (xty, X, coords, yty, A), (counts, Xc, grid_coords(side=FIT_SIDE))
+
+
 def multihost_operands(workdir: Path):
-    """The [multihost] job's operands, as the parent wrote them: the 1M
-    grid's (xty, yty, X, coords, A) and the 262k grid fit's (CSR counts,
-    memory-mapped, X, coords)."""
+    """A job's operands, as the parent wrote them (:func:`write_job`),
+    the counts memory-mapped."""
     from scipy import sparse
 
     ld = functools.partial(np.load, mmap_mode="r")
@@ -1749,12 +1786,23 @@ def multihost_operands(workdir: Path):
     return (*grid, float(np.load(workdir / "yty.npy")), A), fit
 
 
-def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
-    """One process of the [multihost] job (``--multihost-child``): joins a
-    Gloo group of ``world`` processes on ``localhost:port``, takes one shard
-    of ``global_spot_mesh`` on ``cuda:0``, runs the 1M grid's banded mesh and
-    halo plan and ``fit_distributed`` on its rows of the 262k counts, and
-    writes its beta, times and launches under ``workdir``."""
+def fit_rows(rank: int, world: int, n: int):
+    """Rank ``rank``'s rows ``[lo, hi)`` of the job's fit: equal parts,
+    the first cut 1,000 rows early so that the parts are uneven."""
+    cuts = [r * n // world for r in range(world + 1)]
+    cuts[1] -= 1000
+    return cuts[rank], cuts[rank + 1]
+
+
+def multihost_child(rank: int, world: int, port: int, workdir: str,
+                    backend: str) -> None:
+    """One process of a multi-process job (``--multihost-child``): joins a
+    ``backend`` group of ``world`` processes on ``localhost:port`` (Gloo:
+    every rank on ``cuda:0``; NCCL: rank r on ``cuda:r``, the card
+    ``initialize`` makes current), takes one shard of ``global_spot_mesh``
+    there, runs the 1M grid's banded mesh and halo plan and
+    ``fit_distributed`` on its rows of the 262k counts, and writes its
+    beta, times, peak memory and launches under ``workdir``."""
     import torch.distributed as dist
     from scipy import sparse
 
@@ -1765,16 +1813,18 @@ def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
     workdir = Path(workdir)
     for name in _build.build():  # the parent built them: this loads
         _build.load(name)
-    # NCCL refuses two ranks on one card ("Duplicate GPU detected").
-    multihost.initialize(f"localhost:{port}", world, rank, backend="gloo")
+    multihost.initialize(f"localhost:{port}", world, rank, backend=backend)
     (xty, X, coords, yty, A), ((data, indices, indptr), Xc, fit_coords) = (
         multihost_operands(workdir))
-    card = torch.device("cuda", 0)
-    mesh = multihost.global_spot_mesh(1, device=card)
+    card = torch.device("cuda", rank if backend == "nccl" else 0)
+    mesh = multihost.global_spot_mesh(1, device="cuda" if backend == "nccl"
+                                      else card)
     if not (mesh.spans_processes and mesh.main == card
-            and mesh.local == (rank,)):
+            and mesh.local == (rank,) and torch.cuda.current_device()
+            == (card.index if backend == "nccl" else 0)):
         raise AssertionError(f"rank {rank}: not a mesh across processes on "
-                             f"the card: {mesh}")
+                             f"{card}: {mesh}")
+    torch.cuda.reset_peak_memory_stats(card)
     record = {}
     for strategy in ("banded", "halo"):
         t0 = time.perf_counter()
@@ -1793,14 +1843,12 @@ def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
         del prob
 
     # The fit on this process's rows, split at an uneven row.
-    n = indptr.shape[0] - 1
-    cut = n // world - 1000
-    lo, hi = (0, cut) if rank == 0 else (cut, n)
+    lo, hi = fit_rows(rank, world, indptr.shape[0] - 1)
     a, b = int(indptr[lo]), int(indptr[hi])
     Y_local = sparse.csr_matrix(
         (np.asarray(data[a:b]), np.asarray(indices[a:b]),
          np.asarray(indptr[lo:hi + 1]) - a), shape=(hi - lo, Xc.shape[1]))
-    model = FlashDeconv(sketch_dim=SKETCH)
+    model = FlashDeconv(sketch_dim=SKETCH, device=card)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.fit_distributed(Y_local, Xc, fit_coords[lo:hi])
@@ -1811,6 +1859,7 @@ def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
                      "sweeps": model.info_["n_iterations"],
                      "lambda": model.lambda_used_,
                      "stages": model.timings_}
+    record["peak_bytes"] = torch.cuda.max_memory_allocated(card)
     log(f"[multihost] p{rank} fit_distributed rows [{lo}, {hi}): "
         f"{fit_s:.3f} s, {model.info_['n_iterations']} sweeps, stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in model.timings_.items()))
@@ -1820,6 +1869,9 @@ def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
         "fused_banded_sweep": fb.launches,
         "coordinate_descent_block": cd.launches,
     }
+    record["card_launches"] = {
+        "fused_banded_sweep": dict(fb.card_launches),
+        "coordinate_descent_block": dict(cd.card_launches)}
     # Every sweep of a split mesh (the banded mesh across processes) is 3
     # sub-range calls a shard; the halo plan's one kernel #2 call a shard.
     timed_sweeps = sum(SWEEP_RUNS)
@@ -1829,55 +1881,60 @@ def multihost_child(rank: int, world: int, port: int, workdir: str) -> None:
             "fused_banded_sweep": 0,
             "coordinate_descent_block": record["halo"]["sweeps"]
             + timed_sweeps}
-    if record["launches"] != want:
-        raise AssertionError(f"rank {rank}: launches {record['launches']}, "
-                             f"expected {want}")
+    if record["launches"] != want or set(fb.card_launches) != {
+            card.index} or set(cd.card_launches) != {card.index}:
+        raise AssertionError(f"rank {rank}: launches {record['launches']} "
+                             f"on cards {record['card_launches']}, expected "
+                             f"{want} on {card}")
     (workdir / f"record_p{rank}.json").write_text(json.dumps(record))
     dist.destroy_process_group()
 
 
-def phase_multihost(children: dict) -> dict:
-    """The multi-process main path (see the module docstring, item 5a).
-    Leaves the job's launches in ``children``; returns the launches this
-    process's single-process references must show."""
-    from scipy import sparse
-
+def job_refs(P: int, ops, add, overlaps=()):
+    """One process's ``P``-shard mesh on ``cuda:0``, the reference of a
+    job of ``P`` processes: the banded mesh and the halo plan of the 1M
+    grid through :func:`timed_runs` (the banded mesh's loop timed with
+    each of ``overlaps``) and the 262k fit. ``add(kernel, n)`` collects
+    the launches. Returns ``(refs, fit)``, kept in ``JOB_REFS`` for the
+    next job of ``P`` processes (which then launches nothing here)."""
     from flashdeconv_tpu_torch import FlashDeconv
-    from flashdeconv_tpu_torch.core.solver import sanitize_yty
     from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
-    from flashdeconv_tpu_torch.utils import grid_coords
 
-    t_phase = time.perf_counter()
-    coords, A = knn_graph(SPOTS, False)
-    Y, X, _ = make_problem(SPOTS, TYPES, SKETCH)
-    xty, yty = Y @ X.T, sanitize_yty(None, Y)
-    del Y
-    counts, Xc, _ = grid_fit_counts()
-    fit_coords = grid_coords(side=FIT_SIDE)
-
-    # The single-process 2-shard references.
-    # The banded mesh's loop unsplit (what "auto" picks for one process's
-    # shards of 500k spots) and split, as across processes.
+    if P in JOB_REFS:
+        return JOB_REFS[P]
+    (xty, X, coords, yty, A), (counts, Xc, fit_coords) = ops
     refs = {}
-    timed_sweeps = PROCESSES * sum(SWEEP_RUNS)
     for strategy in ("banded", "halo"):
         prob = prepare_sharded_bcd(None, X, A, coords=coords,
-                                   mesh=card_mesh(PROCESSES), xty=xty,
-                                   yty=yty, strategy=strategy)
+                                   mesh=card_mesh(P), xty=xty, yty=yty,
+                                   strategy=strategy)
         refs[strategy] = timed_runs(
-            prob, strategy, f"1 process, 2 shards, 1M grid {strategy}",
-            (False, True) if strategy == "banded" else ())
+            prob, strategy, f"1 process, {P} shards, 1M grid {strategy}",
+            overlaps if strategy == "banded" else ())
         del prob
-    want = {"fused_banded_sweep": PROCESSES
-            * refs["banded"]["info"]["n_iterations"] + timed_sweeps,
-            "fused_banded_sweep_sub": 3 * timed_sweeps,
-            "coordinate_descent_block": PROCESSES
-            * refs["halo"]["info"]["n_iterations"] + timed_sweeps}
-    ref_fit = FlashDeconv(sketch_dim=SKETCH, mesh=card_mesh(PROCESSES),
-                          device_outputs=False).fit(counts, Xc, fit_coords)
-    want["fused_banded_sweep"] += PROCESSES * ref_fit.info_["n_iterations"]
+    add("fused_banded_sweep", P * refs["banded"]["info"]["n_iterations"])
+    for overlap in overlaps:
+        add("fused_banded_sweep_sub" if overlap else "fused_banded_sweep",
+            (3 if overlap else 1) * P * sum(SWEEP_RUNS))
+    add("coordinate_descent_block", P * (
+        refs["halo"]["info"]["n_iterations"] + sum(SWEEP_RUNS)))
+    fit = FlashDeconv(sketch_dim=SKETCH, mesh=card_mesh(P),
+                      device_outputs=False).fit(counts, Xc, fit_coords)
+    add("fused_banded_sweep", P * fit.info_["n_iterations"])
     torch.cuda.empty_cache()
+    JOB_REFS[P] = refs, fit
+    return refs, fit
 
+
+def run_job(ops, refs, ref_fit, backend: str, world: int) -> list:
+    """A job of ``world`` processes of this script (``--multihost-child``)
+    over ``backend``, on ``ops`` written to a temporary directory; each
+    process's banded mesh, halo plan and fit must be bitwise ``refs`` /
+    ``ref_fit`` (:func:`job_refs` of ``world`` shards). A process that
+    fails or outlasts ``MULTIHOST_TIMEOUT`` fails the run. Returns the
+    processes' records."""
+    tag = "multihost" if backend == "gloo" else "multicard"
+    (xty, X, coords, yty, A), (counts, Xc, fit_coords) = ops
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
         t0 = time.perf_counter()
@@ -1889,20 +1946,21 @@ def phase_multihost(children: dict) -> dict:
                           ("Y_indptr", counts.indptr), ("Y_X", Xc),
                           ("Y_coords", fit_coords)):
             np.save(workdir / f"{name}.npy", arr)
-        log(f"[multihost] operands written in {time.perf_counter() - t0:.1f}"
-            f" s; {PROCESSES} processes on cuda:0 over Gloo (NCCL refuses "
-            "two ranks on one card, 'Duplicate GPU detected')")
+        where = ("cuda:0 over Gloo (NCCL refuses two ranks on one card, "
+                 "'Duplicate GPU detected')" if backend == "gloo" else
+                 f"cuda:0-{world - 1} over NCCL, one card a process")
+        log(f"[{tag}] operands written in {time.perf_counter() - t0:.1f} "
+            f"s; {world} processes on {where}")
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
             port = sock.getsockname()[1]
         t0 = time.perf_counter()
-        logs = [open(workdir / f"log_p{r}.txt", "w+") for r in
-                range(PROCESSES)]
+        logs = [open(workdir / f"log_p{r}.txt", "w+") for r in range(world)]
         procs = [subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()),
-             "--multihost-child", str(r), str(PROCESSES), str(port),
-             str(workdir)], stdout=logs[r], stderr=subprocess.STDOUT)
-            for r in range(PROCESSES)]
+             "--multihost-child", str(r), str(world), str(port),
+             str(workdir), backend], stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(world)]
         try:
             deadline = time.perf_counter() + MULTIHOST_TIMEOUT
             while any(p.poll() is None for p in procs):
@@ -1919,15 +1977,14 @@ def phase_multihost(children: dict) -> dict:
         for r, f in enumerate(logs):
             f.seek(0)
             for line in f.read().splitlines():
-                log(f"[multihost p{r}] {line}")
+                log(f"[{tag} p{r}] {line}")
             f.close()
         if any(p.returncode != 0 for p in procs):
             raise AssertionError(
-                "[multihost] the job failed: return codes "
+                f"[{tag}] the {backend} job failed: return codes "
                 f"{[p.returncode for p in procs]} after {job_s:.1f} s")
         records = [json.loads((workdir / f"record_p{r}.json").read_text())
-                   for r in range(PROCESSES)]
-        cut = FIT_SIDE ** 2 // PROCESSES - 1000
+                   for r in range(world)]
         for r, rec in enumerate(records):
             for strategy in ("banded", "halo"):
                 beta = np.load(workdir / f"beta_{strategy}_p{r}.npy")
@@ -1936,39 +1993,337 @@ def phase_multihost(children: dict) -> dict:
                         == ref["info"]["n_iterations"]
                         and np.array_equal(beta, ref["beta"])):
                     raise AssertionError(
-                        f"[multihost] p{r} {strategy}: not bitwise the "
-                        "single-process 2-shard mesh")
+                        f"[{tag}] p{r} {strategy}: not bitwise the "
+                        f"single-process {world}-shard mesh")
             beta = np.load(workdir / f"beta_fit_p{r}.npy")
-            rows = [0, cut] if r == 0 else [cut, FIT_SIDE ** 2]
-            if not (rec["fit"]["rows"] == rows
+            if not (rec["fit"]["rows"] == list(fit_rows(r, world,
+                                                        FIT_SIDE ** 2))
                     and rec["fit"]["sweeps"] == ref_fit.info_["n_iterations"]
                     and rec["fit"]["lambda"] == ref_fit.lambda_used_
                     and np.array_equal(beta, ref_fit.beta_)):
                 raise AssertionError(
-                    f"[multihost] p{r} fit_distributed: not bitwise the "
-                    "single-process fit on the 2-shard mesh")
-    for key in records[0]["launches"]:
-        children[key] = sum(rec["launches"][key] for rec in records)
-    for strategy, key, against in (
-            ("banded", "loop_auto", ("loop_False", "loop_True")),
-            ("halo", "solve", ("solve",))):
+                    f"[{tag}] p{r} fit_distributed: not bitwise the "
+                    f"single-process fit on the {world}-shard mesh")
+    launches = {key: sum(rec["launches"][key] for rec in records)
+                for key in records[0]["launches"]}
+    for strategy, key in (("banded", "loop_auto"), ("halo", "solve")):
         ms = [(rec[strategy][key]["sweep_ms"], rec[strategy][key]["pair_ms"])
               for rec in records]
         ref = refs[strategy]
-        log(f"[multihost] 1M grid {strategy}: {PROCESSES} processes cold "
-            f"solve {[rec[strategy]['cold'] for rec in records]} s, "
-            f"(ms a sweep, [its spread]) {ms}, against 1 process 2 shards "
+        log(f"[{tag}] 1M grid {strategy}: {world} {backend} processes cold "
+            f"solve {[rec[strategy]['cold'] for rec in records]} s, (ms a "
+            f"sweep, [its spread]) {ms}, against 1 process {world} shards "
             f"{ref['cold']:.4f} s, "
-            + ", ".join(f"{k} {ref[k]['sweep_ms']:.3f} {ref[k]['pair_ms']}"
-                        for k in against)
+            + ", ".join(f"{k} {v['sweep_ms']:.3f} {v['pair_ms']}"
+                        for k, v in ref.items() if k.startswith(
+                            ("loop_", "solve")))
             + f" ms a sweep ({ref['info']['n_iterations']} sweeps); beta "
             "bitwise in every process")
-    log(f"[multihost] 262k fit: {PROCESSES} processes "
+    log(f"[{tag}] 262k fit: {world} {backend} processes "
         f"{[rec['fit']['seconds'] for rec in records]} s, 1 process "
         f"{sum(ref_fit.timings_.values()):.3f} s of stages, "
         f"{ref_fit.info_['n_iterations']} sweeps, beta bitwise; the job "
-        f"{job_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s; "
-        f"launches in the job {children}")
+        f"{job_s:.1f} s; peak bytes a process "
+        f"{[rec['peak_bytes'] for rec in records]}; launches in the job "
+        f"{launches}, by process and card "
+        f"{[rec['card_launches'] for rec in records]}")
+    return records
+
+
+def phase_multihost(children: dict) -> dict:
+    """The multi-process main path (see the module docstring, item 5a).
+    Leaves the job's launches in ``children``; returns the launches this
+    process's single-process references must show."""
+    t_phase = time.perf_counter()
+    want = {}
+
+    def add(name, n):
+        want[name] = want.get(name, 0) + n
+
+    ops = job_operands()
+    # The banded mesh's loop unsplit (what "auto" picks for one process's
+    # shards of 500k spots) and split, as across processes.
+    refs, ref_fit = job_refs(PROCESSES, ops, add, (False, True))
+    records = run_job(ops, refs, ref_fit, "gloo", PROCESSES)
+    for key in records[0]["launches"]:
+        children[key] = sum(rec["launches"][key] for rec in records)
+    log(f"[multihost] the phase {time.perf_counter() - t_phase:.1f} s")
+    return want
+
+
+# -- several cards: one process's mesh, and NCCL with one card a process ------
+
+def cards(n: int):
+    """A mesh of the first ``n`` cards, one shard each."""
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+def card_peaks(n: int) -> list:
+    """Each of the first ``n`` cards' peak allocated bytes since its last
+    reset."""
+    return [torch.cuda.max_memory_allocated(i) for i in range(n)]
+
+
+def loop_beta(prob, overlap: bool):
+    """The banded mesh's sweep loop alone, ``MULTICARD_SWEEPS`` sweeps
+    (tol 0) from the uniform start: (beta on the host, sweeps)."""
+    beta, it, _ = prob._inner._run(SOLVE["lambda_"], SOLVE["rho"], 0.0,
+                                   MULTICARD_SWEEPS, overlap=overlap)
+    return beta.cpu().numpy(), it
+
+
+def phase_multicard(children: dict) -> dict:
+    """The multi-card path (see the module docstring, item 5b): needs two
+    cards or more. Leaves the NCCL jobs' launches in ``children``; returns
+    the launches this process must show."""
+    from flashdeconv_tpu_torch import FlashDeconv
+    from flashdeconv_tpu_torch.core.solver import prepare_bcd, sanitize_yty
+    from flashdeconv_tpu_torch.ops import bcd
+    from flashdeconv_tpu_torch.ops import countsketch as cs
+    from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    widths = (2, 4) if n_cards >= 4 else (2,)
+    for line in subprocess.run(
+            ["nvidia-smi", "--query-gpu=index,name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines():
+        log(f"[multicard] card {line}")
+    first, last = torch.device("cuda", 0), torch.device("cuda", n_cards - 1)
+    kernels = (bcd.fused_banded_sweep, bcd.coordinate_descent_block,
+               cs.countsketch_project_kernel)
+    for fn in kernels:
+        fn.card_launches.clear()
+    want = {}
+
+    def add(name, n):
+        want[name] = want.get(name, 0) + n
+
+    def current_is_first(label):
+        if torch.cuda.current_device() != 0:
+            raise AssertionError(f"[multicard] {label}: cuda:0 is no longer "
+                                 "the current card")
+
+    # Single-device solves on the last card while cuda:0 is current, each
+    # bitwise the same solve on cuda:0.
+    for label, irregular, kernel in (
+            ("1M grid", False, "fused_banded_sweep"),
+            ("1M irregular", True, "coordinate_descent_block")):
+        coords, A = knn_graph(SPOTS, irregular)
+        Y, X, _ = make_problem(SPOTS, TYPES, SKETCH,
+                               coords=coords if irregular else None)
+        if label not in REFERENCE:
+            prob = prepare_bcd(Y, X, A, coords=coords, device=first)
+            beta, info = prob.solve(**SOLVE)
+            REFERENCE[label] = (beta, info["n_iterations"])
+            add(kernel, info["n_iterations"])
+            del prob
+        ref, ref_it = REFERENCE[label]
+        current_is_first(label)
+        t0 = time.perf_counter()
+        prob = prepare_bcd(Y, X, A, coords=coords, device=last)
+        prep = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(last)
+        dt, (beta, info) = timed(lambda: prob.solve(**SOLVE))
+        current_is_first(label)
+        add(kernel, info["n_iterations"])
+        log(f"[multicard] {label} on {last} with cuda:0 current: prepare "
+            f"{prep:.3f} s, solve {dt:.4f} s, {info['n_iterations']} sweeps "
+            f"(cuda:0 {ref_it}), tier {type(prob.tier).__name__}, peak "
+            f"{torch.cuda.max_memory_allocated(last)} B on {last}")
+        if not (info["n_iterations"] == ref_it
+                and np.array_equal(beta, ref)):
+            raise AssertionError(f"[multicard] {label} on {last}: not "
+                                 "bitwise the solve on cuda:0")
+        del prob, Y
+    Y, buckets, weights, _ = cs_operands(CELLS, DENSE_GENES, SKETCH)
+    sketches = [cs.countsketch_project_kernel(
+        Y.to(d), buckets.to(d), weights.to(d), SKETCH) for d in (first, last)]
+    add("countsketch_project", 2)
+    current_is_first("sketch")
+    if not torch.equal(sketches[0], sketches[1].to(first)):
+        raise AssertionError(f"[multicard] the dense sketch on {last} is not "
+                             "bitwise cuda:0's")
+    log(f"[multicard] dense sketch {tuple(Y.shape)} -> {SKETCH} on {last} "
+        "with cuda:0 current: bitwise cuda:0's")
+    del Y, sketches
+    torch.cuda.empty_cache()
+
+    # The banded mesh on P cards against one card's P shards: the sweep
+    # loop alone, MULTICARD_SWEEPS sweeps, bitwise; at K = 20 also timed.
+    ops = job_operands()
+    (xty, X, coords, yty, A), (counts, Xc, fit_coords) = ops
+    lam, rho = SOLVE["lambda_"], SOLVE["rho"]
+    rates = {}
+
+    def loop_timing(prob, overlap, tag, P):
+        ms = sweep_time(lambda n: prob._inner._run(lam, rho, 0.0, n,
+                                                   overlap=overlap),
+                        f"{tag}, sweep loop (overlap={overlap})")["sweep_ms"]
+        add("fused_banded_sweep_sub" if overlap else "fused_banded_sweep",
+            (3 if overlap else 1) * P * sum(SWEEP_RUNS))
+        rates[(tag, overlap)] = SPOTS / (ms * 1e-3)
+        return ms
+
+    def host_profile(prob, tag, P):
+        """Where the host's time goes in 22 sweeps of the loop (unsplit):
+        ``torch.profiler``'s rows by self CPU time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        prob._inner._run(lam, rho, 0.0, 2)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prob._inner._run(lam, rho, 0.0, 22)
+            torch.cuda.synchronize()
+        add("fused_banded_sweep", P * 24)
+        log(f"[multicard] {tag}, 22 sweeps of the loop under torch.profiler"
+            ":\n" + prof.key_averages().table(
+                sort_by="self_cpu_time_total", row_limit=12))
+
+    one = prepare_sharded_bcd(None, X, A, coords=coords, mesh=card_mesh(1),
+                              xty=xty, yty=yty, strategy="banded")
+    loop_timing(one, False, "1 card 1 shard", 1)
+    del one
+    for K, Ps in ((TYPES, widths), (128, (2,))):
+        if K != TYPES:
+            Yk, Xk, _ = make_problem(SPOTS, K, SKETCH)
+            xk, yk = Yk @ Xk.T, sanitize_yty(None, Yk)
+            del Yk
+        else:
+            Xk, xk, yk = X, xty, yty
+        whole = ("fused_banded_sweep_large_k"
+                 if K > bcd.REGISTER_PASS_MAX_K else "fused_banded_sweep")
+        for P in Ps:
+            label = f"1M grid K={K}"
+            probs = {}
+            for where, mesh in (("1 card", card_mesh(P)),
+                                (f"{P} cards", cards(P))):
+                probs[where] = prepare_sharded_bcd(
+                    None, Xk, A, coords=coords, mesh=mesh, xty=xk, yty=yk,
+                    strategy="banded")
+                if not probs[where]._inner.use_fused:
+                    raise AssertionError(f"{label}: not the fused mesh")
+            ref, ref_it = loop_beta(probs["1 card"], False)
+            add(whole, P * ref_it)
+            for i in range(P):
+                torch.cuda.reset_peak_memory_stats(i)
+            for overlap in (False, True):
+                beta, it = loop_beta(probs[f"{P} cards"], overlap)
+                add("fused_banded_sweep_sub" if overlap else whole,
+                    (3 if overlap else 1) * P * it)
+                if not (it == ref_it == MULTICARD_SWEEPS
+                        and np.array_equal(beta, ref)):
+                    raise AssertionError(
+                        f"[multicard] {label} on {P} cards, overlap "
+                        f"{overlap}: not bitwise one card's {P} shards "
+                        f"after {it} sweeps")
+            log(f"[multicard] {label} banded mesh on {P} cards, unsplit and "
+                f"split: {MULTICARD_SWEEPS} sweeps each, bitwise one card's "
+                f"{P}-shard mesh; peak bytes by card {card_peaks(P)}")
+            if K == TYPES:
+                ms = {"1 card": loop_timing(probs["1 card"], False,
+                                            f"1 card {P} shards", P)}
+                for overlap in (False, True):
+                    ms[f"{P} cards overlap={overlap}"] = loop_timing(
+                        probs[f"{P} cards"], overlap, f"{P} cards", P)
+                if P == 2:
+                    host_profile(probs["1 card"], "1 card 2 shards", P)
+                    host_profile(probs["2 cards"], "2 cards", P)
+                base = rates[("1 card 1 shard", False)]
+                log(f"[multicard] 1M grid banded mesh, ms a sweep: {ms}; "
+                    "spots/s: " + ", ".join(
+                        f"{tag} overlap={o} {r:.1f} ({r / base:.3f} x one "
+                        "card's 1 shard"
+                        + (f", scaling efficiency {r / base / P:.3f})"
+                           if tag.endswith("cards") else ")")
+                        for (tag, o), r in rates.items()
+                        if tag != "1 card 1 shard"))
+                rates = {k: v for k, v in rates.items()
+                         if k[0] == "1 card 1 shard"}
+            del probs
+            torch.cuda.empty_cache()
+
+    # The halo plan of the 1M irregular problem on 2 cards.
+    coords_i, A_i = knn_graph(SPOTS, True)
+    Y, X_i, _ = make_problem(SPOTS, TYPES, SKETCH, coords=coords_i)
+    halo = {}
+    for where, mesh in (("1 card", card_mesh(2)), ("2 cards", cards(2))):
+        prob = prepare_sharded_bcd(Y, X_i, A_i, coords=coords_i, mesh=mesh)
+        if prob.strategy != "halo":
+            raise AssertionError("the 1M irregular problem did not take the "
+                                 "halo plan")
+        for i in range(2):
+            torch.cuda.reset_peak_memory_stats(i)
+        beta, info = prob.solve(**SOLVE)
+        add("coordinate_descent_block", 2 * info["n_iterations"])
+        timing = sweep_time(lambda n: prob.solve(
+            **{**SOLVE, "max_iter": n, "tol": 0.0}),
+            f"1M irregular halo plan on {where}, solve()")
+        add("coordinate_descent_block", 2 * sum(SWEEP_RUNS))
+        halo[where] = (beta, info["n_iterations"], timing["sweep_ms"],
+                       card_peaks(2))
+        del prob
+    if not (halo["2 cards"][1] == halo["1 card"][1]
+            and np.array_equal(halo["2 cards"][0], halo["1 card"][0])):
+        raise AssertionError("[multicard] the 1M irregular halo plan on 2 "
+                             "cards is not bitwise one card's 2 shards")
+    log(f"[multicard] 1M irregular halo plan on 2 cards: "
+        f"{halo['2 cards'][1]} sweeps, bitwise one card's 2 shards; ms a "
+        f"sweep {halo['2 cards'][2]:.3f} (one card 2 shards "
+        f"{halo['1 card'][2]:.3f}); spots/s "
+        f"{SPOTS / halo['2 cards'][2] * 1e3:.1f} (one card "
+        f"{SPOTS / halo['1 card'][2] * 1e3:.1f}); peak bytes by card "
+        f"{halo['2 cards'][3]} (one card's 2 shards {halo['1 card'][3]})")
+    del Y, halo
+    torch.cuda.empty_cache()
+
+    # FlashDeconv(n_shards=2) on the first two cards, against one card's
+    # 2-shard fit (the 2-process job's reference).
+    a = job_refs(2, ops, add)[1]
+    dt, b = timed(lambda: FlashDeconv(
+        sketch_dim=SKETCH, device_outputs=False, n_shards=2).fit(
+            counts, Xc, fit_coords))
+    add("fused_banded_sweep", 2 * b.info_["n_iterations"])
+    if not (a.info_["n_iterations"] == b.info_["n_iterations"]
+            and a.lambda_used_ == b.lambda_used_
+            and np.array_equal(a.beta_, b.beta_)):
+        raise AssertionError("[multicard] FlashDeconv(n_shards=2).fit is "
+                             "not bitwise one card's 2-shard fit")
+    log(f"[multicard] 262k fit, FlashDeconv(n_shards=2) on 2 cards: "
+        f"{dt:.3f} s, stages {sum(b.timings_.values()):.3f} s (one card's 2 "
+        f"shards' stages {sum(a.timings_.values()):.3f} s), "
+        f"{b.info_['n_iterations']} sweeps, beta bitwise")
+    del a, b
+
+    # NCCL, one card a process, against one process's mesh of as many
+    # shards on cuda:0.
+    for world in widths:
+        refs, ref_fit = job_refs(world, ops, add)
+        records = run_job(ops, refs, ref_fit, "nccl", world)
+        for key in records[0]["launches"]:
+            children[key] = children.get(key, 0) + sum(
+                rec["launches"][key] for rec in records)
+    log(f"[multicard] launches by card in this process: " + ", ".join(
+        f"{fn.__name__} {dict(sorted(fn.card_launches.items()))}"
+        for fn in kernels) + f"; in the NCCL jobs {children}")
+    # Kernel #1 on every card of the meshes and on the last; #2 on the
+    # halo plan's two and the last; #3 on cuda:0 and the last. Each card's
+    # count adds up to the wrapper's.
+    meshes = set(range(max(widths)))
+    for fn, on in zip(kernels, (meshes | {n_cards - 1}, {0, 1, n_cards - 1},
+                                {0, n_cards - 1})):
+        total = sum(getattr(fn, attr) for attr in (
+            "launches", "large_k_launches", "sub_launches", "rest_launches")
+            if hasattr(fn, attr))
+        if set(fn.card_launches) != on or sum(
+                fn.card_launches.values()) != total:
+            raise AssertionError(
+                f"[multicard] {fn.__name__} launched on cards "
+                f"{dict(fn.card_launches)} ({total} in all), expected on "
+                f"{sorted(on)}")
+    log(f"[multicard] the phase {time.perf_counter() - t_phase:.1f} s on "
+        f"{n_cards} cards")
     return want
 
 
@@ -2356,19 +2711,25 @@ def main() -> None:
                         help="with --large-k or --small-k: time the sweep "
                              "kernels of the checkout at DIR in turns with "
                              "this one's (repeatable)")
-    parser.add_argument("--multihost-child", nargs=4,
-                        metavar=("RANK", "WORLD", "PORT", "DIR"),
-                        help="run one process of the [multihost] phase's "
-                             "job (the smoke run starts them)")
+    parser.add_argument("--multicard", action="store_true",
+                        help="the [multicard] phase alone (two cards or "
+                             "more) instead of the smoke run")
+    parser.add_argument("--multihost-child", nargs=5,
+                        metavar=("RANK", "WORLD", "PORT", "DIR", "BACKEND"),
+                        help="run one process of a multi-process job (the "
+                             "[multihost] and [multicard] phases start them)")
     args = parser.parse_args()
     if args.multihost_child:
-        rank, world, port, workdir = args.multihost_child
-        multihost_child(int(rank), int(world), int(port), workdir)
+        rank, world, port, workdir, backend = args.multihost_child
+        multihost_child(int(rank), int(world), int(port), workdir, backend)
         return
     if args.against and not (args.large_k or args.small_k):
         parser.error("--against goes with --large-k or --small-k")
     t_start = time.perf_counter()
     phase_device()
+    if args.multicard and torch.cuda.device_count() < 2:
+        log(f"[multicard] not run: {torch.cuda.device_count()} card visible")
+        sys.exit(1)
     from flashdeconv_tpu_torch.ops import bcd
     from flashdeconv_tpu_torch.ops import countsketch as cs
     from flashdeconv_tpu_torch.utils import grid_coords
@@ -2402,6 +2763,28 @@ def main() -> None:
         "fused_banded_sweep_sub": (bcd.fused_banded_sweep, "sub_launches"),
         "fused_banded_sweep_rest": (bcd.fused_banded_sweep, "rest_launches"),
     }
+    if args.multicard:
+        from flashdeconv_tpu_torch import native
+
+        # What a full run has built before [multicard]: the phase alone
+        # is timed as it runs there.
+        t0 = time.perf_counter()
+        knn_graph(SPOTS, False), knn_graph(SPOTS, True)
+        job_operands()
+        native.available()
+        log(f"[multicard] the 1M graphs, the job's operands, the 262k "
+            f"counts and the host kernels, which a full run has built "
+            f"before the phase: {time.perf_counter() - t0:.1f} s")
+        jobs = {}
+        counted(kernels, lambda: phase_multicard(jobs))
+        log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
+            "included")
+        log(card())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return
 
     # Kernel 1, the fused banded tier (K = 32 / 33: the register form's
     # last K and the panel form's first; 64 / 65: the panel form's register
@@ -2545,13 +2928,25 @@ def main() -> None:
     # mesh.
     job = {}
     counted(kernels, lambda: phase_multihost(job))
+    # Several cards: one process's mesh over them and NCCL with one card a
+    # process, against one card.
+    multicard = {name: 0 for name in kernels}
+    if torch.cuda.device_count() >= 2:
+        jobs = {}
+        multicard.update(counted(kernels, lambda: phase_multicard(jobs)))
+        for key, n in jobs.items():
+            multicard[key] += n
+    else:
+        log(f"[multicard] not run: {torch.cuda.device_count()} card visible")
 
     # The XLA tier (f64, and K > 256): no kernel launches.
     counted(kernels, phase_f64)
     counted(kernels, phase_atlas_k)
     knn_graph.cache_clear()
     grid_fit_counts.cache_clear()
+    job_operands.cache_clear()
     REFERENCE.clear()
+    JOB_REFS.clear()
 
     # Kernel 3, the dense-count sketch on the card.
     cs_row = phase_countsketch_kernel()
@@ -2578,22 +2973,27 @@ def main() -> None:
         "to the kernels line, the build included")
     print(json.dumps({"kernels": [
         entry("fused_banded_sweep", "fused_banded_sweep.cu",
-              "flashdeconv_tpu/ops/bcd.py:650", fused_launches, fused_row),
+              "flashdeconv_tpu/ops/bcd.py:650",
+              fused_launches + multicard["fused_banded_sweep"], fused_row),
         entry("coordinate_descent_block", "cd_block_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:449",
-              cd_launches + job["coordinate_descent_block"], cd_row),
+              cd_launches + job["coordinate_descent_block"]
+              + multicard["coordinate_descent_block"], cd_row),
         entry("fused_banded_sweep_large_k", "fused_banded_sweep.cu",
-              "flashdeconv_tpu/ops/bcd.py:376", large_fused_launches,
+              "flashdeconv_tpu/ops/bcd.py:376",
+              large_fused_launches + multicard["fused_banded_sweep_large_k"],
               large_fused_rows[128]),
         entry("coordinate_descent_block_large_k", "cd_block_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:376", large_cd_launches,
               large_cd_rows[128]),
         entry("countsketch_project", "countsketch_project.cu",
-              "flashdeconv_tpu/ops/countsketch.py:112", cs_launches, cs_row),
+              "flashdeconv_tpu/ops/countsketch.py:112",
+              cs_launches + multicard["countsketch_project"], cs_row),
         entry("fused_banded_sweep_sub", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:851",
               sharded_launches["fused_banded_sweep_sub"]
-              + job["fused_banded_sweep_sub"], sub_row),
+              + job["fused_banded_sweep_sub"]
+              + multicard["fused_banded_sweep_sub"], sub_row),
         entry("fused_banded_sweep_rest", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:724", rest_launches, rest_row),
     ]}), flush=True)

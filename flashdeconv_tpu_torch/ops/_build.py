@@ -15,13 +15,16 @@ never load a half-written library. There is no fallback: a missing
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator, Optional
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().with_name("build")
@@ -127,6 +130,28 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         if name != "countsketch_project" and hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = res
+
+
+@contextlib.contextmanager
+def launch_stream(*operands: Optional[torch.Tensor]) -> Iterator[int]:
+    """The ``cudaStream_t`` (an int) a kernel on ``operands`` launches on:
+    the current stream of the card that holds them, with that card made
+    current for the block. CUDA refuses a launch to a stream of a card
+    other than the current one, and ``cudaFuncSetAttribute`` applies to
+    the current card, so every launch goes through here. None operands
+    (an optional input left out) are skipped; operands on more than one
+    device raise. When the card is already current (one card, or inside
+    ``Mesh.on``) nothing is switched.
+    """
+    devices = {t.device for t in operands if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"a kernel's operands must lie on one card, got "
+                         f"{sorted(str(d) for d in devices)}")
+    (device,) = devices
+    if device.type != "cuda":
+        raise ValueError(f"a kernel launches on a CUDA device, got {device}")
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -36,6 +36,7 @@ tiers. The solve has no gradient; none of its tensors requires one.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -366,8 +367,8 @@ def fused_sweep_launch(lib, stream: int, beta_ext_t, Xty_t, XtX, masks,
     K, n_ext = beta_ext_t.shape
     pad = h * block
     n_cols = rng.n_sub + (2 * pad if rng.write_pads else 0)
-    partials = torch.empty((2, lib.fdt_fused_banded_sweep_blocks(n_cols, K)),
-                           dtype=torch.float32, device=beta_ext_t.device)
+    partials = beta_ext_t.new_empty(
+        (2, lib.fdt_fused_banded_sweep_blocks(n_cols, K)))
     offs = (ctypes.c_int * len(offsets))(*(int(o) for o in offsets))
     err = lib.fdt_fused_banded_sweep(
         beta_ext_t.data_ptr(), n_ext, rng.in_col0, out.data_ptr(),
@@ -387,11 +388,13 @@ def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
                              ns_rest_t):
     from flashdeconv_tpu_torch.ops import _build
 
-    stream = torch.cuda.current_stream(beta_ext_t.device).cuda_stream
-    partials = fused_sweep_launch(
-        _build.load("fused_banded_sweep"), stream, beta_ext_t, Xty_t, XtX,
-        masks, inv_den_t, lambda_, rho, offsets, h, block, out, rng,
-        ns_rest_t)
+    lib = _build.load("fused_banded_sweep")
+    with _build.launch_stream(beta_ext_t, Xty_t, XtX, masks, inv_den_t, out,
+                              ns_rest_t) as stream:
+        partials = fused_sweep_launch(
+            lib, stream, beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_,
+            rho, offsets, h, block, out, rng, ns_rest_t)
+    fused_banded_sweep.card_launches[beta_ext_t.device.index] += 1
     if sub is not None:
         fused_banded_sweep.sub_launches += 1
     elif ns_rest_t is not None:
@@ -455,7 +458,8 @@ def fused_banded_sweep(
     ``.rest_launches`` the whole-sweep launches with ``ns_rest_t`` at any
     K, ``.large_k_launches`` the other whole-sweep launches of the panel
     form (K > ``REGISTER_PASS_MAX_K`` = 32) and ``.launches`` those of the
-    register form (K <= 32).
+    register form (K <= 32); ``.card_launches`` counts every launch by the
+    card's index.
     """
     pad = h * block
     rng = sweep_range(beta_ext_t.shape[1], Xty_t.shape[1], h, block, sub,
@@ -483,6 +487,7 @@ fused_banded_sweep.launches = 0
 fused_banded_sweep.large_k_launches = 0
 fused_banded_sweep.sub_launches = 0
 fused_banded_sweep.rest_launches = 0
+fused_banded_sweep.card_launches = collections.Counter()
 
 
 def sweep_stats(beta_out: torch.Tensor, beta_in: torch.Tensor):
@@ -673,8 +678,7 @@ def cd_sweep_launch(lib, stream: int, beta_t, Xty_t, XtX, ns_t, inv_den_t,
     the (2, blocks) partials of the two statistics. The operands are
     checked by the caller."""
     K, n = beta_t.shape
-    partials = torch.empty((2, lib.fdt_cd_block_sweep_blocks(n, K)),
-                           dtype=torch.float32, device=beta_t.device)
+    partials = beta_t.new_empty((2, lib.fdt_cd_block_sweep_blocks(n, K)))
     err = lib.fdt_cd_block_sweep(
         beta_t.data_ptr(), out.data_ptr(), Xty_t.data_ptr(),
         ns_t.data_ptr(), inv_den_t.data_ptr(), XtX.data_ptr(), K, n,
@@ -688,10 +692,12 @@ def _coordinate_descent_block_cuda(beta_t, Xty_t, XtX, ns_t, inv_den_t,
                                    lambda_, rho, out):
     from flashdeconv_tpu_torch.ops import _build
 
-    partials = cd_sweep_launch(
-        _build.load("cd_block_sweep"),
-        torch.cuda.current_stream(beta_t.device).cuda_stream, beta_t, Xty_t,
-        XtX, ns_t, inv_den_t, lambda_, rho, out)
+    lib = _build.load("cd_block_sweep")
+    with _build.launch_stream(beta_t, Xty_t, XtX, ns_t, inv_den_t,
+                              out) as stream:
+        partials = cd_sweep_launch(lib, stream, beta_t, Xty_t, XtX, ns_t,
+                                   inv_den_t, lambda_, rho, out)
+    coordinate_descent_block.card_launches[beta_t.device.index] += 1
     if beta_t.shape[0] > REGISTER_PASS_MAX_K:
         coordinate_descent_block.large_k_launches += 1
     else:
@@ -722,7 +728,8 @@ def coordinate_descent_block(
     :func:`coordinate_descent_block_reference`.
     ``coordinate_descent_block.launches`` counts the launches of the
     kernel's register form (K <= ``REGISTER_PASS_MAX_K`` = 32),
-    ``.large_k_launches`` those of its panel form above.
+    ``.large_k_launches`` those of its panel form above, ``.card_launches``
+    all of them by the card's index.
     """
     if out is None:
         out = torch.empty_like(beta_t)
@@ -741,6 +748,7 @@ def coordinate_descent_block(
 
 coordinate_descent_block.launches = 0
 coordinate_descent_block.large_k_launches = 0
+coordinate_descent_block.card_launches = collections.Counter()
 
 
 def _coord_update(beta, r, k: int, Xty_t, XtX, ns_t, lam_nnb, lambda_,

@@ -18,6 +18,7 @@ the TPU's VMEM budget, which has no counterpart here.
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import numpy as np
@@ -141,13 +142,14 @@ def _countsketch_project_cuda(Y, buckets, weights, sketch_dim, out):
     genes, w, ptr = gene_plan(buckets, weights, sketch_dim,
                               lib.fdt_countsketch_gene_tile())
     n, g = Y.shape
-    stream = torch.cuda.current_stream(Y.device).cuda_stream
-    err = lib.fdt_countsketch_project(
-        Y.data_ptr(), n, g, genes.data_ptr(), w.data_ptr(), ptr.data_ptr(),
-        sketch_dim, out.data_ptr(), stream,
-    )
+    with _build.launch_stream(Y, genes, w, ptr, out) as stream:
+        err = lib.fdt_countsketch_project(
+            Y.data_ptr(), n, g, genes.data_ptr(), w.data_ptr(),
+            ptr.data_ptr(), sketch_dim, out.data_ptr(), stream,
+        )
     _raise_on_launch_error(lib, err, "countsketch_project")
     countsketch_project_kernel.launches += 1
+    countsketch_project_kernel.card_launches[Y.device.index] += 1
     return out
 
 
@@ -166,7 +168,8 @@ def countsketch_project_kernel(
     launches per call), then every bucket's genes are summed in ascending
     order with no atomics, so two calls give the same bits. On a CPU tensor
     it runs :func:`countsketch_project_reference`.
-    ``countsketch_project_kernel.launches`` counts the kernel's launches.
+    ``countsketch_project_kernel.launches`` counts the kernel's launches,
+    ``.card_launches`` the same by the card's index.
     """
     if Y.dim() != 2:
         raise ValueError(f"Y must be 2-D, got shape {tuple(Y.shape)}")
@@ -182,3 +185,4 @@ def countsketch_project_kernel(
 
 
 countsketch_project_kernel.launches = 0
+countsketch_project_kernel.card_launches = collections.Counter()

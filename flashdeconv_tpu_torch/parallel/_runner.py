@@ -5,13 +5,17 @@ an ordered tuple of torch devices, one per shard; a device may appear more
 than once (several shards on one card, or on the CPU, as the JAX package's
 tests run several virtual CPU devices). On CUDA every shard has its own
 stream, and a second one for the halo copies of the banded mesh's overlap
-split. A sweep forks from the main device's current stream
-(:meth:`Mesh.fork`), queues each shard's work on its own streams
-(:meth:`Mesh.on`) and joins back (:meth:`Mesh.join_max`); the solve loop
-reads one pair of statistics per sweep on the host, as the single-device
-loop does. Within a sweep the shards write only their own buffers, and
-read other shards' buffers only where no shard of that sweep writes, so
-fork and join are the only cross-stream orderings needed.
+split. A sweep forks from the main device's current stream, and from each
+other card's, where that card's operands were made (:meth:`Mesh.fork`),
+queues each shard's work on its own streams (:meth:`Mesh.on`) and joins
+back (:meth:`Mesh.join_max`); the solve loop reads one pair of statistics
+per sweep on the host, as the single-device loop does. Within a sweep the
+shards write only their own buffers, and read other shards' buffers only
+where no shard of that sweep writes. A tensor that moves between two
+cards goes through :meth:`Mesh.copy`, which orders the copy on the
+streams that own the data (ATen would run it on the source card's current
+stream); on one card it is the plain copy on the destination shard's
+stream.
 
 A mesh whose shards span processes (``owners``, one ``torch.distributed``
 rank per shard; :func:`flashdeconv_tpu_torch.parallel.multihost.
@@ -148,15 +152,25 @@ class Mesh:
             self._streams = [torch.cuda.Stream(device=d) for d in self.devices]
             self._side = [torch.cuda.Stream(device=d) for d in self.devices]
 
+    def _other_cards(self):
+        """``(shard, its card's current stream)`` for this process's shards
+        on a card other than the main device."""
+        return [(s, torch.cuda.current_stream(self.devices[s]))
+                for s in self.local if self.devices[s] != self.main]
+
     def fork(self) -> None:
         """Every shard's streams wait for the work queued so far on the
-        main device's current stream."""
+        main device's current stream, and on their own card's (where the
+        operands on a card other than the main device were made)."""
         if not self.cuda:
             return
         self._ensure_streams()
         event = torch.cuda.current_stream(self.main).record_event()
         for stream in (*self._streams, *self._side):
             stream.wait_event(event)
+        for s, current in self._other_cards():
+            self._streams[s].wait_stream(current)
+            self._side[s].wait_stream(current)
 
     @contextlib.contextmanager
     def on(self, s: int, side: bool = False):
@@ -178,11 +192,53 @@ class Mesh:
 
     def join(self) -> None:
         """The main device's current stream waits for every shard's
-        streams."""
+        streams, and each other card's current stream for its shards' (so
+        that what is queued there next, or reuses their memory, follows
+        them)."""
         if self.cuda and self._streams is not None:
             main = torch.cuda.current_stream(self.main)
             for stream in (*self._streams, *self._side):
                 main.wait_stream(stream)
+            for s, current in self._other_cards():
+                current.wait_stream(self._streams[s])
+                current.wait_stream(self._side[s])
+
+    def copy(self, t: torch.Tensor, src: Optional[int], dst: Optional[int],
+             out: Optional[torch.Tensor] = None, side: bool = False):
+        """``t`` moved to shard ``dst``'s card: copied into ``out`` (a
+        tensor there) and returned, or returned as a new tensor there.
+
+        ``src`` is the shard whose stream wrote ``t`` (None: the main
+        device's current stream, or a host tensor), ``dst`` the shard whose
+        stream reads the copy (its halo-copy stream with ``side``; None:
+        the main device's current stream). Where ``t`` already lies on that
+        card, or on the CPU, this is the plain copy (or none, for ``.to``)
+        queued on dst's stream, as a mesh of one card has always run it.
+        Between two cards the copy runs on the source card, on shard
+        ``src``'s halo-copy stream (the main shard's with None), after what
+        the source's stream has queued so far; dst's stream waits for it,
+        and so does the source's stream, which thus cannot write ``t``
+        again under the copy.
+        """
+        dst_dev = self.main if dst is None else self.devices[dst]
+        target = (contextlib.nullcontext() if dst is None
+                  else self.on(dst, side))
+        src_dev = t.device if src is None else self.devices[src]
+        if not self.cuda or src_dev.type != "cuda" or src_dev == dst_dev:
+            with target:
+                return t.to(dst_dev) if out is None else out.copy_(t)
+        self._ensure_streams()
+        writer = (torch.cuda.current_stream(src_dev) if src is None
+                  else self._streams[src])
+        copier = self._side[self.local[0] if src is None else src]
+        copier.wait_stream(writer)
+        # ATen copies between cards on the source card's current stream,
+        # after the destination card's current stream, which then waits
+        # for the copy.
+        with target, torch.cuda.stream(copier):
+            moved = t.to(dst_dev) if out is None else out.copy_(t)
+        writer.wait_stream(copier)
+        return moved
 
     def join_max(self, stats: Sequence[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -199,9 +255,16 @@ class Mesh:
         return pair[0], pair[1]
 
     def gather(self, tensors: Sequence[torch.Tensor]):
-        """Join, then ``tensors`` on the main device."""
+        """Join, then ``tensors`` (each written on the stream of this
+        process's shard on its card) on the main device."""
         self.join()
-        return [t.to(self.main) for t in tensors]
+        return [self.copy(t, self.shard_on(t.device), None)
+                for t in tensors]
+
+    def shard_on(self, device: torch.device) -> Optional[int]:
+        """The first of this process's shards on ``device``, else None."""
+        return next((s for s in self.local if self.devices[s] == device),
+                    None)
 
     def gather_all(self, tensors: Sequence[Optional[torch.Tensor]]) -> list:
         """Join, then every shard's tensor on the main device: ``tensors``
@@ -210,7 +273,7 @@ class Mesh:
         if not self.spans_processes:
             return self.gather(tensors)
         self.join()
-        return [t.to(self.main) for t in self.exchange(tensors)]
+        return [self.copy(t, None, None) for t in self.exchange(tensors)]
 
     def exchange(self, tensors: Sequence[Optional[torch.Tensor]],
                  side: bool = False) -> list:
@@ -223,9 +286,7 @@ class Mesh:
         device (no overlap) and its shards' streams wait for the result."""
         local = [tensors[s] for s in self.local]
         if self._device_collectives():
-            self.join()
-            parts = self._all_gather(torch.stack(
-                [t.to(self.main) for t in local]))
+            parts = self._all_gather(torch.stack(self.gather(local)))
             self.fork()
         else:
             host = []

@@ -77,31 +77,39 @@ from flashdeconv_tpu_torch.parallel.solver import (
 _OVERLAP_AUTO_MAX_LOCAL = 16384
 
 
-def _halo_window(own: torch.Tensor, edges, s: int, halo: int
-                 ) -> torch.Tensor:
-    """Shard ``s``'s beta ``own`` (K, n_local) with ``halo`` columns of
-    the global beta each side, (K, halo + n_local + halo) on its device:
-    read from the other shards' ``edges`` (:func:`_shard_edges`), zero
-    beyond the global ends."""
-    K, n_local = own.shape
+def _window_edges(mesh: Mesh, edges, s: int, halo: int, n_local: int):
+    """What shard ``s``'s window of ``halo`` columns each side reads of the
+    other shards' ``edges`` (:func:`_shard_edges`), on its card
+    (:meth:`Mesh.copy`; queued before any shard's pass of the sweep, so a
+    copy from another card waits for nothing of this sweep): ``(left,
+    right, zeros_left, zeros_right)``, the columns left and right of its
+    own in order, and how many zero columns lie beyond the global ends."""
     left, right = [], []
     need, t = halo, s - 1
-    while need > 0:
-        if t < 0:
-            left.insert(0, own.new_zeros((K, need)))
-            break
+    while need > 0 and t >= 0:
         take = min(need, n_local)
-        tail = edges[t][1]
-        left.insert(0, tail[:, tail.shape[1] - take:].to(own.device))
+        tail = mesh.copy(edges[t][1], t if t in mesh.local else None, s)
+        left.insert(0, tail[:, tail.shape[1] - take:])
         need, t = need - take, t - 1
-    need, t = halo, s + 1
-    while need > 0:
-        if t >= len(edges):
-            right.append(own.new_zeros((K, need)))
-            break
+    zeros_left, need, t = need, halo, s + 1
+    while need > 0 and t < len(edges):
         take = min(need, n_local)
-        right.append(edges[t][0][:, :take].to(own.device))
+        head = mesh.copy(edges[t][0], t if t in mesh.local else None, s)
+        right.append(head[:, :take])
         need, t = need - take, t + 1
+    return left, right, zeros_left, need
+
+
+def _halo_window(own: torch.Tensor, window) -> torch.Tensor:
+    """A shard's beta ``own`` (K, n_local) with ``halo`` columns of the
+    global beta each side, (K, halo + n_local + halo) on its device, from
+    its :func:`_window_edges`: zero beyond the global ends."""
+    left, right, zeros_left, zeros_right = window
+    K = own.shape[0]
+    if zeros_left:
+        left = [own.new_zeros((K, zeros_left)), *left]
+    if zeros_right:
+        right = [*right, own.new_zeros((K, zeros_right))]
     return torch.cat([*left, own, *right], dim=1)
 
 
@@ -121,17 +129,17 @@ def _shard_edges(mesh: Mesh, betas, halo: int) -> list:
             else (r[:, :w], r[:, w:]) for b, r in zip(betas, remote)]
 
 
-def _banded_ns_window(own, edges, s: int, offsets, masks, halo: int):
-    """Shard ``s``'s banded neighbour sums (K, n_local) of its beta
-    ``own``: bands in ``offsets`` order from zero, ``masks[u] * beta[j +
-    off]`` over a window of ``halo`` neighbour columns each side (the
-    masks are 0 where ``j + off`` leaves the problem), as
-    ``ops.bcd.neighbor_sum_banded`` sums."""
+def _banded_ns_window(own, window, offsets, masks, halo: int):
+    """A shard's banded neighbour sums (K, n_local) of its beta ``own``:
+    bands in ``offsets`` order from zero, ``masks[u] * beta[j + off]`` over
+    a window of ``halo`` neighbour columns each side (its
+    :func:`_window_edges`; the masks are 0 where ``j + off`` leaves the
+    problem), as ``ops.bcd.neighbor_sum_banded`` sums."""
     n_local = own.shape[1]
     ns = torch.zeros_like(own)
     if not offsets:
         return ns
-    ext = _halo_window(own, edges, s, halo)
+    ext = _halo_window(own, window)
     for u, off in enumerate(offsets):
         ns += masks[u] * ext[:, halo + off:halo + off + n_local]
     return ns
@@ -152,10 +160,13 @@ def _gspmd_iterate(betas, spares, Xty_t, masks, gs, tol, max_iter: int,
         cur, nxt = state
         edges = _shard_edges(mesh, cur, halo)
         mesh.fork()
+        n_local = cur[mesh.local[0]].shape[1]
+        windows = {s: _window_edges(mesh, edges, s, halo, n_local)
+                   for s in mesh.local}
         stats = []
         for s in mesh.local:
             with mesh.on(s):
-                ns = _banded_ns_window(cur[s], edges, s, offsets, masks[s],
+                ns = _banded_ns_window(cur[s], windows[s], offsets, masks[s],
                                        halo)
                 stats += gs[s](cur[s], Xty_t[s], ns, nxt[s])[1:]
         state.reverse()
@@ -169,10 +180,10 @@ def _gspmd_iterate(betas, spares, Xty_t, masks, gs, tol, max_iter: int,
 def _refresh_pads(mesh: Mesh, carries, h_cols: int) -> None:
     """Each of this process's shards' carry pads from its neighbours'
     boundary data (the left neighbour's last and the right neighbour's
-    first ``h_cols`` data columns), queued on the shard's halo-copy
-    stream; the global ends are not written (they stay zero). Within one
-    process the neighbours' carries are read in place; across processes
-    every shard's first and last data blocks go through
+    first ``h_cols`` data columns), by :meth:`Mesh.copy` onto the shard's
+    halo-copy stream; the global ends are not written (they stay zero).
+    Within one process the neighbours' carries are read in place; across
+    processes every shard's first and last data blocks go through
     :meth:`Mesh.exchange` first."""
     P = len(carries)
     n_local = carries[mesh.local[0]].shape[1] - 2 * h_cols
@@ -189,12 +200,19 @@ def _refresh_pads(mesh: Mesh, carries, h_cols: int) -> None:
     else:
         first = [c[:, h_cols:2 * h_cols] for c in carries]
         last = [c[:, n_local:n_local + h_cols] for c in carries]
+
+    def owner(t):
+        """The shard whose stream wrote the edge of shard ``t`` read here:
+        ``t``'s own, in place; the exchange's result otherwise."""
+        return None if mesh.spans_processes else t
+
     for s in mesh.local:
-        with mesh.on(s, side=True):
-            if s > 0:
-                carries[s][:, :h_cols].copy_(last[s - 1])
-            if s < P - 1:
-                carries[s][:, h_cols + n_local:].copy_(first[s + 1])
+        if s > 0:
+            mesh.copy(last[s - 1], owner(s - 1), s,
+                      out=carries[s][:, :h_cols], side=True)
+        if s < P - 1:
+            mesh.copy(first[s + 1], owner(s + 1), s,
+                      out=carries[s][:, h_cols + n_local:], side=True)
 
 
 def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
@@ -441,10 +459,12 @@ class GspmdBandedProblem:
         mesh = self.mesh
         edges = _shard_edges(mesh, betas, self.halo)
         mesh.fork()
+        windows = {s: _window_edges(mesh, edges, s, self.halo, self.n_local)
+                   for s in mesh.local}
         sums, btbs = [None] * self.n_shards, [None] * self.n_shards
         for s in mesh.local:
             with mesh.on(s):
-                ns = _banded_ns_window(betas[s], edges, s, self.offsets,
+                ns = _banded_ns_window(betas[s], windows[s], self.offsets,
                                        self.masks[s].to(self.dtype),
                                        self.halo)
                 sums[s], btbs[s] = objective_sums(betas[s], self.Xty_t[s],

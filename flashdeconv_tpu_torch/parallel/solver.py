@@ -98,8 +98,9 @@ def _halo_exchange(mesh: Mesh, betas, sends) -> dict:
     ``all_gather``; across processes through :meth:`Mesh.gather_all`).
     ``betas``: each shard's (K, shard_size) beta; ``sends``: its
     (halo_width,) local rows, padding == shard_size (the zero sentinel
-    column). Returns after a join: the pools are on the main device's
-    stream."""
+    column). Returns after a join: the pool is made on the main device's
+    stream, and copied to each other card (:meth:`Mesh.copy`) for the
+    first of its shards."""
     mesh.fork()
     parts = [None] * len(mesh)
     for s in mesh.local:
@@ -107,7 +108,8 @@ def _halo_exchange(mesh: Mesh, betas, sends) -> dict:
             parts[s] = torch.index_select(with_sentinel(betas[s]), 1,
                                           sends[s])
     pool = torch.cat(mesh.gather_all(parts), dim=1)
-    return {dev: pool.to(dev) for dev in set(mesh.devices)}
+    return {dev: mesh.copy(pool, None, mesh.shard_on(dev))
+            for dev in set(mesh.devices)}
 
 
 def _shard_ns(beta, pool, nbr):

@@ -16,7 +16,8 @@ runs ``tl.deconvolve`` (``tl/`` and ``io/``) on those counts through
 tests/fake_anndata.py, imports every name the subpackages export and draws
 the fit with ``pl/`` on the Agg backend. A static check holds every module
 of the port, ``parallel/``, ``tl/``, ``io/`` and ``pl/`` among them, and
-``chip_smoke.py``, to the same rule.
+``chip_smoke.py`` and tests/test_torch_multicard.py (run on the cards
+with ``--noconftest``), to the same rule.
 """
 
 import ast
@@ -185,6 +186,7 @@ def _imported_modules(path: Path):
 def test_no_port_module_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "flashdeconv_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "tests" / "test_torch_multicard.py")
     assert len(files) > 10
     assert ROOT / "flashdeconv_tpu_torch" / "ops" / "countsketch.py" in files
     assert ROOT / "flashdeconv_tpu_torch" / "parallel" / "gspmd.py" in files
