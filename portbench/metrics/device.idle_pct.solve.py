@@ -1,0 +1,8 @@
+"""The share of the traced window in which no operation runs on the card,
+%, in the solve cells."""
+
+from portbench.tracing import idle_pct
+
+
+def read(run):
+    return idle_pct(run.get("trace"))
