@@ -60,7 +60,7 @@ from flashdeconv_tpu_torch.core.solver import (
 from flashdeconv_tpu_torch.core.spatial import auto_tune_lambda
 from flashdeconv_tpu_torch.utils.genes import select_informative_genes
 from flashdeconv_tpu_torch.utils.graph import coords_to_adjacency
-from flashdeconv_tpu_torch.utils.timing import StageTimer, trace
+from flashdeconv_tpu_torch.utils.timing import StageTimer, span, trace
 
 ArrayLike = Union[np.ndarray, sparse.spmatrix]
 
@@ -448,21 +448,22 @@ class FlashDeconv:
         coords = np.asarray(coords)
         xty = self.__dict__.pop("_fused_xty", None)
         yty = self.__dict__.pop("_fused_yty", None)
-        if not self._is_sharded:
-            return prepare_bcd(
-                Y_sketch, X_sketch, A, dtype=self.solver_dtype,
-                coords=coords, xty=xty, yty=yty,
-                graph_plan=self.__dict__.pop("_graph_plan_future", None),
-                device=self.device,
-            )
-        from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
+        with span("flashdeconv.fit.prepare"):
+            if not self._is_sharded:
+                return prepare_bcd(
+                    Y_sketch, X_sketch, A, dtype=self.solver_dtype,
+                    coords=coords, xty=xty, yty=yty,
+                    graph_plan=self.__dict__.pop("_graph_plan_future", None),
+                    device=self.device,
+                )
+            from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
 
-        self._log("  solving on a spot-sharded mesh")
-        return prepare_sharded_bcd(
-            Y_sketch, X_sketch, A, coords=coords, mesh=self.mesh,
-            n_shards=self.n_shards, dtype=self.solver_dtype,
-            verbose=self.verbose, xty=xty, yty=yty, device=self.device,
-        )
+            self._log("  solving on a spot-sharded mesh")
+            return prepare_sharded_bcd(
+                Y_sketch, X_sketch, A, coords=coords, mesh=self.mesh,
+                n_shards=self.n_shards, dtype=self.solver_dtype,
+                verbose=self.verbose, xty=xty, yty=yty, device=self.device,
+            )
 
     def _device_out(self) -> bool:
         """Whether this fit takes the device-outputs path."""
@@ -498,20 +499,22 @@ class FlashDeconv:
                 if device_out:
                     # Normalise on the device; fetch the proportions in
                     # fetch_dtype and/or the argmax, per ``outputs``.
-                    props_dev = normalize_proportions_device(
-                        beta if isinstance(beta, torch.Tensor)
-                        else torch.as_tensor(
-                            beta, dtype=solve_dtype(self.solver_dtype),
-                            device=self.device))
-                    if "dominant" in self.outputs:
-                        # One byte a spot where K allows it, as in JAX.
-                        dom = torch.argmax(props_dev, dim=1).to(
-                            torch.uint8 if beta.shape[1] <= 256
-                            else torch.int32)
-                        dominant = fetch_to_host(dom, np.int64)
-                    if "proportions" in self.outputs:
-                        props = fetch_to_host(self._fetch_cast(props_dev))
-                        props_dev = None
+                    with span("flashdeconv.fit.outputs"):
+                        props_dev = normalize_proportions_device(
+                            beta if isinstance(beta, torch.Tensor)
+                            else torch.as_tensor(
+                                beta, dtype=solve_dtype(self.solver_dtype),
+                                device=self.device))
+                        if "dominant" in self.outputs:
+                            # One byte a spot where K allows it, as in JAX.
+                            dom = torch.argmax(props_dev, dim=1).to(
+                                torch.uint8 if beta.shape[1] <= 256
+                                else torch.int32)
+                            dominant = fetch_to_host(dom, np.int64)
+                        if "proportions" in self.outputs:
+                            props = fetch_to_host(
+                                self._fetch_cast(props_dev))
+                            props_dev = None
         except BaseException:
             # A failed fit must not pin the consume-once operands (on the
             # streamed path an (N, K) device buffer).

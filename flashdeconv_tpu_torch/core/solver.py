@@ -69,6 +69,7 @@ from flashdeconv_tpu_torch.utils.graph import (
     banded_split,
     cap_sparse_bands,
 )
+from flashdeconv_tpu_torch.utils.timing import span
 
 #: Spot-axis block of the fused tier: the carry's pad slabs are h blocks
 #: wide and the spot axis is padded to a multiple of it.
@@ -387,7 +388,10 @@ class BCDProblem:
     the tier's graph operands (band masks, or a degree-capped neighbour
     table with an overflow table), YtY — and copies the operands to
     ``device``: Xty transposed to (K, n_solve), XtX, the degree vector and
-    the graph. :meth:`solve` then runs only the device loop.
+    the graph. :meth:`solve` then runs only the device loop. The join (or
+    the build) of the graph analysis is the span
+    ``flashdeconv.prepare.graph_plan``, the tier's tables and copies
+    ``flashdeconv.prepare.tier``.
 
     Parameters follow :class:`flashdeconv_tpu.core.solver.BCDProblem`
     (``dtype`` float32 or float64, the operands' and the solve's;
@@ -442,89 +446,92 @@ class BCDProblem:
                 np.ascontiguousarray(xty, dtype=np.dtype(dtype))
             ).to(dev)
 
-        if graph_plan is not None and hasattr(graph_plan, "result"):
-            graph_plan = graph_plan.result()
-        if graph_plan is None:
-            graph_plan = GraphDecomposition(A, n_spots, coords=coords)
-        A_solve = graph_plan.A_solve.tocsr()
-        fused = None
-        # The fused tier is a kernel's: f32 with K <= 256 only (JAX plans
-        # it only on its Pallas tier).
-        if graph_plan.use_banded and kernel_takes(tdtype, n_types):
-            fused = fused_decomposition(graph_plan.offsets, graph_plan.masks,
-                                        graph_plan.A_rest, A_solve.nnz)
-        n_solve = (-(-n_spots // FUSED_BLOCK) * FUSED_BLOCK if fused
-                   else n_spots)
-        # Binary degree (nnz per row): every edge counts 1 in the sweep.
-        n_nbrs = np.zeros(n_solve, dtype=np.float32)
-        n_nbrs[:n_spots] = np.diff(A_solve.indptr)
+        with span("flashdeconv.prepare.graph_plan"):
+            if graph_plan is not None and hasattr(graph_plan, "result"):
+                graph_plan = graph_plan.result()
+            if graph_plan is None:
+                graph_plan = GraphDecomposition(A, n_spots, coords=coords)
+        with span("flashdeconv.prepare.tier"):
+            A_solve = graph_plan.A_solve.tocsr()
+            fused = None
+            # The fused tier is a kernel's: f32 with K <= 256 only (JAX plans
+            # it only on its Pallas tier).
+            if graph_plan.use_banded and kernel_takes(tdtype, n_types):
+                fused = fused_decomposition(
+                    graph_plan.offsets, graph_plan.masks, graph_plan.A_rest,
+                    A_solve.nnz)
+            n_solve = (-(-n_spots // FUSED_BLOCK) * FUSED_BLOCK if fused
+                       else n_spots)
+            # Binary degree (nnz per row): every edge counts 1 in the sweep.
+            n_nbrs = np.zeros(n_solve, dtype=np.float32)
+            n_nbrs[:n_spots] = np.diff(A_solve.indptr)
 
-        # Non-finite guard on the device: a poisoned spot's Xty row becomes
-        # zero (spatially imputed under lambda > 0, uniform otherwise), an
-        # exact pass-through for finite rows.
-        finite_row = torch.isfinite(Xty_raw).all(dim=1, keepdim=True)
-        self._xty_bad = torch.sum(~finite_row)
-        Xty = torch.where(finite_row, Xty_raw, torch.zeros((), device=dev))
-        del Xty_raw
-        inv_perm = None
-        if graph_plan.perm is not None:
-            Xty = Xty.index_select(
-                0, torch.from_numpy(graph_plan.perm).to(dev)
-            )
-            inv_perm = np.empty(n_spots, dtype=np.int64)
-            inv_perm[graph_plan.perm] = np.arange(n_spots)
-        Xty_t = Xty.new_zeros((n_types, n_solve))
-        Xty_t[:, :n_spots] = Xty.T
-        del Xty
+            # Non-finite guard on the device: a poisoned spot's Xty row becomes
+            # zero (spatially imputed under lambda > 0, uniform otherwise), an
+            # exact pass-through for finite rows.
+            finite_row = torch.isfinite(Xty_raw).all(dim=1, keepdim=True)
+            self._xty_bad = torch.sum(~finite_row)
+            Xty = torch.where(finite_row, Xty_raw, torch.zeros((), device=dev))
+            del Xty_raw
+            inv_perm = None
+            if graph_plan.perm is not None:
+                Xty = Xty.index_select(
+                    0, torch.from_numpy(graph_plan.perm).to(dev)
+                )
+                inv_perm = np.empty(n_spots, dtype=np.int64)
+                inv_perm[graph_plan.perm] = np.arange(n_spots)
+            Xty_t = Xty.new_zeros((n_types, n_solve))
+            Xty_t[:, :n_spots] = Xty.T
+            del Xty
 
-        common = dict(Xty_t=Xty_t, XtX=XtX, nnb=n_nbrs,
-                      YtY=sanitize_yty(yty, Y_sketch))
-        if fused:
-            offsets_np, masks_np, A_rest, h = fused
-            masks = np.zeros((offsets_np.size, n_solve), dtype=np.uint8)
-            masks[:, :n_spots] = masks_np
-            # The rest table padded to n_solve rows with the sentinel
-            # n_spots, as the JAX solver builds it.
-            rest_nbr = np.full((n_solve, 0), n_spots, dtype=np.int32)
-            if A_rest.nnz:
-                table = adjacency_to_padded(A_rest)[0]
-                rest_nbr = np.full((n_solve, table.shape[1]), n_spots,
-                                   dtype=np.int32)
-                rest_nbr[:n_spots] = table
-            touched, slot_cols = build_fused_rest_tables(
-                rest_nbr, n_spots, h, FUSED_BLOCK)
-            tier = self._tier(FusedBandedTier,
-                              masks=self._to_dev(masks, torch.uint8),
-                              offsets=tuple(int(o) for o in offsets_np),
-                              h=h, block=FUSED_BLOCK,
-                              **self._rest_tables(touched, slot_cols),
-                              **common)
-        elif graph_plan.use_banded:
-            # The unfused sweep multiplies by the masks every band: widen
-            # them once, here.
-            if graph_plan.A_rest.nnz:
-                rest = adjacency_to_padded(graph_plan.A_rest)[0].T
+            common = dict(Xty_t=Xty_t, XtX=XtX, nnb=n_nbrs,
+                          YtY=sanitize_yty(yty, Y_sketch))
+            if fused:
+                offsets_np, masks_np, A_rest, h = fused
+                masks = np.zeros((offsets_np.size, n_solve), dtype=np.uint8)
+                masks[:, :n_spots] = masks_np
+                # The rest table padded to n_solve rows with the sentinel
+                # n_spots, as the JAX solver builds it.
+                rest_nbr = np.full((n_solve, 0), n_spots, dtype=np.int32)
+                if A_rest.nnz:
+                    table = adjacency_to_padded(A_rest)[0]
+                    rest_nbr = np.full((n_solve, table.shape[1]), n_spots,
+                                       dtype=np.int32)
+                    rest_nbr[:n_spots] = table
+                touched, slot_cols = build_fused_rest_tables(
+                    rest_nbr, n_spots, h, FUSED_BLOCK)
+                tier = self._tier(FusedBandedTier,
+                                  masks=self._to_dev(masks, torch.uint8),
+                                  offsets=tuple(int(o) for o in offsets_np),
+                                  h=h, block=FUSED_BLOCK,
+                                  **self._rest_tables(touched, slot_cols),
+                                  **common)
+            elif graph_plan.use_banded:
+                # The unfused sweep multiplies by the masks every band: widen
+                # them once, here.
+                if graph_plan.A_rest.nnz:
+                    rest = adjacency_to_padded(graph_plan.A_rest)[0].T
+                else:
+                    rest = np.zeros((0, n_spots), dtype=np.int32)
+                tier = self._tier(
+                    BandedTier, masks=self._to_dev(graph_plan.masks, tdtype),
+                    offsets=tuple(int(o) for o in graph_plan.offsets),
+                    rest=self._to_dev(rest, torch.int32), **common)
             else:
-                rest = np.zeros((0, n_spots), dtype=np.int32)
-            tier = self._tier(
-                BandedTier, masks=self._to_dev(graph_plan.masks, tdtype),
-                offsets=tuple(int(o) for o in graph_plan.offsets),
-                rest=self._to_dev(rest, torch.int32), **common)
-        else:
-            nbr, _, ov_src, ov_dst = adjacency_to_padded_capped(
-                A_solve, max_degree=max_degree
-            )
-            overflow = None
-            if ov_src.size:
-                overflow = tuple(
-                    self._to_dev(a, torch.int64)
-                    for a in overflow_table(ov_src, ov_dst, n_spots))
-            tier = self._tier(GatherTier,
-                              nbr=self._to_dev(nbr.T, torch.int32),
-                              overflow=overflow, **common)
-        self.perm = graph_plan.perm
-        self._attach(tier, mean_diag=float(np.mean(np.diag(XtX))),
-                     inv_perm=inv_perm)
+                nbr, _, ov_src, ov_dst = adjacency_to_padded_capped(
+                    A_solve, max_degree=max_degree
+                )
+                overflow = None
+                if ov_src.size:
+                    overflow = tuple(
+                        self._to_dev(a, torch.int64)
+                        for a in overflow_table(ov_src, ov_dst, n_spots))
+                tier = self._tier(GatherTier,
+                                  nbr=self._to_dev(nbr.T, torch.int32),
+                                  overflow=overflow, **common)
+            self.perm = graph_plan.perm
+            self._attach(tier, mean_diag=float(np.mean(np.diag(XtX))),
+                         inv_perm=inv_perm)
 
     def _to_dev(self, a, dtype) -> torch.Tensor:
         """A contiguous copy of ``a`` on the problem's device."""
@@ -597,26 +604,28 @@ class BCDProblem:
         "objectives", "final_change"}. With ``return_device`` beta stays on
         the device: the contiguous (n_spots, K) tensor in the solve dtype,
         un-padded and un-permuted (an empty or zero-sweep problem still
-        returns host f64, as in the JAX solver)."""
-        if self._degenerate or max_iter == 0:
-            return _degenerate_result(self.n_spots, self.n_types)
-        lam = scalar(lambda_, self.dtype)
-        rho_eff = scalar(rho * self.mean_diag, self.dtype)
-        beta_d, n_iter, rel, converged, objectives = fused_solve(
-            self._beta0(beta_init), self.tier, self._inv_perm_d, lam,
-            rho_eff, tol, max_iter, self.n_spots, verbose=verbose,
-        )
-        # A contiguous copy: the fused tier's beta is a view of its carry.
-        beta = (beta_d.contiguous() if return_device
-                else fetch_to_host(beta_d))
-        return beta, {
-            "converged": converged,
-            "n_iterations": int(n_iter),
-            "final_objective": objectives[-1],
-            # sampled on the verbose cadence only, as in the JAX solver
-            "objectives": objectives if verbose else [],
-            "final_change": float(rel),
-        }
+        returns host f64, as in the JAX solver). The call is the span
+        ``flashdeconv.solve``."""
+        with span("flashdeconv.solve"):
+            if self._degenerate or max_iter == 0:
+                return _degenerate_result(self.n_spots, self.n_types)
+            lam = scalar(lambda_, self.dtype)
+            rho_eff = scalar(rho * self.mean_diag, self.dtype)
+            beta_d, n_iter, rel, converged, objectives = fused_solve(
+                self._beta0(beta_init), self.tier, self._inv_perm_d, lam,
+                rho_eff, tol, max_iter, self.n_spots, verbose=verbose,
+            )
+            # A contiguous copy: the fused tier's beta is a view of its carry.
+            beta = (beta_d.contiguous() if return_device
+                    else fetch_to_host(beta_d))
+            return beta, {
+                "converged": converged,
+                "n_iterations": int(n_iter),
+                "final_objective": objectives[-1],
+                # sampled on the verbose cadence only, as in the JAX solver
+                "objectives": objectives if verbose else [],
+                "final_change": float(rel),
+            }
 
 
 def problem_from_arrays(

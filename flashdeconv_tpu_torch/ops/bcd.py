@@ -45,6 +45,8 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from flashdeconv_tpu_torch.utils.timing import span
+
 # Gauss-Seidel pass dispatch, as in flashdeconv_tpu/ops/bcd.py: the classic
 # pass at K <= 8, panels of 8 through K = 64, panels of 16 above.
 _GS_PANEL_ENGAGE_K = 8
@@ -919,8 +921,9 @@ def converge_loop(
 ) -> Tuple[torch.Tensor, int, float]:
     """Host loop of sweeps until ``max_diff / (max_abs + 1e-10) < tol``.
 
-    ``sweep_fn(carry, out) -> (new carry, max_diff, max_abs)``. The sweep
-    that meets the rule is still applied. The loop ping-pongs between
+    ``sweep_fn(carry, out) -> (new carry, max_diff, max_abs)``; each call
+    and its statistic's read is the span ``flashdeconv.solve.sweep``. The
+    sweep that meets the rule is still applied. The loop ping-pongs between
     ``carry`` and one second buffer allocated here, so ``carry`` is
     overwritten from the second sweep on (it saves a carry-sized buffer).
     The ratio is formed in the statistics' dtype and compared with ``tol``
@@ -931,8 +934,9 @@ def converge_loop(
     spare = torch.empty_like(carry)
     it, rel = 0, float("inf")
     while it < max_iter and rel >= tol_c:
-        new, max_diff, max_abs = sweep_fn(carry, spare)
-        rel = rel_change(max_diff, max_abs)
+        with span("flashdeconv.solve.sweep"):
+            new, max_diff, max_abs = sweep_fn(carry, spare)
+            rel = rel_change(max_diff, max_abs)
         carry, spare = new, carry
         it += 1
     return carry, it, rel
@@ -1160,7 +1164,9 @@ def fused_solve(
                                             min(chunk, max_iter - n_iter))
             n_iter += done
             chunk = 10
-            objectives.append(float(tier.objective(carry, lambda_, rho)))
+            with span("flashdeconv.solve.objective"):
+                objectives.append(float(tier.objective(carry, lambda_,
+                                                       rho)))
             if not verbose:
                 break
             print(f"Iteration {n_iter - 1}: objective = "

@@ -3,7 +3,9 @@ traces of the port's pipeline.
 
 The port's own copy of :mod:`flashdeconv_tpu.utils.timing`: a
 :class:`StageTimer` collects wall-clock per pipeline stage into a plain dict
-(surfaced as ``FlashDeconv.timings_``); :func:`fused_sweep_timer`,
+(surfaced as ``FlashDeconv.timings_``), each stage also a profiler span;
+:func:`span` opens the program's spans on the profiler's clock;
+:func:`fused_sweep_timer`,
 :func:`fori_difference_windows` and :func:`fused_sweep_timer_for` time the
 production fused banded sweep on the device; and :func:`trace` wraps a
 block in a ``torch.profiler`` trace when a trace directory is configured —
@@ -19,9 +21,31 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
+#: Whether a profiler records on the calling thread (thread-local).
+_profiler_on = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` span ``name`` (the program's
+    start with ``flashdeconv.``) when a profiler records on this thread,
+    else a context that does nothing.
+
+    The span lies on the profiler's clock, beside the device activity it
+    launches. Without a profiler it costs one boolean check and no
+    dispatcher call; a profiler started on another thread does not see it
+    (``torch.profiler`` records only its own thread's spans).
+    """
+    if _profiler_on():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
 
 class StageTimer:
     """Collects named wall-clock stage timings.
+
+    Each stage is also the span ``flashdeconv.fit.<name>`` (:func:`span`)
+    around its timed interval.
 
     Usage::
 
@@ -36,13 +60,14 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.timings[name] = self.timings.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
+        with span("flashdeconv.fit." + name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.timings[name] = self.timings.get(name, 0.0) + (
+                    time.perf_counter() - t0
+                )
 
     @property
     def total(self) -> float:
@@ -197,7 +222,8 @@ def trace(name: str, trace_dir: Optional[str] = None) -> Iterator[None]:
     no-op that starts no profiler. When on, the profiler records the CPU and,
     where CUDA is available, the device's kernels and copies, and writes
     one Chrome trace (``*.pt.trace.json``) into the subdirectory ``name``
-    of the trace directory, one subdirectory per ``name``.
+    of the trace directory, one subdirectory per ``name``. The trace holds
+    the program's :func:`span` s opened inside the block.
     """
     trace_dir = trace_dir or os.environ.get("FLASHDECONV_TRACE_DIR")
     if not trace_dir:
