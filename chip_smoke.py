@@ -8,6 +8,8 @@
                                      # alone
     python3 chip_smoke.py --small-k [--against DIR]
                                      # the sweep kernels at K <= 64 alone
+    python3 chip_smoke.py --objective
+                                     # the objective kernel alone
     python3 chip_smoke.py --multicard
                                      # the [multicard] phase alone (two
                                      # cards or more; exits 1 below two)
@@ -26,7 +28,13 @@ counts set to 0 just before it and read just after:
    512, kNN-6) prepare and solve, and a 262,144-spot ``fit_transform`` of
    synthetic Poisson counts (on the host path, ``device_outputs=False``,
    as every fit before this list's last phase); the grid takes the fused
-   tier with no rest tables and launches only the kernel's plain form;
+   tier with no rest tables and launches only the kernel's plain form,
+   and the objective kernel once a solve (the plain solve beside
+   ``[solve]`` runs the plain objective, within 1e-5 of the kernel's);
+   before them the objective kernel is held against the plain path on a
+   solved carry of the grid, the objective and each of its five sums,
+   and timed in turns with it (``[objective]``); every counted run of a
+   fused-tier solve at K <= 32 below counts the objective kernel too;
 1a. the fit's outputs, on the same 262k counts (a second counted run of
    kernel #1): the host-path fit, and fits with device outputs (the
    default on the card), ``outputs=("dominant",)`` and
@@ -52,7 +60,9 @@ counts set to 0 just before it and read just after:
 1b. the fused tier's rest stream (kernel #1's ``ns_rest`` input): the
    1000 x 1000 grid with 1 % of its bins dropped at random (990,042
    spots, K = 20), timed by the sweep-timing protocol (rest update
-   included) and prepared and solved, bitwise the unfused banded tier;
+   included) and prepared and solved, bitwise the unfused banded tier,
+   and its objective kernel (the REST instance) held against the plain
+   path as on the grid;
    the 1000 x 1000 grid plus 100 symmetric long-range edges, which takes
    the fused tier only after the band-cap rescue, solved and bitwise the
    unfused banded tier on the capped decomposition; and a
@@ -205,6 +215,16 @@ problem, each against its plain version and timed in turns with it, with
 ``--against DIR`` each of those four forms against DIR's build, bitwise
 and in turns; and the 1M grid at K = 20 solved through the fused and the
 unfused banded tier, bitwise equal. It prints no result line.
+
+``--objective`` builds, prepares the 1M grid (K = 20), solves it and, on
+the solved carry, holds the fused tier's objective kernel (one launch a
+call) against the plain path and against the plain path in f64, the
+objective and each of its five sums, and times in turns by CUDA events
+the launch alone against the plain path's device work, and the whole
+objective call (the read of the result included) against the plain
+path's (``[objective]``, as in the smoke run); then the same on the
+grid with 1 % of its bins dropped, with the rest stream. It prints no
+result line.
 """
 
 from __future__ import annotations
@@ -255,6 +275,11 @@ CS_RTOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SOLVE = dict(lambda_=0.1, rho=0.01, max_iter=100, tol=1e-4)
+# The objective kernel against the plain path on a solved 1M carry: the
+# objective (the JAX parity tests' bound; 1.0e-6 measured on the grid,
+# 1.7e-6 on the dropped grid) and each of its five sums (at most 2.9e-7
+# measured, the plain path's own gap from f64 on quad).
+OBJECTIVE_RTOL, OBJECTIVE_SUM_RTOL = 1e-5, 2e-6
 MESH_SHARDS = (1, 2, 4)             # shards of the 1M grid on the one card
 PROCESSES = 2                       # the [multihost] job's processes
 MULTICARD_SWEEPS = 240              # sweeps of each [multicard] mesh check
@@ -462,18 +487,23 @@ def synthetic_counts(coords, extent: float, n_genes: int, n_types: int,
 
 # -- kernels against their plain versions ---------------------------------------
 
-def time_sweeps(fn, args, out) -> float:
-    """Warm per-launch ms over SWEEPS launches, by CUDA events."""
+def event_ms(fn, reps: int = SWEEPS) -> float:
+    """Warm per-call ms of ``fn()`` over ``reps`` calls, by CUDA events."""
     for _ in range(3):
-        fn(*args, out=out)
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(SWEEPS):
-        fn(*args, out=out)
+    for _ in range(reps):
+        fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / SWEEPS
+    return start.elapsed_time(stop) / reps
+
+
+def time_sweeps(fn, args, out) -> float:
+    """Warm per-launch ms over SWEEPS launches, by CUDA events."""
+    return event_ms(lambda: fn(*args, out=out))
 
 
 def in_turns(plain, kern, args, out) -> dict:
@@ -699,6 +729,133 @@ def phase_fused_vs_unfused(prob) -> None:
         raise AssertionError("fused and unfused banded solves differ")
 
 
+def phase_objective(prob, label: str) -> dict:
+    """The fused tier's objective on the carry of a solve of ``prob``
+    (lambda 0.1, rho 0.01 x mean diag; with the rest stream where the tier
+    has rest tables): the objective kernel's route (one launch) against
+    the plain path and against the plain path in f64 on the same carry,
+    the objective within ``OBJECTIVE_RTOL`` of the plain path's and each
+    of its five sums (cross, degree, adjacency, L1, quad) within
+    ``OBJECTIVE_SUM_RTOL`` of the plain path's; then CUDA-event times in
+    turns (plain, kernel, kernel, plain) of the launch alone against the
+    plain path's device work, and of the whole objective call, the read
+    of the result included. Returns the kernels line's row."""
+    from flashdeconv_tpu_torch.ops import _build, bcd
+
+    t = prob.tier
+    lam, rho = bcd.f32(SOLVE["lambda_"]), bcd.f32(SOLVE["rho"]
+                                                  * prob.mean_diag)
+    beta, it = bcd.fused_solve(None, t, None, lam, rho, SOLVE["tol"],
+                               SOLVE["max_iter"], prob.n_spots)[:2]
+    full = beta.new_zeros((prob.n_solve, prob.n_types))
+    full[:prob.n_spots] = beta
+    carry = t.carry(full)
+    rest = dict(rest_touched=t.rest_touched, rest_slot_cols=t.rest_slot_cols)
+    args = (carry, t.Xty_t, t.XtX, t.YtY, t.offsets, t.masks, lam, rho, t.h,
+            t.block)
+    nnb = t.nnb.reshape(-1)
+    nsr = None if t.rest_touched is None else bcd.rest_ns_update(
+        torch.zeros_like(t.Xty_t), carry, t.rest_touched, t.rest_slot_cols)
+
+    def kernel_call():
+        return float(bcd.objective_terms_banded_fused(*args, nnb=t.nnb,
+                                                      **rest))
+
+    def plain_device():
+        return bcd.objective_terms_banded_fused_reference(*args, nnb=t.nnb,
+                                                          **rest)
+
+    def plain_sums(dtype):
+        return bcd.fused_banded_objective_sums_reference(
+            carry.to(dtype), t.Xty_t.to(dtype), t.XtX.to(dtype), t.offsets,
+            t.masks, t.h, t.block, t.nnb.to(dtype), **rest).cpu().double()
+
+    with bcd.full_f32_matmul():
+        before = bcd.fused_banded_objective.launches
+        got = kernel_call()
+        sums = bcd.fused_banded_objective_sums(
+            carry, t.Xty_t, t.XtX, t.masks, nnb, t.offsets, t.h, t.block,
+            nsr).double()
+        if bcd.fused_banded_objective.launches != before + 2:
+            raise AssertionError(f"{label}: the objective kernel did not "
+                                 "launch once a call")
+        plain = float(plain_device())
+        f64 = float(bcd.objective_terms_banded_fused_reference(
+            carry.double(), t.Xty_t.double(), t.XtX.double(), t.YtY,
+            t.offsets, t.masks, lam, rho, t.h, t.block,
+            nnb=t.nnb.double(), **rest))
+        plain_s, f64_s = plain_sums(torch.float32), plain_sums(torch.float64)
+        lib = _build.load("fused_banded_sweep")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch():
+            bcd.fused_objective_launch(lib, stream, carry, t.Xty_t, t.XtX,
+                                       t.masks, nnb, t.offsets, t.h, t.block,
+                                       nsr)
+
+        turns = {"plain device": [], "kernel launch": [], "plain call": [],
+                 "kernel call": []}
+        for a, b in ((plain_device, "plain device"), (launch, "kernel launch"),
+                     (launch, "kernel launch"), (plain_device, "plain device"),
+                     (lambda: float(plain_device()), "plain call"),
+                     (kernel_call, "kernel call"), (kernel_call, "kernel call"),
+                     (lambda: float(plain_device()), "plain call")):
+            turns[b].append(event_ms(a))
+    diff = {"kernel_vs_plain": abs(got - plain) / abs(plain),
+            "kernel_vs_f64": abs(got - f64) / abs(f64),
+            "plain_vs_f64": abs(plain - f64) / abs(f64)}
+    names = ("cross", "deg", "adj", "l1", "quad")
+    sum_diff = {
+        vs: dict(zip(names, ((a - b).abs() / b.abs()).tolist()))
+        for vs, a, b in (("kernel_vs_plain", sums, plain_s),
+                         ("kernel_vs_f64", sums, f64_s),
+                         ("plain_vs_f64", plain_s, f64_s))}
+    log(f"[objective] {label}: sums {dict(zip(names, sums.tolist()))}; "
+        f"relative differences by sum {sum_diff}")
+    if diff["kernel_vs_plain"] > OBJECTIVE_RTOL:
+        raise AssertionError(f"{label}: objective {got} against the plain "
+                             f"path's {plain}")
+    if max(sum_diff["kernel_vs_plain"].values()) > OBJECTIVE_SUM_RTOL:
+        raise AssertionError(f"{label}: the kernel's sums "
+                             f"{sum_diff['kernel_vs_plain']} off the plain "
+                             "path's")
+    K, n = t.Xty_t.shape
+    n_bytes = (4.0 * K * n * (2 + (nsr is not None)) + t.masks.numel()
+               + 4.0 * n + 4.0 * K * K)
+    bound, by = bound_ms(n_bytes, n * (2.0 * K * K + 8.0 * K))
+    row = {"K": K, "U": len(t.offsets), "n_spots": prob.n_spots,
+           "sweeps": it, "objective": got, "plain": plain, "f64": f64,
+           "rel_diff": diff, "sum_rel_diff": sum_diff,
+           "max_abs_err": abs(got - plain),
+           "ms": float(np.mean(turns["kernel launch"])),
+           "plain_ms": float(np.mean(turns["plain device"])),
+           "call_ms": float(np.mean(turns["kernel call"])),
+           "plain_call_ms": float(np.mean(turns["plain call"])),
+           "bound_ms": bound, "bound_by": by, "bytes": n_bytes}
+    log(f"[objective] {label}: K={K} U={row['U']} rest "
+        f"{nsr is not None} after {it} sweeps: kernel {got!r}, plain "
+        f"{plain!r}, f64 {f64!r}; relative differences {diff}; ms by turns "
+        f"{turns}; bound {bound:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB)")
+    return row
+
+
+def dropped_grid():
+    """The 1M grid with ``DROP`` of its bins dropped and a kNN-6 graph of
+    what is left, prepared: (problem, prepare seconds)."""
+    from flashdeconv_tpu_torch.utils import build_knn_graph
+
+    coords, _ = knn_graph(SPOTS, False)
+    t0 = time.perf_counter()
+    dropped_coords = coords[drop_mask(SPOTS)]
+    dropped_A = build_knn_graph(dropped_coords, k=6)
+    log(f"[rest] 1M grid with {DROP:.0%} of its bins dropped: "
+        f"{dropped_coords.shape[0]} spots, kNN-6 graph made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dropped, dropped_s = prepare_on(dropped_coords, dropped_A, TYPES)
+    rest_tier(dropped, "1M 1%-dropped grid")
+    return dropped, dropped_s
+
+
 def rest_stats(t) -> str:
     """Bands, halo, rest edges and touched spots of a fused tier."""
     touched = int(torch.unique(t.rest_touched).numel())
@@ -850,9 +1007,19 @@ def dropped_fit_counts():
 
 # -- the main paths ---------------------------------------------------------------
 
+def objective_kernel(prob) -> bool:
+    """Whether ``prob``'s solves launch the objective kernel, once a solve:
+    the fused tier at K <= 32 (f32 on the card)."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    return (prob.use_fused_banded and prob.tier.Xty_t.dtype == torch.float32
+            and prob.n_types <= bcd.REGISTER_PASS_MAX_K)
+
+
 def plain_solve(prob):
-    """The solve's loop over the plain version of its kernel, on the card:
-    (beta (n_spots, K) f64 on the host, sweeps)."""
+    """The solve's loop over the plain version of its kernel (and, on the
+    fused tier, of the objective kernel), on the card: (beta (n_spots, K)
+    f64 on the host, sweeps, final objective)."""
     from unittest import mock
 
     from flashdeconv_tpu_torch.ops import bcd
@@ -861,11 +1028,13 @@ def plain_solve(prob):
             bcd.GatherTier: "coordinate_descent_block"}[type(prob.tier)]
     lam, rho = bcd.f32(SOLVE["lambda_"]), bcd.f32(SOLVE["rho"]
                                                   * prob.mean_diag)
-    with mock.patch.object(bcd, kern, getattr(bcd, f"{kern}_reference")):
-        beta, it, _, _, _ = bcd.fused_solve(
+    with mock.patch.object(bcd, kern, getattr(bcd, f"{kern}_reference")), \
+            mock.patch.object(bcd, "objective_terms_banded_fused",
+                              bcd.objective_terms_banded_fused_reference):
+        beta, it, _, _, objectives = bcd.fused_solve(
             None, prob.tier, prob._inv_perm_d, lam, rho, SOLVE["tol"],
             SOLVE["max_iter"], prob.n_spots)
-    return beta.double().cpu().numpy(), it
+    return beta.double().cpu().numpy(), it, objectives[-1]
 
 
 def phase_solve(prob, prepare_s: float, label: str) -> int:
@@ -893,12 +1062,17 @@ def phase_solve(prob, prepare_s: float, label: str) -> int:
         raise AssertionError("two kernel solves are not bitwise equal")
     REFERENCE[label] = (betas[1], info["n_iterations"])
 
-    ref, it = plain_solve(prob)
+    ref, it, objective = plain_solve(prob)
     diff = float(np.abs(betas[1] - ref).max())
+    rel = abs(info["final_objective"] - objective) / abs(objective)
     log(f"[solve] {label} plain-version solve: {it} sweeps, max |beta - "
-        f"beta_plain| = {diff:.3e}; two kernel solves bitwise equal")
+        f"beta_plain| = {diff:.3e}, objective {objective:.6g} (relative "
+        f"difference {rel:.3e}); two kernel solves bitwise equal")
     if it != info["n_iterations"] or diff > 1e-4:
         raise AssertionError("kernel solve disagrees with the plain solve")
+    if objective_kernel(prob) and rel > OBJECTIVE_RTOL:
+        raise AssertionError("the objective kernel's final objective "
+                             "disagrees with the plain solve's")
     return sweeps
 
 
@@ -1117,7 +1291,7 @@ def outputs_fit(label: str, model, Y, X, coords, truth):
     return model, on_card
 
 
-def phase_outputs() -> int:
+def phase_outputs() -> dict:
     """The fit's outputs on the 262k grid fit's counts (no second draw):
     the host-path fit, then three device-output fits held to the JAX
     package's bounds against it (the default ``cuda`` fit: row sums within
@@ -1128,7 +1302,8 @@ def phase_outputs() -> int:
     solve at each lambda on one prepared problem; and the counts stacked
     twice on a 512 x 1024 grid (524,288 spots), which stream their Xty to
     the card in chunks, against the same fit unstreamed (beta bit for
-    bit). Returns the sweeps of every solve."""
+    bit). Returns the launches the path must show: kernel #1 a sweep, the
+    objective kernel a solve."""
     from scipy import sparse
 
     from flashdeconv_tpu_torch.utils import grid_coords
@@ -1213,6 +1388,7 @@ def phase_outputs() -> int:
         if not (info["converged"] and r["info"]["converged"]):
             raise AssertionError("a lambda-path solve did not converge")
         sweeps += r["info"]["n_iterations"] + info["n_iterations"]
+    solves = 4 + 2 * len(path)  # the four fits above, path and cold solves
     del prob, operands
 
     # The streamed feed: the counts twice over (524,288 spots).
@@ -1237,8 +1413,9 @@ def phase_outputs() -> int:
         f"{whole.info_['n_iterations']}")
     if not same:
         raise AssertionError("the streamed feed changed beta")
-    return sweeps + streamed.info_["n_iterations"] \
-        + whole.info_["n_iterations"]
+    return {"fused_banded_sweep": sweeps + streamed.info_["n_iterations"]
+            + whole.info_["n_iterations"],
+            "fused_banded_objective": solves + 2}
 
 
 def phase_timing(prob, label: str, kernel_ms: float) -> int:
@@ -1329,7 +1506,7 @@ def phase_trace() -> int:
     return plain.info_["n_iterations"] + n_iter
 
 
-def phase_arena() -> int:
+def phase_arena() -> dict:
     """The host arena (``utils/hostmem``), last of all phases: ``mallopt``
     changes the allocator for the rest of the process. On a freshly
     prepared 1M x 20 grid, ``ARENA_ROUNDS`` warm rounds, each a host-path
@@ -1337,7 +1514,8 @@ def phase_arena() -> int:
     synchronize) and ``fetch_to_host``; then ``reserve_host_arena
     (ARENA_GB)``, timed; then as many rounds again. Every beta must be
     bitwise the first solve's. Host clock, each call ended by a
-    synchronize. Returns the sweeps of every solve."""
+    synchronize. Returns the launches the phase must show: kernel #1 a
+    sweep, the objective kernel a solve."""
     from flashdeconv_tpu_torch.core.solver import fetch_to_host
     from flashdeconv_tpu_torch.ops import bcd
     from flashdeconv_tpu_torch.utils import hostmem
@@ -1388,7 +1566,8 @@ def phase_arena() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     rounds("after the arena")
     log("[arena] every beta bit for bit the first solve's")
-    return sweeps
+    return {"fused_banded_sweep": sweeps,
+            "fused_banded_objective": 1 + 2 * 2 * ARENA_ROUNDS}
 
 
 def phase_dense_fit() -> dict:
@@ -2106,7 +2285,8 @@ def phase_multicard(children: dict) -> dict:
                                  "the current card")
 
     # Single-device solves on the last card while cuda:0 is current, each
-    # bitwise the same solve on cuda:0.
+    # bitwise the same solve on cuda:0; the grid's launch the objective
+    # kernel once a solve.
     for label, irregular, kernel in (
             ("1M grid", False, "fused_banded_sweep"),
             ("1M irregular", True, "coordinate_descent_block")):
@@ -2118,6 +2298,7 @@ def phase_multicard(children: dict) -> dict:
             beta, info = prob.solve(**SOLVE)
             REFERENCE[label] = (beta, info["n_iterations"])
             add(kernel, info["n_iterations"])
+            add("fused_banded_objective", int(not irregular))
             del prob
         ref, ref_it = REFERENCE[label]
         current_is_first(label)
@@ -2128,6 +2309,7 @@ def phase_multicard(children: dict) -> dict:
         dt, (beta, info) = timed(lambda: prob.solve(**SOLVE))
         current_is_first(label)
         add(kernel, info["n_iterations"])
+        add("fused_banded_objective", int(not irregular))
         log(f"[multicard] {label} on {last} with cuda:0 current: prepare "
             f"{prep:.3f} s, solve {dt:.4f} s, {info['n_iterations']} sweeps "
             f"(cuda:0 {ref_it}), tier {type(prob.tier).__name__}, peak "
@@ -2550,7 +2732,12 @@ def build_against(root: str) -> dict:
     libs = {}
     for n in names:
         libs[n] = ctypes.CDLL(str(out / f"{n}-against.so"))
-        _build._declare(n, libs[n])
+        try:
+            _build._declare(n, libs[n])
+        except AttributeError as missing:
+            # Sources older than the objective kernel: the sweep entries,
+            # declared before it, are all that is timed here.
+            log(f"[against] {root} {n}: {missing}")
         for entry, report in ptxas_entries(
                 (out / f"{n}-against.log").read_text()).items():
             log(f"[against] {root} ptxas {entry}:{report}")
@@ -2707,6 +2894,9 @@ def main() -> None:
     parser.add_argument("--small-k", action="store_true",
                         help="the sweep kernels at K <= 64 alone instead of "
                              "the smoke run")
+    parser.add_argument("--objective", action="store_true",
+                        help="the fused tier's objective kernel alone at "
+                             "1M x 20 instead of the smoke run")
     parser.add_argument("--against", metavar="DIR", action="append",
                         help="with --large-k or --small-k: time the sweep "
                              "kernels of the checkout at DIR in turns with "
@@ -2745,6 +2935,18 @@ def main() -> None:
         log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
             "included")
         return
+    if args.objective:
+        grid, _ = prepare(SPOTS, TYPES)
+        if not (grid.use_fused_banded and grid.tier.rest_touched is None):
+            raise AssertionError("the 1M grid did not take the fused tier "
+                                 "without rest tables")
+        phase_objective(grid, "1000x1000 (main path)")
+        del grid
+        phase_objective(dropped_grid()[0], "1M 1%-dropped grid (main path)")
+        log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
+            "included")
+        log(card())
+        return
     if args.profile:
         for label, irregular in (("1M grid", False), ("1M irregular", True)):
             phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)
@@ -2762,6 +2964,7 @@ def main() -> None:
         "countsketch_project": (cs.countsketch_project_kernel, "launches"),
         "fused_banded_sweep_sub": (bcd.fused_banded_sweep, "sub_launches"),
         "fused_banded_sweep_rest": (bcd.fused_banded_sweep, "rest_launches"),
+        "fused_banded_objective": (bcd.fused_banded_objective, "launches"),
     }
     if args.multicard:
         from flashdeconv_tpu_torch import native
@@ -2798,36 +3001,40 @@ def main() -> None:
         raise AssertionError("the 1M grid did not take the fused tier "
                              "without rest tables")
     fused_row = phase_fused_kernel(grid, "1000x1000 (main path)")
+    objective_row = phase_objective(grid, "1000x1000 (main path)")
     sub_row = phase_sub_kernel(grid, "1000x1000 (main path)")
     phase_fused_vs_unfused(grid)
-    fused_launches = counted(kernels, lambda: {"fused_banded_sweep": (
-        phase_solve(grid, grid_s, "1M grid")
-        + phase_fit("262k grid", grid_coords(side=FIT_SIDE),
-                    float(FIT_SIDE), FIT_GENES, counts=grid_fit_counts))
-    })["fused_banded_sweep"]
+    # Every solve on the fused tier at K = 20 launches the objective kernel
+    # once: here the 2 kernel solves of [solve] (its plain solve runs the
+    # plain objective) and the 2 fits.
+    launches = counted(kernels, lambda: {
+        "fused_banded_sweep": (
+            phase_solve(grid, grid_s, "1M grid")
+            + phase_fit("262k grid", grid_coords(side=FIT_SIDE),
+                        float(FIT_SIDE), FIT_GENES, counts=grid_fit_counts)),
+        "fused_banded_objective": 2 + 2})
+    fused_launches = launches["fused_banded_sweep"]
+    objective_launches = launches["fused_banded_objective"]
     phase_fetch(grid, "1M grid")
     # The fit's outputs, the lambda path and the streamed feed (kernel #1).
-    fused_launches += counted(kernels, lambda: {
-        "fused_banded_sweep": phase_outputs()})["fused_banded_sweep"]
-    # The sweep-timing protocol, and a traced fit (kernel #1).
-    fused_launches += counted(kernels, lambda: {
+    launches = counted(kernels, phase_outputs)
+    fused_launches += launches["fused_banded_sweep"]
+    objective_launches += launches["fused_banded_objective"]
+    # The sweep-timing protocol (sweeps alone), and a fit untraced and
+    # traced (kernel #1, and the objective kernel once a fit).
+    launches = counted(kernels, lambda: {
         "fused_banded_sweep": phase_timing(grid, "1M grid", fused_row["ms"])
-        + phase_trace()})["fused_banded_sweep"]
+        + phase_trace(), "fused_banded_objective": 2})
+    fused_launches += launches["fused_banded_sweep"]
+    objective_launches += launches["fused_banded_objective"]
 
     # Kernel 1 with the rest stream: grids whose banded split leaves a
     # small remainder.
-    from flashdeconv_tpu_torch.utils import build_knn_graph
-
     coords, A = knn_graph(SPOTS, False)
-    t0 = time.perf_counter()
-    dropped_coords = coords[drop_mask(SPOTS)]
-    dropped_A = build_knn_graph(dropped_coords, k=6)
-    log(f"[rest] 1M grid with {DROP:.0%} of its bins dropped: "
-        f"{dropped_coords.shape[0]} spots, kNN-6 graph made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    dropped, dropped_s = prepare_on(dropped_coords, dropped_A, TYPES)
-    rest_tier(dropped, "1M 1%-dropped grid")
+    dropped, dropped_s = dropped_grid()
     rest_row = phase_rest_kernel(dropped, "1M 1%-dropped grid (main path)")
+    objective_rest_row = phase_objective(dropped,
+                                         "1M 1%-dropped grid (main path)")
     rest_launches = counted(kernels, lambda: {
         "fused_banded_sweep_rest": phase_timing(
             dropped, "1M 1%-dropped grid", rest_row["ms"])
@@ -2838,16 +3045,21 @@ def main() -> None:
     rest_tier(rescue, f"1M grid + {RESCUE_EDGES} long edges")
     phase_band_cap(grid, rescue)
     phase_fused_vs_unfused(rescue)
-    del grid, A, dropped_A
-    rest_launches += counted(kernels, lambda: {"fused_banded_sweep_rest": (
-        phase_solve(dropped, dropped_s, "1M 1%-dropped grid")
-        + phase_solve(rescue, rescue_s,
-                      f"1M grid + {RESCUE_EDGES} long edges")
-        + phase_fit("262k grid, 1% of bins dropped",
-                    grid_coords(side=FIT_SIDE)[drop_mask(FIT_SIDE ** 2)],
-                    float(FIT_SIDE), FIT_GENES, runs=("once",),
-                    counts=dropped_fit_counts))
-    })["fused_banded_sweep_rest"]
+    del grid, A
+    # The objective kernel's REST instance: the 2 kernel solves of each
+    # [solve] and the one fit.
+    launches = counted(kernels, lambda: {
+        "fused_banded_sweep_rest": (
+            phase_solve(dropped, dropped_s, "1M 1%-dropped grid")
+            + phase_solve(rescue, rescue_s,
+                          f"1M grid + {RESCUE_EDGES} long edges")
+            + phase_fit("262k grid, 1% of bins dropped",
+                        grid_coords(side=FIT_SIDE)[drop_mask(FIT_SIDE ** 2)],
+                        float(FIT_SIDE), FIT_GENES, runs=("once",),
+                        counts=dropped_fit_counts)),
+        "fused_banded_objective": 2 + 2 + 1})
+    rest_launches += launches["fused_banded_sweep_rest"]
+    objective_launches += launches["fused_banded_objective"]
     del dropped, rescue
     dropped_fit_counts.cache_clear()
     torch.cuda.empty_cache()
@@ -2953,8 +3165,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     cs_launches = counted(kernels, phase_dense_fit)["countsketch_project"]
     # The host arena, last: it changes the allocator for the process.
-    fused_launches += counted(kernels, lambda: {
-        "fused_banded_sweep": phase_arena()})["fused_banded_sweep"]
+    launches = counted(kernels, phase_arena)
+    fused_launches += launches["fused_banded_sweep"]
+    objective_launches += launches["fused_banded_objective"]
     if "jax" in sys.modules or "flashdeconv_tpu" in sys.modules:
         raise AssertionError("JAX or the JAX package was imported")
 
@@ -2996,6 +3209,12 @@ def main() -> None:
               + multicard["fused_banded_sweep_sub"], sub_row),
         entry("fused_banded_sweep_rest", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:724", rest_launches, rest_row),
+        entry("fused_banded_objective", "fused_banded_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:1075",
+              objective_launches + multicard["fused_banded_objective"],
+              objective_row) | {"rest": {
+                  k: objective_rest_row[k]
+                  for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}},
     ]}), flush=True)
     log(card())
     print(json.dumps({"ok": True, "device": {

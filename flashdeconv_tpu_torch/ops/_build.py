@@ -102,6 +102,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fdt_fused_banded_sweep.restype = i
         lib.fdt_fused_banded_sweep_blocks.argtypes = [ll, i]
         lib.fdt_fused_banded_sweep_blocks.restype = ll
+        lib.fdt_fused_banded_objective.argtypes = [
+            p, ll, p, p, p, p, ll, p, ctypes.POINTER(ctypes.c_int), i, i, ll,
+            p, p,
+        ]
+        lib.fdt_fused_banded_objective.restype = i
+        lib.fdt_fused_banded_objective_blocks.argtypes = [ll]
+        lib.fdt_fused_banded_objective_blocks.restype = ll
     elif name == "cd_block_sweep":
         lib.fdt_cd_block_sweep.argtypes = [
             p, p, p, p, p, p, i, ll, f, f, p, p,

@@ -24,6 +24,12 @@ coordinates of each spot) with the per-solve reciprocal denominator
   at a time for all spots, a maintained residual ``r = XtX^T beta`` with a
   rank-1 refresh, its denominator formed inside the sweep.
 
+The fused tier's objective, on a CUDA f32 carry at K <= 32, is one launch
+of a third kernel of ``csrc/fused_banded_sweep.cu``
+(:func:`fused_banded_objective`), which forms its sums with the sweep
+kernels' band loader; every other carry runs the plain version
+(:func:`objective_terms_banded_fused_reference`).
+
 Both kernels run one Gauss-Seidel device function — ``csrc/gs_pass.cuh``
 at K <= 32, the panel pass of ``csrc/gs_pass_panel.cuh`` at 32 < K <= 256
 — so the fused and unfused banded sweeps are bitwise equal on the card, as
@@ -314,6 +320,31 @@ def fused_banded_sweep_reference(
     return (out, *sweep_stats(beta, beta_old))
 
 
+def _check_bands(offsets, h: int, block: int) -> None:
+    """Raise unless there are 1..``KERNEL_MAX_BANDS`` band offsets, each
+    within the carry's pad ``h * block``."""
+    if not 0 < len(offsets) <= KERNEL_MAX_BANDS:
+        raise ValueError(f"the fused kernels take 1..{KERNEL_MAX_BANDS} "
+                         f"bands, got {len(offsets)}")
+    if max(abs(int(o)) for o in offsets) > h * block:
+        raise ValueError("a band offset exceeds the carry's pad h * block")
+
+
+def _check_layout(expect, device) -> None:
+    """Raise unless each ``name: (tensor, shape, dtype)`` of ``expect`` has
+    that shape and dtype, lies on ``device`` (the carry's) and is
+    contiguous."""
+    for name, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the carry on "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
                           offsets, h, block, out, out_cols: int,
                           ns_rest_t=None):
@@ -322,11 +353,7 @@ def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
     if K > KERNEL_MAX_K:
         raise ValueError(f"the fused kernel takes K <= {KERNEL_MAX_K}, "
                          f"got K = {K}")
-    if not 0 < len(offsets) <= KERNEL_MAX_BANDS:
-        raise ValueError(f"the fused kernel takes 1..{KERNEL_MAX_BANDS} "
-                         f"bands, got {len(offsets)}")
-    if max(abs(int(o)) for o in offsets) > h * block:
-        raise ValueError("a band offset exceeds the carry's pad h * block")
+    _check_bands(offsets, h, block)
     expect = {
         "Xty_t": (Xty_t, (K, n_data), torch.float32),
         "XtX": (XtX, (K, K), torch.float32),
@@ -337,15 +364,7 @@ def _check_sweep_operands(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
     }
     if ns_rest_t is not None:
         expect["ns_rest_t"] = (ns_rest_t, (K, n_data), torch.float32)
-    for name, (t, shape, dtype) in expect.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != beta_ext_t.device:
-            raise ValueError(f"{name} is on {t.device}, the carry on "
-                             f"{beta_ext_t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_layout(expect, beta_ext_t.device)
     if out.data_ptr() == beta_ext_t.data_ptr():
         raise ValueError("the sweep is Jacobi across spots: out must not "
                          "be the input carry")
@@ -863,22 +882,156 @@ def objective_sums(beta_t, Xty_t, ns_t, nnb):
     return torch.stack([cross, deg_term, adj_term, l1]), beta_t @ beta_t.T
 
 
-def objective_from_sums(sums, BtB, XtX, YtY, lambda_, rho):
-    """``0.5*(YtY - 2<beta, Xty> + <beta beta^T, XtX>) + 0.5*lambda*(sum
-    deg*|beta|^2 - <beta, ns>) + rho*|beta|_1`` from :func:`objective_sums`,
-    as a 0-d tensor: Tr(beta^T L beta) expanded without L."""
-    cross, deg_term, adj_term, l1 = sums
-    quad = torch.sum(BtB * XtX)
-    YtY = torch.as_tensor(YtY, dtype=XtX.dtype, device=XtX.device)
+def objective_from_terms(terms, YtY, lambda_, rho):
+    """``0.5*(YtY - 2*cross + quad) + 0.5*lambda*(deg - adj) + rho*l1``
+    from the five 0-d tensors ``(cross, deg, adj, l1, quad)``, in their
+    dtype and on their device, as a 0-d tensor: ``cross = <beta, Xty>``,
+    ``deg = sum deg*|beta|^2``, ``adj = <beta, ns>``, ``l1 = |beta|_1``,
+    ``quad = <beta beta^T, XtX>``; Tr(beta^T L beta) expanded without L.
+    Both routes of the objective form it here."""
+    cross, deg_term, adj_term, l1, quad = terms
+    YtY = torch.as_tensor(YtY, dtype=quad.dtype, device=quad.device)
     fidelity = 0.5 * (YtY - 2.0 * cross + quad)
-    spatial = 0.5 * scalar(lambda_, XtX.dtype) * (deg_term - adj_term)
-    return fidelity + spatial + scalar(rho, XtX.dtype) * l1
+    spatial = 0.5 * scalar(lambda_, quad.dtype) * (deg_term - adj_term)
+    return fidelity + spatial + scalar(rho, quad.dtype) * l1
+
+
+def objective_from_sums(sums, BtB, XtX, YtY, lambda_, rho):
+    """The objective (:func:`objective_from_terms`) from
+    :func:`objective_sums`, ``quad = sum(BtB * XtX)``, as a 0-d tensor."""
+    return objective_from_terms((*sums, torch.sum(BtB * XtX)), YtY, lambda_,
+                                rho)
 
 
 def _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho):
     """The objective on the (K, n) layout, as a 0-d tensor."""
     return objective_from_sums(*objective_sums(beta_t, Xty_t, ns_t, nnb),
                                XtX, YtY, lambda_, rho)
+
+
+def fused_objective_launch(lib, stream: int, beta_ext_t, Xty_t, XtX, masks,
+                           nnb, offsets, h: int, block: int,
+                           ns_rest_t=None) -> torch.Tensor:
+    """One call of ``fdt_fused_banded_objective`` of ``lib`` on ``stream``;
+    returns the (5, blocks) partials of the objective's sums (rows: cross,
+    degree, adjacency, L1, quad). The operands are checked by the caller;
+    ``ns_rest_t`` None passes a null pointer (no rest input)."""
+    K, n_ext = beta_ext_t.shape
+    n_solve = Xty_t.shape[1]
+    partials = beta_ext_t.new_empty(
+        (5, lib.fdt_fused_banded_objective_blocks(n_solve)))
+    offs = (ctypes.c_int * len(offsets))(*(int(o) for o in offsets))
+    err = lib.fdt_fused_banded_objective(
+        beta_ext_t.data_ptr(), n_ext, Xty_t.data_ptr(), masks.data_ptr(),
+        nnb.data_ptr(), None if ns_rest_t is None else ns_rest_t.data_ptr(),
+        n_solve, XtX.data_ptr(), offs, len(offsets), K, h * block,
+        partials.data_ptr(), stream,
+    )
+    _raise_on_launch_error(lib, err, "fused_banded_objective")
+    return partials
+
+
+def objective_sums_from_partials(partials: torch.Tensor) -> torch.Tensor:
+    """The five sums (cross, degree, adjacency, L1, quad) from the kernel's
+    (5, blocks) partials: one sum over the blocks in a fixed order, in the
+    partials' dtype on their device, then the (5,) result to the host (one
+    read of the card, as the caller's ``float()`` of a card tensor would
+    be)."""
+    return torch.sum(partials, dim=1).cpu()
+
+
+def fused_banded_objective_sums(beta_ext_t, Xty_t, XtX, masks, nnb,
+                                offsets: Tuple[int, ...], h: int, block: int,
+                                ns_rest_t=None) -> torch.Tensor:
+    """The objective's five sums on a CUDA fused carry by one launch of the
+    hand-written kernel ``fused_banded_objective_kernel``
+    (``csrc/fused_banded_sweep.cu``): every sum in one pass over the carry,
+    the neighbour sums by the sweep kernels' band loader, ``ns_rest_t``
+    (K, n_solve), when given, added once after the bands. f32, K <=
+    ``REGISTER_PASS_MAX_K``; raises otherwise, on a CPU carry and when the
+    launch fails. Returns ``(cross, deg, adj, l1, quad)`` as a (5,) f32
+    tensor on the host (:func:`objective_sums_from_partials`);
+    ``fused_banded_objective.launches`` counts the launches,
+    ``.card_launches`` them by the card's index."""
+    K, n_ext = beta_ext_t.shape
+    n_solve = Xty_t.shape[1]
+    if K > REGISTER_PASS_MAX_K:
+        raise ValueError(f"the objective kernel takes K <= "
+                         f"{REGISTER_PASS_MAX_K}, got K = {K}")
+    _check_bands(offsets, h, block)
+    expect = {
+        "beta_ext_t": (beta_ext_t, (K, n_solve + 2 * h * block),
+                       torch.float32),
+        "Xty_t": (Xty_t, (K, n_solve), torch.float32),
+        "XtX": (XtX, (K, K), torch.float32),
+        "masks": (masks, (len(offsets), n_solve), torch.uint8),
+        "nnb": (nnb, (n_solve,), torch.float32),
+    }
+    if ns_rest_t is not None:
+        expect["ns_rest_t"] = (ns_rest_t, (K, n_solve), torch.float32)
+    _check_layout(expect, beta_ext_t.device)
+    from flashdeconv_tpu_torch.ops import _build
+
+    with _build.launch_stream(beta_ext_t, Xty_t, XtX, masks, nnb,
+                              ns_rest_t) as stream:
+        partials = fused_objective_launch(
+            _build.load("fused_banded_sweep"), stream, beta_ext_t, Xty_t,
+            XtX, masks, nnb, offsets, h, block, ns_rest_t)
+    fused_banded_objective.launches += 1
+    fused_banded_objective.card_launches[beta_ext_t.device.index] += 1
+    return objective_sums_from_partials(partials)
+
+
+def fused_banded_objective(beta_ext_t, Xty_t, XtX, YtY, masks, nnb,
+                           lambda_, rho, offsets: Tuple[int, ...], h: int,
+                           block: int, ns_rest_t=None):
+    """The objective on a CUDA fused carry from the kernel's sums
+    (:func:`fused_banded_objective_sums`, one launch), formed by
+    :func:`objective_from_terms`: a 0-d f32 tensor on the host."""
+    return objective_from_terms(
+        fused_banded_objective_sums(beta_ext_t, Xty_t, XtX, masks, nnb,
+                                    offsets, h, block, ns_rest_t),
+        YtY, lambda_, rho)
+
+
+fused_banded_objective.launches = 0
+fused_banded_objective.card_launches = collections.Counter()
+
+
+def fused_banded_objective_sums_reference(
+    beta_ext_t, Xty_t, XtX, offsets: Tuple[int, ...], masks, h: int,
+    block: int, nnb: torch.Tensor, rest_touched=None, rest_slot_cols=None,
+) -> torch.Tensor:
+    """Plain PyTorch sums ``(cross, deg, adj, l1, quad)`` of the objective
+    on the fused carry, a (5,) tensor on the carry's device: the banded
+    neighbour sums (:func:`_banded_ns`, masks cast to the carry's dtype),
+    the rest edges' sums added after the bands, then
+    :func:`objective_sums` and ``quad = sum(BtB * XtX)``."""
+    pad = h * block
+    n_solve = Xty_t.shape[1]
+    ns_t = _banded_ns(beta_ext_t, masks.to(Xty_t.dtype), offsets, pad,
+                      n_solve)
+    if rest_touched is not None:
+        ns_t = ns_t + rest_ns_update(torch.zeros_like(ns_t), beta_ext_t,
+                                     rest_touched, rest_slot_cols)
+    sums, BtB = objective_sums(beta_ext_t[:, pad:pad + n_solve], Xty_t, ns_t,
+                               nnb)
+    return torch.cat([sums, torch.sum(BtB * XtX).reshape(1)])
+
+
+def objective_terms_banded_fused_reference(
+    beta_ext_t, Xty_t, XtX, YtY, offsets: Tuple[int, ...], masks,
+    lambda_, rho, h: int, block: int, nnb: torch.Tensor,
+    rest_touched=None, rest_slot_cols=None,
+):
+    """Plain PyTorch objective on the fused carry, as a 0-d tensor on the
+    carry's device: :func:`objective_from_terms` of
+    :func:`fused_banded_objective_sums_reference`."""
+    return objective_from_terms(
+        fused_banded_objective_sums_reference(
+            beta_ext_t, Xty_t, XtX, offsets, masks, h, block, nnb,
+            rest_touched, rest_slot_cols),
+        YtY, lambda_, rho)
 
 
 def objective_terms_banded_fused(
@@ -888,16 +1041,21 @@ def objective_terms_banded_fused(
 ):
     """Objective on the fused carry, as a 0-d f32 tensor, with the degree
     ``nnb`` (n_solve,); the rest tables, when given, add the rest edges'
-    sums after the bands."""
-    pad = h * block
-    n_solve = Xty_t.shape[1]
-    ns_t = _banded_ns(beta_ext_t, masks.to(Xty_t.dtype), offsets, pad,
-                      n_solve)
-    if rest_touched is not None:
-        ns_t = ns_t + rest_ns_update(torch.zeros_like(ns_t), beta_ext_t,
-                                     rest_touched, rest_slot_cols)
-    return _objective(beta_ext_t[:, pad:pad + n_solve], Xty_t, XtX, YtY,
-                      ns_t, nnb, lambda_, rho)
+    sums after the bands. A CUDA f32 carry with K <= ``REGISTER_PASS_MAX_K``
+    takes :func:`fused_banded_objective` (one launch of the kernel; the
+    rest sums from :func:`rest_ns_update`), its result on the host; every
+    other carry (the CPU, K > 32, f64)
+    :func:`objective_terms_banded_fused_reference`."""
+    if (beta_ext_t.device.type == "cuda" and beta_ext_t.dtype == torch.float32
+            and beta_ext_t.shape[0] <= REGISTER_PASS_MAX_K):
+        ns_rest = None if rest_touched is None else rest_ns_update(
+            torch.zeros_like(Xty_t), beta_ext_t, rest_touched, rest_slot_cols)
+        return fused_banded_objective(
+            beta_ext_t, Xty_t, XtX, YtY, masks, nnb.reshape(-1), lambda_,
+            rho, offsets, h, block, ns_rest_t=ns_rest)
+    return objective_terms_banded_fused_reference(
+        beta_ext_t, Xty_t, XtX, YtY, offsets, masks, lambda_, rho, h, block,
+        nnb, rest_touched=rest_touched, rest_slot_cols=rest_slot_cols)
 
 
 def objective_terms(beta_t, Xty_t, XtX, YtY, nbr_t, nnb, lambda_, rho,

@@ -74,6 +74,27 @@
 // KMAX = 64 (PERF.md). Its shared memory passes 48 KB above K = 80, so
 // every launch sets the attribute first, as the register kernel's.
 // Launch: on the caller's stream, no allocation, no synchronisation.
+//
+// A third kernel, fused_banded_objective_kernel<KMAX, REST> (K <= 32),
+// forms the sums of the solve's objective from the same carry in one pass,
+// one thread per data column j:
+//   cross_j = sum_k beta[k, j] * Xty[k, j]
+//   deg_j   = nnb[j] * sum_k beta[k, j]^2
+//   adj_j   = sum_k beta[k, j] * ns_k       (ns_k: the band sums above)
+//   l1_j    = sum_k |beta[k, j]|
+//   quad_j  = beta_j^T XtX beta_j
+// and each block writes its five sums, tree-reduced in a fixed order, to
+// partials[q, b]; the wrapper (ops/bcd.py: fused_banded_objective) adds
+// them up and forms the objective. What bounds it: bytes. At 1M spots and
+// K = 20 it reads the carry (80 MB), Xty (80 MB), the uint8 masks (16-24
+// MB) and the degrees (4 MB): about 190 MB, about 0.057 ms at 3.35 TB/s
+// (a derived count); quad_j's K^2 multiply-adds a spot are far below the
+// card's rate. Its neighbour sums are BandSum's, the band loader of the
+// sweep kernels (band_bits, load_offsets, rows in band order with the
+// clear-bit skip, ns_rest added once after the bands), so there is one
+// band-sum code path and the objective's ns are the sweep's bit for bit;
+// Xty is staged into shared memory while they run, and XtX sits there as
+// load_xtx lays it out for the register pass.
 
 #include "gs_pass_panel.cuh"
 
@@ -305,6 +326,130 @@ extern "C" long long fdt_fused_banded_sweep_blocks(long long n_cols, int K)
         float lam, float rho, float *partials, size_t smem,                 \
         cudaStream_t stream
 
+// The objective's sums, in the order of the partials' rows: cross, degree,
+// adjacency, L1, quad (see the note at the head of this file).
+#define FDT_OBJECTIVE_TERMS 5
+
+// The five sums of one spot, j its data column: col points at its column
+// of the carry (row length ld), xty at its column of the staged Xty tile
+// (row length FDT_THREADS), xs is load_xtx's XtX. beta's K loads are in
+// flight together, after the band sums.
+template <int KMAX, bool REST>
+__device__ __forceinline__ void objective_spot(
+    const float* __restrict__ col, const long long ld,
+    const float* __restrict__ xty, const float deg,
+    const float* __restrict__ xs, const int K, const BandSum<REST>& ns,
+    float (&sum)[FDT_OBJECTIVE_TERMS])
+{
+    static_assert(KMAX % 4 == 0, "XtX rows are read as float4");
+    constexpr int Q = KMAX / 4;
+    const float4* xr = reinterpret_cast<const float4*>(xs);
+    float s[KMAX];
+    ns.template rows<KMAX>(0, 1, K, s);
+    copy_async_wait();
+    float b[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k, col = fdt_next(col, ld))
+        b[k] = k < K ? *col : 0.f;
+    float cross = 0.f, sq = 0.f, adj = 0.f, l1 = 0.f, quad = 0.f;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+        if (k >= K) break;
+        cross = __fmaf_rn(b[k], xty[k * FDT_THREADS], cross);
+        sq = __fmaf_rn(b[k], b[k], sq);
+        adj = __fmaf_rn(b[k], s[k], adj);
+        l1 = __fadd_rn(l1, fabsf(b[k]));
+        float r = 0.f;  // (XtX beta)_k; the zero padding adds exact zeros
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const float4 v = xr[k * Q + q];
+            r = __fmaf_rn(v.x, b[4 * q], r);
+            r = __fmaf_rn(v.y, b[4 * q + 1], r);
+            r = __fmaf_rn(v.z, b[4 * q + 2], r);
+            r = __fmaf_rn(v.w, b[4 * q + 3], r);
+        }
+        quad = __fmaf_rn(b[k], r, quad);
+    }
+    sum[0] = cross;
+    sum[1] = __fmul_rn(deg, sq);
+    sum[2] = adj;
+    sum[3] = l1;
+    sum[4] = quad;
+}
+
+// Block reduction of the five sums in a fixed order, warp shuffles first,
+// then the warps' sums in warp order: partials[q * gridDim.x + b]. Every
+// thread calls it.
+__device__ __forceinline__ void store_objective_partials(
+    float (&sum)[FDT_OBJECTIVE_TERMS], float* __restrict__ partials)
+{
+    __shared__ float red[FDT_OBJECTIVE_TERMS][FDT_THREADS / 32];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int q = 0; q < FDT_OBJECTIVE_TERMS; ++q)
+            sum[q] = __fadd_rn(sum[q],
+                               __shfl_xor_sync(0xffffffffu, sum[q], o));
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (lane == 0)
+#pragma unroll
+        for (int q = 0; q < FDT_OBJECTIVE_TERMS; ++q) red[q][warp] = sum[q];
+    __syncthreads();
+    if (threadIdx.x < FDT_OBJECTIVE_TERMS) {
+        float t = 0.f;
+        for (int w = 0; w < FDT_THREADS / 32; ++w)
+            t = __fadd_rn(t, red[threadIdx.x][w]);
+        partials[threadIdx.x * gridDim.x + blockIdx.x] = t;
+    }
+}
+
+// K <= FDT_REGISTER_MAX_K, KMAX = K rounded up to 8: thread t of the launch
+// takes data column j = t, carry column j + pad. A spot's Xty column is
+// staged into shared memory by asynchronous copies first, in flight while
+// the band sums run.
+template <int KMAX, bool REST>
+__global__ void
+__launch_bounds__(FDT_THREADS, FDT_REGISTER_MIN_BLOCKS(KMAX, REST))
+fused_banded_objective_kernel(const float* __restrict__ carry,
+                              const long long ld,
+                              const float* __restrict__ xty_t,
+                              const uint8_t* __restrict__ masks,
+                              const float* __restrict__ nnb,
+                              const float* __restrict__ ns_rest,
+                              const long long n_solve,
+                              const float* __restrict__ xtx,
+                              const BandOffsets offs, const int n_bands,
+                              const int K, const long long pad,
+                              float* __restrict__ partials)
+{
+    extern __shared__ float4 smem4[];
+    float* xs = reinterpret_cast<float*>(smem4);         // 2 KMAX^2
+    float* xty_s = xs + 2 * KMAX * KMAX;                 // (K, FDT_THREADS)
+    int* off_s = reinterpret_cast<int*>(xty_s + K * FDT_THREADS);
+
+    const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const bool spot = j < n_solve;
+    uint32_t bits = 0u;
+    float deg = 0.f;
+    if (spot) {
+        stage_column<KMAX>(xty_s + threadIdx.x, xty_t + j, n_solve, K);
+        bits = band_bits(masks, n_solve, j, n_bands);
+        deg = nnb[j];
+    }
+    load_xtx<KMAX>(xtx, xs, K);
+    load_offsets(offs, n_bands, off_s);
+    __syncthreads();
+
+    float sum[FDT_OBJECTIVE_TERMS] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    if (spot) {
+        const BandSum<REST> ns{carry + pad + j, ld, bits, off_s, n_bands,
+                               ns_rest + j, n_solve};
+        objective_spot<KMAX>(carry + pad + j, ld, xty_s + threadIdx.x, deg,
+                             xs, K, ns, sum);
+    }
+    store_objective_partials(sum, partials);
+}
+
 // Dynamic shared memory of the register kernel of KMAX at K, in bytes.
 static size_t register_smem(int KMAX, int K)
 {
@@ -451,5 +596,68 @@ extern "C" int fdt_fused_banded_sweep(
                          register_smem(register_kmax<KMAX, true>(), K), s)
                    : launch<KMAX, false>(FDT_SWEEP_ARGS,
                                          register_smem(KMAX, K), s);
+    });
+}
+
+// CUDA blocks of one objective launch over n_solve data columns: each
+// writes one partial of each sum.
+extern "C" long long fdt_fused_banded_objective_blocks(long long n_solve)
+{
+    return fdt_blocks(n_solve);
+}
+
+#define FDT_OBJECTIVE_ARGS                                                  \
+    carry, ld, xty_t, masks, nnb, ns_rest, n_solve, xtx, offs, n_bands, K,  \
+        pad, partials
+
+// The objective kernel of KMAX at K, with the rest input iff REST; its
+// shared memory (XtX, its transpose and the Xty tile: 40 KB at K = 32)
+// stays under 48 KB, so no attribute is set.
+template <int KMAX, bool REST>
+static int launch_objective(const float* carry, long long ld,
+                            const float* xty_t, const uint8_t* masks,
+                            const float* nnb, const float* ns_rest,
+                            long long n_solve, const float* xtx,
+                            const BandOffsets& offs, int n_bands, int K,
+                            long long pad, float* partials,
+                            cudaStream_t stream)
+{
+    const size_t smem = (2 * KMAX * KMAX + K * FDT_THREADS) * sizeof(float)
+                        + FDT_MAX_BANDS * sizeof(int);
+    const unsigned blocks = (unsigned)fdt_blocks(n_solve);
+    fused_banded_objective_kernel<KMAX, REST>
+        <<<blocks, FDT_THREADS, smem, stream>>>(FDT_OBJECTIVE_ARGS);
+    return (int)cudaGetLastError();
+}
+
+// Launches the objective's sums over the carry (K, ld) whose data columns
+// are [pad, pad + n_solve), on `stream`: xty_t, masks, nnb and ns_rest
+// (null: no rest stream) have rows of n_solve, `partials` holds
+// FDT_OBJECTIVE_TERMS * fdt_fused_banded_objective_blocks(n_solve) floats,
+// row q the blocks' sums of term q. Refuses (cudaErrorInvalidValue) K
+// outside 1..FDT_REGISTER_MAX_K, a band count outside 1..FDT_MAX_BANDS, a
+// band offset past the pad and a carry too narrow for its data columns.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int fdt_fused_banded_objective(
+    const float* carry, long long ld, const float* xty_t,
+    const uint8_t* masks, const float* nnb, const float* ns_rest,
+    long long n_solve, const float* xtx, const int* offsets, int n_bands,
+    int K, long long pad, float* partials, void* stream)
+{
+    if (n_bands < 1 || n_bands > FDT_MAX_BANDS || K < 1 ||
+        K > FDT_REGISTER_MAX_K || n_solve < 1 || pad < 0 ||
+        n_solve + 2 * pad > ld)
+        return (int)cudaErrorInvalidValue;
+    BandOffsets offs;
+    for (int u = 0; u < FDT_MAX_BANDS; ++u) {
+        offs.v[u] = u < n_bands ? offsets[u] : 0;
+        if (offs.v[u] > pad || -offs.v[u] > pad)
+            return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t s = (cudaStream_t)stream;
+    return fdt_register_dispatch(K, [&](auto kmax) {
+        constexpr int KMAX = decltype(kmax)::value;
+        return ns_rest ? launch_objective<KMAX, true>(FDT_OBJECTIVE_ARGS, s)
+                       : launch_objective<KMAX, false>(FDT_OBJECTIVE_ARGS, s);
     });
 }

@@ -81,6 +81,7 @@ inline cudaError_t cudaGetLastError()
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 extern std::barrier<>* fdt_emu_barrier;
 extern float fdt_emu_lanes[];

@@ -23,6 +23,11 @@ and its panel pass on the same operands at any K <= 64, which must agree
 bit for bit. Bounds as on the card (tests/test_torch_kernels.py): atol
 5e-5 / rtol 1e-4 against the plain versions, rtol 1e-4 on the statistics,
 fused == unfused banded bitwise, a split sweep == the whole sweep bitwise.
+The objective kernel of ``fused_banded_sweep.cu`` runs through the same
+library (its C entry and the wrapper's launch and reduction code) within
+rtol 1e-5 of the plain path, each of its five sums within rtol 1e-6 of
+the plain path's, bitwise against itself; the C entry's refusals are run
+too, and a CPU carry is held to the plain path.
 """
 
 import ctypes
@@ -400,3 +405,119 @@ def test_emulated_register_and_panel_passes_are_bitwise_equal(emulator, K):
     assert torch.equal(reg[0], panel[0])
     assert reg[1] == panel[1] and reg[2] == panel[2]
     _close(reg, tbcd.coordinate_descent_block_reference(*args))
+
+
+def _objective_problem(K, rest, seed):
+    """The 20 x 20 grid of :func:`_split_problem` (with 60 random rest
+    edges when ``rest``) and its operands as tensors."""
+    p = fused_problem(side=20, n_types=K, seed=seed, block=40)
+    if rest:
+        p = with_rest(p, n_edges=60, seed=seed)
+    t = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+         for k, v in p.items()}
+    return p, t
+
+
+def emulated_objective(emulator, p, t, rest, yty=5e3, lam=0.5, rho=0.1):
+    """The emulated objective kernel through the wrapper's launch code and
+    reduction, the rest sums refreshed from the carry as the wrapper's
+    route does: (objective, partials, the five sums)."""
+    nsr = tbcd.rest_ns_update(torch.zeros_like(t["Xty_t"]), t["carry"],
+                              t["touched"], t["slot_cols"]) if rest else None
+    partials = tbcd.fused_objective_launch(
+        emulator["fused"], 0, t["carry"], t["Xty_t"], t["XtX"], t["masks"],
+        t["nnb"], p["offsets"], p["h"], p["block"], nsr)
+    sums = tbcd.objective_sums_from_partials(partials)
+    return tbcd.objective_from_terms(sums, yty, lam, rho), partials, sums
+
+
+def plain_objective(p, t, rest, yty=5e3, lam=0.5, rho=0.1):
+    kw = dict(rest_touched=t["touched"],
+              rest_slot_cols=t["slot_cols"]) if rest else {}
+    return tbcd.objective_terms_banded_fused(
+        t["carry"], t["Xty_t"], t["XtX"], yty, p["offsets"], t["masks"], lam,
+        rho, p["h"], p["block"], nnb=t["nnb"], **kw)
+
+
+@pytest.mark.parametrize("rest", [False, True])
+@pytest.mark.parametrize("K", [6, 20, 24, 32])
+def test_emulated_objective_matches_plain_path(emulator, K, rest):
+    """The objective kernel (KMAX = 8, 24, 24, 32; with and without the
+    rest input), its partials reduced and formed by the wrapper's code,
+    within rtol 1e-5 of the plain path (the JAX parity tests' bound), in
+    f32; two blocks, the last ragged. Each of the five sums on its own
+    (cross, degree, adjacency, L1, quad) within rtol 1e-6 of the plain
+    path's: the emulated kernel's measured gap is at most 1.9e-7 a sum
+    over 3 seeds of each case, so a term left out or wrong shows however
+    small it is beside the others."""
+    p, t = _objective_problem(K, rest, seed=K + 60)
+    got, partials, sums = emulated_objective(emulator, p, t, rest)
+    ref = plain_objective(p, t, rest)
+    kw = dict(rest_touched=t["touched"],
+              rest_slot_cols=t["slot_cols"]) if rest else {}
+    ref_sums = tbcd.fused_banded_objective_sums_reference(
+        t["carry"], t["Xty_t"], t["XtX"], p["offsets"], t["masks"], p["h"],
+        p["block"], t["nnb"], **kw)
+    assert got.dtype == ref.dtype == torch.float32
+    assert partials.shape == (5, 2)
+    assert sums.shape == ref_sums.shape == (5,)
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+    np.testing.assert_allclose(sums.numpy(), ref_sums.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("rest", [False, True])
+def test_emulated_objective_is_bitwise_repeatable(emulator, rest):
+    """Two launches on one carry: the same partials and objective, bit
+    for bit (every sum in a fixed order)."""
+    p, t = _objective_problem(20, rest, seed=71)
+    first = emulated_objective(emulator, p, t, rest)
+    second = emulated_objective(emulator, p, t, rest)
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0], second[0])
+
+
+@pytest.mark.parametrize("rest", [False, True])
+def test_emulated_objective_of_a_nan_carry_is_nan(emulator, rest):
+    """A NaN in a data column of the carry gives a NaN objective, as the
+    plain path's."""
+    p, t = _objective_problem(20, rest, seed=73)
+    t["carry"][3, p["h"] * p["block"] + 150] = float("nan")
+    assert torch.isnan(plain_objective(p, t, rest))
+    assert torch.isnan(emulated_objective(emulator, p, t, rest)[0])
+
+
+@pytest.mark.parametrize("case", ["K", "bands", "offset"])
+def test_emulated_objective_entry_refuses(emulator, case):
+    """The C entry's own checks (the wrapper's are bypassed here): K > 32,
+    more than 32 bands, a band offset past the pad."""
+    K = 33 if case == "K" else 20
+    p, t = _objective_problem(K, False, seed=77)
+    offsets, masks = p["offsets"], t["masks"]
+    if case == "bands":
+        offsets = (offsets * 3)[:33]
+        masks = torch.zeros((33, masks.shape[1]), dtype=torch.uint8)
+    if case == "offset":
+        offsets = (p["h"] * p["block"] + 1,) + offsets[1:]
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tbcd.fused_objective_launch(
+            emulator["fused"], 0, t["carry"], t["Xty_t"], t["XtX"], masks,
+            t["nnb"], offsets, p["h"], p["block"])
+
+
+@pytest.mark.parametrize("rest", [False, True])
+def test_objective_on_the_cpu_is_the_plain_path(rest):
+    """A CPU carry takes the plain path, bit for bit, and launches
+    nothing."""
+    p, t = _objective_problem(20, rest, seed=79)
+    before = tbcd.fused_banded_objective.launches
+    kw = dict(rest_touched=t["touched"],
+              rest_slot_cols=t["slot_cols"]) if rest else {}
+    ref = tbcd.objective_terms_banded_fused_reference(
+        t["carry"], t["Xty_t"], t["XtX"], 5e3, p["offsets"], t["masks"], 0.5,
+        0.1, p["h"], p["block"], nnb=t["nnb"], **kw)
+    assert torch.equal(plain_objective(p, t, rest), ref)
+    assert tbcd.fused_banded_objective.launches == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        tbcd.fused_banded_objective(
+            t["carry"], t["Xty_t"], t["XtX"], 5e3, t["masks"], t["nnb"], 0.5,
+            0.1, p["offsets"], p["h"], p["block"])

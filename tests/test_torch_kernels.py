@@ -23,7 +23,11 @@ version, and the fused tier with the rest stream bitwise against the
 unfused banded tier with the same rest table. The fetch of a card tensor
 to the host (``fetch_to_host``, through pinned staging buffers) is held
 bit for bit against ``tensor.cpu()``, ``return_device`` against the host
-solve, and the streamed Xty feed against the host cast.
+solve, and the streamed Xty feed against the host cast. The fused tier's
+objective kernel is held within rtol 1e-5 of the plain path on the card
+(with and without the rest stream), each of its five sums within
+``OBJECTIVE_SUM_RTOL``, and bitwise against itself; a whole
+fused-tier solve launches it once at K <= 32 and never at K = 48.
 """
 
 import numpy as np
@@ -48,6 +52,8 @@ pytestmark = pytest.mark.cuda
 # panel pass from K = 33: whole panels (48, 64, 80, 96, 128, 256) and a
 # ragged last panel and register tile (33, 65, 129, 255).
 KS = [6, 20, 24, 32, 33, 48, 64, 65, 80, 96, 128, 129, 255, 256]
+# Each sum of the objective kernel against the plain path's on the card.
+OBJECTIVE_SUM_RTOL = 1e-6
 
 
 @pytest.fixture
@@ -223,6 +229,86 @@ def test_dropped_grid_solves_on_the_rest_stream(cuda_device):
     assert runs[0][1] == runs[1][1] == info["n_iterations"]
     assert torch.equal(runs[0][0], runs[1][0])
     np.testing.assert_array_equal(runs[0][0].double().cpu().numpy(), beta)
+
+
+@pytest.mark.parametrize("rest", [False, True])
+@pytest.mark.parametrize("K", [6, 20, 32])
+def test_objective_kernel_matches_plain_path(cuda_device, K, rest):
+    """The fused tier's objective on a CUDA f32 carry at K <= 32 launches
+    the objective kernel once (with the rest sums as its ``ns_rest`` input
+    when the tier has rest tables): within rtol 1e-5 of the plain path on
+    the same card, and two launches bitwise equal. Each of its five sums
+    (cross, degree, adjacency, L1, quad) within ``OBJECTIVE_SUM_RTOL`` of
+    the plain path's on the card."""
+    p = fused_problem(n_types=K, seed=K + 31)
+    if rest:
+        p = with_rest(p, seed=K + 31)
+    tp = as_torch(p, cuda_device)
+    args = (tp["carry"], tp["Xty_t"], tp["XtX"], 5e4, p["offsets"],
+            tp["masks"], 0.5, 0.1, p["h"], p["block"])
+    kw = dict(nnb=tp["nnb"])
+    if rest:
+        kw.update(rest_touched=tp["touched"], rest_slot_cols=tp["slot_cols"])
+    nsr = tbcd.rest_ns_update(torch.zeros_like(tp["Xty_t"]), tp["carry"],
+                              tp["touched"], tp["slot_cols"]) if rest else None
+    before = tbcd.fused_banded_objective.launches
+    with tbcd.full_f32_matmul():
+        ref = tbcd.objective_terms_banded_fused_reference(*args, **kw)
+        got = tbcd.objective_terms_banded_fused(*args, **kw)
+        again = tbcd.objective_terms_banded_fused(*args, **kw)
+        sums = tbcd.fused_banded_objective_sums(
+            tp["carry"], tp["Xty_t"], tp["XtX"], tp["masks"],
+            tp["nnb"].reshape(-1), p["offsets"], p["h"], p["block"], nsr)
+        ref_sums = tbcd.fused_banded_objective_sums_reference(
+            tp["carry"], tp["Xty_t"], tp["XtX"], p["offsets"], tp["masks"],
+            p["h"], p["block"], tp["nnb"], kw.get("rest_touched"),
+            kw.get("rest_slot_cols"))
+    assert tbcd.fused_banded_objective.launches == before + 3
+    assert got.dtype == ref.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(sums.numpy(), ref_sums.cpu().numpy(),
+                               rtol=OBJECTIVE_SUM_RTOL)
+
+
+def _grid_problem(K, side=128, seed=4):
+    """A side x side grid kNN-6 problem at K prepared on the card: the
+    fused tier."""
+    coords = grid_coords(side=side)
+    rng = np.random.RandomState(seed)
+    X = rng.randn(K, K + 28)
+    Y = np.abs(rng.randn(coords.shape[0], K)) @ X \
+        + 0.05 * rng.randn(coords.shape[0], K + 28)
+    prob = tsolver.prepare_bcd(Y, X, build_knn_graph(coords, k=6),
+                               coords=coords, device="cuda")
+    assert prob.use_fused_banded
+    return prob
+
+
+@pytest.mark.parametrize("K", [20, 48])
+def test_fused_solve_objective_route(cuda_device, K, monkeypatch):
+    """A whole ``BCDProblem.solve`` on the fused tier. At K = 20 it
+    launches the objective kernel exactly once, and its final objective
+    lies within rtol 1e-5 of the same solve's with the plain path; at
+    K = 48 it launches none and gives the plain path's objective bit for
+    bit. Beta and the sweep count are bitwise those of the plain path's
+    solve."""
+    prob = _grid_problem(K)
+    before = tbcd.fused_banded_objective.launches
+    beta, info = prob.solve()
+    launched = tbcd.fused_banded_objective.launches - before
+    monkeypatch.setattr(tbcd, "objective_terms_banded_fused",
+                        tbcd.objective_terms_banded_fused_reference)
+    beta_p, info_p = prob.solve()
+    assert tbcd.fused_banded_objective.launches == before + launched
+    assert launched == (1 if K <= tbcd.REGISTER_PASS_MAX_K else 0)
+    np.testing.assert_array_equal(beta, beta_p)
+    assert info["n_iterations"] == info_p["n_iterations"]
+    if launched:
+        np.testing.assert_allclose(info["final_objective"],
+                                   info_p["final_objective"], rtol=1e-5)
+    else:
+        assert info["final_objective"] == info_p["final_objective"]
 
 
 def _cd_args(p, lam=0.5, rho=0.1):
