@@ -9,7 +9,8 @@
     python3 chip_smoke.py --small-k [--against DIR]
                                      # the sweep kernels at K <= 64 alone
     python3 chip_smoke.py --objective
-                                     # the objective kernel alone
+                                     # the objective kernel alone (K = 20
+                                     # and 34)
     python3 chip_smoke.py --multicard
                                      # the [multicard] phase alone (two
                                      # cards or more; exits 1 below two)
@@ -34,7 +35,12 @@ counts set to 0 just before it and read just after:
    before them the objective kernel is held against the plain path on a
    solved carry of the grid, the objective and each of its five sums,
    and timed in turns with it (``[objective]``); every counted run of a
-   fused-tier solve at K <= 32 below counts the objective kernel too;
+   fused-tier solve at K <= 56 below counts the objective kernel too (at
+   32 < K <= 56 on its ``large_k_launches``); then the same objective
+   check and timing on the 1M grid at K = 34 (the Allen whole-mouse-brain
+   classes: the panel pass's sweeps, the objective kernel's KMAX = 40
+   instance), and two counted solves of it, each one objective launch
+   of the large-K form;
 1a. the fit's outputs, on the same 262k counts (a second counted run of
    kernel #1): the host-path fit, and fits with device outputs (the
    default on the card), ``outputs=("dominant",)`` and
@@ -214,7 +220,10 @@ rest stream on the 1 %-dropped grid and kernel #2 on the irregular
 problem, each against its plain version and timed in turns with it, with
 ``--against DIR`` each of those four forms against DIR's build, bitwise
 and in turns; and the 1M grid at K = 20 solved through the fused and the
-unfused banded tier, bitwise equal. It prints no result line.
+unfused banded tier, bitwise equal; at K = 48 and 64 the grid is also
+solved twice (``[solve]``, against the plain solve), counted: one
+objective launch of the large-K form a solve at K = 48, none at K = 64
+(above the objective kernel's K). It prints no result line.
 
 ``--objective`` builds, prepares the 1M grid (K = 20), solves it and, on
 the solved carry, holds the fused tier's objective kernel (one launch a
@@ -223,8 +232,9 @@ objective and each of its five sums, and times in turns by CUDA events
 the launch alone against the plain path's device work, and the whole
 objective call (the read of the result included) against the plain
 path's (``[objective]``, as in the smoke run); then the same on the
-grid with 1 % of its bins dropped, with the rest stream. It prints no
-result line.
+grid with 1 % of its bins dropped, with the rest stream, and on the 1M
+grid at K = 34 (the kernel's KMAX = 40 instance). It prints no result
+line.
 """
 
 from __future__ import annotations
@@ -253,6 +263,7 @@ SPOTS = 1_000_000
 TYPES = 20
 LARGE_TYPES = (96, 128, 256)        # the large-K kernel rows at 1M spots
 SMALL_TYPES = (6, 20, 32, 48, 64)   # the K <= 64 rows at 1M spots
+WIDE_OBJECTIVE_TYPES = 34           # Allen whole-mouse-brain classes
 FIT_LARGE_TYPES = 96
 ATLAS_TYPES = 338                   # Allen whole-mouse-brain subclasses
 XLA_CAP = 10                        # sweeps timed of the 1M x 338 solve
@@ -770,13 +781,17 @@ def phase_objective(prob, label: str) -> dict:
             carry.to(dtype), t.Xty_t.to(dtype), t.XtX.to(dtype), t.offsets,
             t.masks, t.h, t.block, t.nnb.to(dtype), **rest).cpu().double()
 
+    def objective_launches():
+        return (bcd.fused_banded_objective.launches
+                + bcd.fused_banded_objective.large_k_launches)
+
     with bcd.full_f32_matmul():
-        before = bcd.fused_banded_objective.launches
+        before = objective_launches()
         got = kernel_call()
         sums = bcd.fused_banded_objective_sums(
             carry, t.Xty_t, t.XtX, t.masks, nnb, t.offsets, t.h, t.block,
             nsr).double()
-        if bcd.fused_banded_objective.launches != before + 2:
+        if objective_launches() != before + 2:
             raise AssertionError(f"{label}: the objective kernel did not "
                                  "launch once a call")
         plain = float(plain_device())
@@ -1009,11 +1024,11 @@ def dropped_fit_counts():
 
 def objective_kernel(prob) -> bool:
     """Whether ``prob``'s solves launch the objective kernel, once a solve:
-    the fused tier at K <= 32 (f32 on the card)."""
+    the fused tier at K <= 56 (f32 on the card)."""
     from flashdeconv_tpu_torch.ops import bcd
 
     return (prob.use_fused_banded and prob.tier.Xty_t.dtype == torch.float32
-            and prob.n_types <= bcd.REGISTER_PASS_MAX_K)
+            and prob.n_types <= bcd.OBJECTIVE_KERNEL_MAX_K)
 
 
 def plain_solve(prob):
@@ -2823,9 +2838,10 @@ def large_k(against) -> None:
         knn_graph.cache_clear()
 
 
-def small_k(against) -> None:
+def small_k(against, kernels) -> None:
     """The ``--small-k`` mode (see the module docstring); ``against`` as
-    for :func:`large_k`."""
+    for :func:`large_k`, ``kernels`` as for :func:`counted`."""
+    from flashdeconv_tpu_torch.ops import bcd
     from flashdeconv_tpu_torch.utils import build_knn_graph
 
     pass_report(small=True)
@@ -2834,7 +2850,7 @@ def small_k(against) -> None:
     dropped_coords = coords[drop_mask(SPOTS)]
     dropped_A = build_knn_graph(dropped_coords, k=6)
     for K in SMALL_TYPES:
-        grid, _ = prepare(SPOTS, K)
+        grid, grid_s = prepare(SPOTS, K)
         label = f"1000x1000 K={K}"
         phase_fused_kernel(grid, label)
         phase_sub_kernel(grid, label)
@@ -2844,6 +2860,13 @@ def small_k(against) -> None:
                               f"{label} against {d}", form)
         if K == TYPES:
             phase_fused_vs_unfused(grid)
+        if K > bcd.REGISTER_PASS_MAX_K:
+            objective = ({"fused_banded_objective_large_k": 2}
+                         if K <= bcd.OBJECTIVE_KERNEL_MAX_K else {})
+            counted(kernels, lambda: {
+                "fused_banded_sweep_large_k": phase_solve(grid, grid_s,
+                                                          label),
+                **objective})
         del grid
         dropped, _ = prepare_on(dropped_coords, dropped_A, K)
         label = f"1M 1%-dropped grid K={K}"
@@ -2930,29 +2953,6 @@ def main() -> None:
         against = {d: pool.submit(build_against, d) for d in args.against}
         pool.shutdown(wait=False)
     phase_build(spills_fatal=not (args.large_k or args.small_k))
-    if args.large_k or args.small_k:
-        (large_k if args.large_k else small_k)(against)
-        log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
-            "included")
-        return
-    if args.objective:
-        grid, _ = prepare(SPOTS, TYPES)
-        if not (grid.use_fused_banded and grid.tier.rest_touched is None):
-            raise AssertionError("the 1M grid did not take the fused tier "
-                                 "without rest tables")
-        phase_objective(grid, "1000x1000 (main path)")
-        del grid
-        phase_objective(dropped_grid()[0], "1M 1%-dropped grid (main path)")
-        log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
-            "included")
-        log(card())
-        return
-    if args.profile:
-        for label, irregular in (("1M grid", False), ("1M irregular", True)):
-            phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)
-        phase_profile(prepare(SPOTS, 256)[0], "1M grid K=256", reps=2)
-        phase_profile_dense_sketch()
-        return
     kernels = {
         "fused_banded_sweep": (bcd.fused_banded_sweep, "launches"),
         "fused_banded_sweep_large_k": (bcd.fused_banded_sweep,
@@ -2965,7 +2965,37 @@ def main() -> None:
         "fused_banded_sweep_sub": (bcd.fused_banded_sweep, "sub_launches"),
         "fused_banded_sweep_rest": (bcd.fused_banded_sweep, "rest_launches"),
         "fused_banded_objective": (bcd.fused_banded_objective, "launches"),
+        "fused_banded_objective_large_k": (bcd.fused_banded_objective,
+                                           "large_k_launches"),
     }
+    if args.large_k or args.small_k:
+        if args.large_k:
+            large_k(against)
+        else:
+            small_k(against, kernels)
+        log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
+            "included")
+        return
+    if args.objective:
+        grid, _ = prepare(SPOTS, TYPES)
+        if not (grid.use_fused_banded and grid.tier.rest_touched is None):
+            raise AssertionError("the 1M grid did not take the fused tier "
+                                 "without rest tables")
+        phase_objective(grid, "1000x1000 (main path)")
+        del grid
+        phase_objective(dropped_grid()[0], "1M 1%-dropped grid (main path)")
+        phase_objective(prepare(SPOTS, WIDE_OBJECTIVE_TYPES)[0],
+                        f"1000x1000 K={WIDE_OBJECTIVE_TYPES}")
+        log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
+            "included")
+        log(card())
+        return
+    if args.profile:
+        for label, irregular in (("1M grid", False), ("1M irregular", True)):
+            phase_profile(prepare(SPOTS, TYPES, irregular)[0], label)
+        phase_profile(prepare(SPOTS, 256)[0], "1M grid K=256", reps=2)
+        phase_profile_dense_sketch()
+        return
     if args.multicard:
         from flashdeconv_tpu_torch import native
 
@@ -3016,6 +3046,21 @@ def main() -> None:
     fused_launches = launches["fused_banded_sweep"]
     objective_launches = launches["fused_banded_objective"]
     phase_fetch(grid, "1M grid")
+    # The objective kernel above the register pass (K = 34: KMAX = 40), on
+    # the panel pass's solved carry; each solve launches it once.
+    wide, wide_s = prepare(SPOTS, WIDE_OBJECTIVE_TYPES)
+    wide_label = f"1000x1000 K={WIDE_OBJECTIVE_TYPES}"
+    if not (wide.use_fused_banded and wide.tier.rest_touched is None):
+        raise AssertionError(f"{wide_label} did not take the fused tier "
+                             "without rest tables")
+    objective_wide_row = phase_objective(wide, wide_label)
+    launches = counted(kernels, lambda: {
+        "fused_banded_sweep_large_k": phase_solve(wide, wide_s, wide_label),
+        "fused_banded_objective_large_k": 2})
+    large_fused_launches = launches["fused_banded_sweep_large_k"]
+    objective_wide_launches = launches["fused_banded_objective_large_k"]
+    del wide
+    torch.cuda.empty_cache()
     # The fit's outputs, the lambda path and the streamed feed (kernel #1).
     launches = counted(kernels, phase_outputs)
     fused_launches += launches["fused_banded_sweep"]
@@ -3065,7 +3110,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # Kernel 1's panel form at large K (64 < K <= 256), on the fused tier.
-    large_fused_rows, large_fused_launches = {}, 0
+    large_fused_rows = {}
     for K in LARGE_TYPES:
         prob, prob_s = prepare(SPOTS, K)
         if not prob.use_fused_banded:
@@ -3215,6 +3260,9 @@ def main() -> None:
               objective_row) | {"rest": {
                   k: objective_rest_row[k]
                   for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}},
+        entry("fused_banded_objective_large_k", "fused_banded_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:1075", objective_wide_launches,
+              objective_wide_row),
     ]}), flush=True)
     log(card())
     print(json.dumps({"ok": True, "device": {

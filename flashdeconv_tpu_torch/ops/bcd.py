@@ -24,7 +24,7 @@ coordinates of each spot) with the per-solve reciprocal denominator
   at a time for all spots, a maintained residual ``r = XtX^T beta`` with a
   rank-1 refresh, its denominator formed inside the sweep.
 
-The fused tier's objective, on a CUDA f32 carry at K <= 32, is one launch
+The fused tier's objective, on a CUDA f32 carry at K <= 56, is one launch
 of a third kernel of ``csrc/fused_banded_sweep.cu``
 (:func:`fused_banded_objective`), which forms its sums with the sweep
 kernels' band loader; every other carry runs the plain version
@@ -64,6 +64,13 @@ _GS_PANEL_WIDE_K = 64
 #: arrays templated on 8, 16, 24 and 32); above it both kernels launch their
 #: panel form (``gs_pass_panel.cuh``), counted apart as ``large_k_launches``.
 REGISTER_PASS_MAX_K = 32
+#: Largest K of the fused tier's objective kernel (``csrc/
+#: fused_banded_sweep.cu``, instances KMAX = 8, 16, ..., 56): the register
+#: pass's range and most of the panel pass's TM = 2 range (a KMAX = 64
+#: instance spilled registers). Its launches above ``REGISTER_PASS_MAX_K``
+#: count apart as ``large_k_launches``; above this, and on the CPU or in
+#: f64, the objective takes the plain path.
+OBJECTIVE_KERNEL_MAX_K = 56
 #: Largest K the CUDA kernels take (the panel form's shared-memory tiles
 #: are sized for it); the wrappers raise above it.
 KERNEL_MAX_K = 256
@@ -948,16 +955,17 @@ def fused_banded_objective_sums(beta_ext_t, Xty_t, XtX, masks, nnb,
     (``csrc/fused_banded_sweep.cu``): every sum in one pass over the carry,
     the neighbour sums by the sweep kernels' band loader, ``ns_rest_t``
     (K, n_solve), when given, added once after the bands. f32, K <=
-    ``REGISTER_PASS_MAX_K``; raises otherwise, on a CPU carry and when the
-    launch fails. Returns ``(cross, deg, adj, l1, quad)`` as a (5,) f32
+    ``OBJECTIVE_KERNEL_MAX_K``; raises otherwise, on a CPU carry and when
+    the launch fails. Returns ``(cross, deg, adj, l1, quad)`` as a (5,) f32
     tensor on the host (:func:`objective_sums_from_partials`);
-    ``fused_banded_objective.launches`` counts the launches,
-    ``.card_launches`` them by the card's index."""
+    ``fused_banded_objective.launches`` counts the launches at K <=
+    ``REGISTER_PASS_MAX_K``, ``.large_k_launches`` those above,
+    ``.card_launches`` both by the card's index."""
     K, n_ext = beta_ext_t.shape
     n_solve = Xty_t.shape[1]
-    if K > REGISTER_PASS_MAX_K:
+    if K > OBJECTIVE_KERNEL_MAX_K:
         raise ValueError(f"the objective kernel takes K <= "
-                         f"{REGISTER_PASS_MAX_K}, got K = {K}")
+                         f"{OBJECTIVE_KERNEL_MAX_K}, got K = {K}")
     _check_bands(offsets, h, block)
     expect = {
         "beta_ext_t": (beta_ext_t, (K, n_solve + 2 * h * block),
@@ -977,7 +985,10 @@ def fused_banded_objective_sums(beta_ext_t, Xty_t, XtX, masks, nnb,
         partials = fused_objective_launch(
             _build.load("fused_banded_sweep"), stream, beta_ext_t, Xty_t,
             XtX, masks, nnb, offsets, h, block, ns_rest_t)
-    fused_banded_objective.launches += 1
+    if K > REGISTER_PASS_MAX_K:
+        fused_banded_objective.large_k_launches += 1
+    else:
+        fused_banded_objective.launches += 1
     fused_banded_objective.card_launches[beta_ext_t.device.index] += 1
     return objective_sums_from_partials(partials)
 
@@ -995,6 +1006,7 @@ def fused_banded_objective(beta_ext_t, Xty_t, XtX, YtY, masks, nnb,
 
 
 fused_banded_objective.launches = 0
+fused_banded_objective.large_k_launches = 0
 fused_banded_objective.card_launches = collections.Counter()
 
 
@@ -1041,13 +1053,13 @@ def objective_terms_banded_fused(
 ):
     """Objective on the fused carry, as a 0-d f32 tensor, with the degree
     ``nnb`` (n_solve,); the rest tables, when given, add the rest edges'
-    sums after the bands. A CUDA f32 carry with K <= ``REGISTER_PASS_MAX_K``
-    takes :func:`fused_banded_objective` (one launch of the kernel; the
-    rest sums from :func:`rest_ns_update`), its result on the host; every
-    other carry (the CPU, K > 32, f64)
+    sums after the bands. A CUDA f32 carry with K <=
+    ``OBJECTIVE_KERNEL_MAX_K`` takes :func:`fused_banded_objective` (one
+    launch of the kernel; the rest sums from :func:`rest_ns_update`), its
+    result on the host; every other carry (the CPU, K > 56, f64)
     :func:`objective_terms_banded_fused_reference`."""
     if (beta_ext_t.device.type == "cuda" and beta_ext_t.dtype == torch.float32
-            and beta_ext_t.shape[0] <= REGISTER_PASS_MAX_K):
+            and beta_ext_t.shape[0] <= OBJECTIVE_KERNEL_MAX_K):
         ns_rest = None if rest_touched is None else rest_ns_update(
             torch.zeros_like(Xty_t), beta_ext_t, rest_touched, rest_slot_cols)
         return fused_banded_objective(

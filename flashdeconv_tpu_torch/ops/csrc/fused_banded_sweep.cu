@@ -75,7 +75,7 @@
 // every launch sets the attribute first, as the register kernel's.
 // Launch: on the caller's stream, no allocation, no synchronisation.
 //
-// A third kernel, fused_banded_objective_kernel<KMAX, REST> (K <= 32),
+// A third kernel, fused_banded_objective_kernel<KMAX, REST> (K <= 56),
 // forms the sums of the solve's objective from the same carry in one pass,
 // one thread per data column j:
 //   cross_j = sum_k beta[k, j] * Xty[k, j]
@@ -94,7 +94,16 @@
 // clear-bit skip, ns_rest added once after the bands), so there is one
 // band-sum code path and the objective's ns are the sweep's bit for bit;
 // Xty is staged into shared memory while they run, and XtX sits there as
-// load_xtx lays it out for the register pass.
+// load_xtx lays it out for the register pass. It runs most of the panel
+// pass's TM = 2 range too (32 < K <= 56, KMAX = 40, 48, 56; the sweep
+// there is the panel kernel's): those instances form the band sums 8 rows
+// at a time (objective_spot_wide), since the K-row arrays of both the band
+// sums and beta would not fit the registers of two blocks an SM, and set
+// the shared-memory attribute before each launch (past 48 KB from K = 36).
+// KMAX = 64 is not built: at the 128 registers of two blocks an SM ptxas
+// (CUDA 12.8, sm_90a) spilled 4 bytes of it (20 with REST), where KMAX =
+// 40, 48 and 56 take 112, 124-128 and 126-128 registers and spill nothing;
+// 56 < K <= 64 keeps the plain path.
 
 #include "gs_pass_panel.cuh"
 
@@ -377,6 +386,60 @@ __device__ __forceinline__ void objective_spot(
     sum[4] = quad;
 }
 
+// The same five sums at FDT_REGISTER_MAX_K < K <= FDT_OBJECTIVE_MAX_K
+// (KMAX = 40, 48, 56). beta's K loads are issued first and stay in registers
+// (quad needs all of them); the band sums then come 8 rows at a time
+// (BandSum::rows<8> from row k0), each batch folded into the sums at once,
+// so no K-row array of band sums is live. Every sum still adds over k = 0,
+// 1, ..., K-1 in order, as objective_spot's do.
+template <int KMAX, bool REST>
+__device__ __forceinline__ void objective_spot_wide(
+    const float* __restrict__ col, const long long ld,
+    const float* __restrict__ xty, const float deg,
+    const float* __restrict__ xs, const int K, const BandSum<REST>& ns,
+    float (&sum)[FDT_OBJECTIVE_TERMS])
+{
+    static_assert(KMAX % 8 == 0, "band sums come 8 rows at a time");
+    constexpr int Q = KMAX / 4, NB = 8;
+    const float4* xr = reinterpret_cast<const float4*>(xs);
+    float b[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k, col = fdt_next(col, ld))
+        b[k] = k < K ? *col : 0.f;
+    float cross = 0.f, sq = 0.f, adj = 0.f, l1 = 0.f, quad = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < KMAX; k0 += NB) {
+        if (k0 >= K) break;
+        float s[NB];
+        ns.template rows<NB>(k0, 1, K, s);
+        if (k0 == 0) copy_async_wait();
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+            const int k = k0 + i;
+            if (k >= K) break;
+            cross = __fmaf_rn(b[k], xty[k * FDT_THREADS], cross);
+            sq = __fmaf_rn(b[k], b[k], sq);
+            adj = __fmaf_rn(b[k], s[i], adj);
+            l1 = __fadd_rn(l1, fabsf(b[k]));
+            float r = 0.f;  // (XtX beta)_k, as in objective_spot
+#pragma unroll
+            for (int q = 0; q < Q; ++q) {
+                const float4 v = xr[k * Q + q];
+                r = __fmaf_rn(v.x, b[4 * q], r);
+                r = __fmaf_rn(v.y, b[4 * q + 1], r);
+                r = __fmaf_rn(v.z, b[4 * q + 2], r);
+                r = __fmaf_rn(v.w, b[4 * q + 3], r);
+            }
+            quad = __fmaf_rn(b[k], r, quad);
+        }
+    }
+    sum[0] = cross;
+    sum[1] = __fmul_rn(deg, sq);
+    sum[2] = adj;
+    sum[3] = l1;
+    sum[4] = quad;
+}
+
 // Block reduction of the five sums in a fixed order, warp shuffles first,
 // then the warps' sums in warp order: partials[q * gridDim.x + b]. Every
 // thread calls it.
@@ -403,9 +466,9 @@ __device__ __forceinline__ void store_objective_partials(
     }
 }
 
-// K <= FDT_REGISTER_MAX_K, KMAX = K rounded up to 8: thread t of the launch
-// takes data column j = t, carry column j + pad. A spot's Xty column is
-// staged into shared memory by asynchronous copies first, in flight while
+// K <= FDT_OBJECTIVE_MAX_K, KMAX = K rounded up to 8: thread t of the
+// launch takes data column j = t, carry column j + pad. A spot's Xty column
+// is staged into shared memory by asynchronous copies first, in flight while
 // the band sums run.
 template <int KMAX, bool REST>
 __global__ void
@@ -444,8 +507,12 @@ fused_banded_objective_kernel(const float* __restrict__ carry,
     if (spot) {
         const BandSum<REST> ns{carry + pad + j, ld, bits, off_s, n_bands,
                                ns_rest + j, n_solve};
-        objective_spot<KMAX>(carry + pad + j, ld, xty_s + threadIdx.x, deg,
-                             xs, K, ns, sum);
+        if constexpr (KMAX > FDT_REGISTER_MAX_K)
+            objective_spot_wide<KMAX>(carry + pad + j, ld, xty_s + threadIdx.x,
+                                      deg, xs, K, ns, sum);
+        else
+            objective_spot<KMAX>(carry + pad + j, ld, xty_s + threadIdx.x,
+                                 deg, xs, K, ns, sum);
     }
     store_objective_partials(sum, partials);
 }
@@ -610,9 +677,28 @@ extern "C" long long fdt_fused_banded_objective_blocks(long long n_solve)
     carry, ld, xty_t, masks, nnb, ns_rest, n_solve, xtx, offs, n_bands, K,  \
         pad, partials
 
-// The objective kernel of KMAX at K, with the rest input iff REST; its
-// shared memory (XtX, its transpose and the Xty tile: 40 KB at K = 32)
-// stays under 48 KB, so no attribute is set.
+// Largest K of the objective kernel.
+#define FDT_OBJECTIVE_MAX_K 56
+
+// f(std::integral_constant<int, KMAX>{}) with KMAX = K rounded up to a
+// multiple of 8, 8..FDT_OBJECTIVE_MAX_K: the objective kernel's instance at
+// 1 <= K <= FDT_OBJECTIVE_MAX_K (the register pass's choice at K <= 32).
+template <class F>
+static int fdt_objective_dispatch(const int K, F f)
+{
+    switch ((K + 7) / 8) {
+    case 5: return f(std::integral_constant<int, 40>{});
+    case 6: return f(std::integral_constant<int, 48>{});
+    case 7: return f(std::integral_constant<int, 56>{});
+    default: return fdt_register_dispatch(K, f);
+    }
+}
+
+// The objective kernel of KMAX at K, with the rest input iff REST. Its
+// shared memory (XtX, its transpose and the Xty tile) stays under 48 KB at
+// K <= 32 (40 KB at K = 32), so no attribute is set there; above, it passes
+// 48 KB from K = 36 (82,560 bytes at K = 56), so the attribute is set
+// before every launch.
 template <int KMAX, bool REST>
 static int launch_objective(const float* carry, long long ld,
                             const float* xty_t, const uint8_t* masks,
@@ -624,6 +710,12 @@ static int launch_objective(const float* carry, long long ld,
 {
     const size_t smem = (2 * KMAX * KMAX + K * FDT_THREADS) * sizeof(float)
                         + FDT_MAX_BANDS * sizeof(int);
+    if constexpr (KMAX > FDT_REGISTER_MAX_K) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            fused_banded_objective_kernel<KMAX, REST>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
     const unsigned blocks = (unsigned)fdt_blocks(n_solve);
     fused_banded_objective_kernel<KMAX, REST>
         <<<blocks, FDT_THREADS, smem, stream>>>(FDT_OBJECTIVE_ARGS);
@@ -635,7 +727,7 @@ static int launch_objective(const float* carry, long long ld,
 // (null: no rest stream) have rows of n_solve, `partials` holds
 // FDT_OBJECTIVE_TERMS * fdt_fused_banded_objective_blocks(n_solve) floats,
 // row q the blocks' sums of term q. Refuses (cudaErrorInvalidValue) K
-// outside 1..FDT_REGISTER_MAX_K, a band count outside 1..FDT_MAX_BANDS, a
+// outside 1..FDT_OBJECTIVE_MAX_K, a band count outside 1..FDT_MAX_BANDS, a
 // band offset past the pad and a carry too narrow for its data columns.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fdt_fused_banded_objective(
@@ -645,7 +737,7 @@ extern "C" int fdt_fused_banded_objective(
     int K, long long pad, float* partials, void* stream)
 {
     if (n_bands < 1 || n_bands > FDT_MAX_BANDS || K < 1 ||
-        K > FDT_REGISTER_MAX_K || n_solve < 1 || pad < 0 ||
+        K > FDT_OBJECTIVE_MAX_K || n_solve < 1 || pad < 0 ||
         n_solve + 2 * pad > ld)
         return (int)cudaErrorInvalidValue;
     BandOffsets offs;
@@ -655,7 +747,7 @@ extern "C" int fdt_fused_banded_objective(
             return (int)cudaErrorInvalidValue;
     }
     cudaStream_t s = (cudaStream_t)stream;
-    return fdt_register_dispatch(K, [&](auto kmax) {
+    return fdt_objective_dispatch(K, [&](auto kmax) {
         constexpr int KMAX = decltype(kmax)::value;
         return ns_rest ? launch_objective<KMAX, true>(FDT_OBJECTIVE_ARGS, s)
                        : launch_objective<KMAX, false>(FDT_OBJECTIVE_ARGS, s);

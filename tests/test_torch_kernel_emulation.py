@@ -31,6 +31,7 @@ too, and a CPU carry is held to the plain path.
 """
 
 import ctypes
+import hashlib
 import re
 import shutil
 import subprocess
@@ -440,18 +441,21 @@ def plain_objective(p, t, rest, yty=5e3, lam=0.5, rho=0.1):
 
 
 @pytest.mark.parametrize("rest", [False, True])
-@pytest.mark.parametrize("K", [6, 20, 24, 32])
+@pytest.mark.parametrize("K", [6, 20, 24, 32, 33, 34, 40, 48, 56])
 def test_emulated_objective_matches_plain_path(emulator, K, rest):
-    """The objective kernel (KMAX = 8, 24, 24, 32; with and without the
-    rest input), its partials reduced and formed by the wrapper's code,
-    within rtol 1e-5 of the plain path (the JAX parity tests' bound), in
-    f32; two blocks, the last ragged. Each of the five sums on its own
-    (cross, degree, adjacency, L1, quad) within rtol 1e-6 of the plain
-    path's: the emulated kernel's measured gap is at most 1.9e-7 a sum
-    over 3 seeds of each case, so a term left out or wrong shows however
-    small it is beside the others."""
+    """The objective kernel (KMAX = 8, 24, 24, 32 and, above the register
+    pass, 40, 40, 40, 48, 56, whose band sums come 8 rows at a time;
+    with and without the rest input), its partials reduced and formed by
+    the wrapper's code, within rtol 1e-5 of the plain path (the JAX parity
+    tests' bound), in f32; two blocks, the last ragged. Each of the five
+    sums on its own (cross, degree, adjacency, L1, quad) within rtol 1e-6
+    of the plain path's: the emulated kernel's measured gap is at most
+    1.9e-7 a sum over 3 seeds of each case, so a term left out or wrong
+    shows however small it is beside the others. A second launch gives
+    the same partials, bit for bit."""
     p, t = _objective_problem(K, rest, seed=K + 60)
     got, partials, sums = emulated_objective(emulator, p, t, rest)
+    assert torch.equal(emulated_objective(emulator, p, t, rest)[1], partials)
     ref = plain_objective(p, t, rest)
     kw = dict(rest_touched=t["touched"],
               rest_slot_cols=t["slot_cols"]) if rest else {}
@@ -463,6 +467,29 @@ def test_emulated_objective_matches_plain_path(emulator, K, rest):
     assert sums.shape == ref_sums.shape == (5,)
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
     np.testing.assert_allclose(sums.numpy(), ref_sums.numpy(), rtol=1e-6)
+
+
+# SHA-256 (first 16 hex digits) of the emulated objective partials of
+# test_emulated_objective_matches_plain_path's problems at K <= 32, as the
+# sources gave them before the kernel took K > 32 (the register pass's
+# instances, KMAX = 8..32, compiled from unchanged code).
+REGISTER_K_PARTIALS = {
+    (6, False): "5a44c0fd14af60b2", (6, True): "e400ca0a31e7716d",
+    (20, False): "65b547e08772da7b", (20, True): "7638d2831a64d936",
+    (24, False): "0fc4e539b714fc1d", (24, True): "e00ef5675f9196a0",
+    (32, False): "cfd12d68b7422d86", (32, True): "a54d883a30279e28",
+}
+
+
+@pytest.mark.parametrize("K,rest", sorted(REGISTER_K_PARTIALS))
+def test_emulated_objective_partials_at_register_k_are_unchanged(emulator, K,
+                                                                 rest):
+    """At K <= 32 the objective kernel's partials are bit for bit those of
+    the sources before its instances above K = 32 were added."""
+    p, t = _objective_problem(K, rest, seed=K + 60)
+    partials = emulated_objective(emulator, p, t, rest)[1]
+    digest = hashlib.sha256(partials.numpy().tobytes()).hexdigest()[:16]
+    assert digest == REGISTER_K_PARTIALS[(K, rest)]
 
 
 @pytest.mark.parametrize("rest", [False, True])
@@ -488,9 +515,9 @@ def test_emulated_objective_of_a_nan_carry_is_nan(emulator, rest):
 
 @pytest.mark.parametrize("case", ["K", "bands", "offset"])
 def test_emulated_objective_entry_refuses(emulator, case):
-    """The C entry's own checks (the wrapper's are bypassed here): K > 32,
+    """The C entry's own checks (the wrapper's are bypassed here): K > 56,
     more than 32 bands, a band offset past the pad."""
-    K = 33 if case == "K" else 20
+    K = tbcd.OBJECTIVE_KERNEL_MAX_K + 1 if case == "K" else 20
     p, t = _objective_problem(K, False, seed=77)
     offsets, masks = p["offsets"], t["masks"]
     if case == "bands":

@@ -26,8 +26,9 @@ bit for bit against ``tensor.cpu()``, ``return_device`` against the host
 solve, and the streamed Xty feed against the host cast. The fused tier's
 objective kernel is held within rtol 1e-5 of the plain path on the card
 (with and without the rest stream), each of its five sums within
-``OBJECTIVE_SUM_RTOL``, and bitwise against itself; a whole
-fused-tier solve launches it once at K <= 32 and never at K = 48.
+``OBJECTIVE_SUM_RTOL``, and bitwise against itself, at K <= 32 and in
+the panel pass's range (33 <= K <= 56, its large-K form); a whole
+fused-tier solve launches it once at K <= 56 and never at K = 57.
 """
 
 import numpy as np
@@ -231,10 +232,15 @@ def test_dropped_grid_solves_on_the_rest_stream(cuda_device):
     np.testing.assert_array_equal(runs[0][0].double().cpu().numpy(), beta)
 
 
+def _objective_launches():
+    return (tbcd.fused_banded_objective.launches
+            + tbcd.fused_banded_objective.large_k_launches)
+
+
 @pytest.mark.parametrize("rest", [False, True])
-@pytest.mark.parametrize("K", [6, 20, 32])
+@pytest.mark.parametrize("K", [6, 20, 32, 33, 34, 48, 56])
 def test_objective_kernel_matches_plain_path(cuda_device, K, rest):
-    """The fused tier's objective on a CUDA f32 carry at K <= 32 launches
+    """The fused tier's objective on a CUDA f32 carry at K <= 56 launches
     the objective kernel once (with the rest sums as its ``ns_rest`` input
     when the tier has rest tables): within rtol 1e-5 of the plain path on
     the same card, and two launches bitwise equal. Each of its five sums
@@ -251,7 +257,8 @@ def test_objective_kernel_matches_plain_path(cuda_device, K, rest):
         kw.update(rest_touched=tp["touched"], rest_slot_cols=tp["slot_cols"])
     nsr = tbcd.rest_ns_update(torch.zeros_like(tp["Xty_t"]), tp["carry"],
                               tp["touched"], tp["slot_cols"]) if rest else None
-    before = tbcd.fused_banded_objective.launches
+    before = _objective_launches()
+    large = tbcd.fused_banded_objective.large_k_launches
     with tbcd.full_f32_matmul():
         ref = tbcd.objective_terms_banded_fused_reference(*args, **kw)
         got = tbcd.objective_terms_banded_fused(*args, **kw)
@@ -263,7 +270,9 @@ def test_objective_kernel_matches_plain_path(cuda_device, K, rest):
             tp["carry"], tp["Xty_t"], tp["XtX"], p["offsets"], tp["masks"],
             p["h"], p["block"], tp["nnb"], kw.get("rest_touched"),
             kw.get("rest_slot_cols"))
-    assert tbcd.fused_banded_objective.launches == before + 3
+    assert _objective_launches() == before + 3
+    assert tbcd.fused_banded_objective.large_k_launches == large + (
+        3 if K > tbcd.REGISTER_PASS_MAX_K else 0)
     assert got.dtype == ref.dtype == torch.float32
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
     assert torch.equal(got, again)
@@ -285,23 +294,23 @@ def _grid_problem(K, side=128, seed=4):
     return prob
 
 
-@pytest.mark.parametrize("K", [20, 48])
+@pytest.mark.parametrize("K", [20, 48, 57])
 def test_fused_solve_objective_route(cuda_device, K, monkeypatch):
-    """A whole ``BCDProblem.solve`` on the fused tier. At K = 20 it
+    """A whole ``BCDProblem.solve`` on the fused tier. At K = 20 and 48 it
     launches the objective kernel exactly once, and its final objective
     lies within rtol 1e-5 of the same solve's with the plain path; at
-    K = 48 it launches none and gives the plain path's objective bit for
+    K = 57 it launches none and gives the plain path's objective bit for
     bit. Beta and the sweep count are bitwise those of the plain path's
     solve."""
     prob = _grid_problem(K)
-    before = tbcd.fused_banded_objective.launches
+    before = _objective_launches()
     beta, info = prob.solve()
-    launched = tbcd.fused_banded_objective.launches - before
+    launched = _objective_launches() - before
     monkeypatch.setattr(tbcd, "objective_terms_banded_fused",
                         tbcd.objective_terms_banded_fused_reference)
     beta_p, info_p = prob.solve()
-    assert tbcd.fused_banded_objective.launches == before + launched
-    assert launched == (1 if K <= tbcd.REGISTER_PASS_MAX_K else 0)
+    assert _objective_launches() == before + launched
+    assert launched == (1 if K <= tbcd.OBJECTIVE_KERNEL_MAX_K else 0)
     np.testing.assert_array_equal(beta, beta_p)
     assert info["n_iterations"] == info_p["n_iterations"]
     if launched:
