@@ -11,6 +11,9 @@
     python3 chip_smoke.py --objective
                                      # the objective kernel alone (K = 20
                                      # and 34)
+    python3 chip_smoke.py --neighbor-sum
+                                     # the gather tier's neighbour-sum
+                                     # kernel alone (the tissue section)
     python3 chip_smoke.py --multicard
                                      # the [multicard] phase alone (two
                                      # cards or more; exits 1 below two)
@@ -82,7 +85,13 @@ counts set to 0 just before it and read just after:
    coordinates, kNN-6, as Xenium and CosMx sections look) through
    ``prepare_bcd`` and ``solve``, and two ``fit_transform`` runs: a
    Visium-like section of 4,992 spots on a hex lattice and a 100,000-cell
-   irregular section (2,000 genes, K = 20);
+   irregular section (2,000 genes, K = 20). Before them the gather tier's
+   neighbour-sum kernel is held bit for bit against the plain loop on a
+   seeded carry of the 1M irregular problem and timed in turns with it
+   (``[neighbor-sum]``); every counted f32 gather-tier solve here and
+   below (the halo plan's, a shard's; the K = 338 gather solves of 7)
+   counts its launches, one a sweep and one for the objective, and the
+   plain solve beside ``[solve]`` runs the plain loop;
 3. the dense-count sketch on the card: a "Xenium 5K-like" section of
    100,000 cells at irregular coordinates with dense counts of 5,001
    genes, all kept (``n_hvg=5001``), K = 20, fitted twice; each fit
@@ -120,8 +129,8 @@ counts set to 0 just before it and read just after:
    ``fit_distributed`` on the counts split at row 130,072; beta, sweeps
    and lambda must be bitwise those of one process's 2-shard mesh (solved
    and fitted here before the job, the same way), and each process's
-   launches exactly 3 sub-range calls a sweep and one kernel #2 call a
-   sweep. A sweep's time, there and here, is the difference of the
+   launches exactly 3 sub-range calls a sweep and one kernel #2 call and
+   one neighbour-sum call a sweep (and one more a halo solve's objective). A sweep's time, there and here, is the difference of the
    medians of 10 runs of 22 and 10 of 2 sweeps, in turns, over 20, with
    its spread over the turns' pairs: of ``solve()`` on the halo plan, and
    of the banded mesh's sweep loop alone, split across processes, and
@@ -158,9 +167,10 @@ counts set to 0 just before it and read just after:
    and on the CPU, the same sweeps and beta within 1e-5 of max|beta|; and
    a 4,096-cell fit with ``outputs=("proportions", "dominant")``, whose
    argmax is fetched as int32 and equals the host argmax. Phases 6 and 7
-   run with every launch count at 0 and must leave them there; each
+   run with every launch count at 0 and must leave them there, but for
+   7's f32 gather-tier neighbour sums (that kernel takes any K); each
    checks that its operands lie on the card and that its tier runs no
-   kernel;
+   sweep kernel;
 8. the host arena (``utils/hostmem``), after every other phase, since
    ``mallopt`` changes the allocator for the rest of the process: on a
    freshly prepared 1M grid (K = 20), five warm rounds of a host-path
@@ -235,6 +245,17 @@ path's (``[objective]``, as in the smoke run); then the same on the
 grid with 1 % of its bins dropped, with the rest stream, and on the 1M
 grid at K = 34 (the kernel's KMAX = 40 instance). It prints no result
 line.
+
+``--neighbor-sum`` builds and prepares the benchmark's tissue section
+(``portbench/configs/vhd8um_tissue_k20.json``: 417,768 bins, kNN-6,
+D = 10 slots, the gather tier) at K = 20 and 96 and, on a seeded carry,
+holds the gather tier's neighbour-sum kernel (one launch, from the
+unpadded carry) bitwise against the plain loop over the padded copy, and
+times the two in turns by CUDA events; then solves the section at
+K = 20, counted, through the kernel's route and through the plain loop
+(the parent's neighbour sums) in turns: the same beta bits and sweeps,
+one launch a sweep and one for the objective, and the wall time of each
+solve (``[neighbor-sum]``). It prints no result line.
 """
 
 from __future__ import annotations
@@ -353,6 +374,21 @@ def phase_build(spills_fatal: bool = True) -> None:
 
 
 # -- problems -----------------------------------------------------------------
+
+def tissue_problem(n_types: int):
+    """The benchmark's tissue section (its layout and kNN graph, from
+    ``portbench/configs/vhd8um_tissue_k20.json``) with
+    ``bench.make_problem``'s numbers over its coordinates at ``n_types``,
+    prepared on the card: (problem, seconds)."""
+    from portbench.inputs import knn_graph as section_graph
+    from portbench.inputs import layout_coords
+
+    cfg = json.loads((ROOT / "portbench" / "configs"
+                      / "vhd8um_tissue_k20.json").read_text())
+    coords = layout_coords(cfg["layout"])
+    return prepare_on(coords, section_graph(coords, cfg["k_neighbors"]),
+                      n_types)
+
 
 def make_problem(n_spots: int, n_types: int, d: int, seed: int = 0,
                  coords=None):
@@ -603,8 +639,7 @@ def phase_cd_kernel(prob, label: str) -> dict:
     t = prob.tier
     lam, rho = 0.1, 0.01 * prob.mean_diag
     beta_t = seeded_beta(prob).T.contiguous()
-    ext = bcd.with_sentinel(beta_t)
-    ns = bcd.add_overflow(bcd.neighbor_sum(ext, t.nbr), ext, t.overflow)
+    ns = bcd.gather_neighbor_sums(beta_t, t.nbr, t.overflow)
     inv = bcd.gs_inv_den(t.XtX, t.nnb, lam).contiguous()
     args = (beta_t, t.Xty_t, t.XtX, ns, inv, lam, rho)
     with bcd.full_f32_matmul():
@@ -738,6 +773,102 @@ def phase_fused_vs_unfused(prob) -> None:
     if not (same and out["fused"][1] == out["unfused"][1]
             and out["fused"][2]):
         raise AssertionError("fused and unfused banded solves differ")
+
+
+def f32_bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of an f32 tensor (-0.0 is not +0.0 here)."""
+    return t.contiguous().view(torch.int32)
+
+
+def phase_neighbor_sum(prob, label: str) -> dict:
+    """The gather tier's neighbour sums of a seeded carry: the kernel (one
+    launch, from the unpadded carry; and from the padded copy, whose zero
+    column it reads) bitwise against the plain loop, then CUDA-event times
+    in turns (plain, kernel, kernel, plain). Returns the kernels line's
+    row."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    t = prob.tier
+    if type(t).__name__ != "GatherTier" or t.overflow is not None:
+        raise AssertionError(f"{label}: not the gather tier without hubs")
+    beta_t = seeded_beta(prob).T.contiguous()
+    K, n = beta_t.shape
+    D = int(t.nbr.shape[0])
+
+    def plain():
+        return bcd.neighbor_sum_reference(beta_t, t.nbr)
+
+    def kern():
+        return bcd.neighbor_sum(beta_t, t.nbr)
+
+    before = bcd.neighbor_sum.launches
+    ref, got = plain(), kern()
+    padded = bcd.neighbor_sum(bcd.with_sentinel(beta_t), t.nbr)
+    torch.cuda.synchronize()
+    if bcd.neighbor_sum.launches - before != 2:
+        raise AssertionError(f"{label}: expected 2 launches")
+    for name, out in (("unpadded", got), ("padded", padded)):
+        if not torch.equal(f32_bits(out), f32_bits(ref)):
+            raise AssertionError(f"{label}: the kernel's sums from the "
+                                 f"{name} carry are not the plain loop's")
+    ms = {"plain": [], "kernel": []}
+    for name, fn in (("plain", plain), ("kernel", kern), ("kernel", kern),
+                     ("plain", plain)):
+        ms[name].append(event_ms(fn))
+    bound, by = bound_ms(4.0 * (D * n + 2 * K * n), float(K * (D - 1) * n))
+    log(f"[neighbor-sum] {label}: K={K} n={n} D={D}, bitwise the plain "
+        f"loop (unpadded and padded carry); per call kernel {ms['kernel']} "
+        f"ms, plain {ms['plain']} ms (plain, kernel, kernel, plain); bound "
+        f"{bound:.4f} ms ({by}), kernel at "
+        f"{100.0 * bound / np.mean(ms['kernel']):.1f} % of it")
+    return {"K": K, "max_abs_err": 0.0, "ms": float(np.mean(ms["kernel"])),
+            "plain_ms": float(np.mean(ms["plain"])), "bound_ms": bound,
+            "bound_by": by}
+
+
+def phase_gather_route_solves(prob, label: str, rounds: int = 3,
+                              solves: int = 10) -> None:
+    """Solves of ``prob`` through the neighbour-sum kernel and through the
+    plain loop, counted: the same beta bits and sweeps, one kernel launch
+    a sweep and one for the objective, none on the plain route; then
+    ``rounds`` x (plain, kernel, kernel, plain) of ``solves`` warm solves
+    each, the wall time a solve (synchronised)."""
+    from unittest import mock
+
+    from flashdeconv_tpu_torch.ops import bcd
+
+    def run(kernel: bool):
+        with mock.patch.object(bcd, "neighbor_sum_kernel_takes",
+                               bcd.neighbor_sum_kernel_takes if kernel
+                               else (lambda t: False)):
+            before = bcd.neighbor_sum.launches
+            beta, info = prob.solve(**SOLVE, return_device=True)
+            torch.cuda.synchronize()
+            return beta, info, bcd.neighbor_sum.launches - before
+
+    beta_k, info_k, n_k = run(True)
+    beta_p, info_p, n_p = run(False)
+    sweeps = info_k["n_iterations"]
+    if (n_k, n_p) != (sweeps + 1, 0):
+        raise AssertionError(f"{label}: launches {n_k} / {n_p}, expected "
+                             f"{sweeps + 1} / 0")
+    if info_p["n_iterations"] != sweeps or not torch.equal(
+            f32_bits(beta_k), f32_bits(beta_p)):
+        raise AssertionError(f"{label}: the kernel's solve is not the plain "
+                             "loop's bit for bit")
+    ms = {"plain": [], "kernel": []}
+    for _ in range(rounds):
+        for name in ("plain", "kernel", "kernel", "plain"):
+            t0 = time.perf_counter()
+            for _ in range(solves):
+                run(name == "kernel")
+            ms[name].append(1e3 * (time.perf_counter() - t0) / solves)
+    log(f"[neighbor-sum] {label} solves: {sweeps} sweeps, {n_k} launches a "
+        f"solve, beta bitwise the plain loop's; ms a solve kernel "
+        f"{[round(v, 4) for v in ms['kernel']]}, plain "
+        f"{[round(v, 4) for v in ms['plain']]} (plain, kernel, kernel, plain "
+        f"x {rounds}); medians {np.median(ms['kernel']):.4f} / "
+        f"{np.median(ms['plain']):.4f} ms")
 
 
 def phase_objective(prob, label: str) -> dict:
@@ -1031,10 +1162,29 @@ def objective_kernel(prob) -> bool:
             and prob.n_types <= bcd.OBJECTIVE_KERNEL_MAX_K)
 
 
+def neighbor_sum_calls(prob) -> int:
+    """Launches of the neighbour-sum kernel in each sweep of ``prob``'s
+    solves, and in each objective: on the card at f32, one for the gather
+    tier's table and one more for its hubs' overflow table, one for the
+    unfused banded tier's rest table where it has one; none on the fused
+    tier or in f64."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    t = prob.tier
+    if t.Xty_t.dtype != torch.float32:
+        return 0
+    if isinstance(t, bcd.GatherTier):
+        return 1 + (t.overflow is not None)
+    if isinstance(t, bcd.BandedTier):
+        return int(t.rest.shape[0] > 0)
+    return 0
+
+
 def plain_solve(prob):
     """The solve's loop over the plain version of its kernel (and, on the
-    fused tier, of the objective kernel), on the card: (beta (n_spots, K)
-    f64 on the host, sweeps, final objective)."""
+    fused tier, of the objective kernel; on the gather tier, of the
+    neighbour-sum kernel), on the card: (beta (n_spots, K) f64 on the
+    host, sweeps, final objective)."""
     from unittest import mock
 
     from flashdeconv_tpu_torch.ops import bcd
@@ -1045,7 +1195,9 @@ def plain_solve(prob):
                                                   * prob.mean_diag)
     with mock.patch.object(bcd, kern, getattr(bcd, f"{kern}_reference")), \
             mock.patch.object(bcd, "objective_terms_banded_fused",
-                              bcd.objective_terms_banded_fused_reference):
+                              bcd.objective_terms_banded_fused_reference), \
+            mock.patch.object(bcd, "neighbor_sum_kernel_takes",
+                              lambda t: False):
         beta, it, _, _, objectives = bcd.fused_solve(
             None, prob.tier, prob._inv_perm_d, lam, rho, SOLVE["tol"],
             SOLVE["max_iter"], prob.n_spots)
@@ -1593,7 +1745,8 @@ def phase_dense_fit() -> dict:
     sweeps = phase_fit("Xenium 5K-like dense", irregular_coords(CELLS),
                        float(np.sqrt(CELLS)), DENSE_GENES, dense=True,
                        n_hvg=DENSE_GENES)
-    return {"coordinate_descent_block": sweeps, "countsketch_project": 2}
+    return {"coordinate_descent_block": sweeps, "countsketch_project": 2,
+            "neighbor_sum": sweeps + 2}
 
 
 def phase_profile_dense_sketch() -> None:
@@ -1819,6 +1972,8 @@ def phase_sharded(halo: dict) -> dict:
     info = timed_mesh_solve(prob, "1M irregular P=2 halo",
                             (ref, ref_it, False))
     add("coordinate_descent_block", 2 * 2 * info["n_iterations"])
+    # Each shard's neighbour sums once a sweep and once for the objective.
+    add("neighbor_sum", 2 * 2 * (info["n_iterations"] + 1))
     halo["prob"] = prob._inner
     del Y
 
@@ -2057,26 +2212,32 @@ def multihost_child(rank: int, world: int, port: int, workdir: str,
     log(f"[multihost] p{rank} fit_distributed rows [{lo}, {hi}): "
         f"{fit_s:.3f} s, {model.info_['n_iterations']} sweeps, stages "
         + ", ".join(f"{k} {v:.3f} s" for k, v in model.timings_.items()))
-    fb, cd = bcd.fused_banded_sweep, bcd.coordinate_descent_block
+    fb, cd, ns = (bcd.fused_banded_sweep, bcd.coordinate_descent_block,
+                  bcd.neighbor_sum)
     record["launches"] = {
         "fused_banded_sweep_sub": fb.sub_launches,
         "fused_banded_sweep": fb.launches,
         "coordinate_descent_block": cd.launches,
+        "neighbor_sum": ns.launches,
     }
     record["card_launches"] = {
         "fused_banded_sweep": dict(fb.card_launches),
-        "coordinate_descent_block": dict(cd.card_launches)}
+        "coordinate_descent_block": dict(cd.card_launches),
+        "neighbor_sum": dict(ns.card_launches)}
     # Every sweep of a split mesh (the banded mesh across processes) is 3
-    # sub-range calls a shard; the halo plan's one kernel #2 call a shard.
+    # sub-range calls a shard; the halo plan's one kernel #2 call and one
+    # neighbour-sum call a shard, and one more a solve for the objective.
     timed_sweeps = sum(SWEEP_RUNS)
     want = {"fused_banded_sweep_sub": 3 * (record["banded"]["sweeps"]
                                            + timed_sweeps
                                            + record["fit"]["sweeps"]),
             "fused_banded_sweep": 0,
             "coordinate_descent_block": record["halo"]["sweeps"]
-            + timed_sweeps}
-    if record["launches"] != want or set(fb.card_launches) != {
-            card.index} or set(cd.card_launches) != {card.index}:
+            + timed_sweeps,
+            "neighbor_sum": record["halo"]["sweeps"] + 1 + timed_sweeps
+            + len(SWEEP_RUNS)}
+    if record["launches"] != want or any(
+            set(fn.card_launches) != {card.index} for fn in (fb, cd, ns)):
         raise AssertionError(f"rank {rank}: launches {record['launches']} "
                              f"on cards {record['card_launches']}, expected "
                              f"{want} on {card}")
@@ -2112,6 +2273,8 @@ def job_refs(P: int, ops, add, overlaps=()):
             (3 if overlap else 1) * P * sum(SWEEP_RUNS))
     add("coordinate_descent_block", P * (
         refs["halo"]["info"]["n_iterations"] + sum(SWEEP_RUNS)))
+    add("neighbor_sum", P * (refs["halo"]["info"]["n_iterations"] + 1
+                             + sum(SWEEP_RUNS) + len(SWEEP_RUNS)))
     fit = FlashDeconv(sketch_dim=SKETCH, mesh=card_mesh(P),
                       device_outputs=False).fit(counts, Xc, fit_coords)
     add("fused_banded_sweep", P * fit.info_["n_iterations"])
@@ -2286,7 +2449,7 @@ def phase_multicard(children: dict) -> dict:
         log(f"[multicard] card {line}")
     first, last = torch.device("cuda", 0), torch.device("cuda", n_cards - 1)
     kernels = (bcd.fused_banded_sweep, bcd.coordinate_descent_block,
-               cs.countsketch_project_kernel)
+               cs.countsketch_project_kernel, bcd.neighbor_sum)
     for fn in kernels:
         fn.card_launches.clear()
     want = {}
@@ -2314,6 +2477,8 @@ def phase_multicard(children: dict) -> dict:
             REFERENCE[label] = (beta, info["n_iterations"])
             add(kernel, info["n_iterations"])
             add("fused_banded_objective", int(not irregular))
+            add("neighbor_sum", neighbor_sum_calls(prob)
+                * (info["n_iterations"] + 1))
             del prob
         ref, ref_it = REFERENCE[label]
         current_is_first(label)
@@ -2325,6 +2490,8 @@ def phase_multicard(children: dict) -> dict:
         current_is_first(label)
         add(kernel, info["n_iterations"])
         add("fused_banded_objective", int(not irregular))
+        add("neighbor_sum", neighbor_sum_calls(prob)
+            * (info["n_iterations"] + 1))
         log(f"[multicard] {label} on {last} with cuda:0 current: prepare "
             f"{prep:.3f} s, solve {dt:.4f} s, {info['n_iterations']} sweeps "
             f"(cuda:0 {ref_it}), tier {type(prob.tier).__name__}, peak "
@@ -2454,10 +2621,12 @@ def phase_multicard(children: dict) -> dict:
             torch.cuda.reset_peak_memory_stats(i)
         beta, info = prob.solve(**SOLVE)
         add("coordinate_descent_block", 2 * info["n_iterations"])
+        add("neighbor_sum", 2 * (info["n_iterations"] + 1))
         timing = sweep_time(lambda n: prob.solve(
             **{**SOLVE, "max_iter": n, "tol": 0.0}),
             f"1M irregular halo plan on {where}, solve()")
         add("coordinate_descent_block", 2 * sum(SWEEP_RUNS))
+        add("neighbor_sum", 2 * (sum(SWEEP_RUNS) + len(SWEEP_RUNS)))
         halo[where] = (beta, info["n_iterations"], timing["sweep_ms"],
                        card_peaks(2))
         del prob
@@ -2504,12 +2673,12 @@ def phase_multicard(children: dict) -> dict:
     log(f"[multicard] launches by card in this process: " + ", ".join(
         f"{fn.__name__} {dict(sorted(fn.card_launches.items()))}"
         for fn in kernels) + f"; in the NCCL jobs {children}")
-    # Kernel #1 on every card of the meshes and on the last; #2 on the
-    # halo plan's two and the last; #3 on cuda:0 and the last. Each card's
-    # count adds up to the wrapper's.
+    # Kernel #1 on every card of the meshes and on the last; #2 and the
+    # neighbour sums on the halo plan's two and the last; #3 on cuda:0 and
+    # the last. Each card's count adds up to the wrapper's.
     meshes = set(range(max(widths)))
     for fn, on in zip(kernels, (meshes | {n_cards - 1}, {0, 1, n_cards - 1},
-                                {0, n_cards - 1})):
+                                {0, n_cards - 1}, {0, 1, n_cards - 1})):
         total = sum(getattr(fn, attr) for attr in (
             "launches", "large_k_launches", "sub_launches", "rest_launches")
             if hasattr(fn, attr))
@@ -2570,9 +2739,10 @@ def timed_solves(prob, label: str, **solve) -> dict:
     return info
 
 
-def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str) -> None:
+def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str) -> int:
     """The same problem solved on the card and by the port on the CPU: the
-    same sweeps and beta within ``bound`` of max|beta|."""
+    same sweeps and beta within ``bound`` of max|beta|. Returns the
+    neighbour-sum launches of the card's solve."""
     from flashdeconv_tpu_torch.core.solver import prepare_bcd
 
     out = {}
@@ -2581,6 +2751,7 @@ def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str) -> None:
         prob = prepare_bcd(Y, X, A, coords=coords, dtype=dtype, device=dev)
         if dev == "cuda":
             xla_tier(prob, f"{label} on the card")
+            calls = neighbor_sum_calls(prob)
         beta, info = prob.solve(**SOLVE)
         out[dev] = (beta, info["n_iterations"], time.perf_counter() - t0)
     (bc, ic, tc), (bh, ih, th) = out["cuda"], out["cpu"]
@@ -2590,6 +2761,7 @@ def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str) -> None:
         f"prepare + solve {tc:.2f} s on the card, {th:.2f} s on the CPU")
     if ic != ih or not err <= bound:
         raise AssertionError(f"{label}: the card disagrees with the CPU")
+    return calls * (ic + 1)
 
 
 def phase_f64() -> dict:
@@ -2617,8 +2789,9 @@ def phase_f64() -> dict:
 
 
 def phase_atlas_k() -> dict:
-    """K = 338 on the card (see the module docstring, item 7). Returns {}
-    (no kernel may launch)."""
+    """K = 338 on the card (see the module docstring, item 7). Returns the
+    launches the path must show: no sweep kernel takes K = 338, and the
+    neighbour-sum kernel (any K) launches for each f32 gather-tier solve."""
     from flashdeconv_tpu_torch import FlashDeconv
     from flashdeconv_tpu_torch.core import deconv
     from flashdeconv_tpu_torch.utils import build_knn_graph
@@ -2630,6 +2803,7 @@ def phase_atlas_k() -> dict:
     log(f"[large K] 1M grid K={ATLAS_TYPES} prepare {prob_s:.3f} s; "
         f"(K, N) f32 buffer {4 * ATLAS_TYPES * SPOTS} B")
     info = timed_solves(prob, "large K", **dict(SOLVE, max_iter=XLA_CAP))
+    ns = 3 * neighbor_sum_calls(prob) * (info["n_iterations"] + 1)
     log(f"[large K] 1M grid K={ATLAS_TYPES}: "
         + ("converged" if info["converged"] else
            f"capped at max_iter={XLA_CAP} sweeps (rel "
@@ -2640,7 +2814,7 @@ def phase_atlas_k() -> dict:
     c4k = irregular_coords(4096)
     A4k = build_knn_graph(c4k, k=6)
     Y, X, _ = make_problem(4096, ATLAS_TYPES, SKETCH, coords=c4k)
-    card_vs_cpu(Y, X, A4k, c4k, np.float32, 1e-5, "large K")
+    ns += card_vs_cpu(Y, X, A4k, c4k, np.float32, 1e-5, "large K")
 
     Yc, Xc, truth = synthetic_counts(c4k, 64.0, FIT_GENES, ATLAS_TYPES,
                                      width=0.1, depth=6000.0)
@@ -2666,8 +2840,10 @@ def phase_atlas_k() -> dict:
     if torch.int32 not in wire or torch.uint8 in wire or not agree:
         raise AssertionError("the K = 338 dominant is not int32 or "
                              "disagrees with the host argmax")
+    # The fit's 4,096 cells take the gather tier, with no degree cap.
+    ns += model.info_["n_iterations"] + 1
     log(f"[large K] phase {time.perf_counter() - t_phase:.1f} s")
-    return {}
+    return {"neighbor_sum": ns}
 
 
 # -- the panel kernels alone (--large-k) -----------------------------------------
@@ -2750,8 +2926,9 @@ def build_against(root: str) -> dict:
         try:
             _build._declare(n, libs[n])
         except AttributeError as missing:
-            # Sources older than the objective kernel: the sweep entries,
-            # declared before it, are all that is timed here.
+            # Sources older than the objective or the neighbour-sum
+            # kernel: the sweep entries, declared before them, are all
+            # that is timed here.
             log(f"[against] {root} {n}: {missing}")
         for entry, report in ptxas_entries(
                 (out / f"{n}-against.log").read_text()).items():
@@ -2792,8 +2969,7 @@ def phase_against(prob, name: str, other: dict, label: str,
                                    out, rng, nsr)
     else:
         x = seeded_beta(prob).T.contiguous()
-        ext = bcd.with_sentinel(x)
-        ns = bcd.add_overflow(bcd.neighbor_sum(ext, t.nbr), ext, t.overflow)
+        ns = bcd.gather_neighbor_sums(x, t.nbr, t.overflow)
 
         def run(lib, out):
             bcd.cd_sweep_launch(lib, stream, x, t.Xty_t, t.XtX, ns, inv, lam,
@@ -2920,6 +3096,10 @@ def main() -> None:
     parser.add_argument("--objective", action="store_true",
                         help="the fused tier's objective kernel alone at "
                              "1M x 20 instead of the smoke run")
+    parser.add_argument("--neighbor-sum", action="store_true",
+                        help="the gather tier's neighbour-sum kernel alone "
+                             "on the benchmark's tissue section instead of "
+                             "the smoke run")
     parser.add_argument("--against", metavar="DIR", action="append",
                         help="with --large-k or --small-k: time the sweep "
                              "kernels of the checkout at DIR in turns with "
@@ -2967,6 +3147,7 @@ def main() -> None:
         "fused_banded_objective": (bcd.fused_banded_objective, "launches"),
         "fused_banded_objective_large_k": (bcd.fused_banded_objective,
                                            "large_k_launches"),
+        "neighbor_sum": (bcd.neighbor_sum, "launches"),
     }
     if args.large_k or args.small_k:
         if args.large_k:
@@ -2986,6 +3167,20 @@ def main() -> None:
         phase_objective(dropped_grid()[0], "1M 1%-dropped grid (main path)")
         phase_objective(prepare(SPOTS, WIDE_OBJECTIVE_TYPES)[0],
                         f"1000x1000 K={WIDE_OBJECTIVE_TYPES}")
+        log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
+            "included")
+        log(card())
+        return
+    if args.neighbor_sum:
+        for K in (TYPES, 96):
+            prob, prob_s = tissue_problem(K)
+            log(f"[neighbor-sum] tissue section K={K}: prepared in "
+                f"{prob_s:.2f} s")
+            phase_neighbor_sum(prob, f"tissue K={K}")
+            if K == TYPES:
+                phase_gather_route_solves(prob, f"tissue K={K}")
+            del prob
+            torch.cuda.empty_cache()
         log(f"[total] {time.perf_counter() - t_start:.1f} s, the build "
             "included")
         log(card())
@@ -3148,14 +3343,28 @@ def main() -> None:
         raise AssertionError("the 1M irregular problem did not take the "
                              "gather tier")
     cd_row = phase_cd_kernel(irr, "1M irregular (main path)")
+    if neighbor_sum_calls(irr) != 1:
+        raise AssertionError("the 1M irregular problem has hubs' tables")
+    ns_row = phase_neighbor_sum(irr, "1M irregular (main path)")
     phase_fetch(irr, "1M irregular")
-    cd_launches = counted(kernels, lambda: {"coordinate_descent_block": (
-        phase_solve(irr, irr_s, "1M irregular")
-        + phase_fit("Visium-like hex", hex_coords(VISIUM_COLS, VISIUM_ROWS),
-                    float(VISIUM_COLS), FIT_GENES)
-        + phase_fit("100k irregular", irregular_coords(CELLS),
-                    float(np.sqrt(CELLS)), FIT_GENES, runs=("once",)))
-    })["coordinate_descent_block"]
+
+    def gather_path():
+        # The neighbour sums once a sweep and once a solve's objective: the
+        # 2 kernel solves of [solve] (its plain solve runs the plain loop)
+        # and the 3 fits, whose graphs have no degree cap either.
+        sweeps = (phase_solve(irr, irr_s, "1M irregular")
+                  + phase_fit("Visium-like hex",
+                              hex_coords(VISIUM_COLS, VISIUM_ROWS),
+                              float(VISIUM_COLS), FIT_GENES)
+                  + phase_fit("100k irregular", irregular_coords(CELLS),
+                              float(np.sqrt(CELLS)), FIT_GENES,
+                              runs=("once",)))
+        return {"coordinate_descent_block": sweeps,
+                "neighbor_sum": sweeps + 2 + 2 + 1}
+
+    launches = counted(kernels, gather_path)
+    cd_launches = launches["coordinate_descent_block"]
+    ns_launches = launches["neighbor_sum"]
     del irr
 
     # Kernel 2's panel form at large K (64 < K <= 256), on the gather tier.
@@ -3167,10 +3376,14 @@ def main() -> None:
                                  "not take the gather tier")
         large_cd_rows[K] = phase_cd_kernel(prob, f"1M irregular K={K}")
         if K == 128:
-            large_cd_launches += counted(kernels, lambda: {
-                "coordinate_descent_block_large_k": phase_solve(
-                    prob, prob_s, f"1M irregular K={K}")
-            })["coordinate_descent_block_large_k"]
+            def large_solve():
+                sweeps = phase_solve(prob, prob_s, f"1M irregular K={K}")
+                return {"coordinate_descent_block_large_k": sweeps,
+                        "neighbor_sum": sweeps + 2}
+
+            launches = counted(kernels, large_solve)
+            large_cd_launches += launches["coordinate_descent_block_large_k"]
+            ns_launches += launches["neighbor_sum"]
         del prob
         torch.cuda.empty_cache()
 
@@ -3178,13 +3391,15 @@ def main() -> None:
     # kernel #2 per shard, several shards on the one card.
     halo = {}
     sharded_launches = counted(kernels, lambda: phase_sharded(halo))
+    ns_launches += sharded_launches["neighbor_sum"]
     phase_halo_split(halo.pop("prob"))
 
     # The mesh across processes: two processes on the card (kernel #1's
     # sub-range form and kernel #2 in each), against one process's 2-shard
     # mesh.
     job = {}
-    counted(kernels, lambda: phase_multihost(job))
+    ns_launches += counted(kernels,
+                           lambda: phase_multihost(job))["neighbor_sum"]
     # Several cards: one process's mesh over them and NCCL with one card a
     # process, against one card.
     multicard = {name: 0 for name in kernels}
@@ -3196,9 +3411,10 @@ def main() -> None:
     else:
         log(f"[multicard] not run: {torch.cuda.device_count()} card visible")
 
-    # The XLA tier (f64, and K > 256): no kernel launches.
+    # The XLA tier (f64, and K > 256): no sweep kernel launches; the
+    # neighbour sums of K = 338's f32 gather-tier solves do.
     counted(kernels, phase_f64)
-    counted(kernels, phase_atlas_k)
+    ns_launches += counted(kernels, phase_atlas_k)["neighbor_sum"]
     knn_graph.cache_clear()
     grid_fit_counts.cache_clear()
     job_operands.cache_clear()
@@ -3208,7 +3424,9 @@ def main() -> None:
     # Kernel 3, the dense-count sketch on the card.
     cs_row = phase_countsketch_kernel()
     torch.cuda.empty_cache()
-    cs_launches = counted(kernels, phase_dense_fit)["countsketch_project"]
+    launches = counted(kernels, phase_dense_fit)
+    cs_launches = launches["countsketch_project"]
+    ns_launches += launches["neighbor_sum"]
     # The host arena, last: it changes the allocator for the process.
     launches = counted(kernels, phase_arena)
     fused_launches += launches["fused_banded_sweep"]
@@ -3263,6 +3481,10 @@ def main() -> None:
         entry("fused_banded_objective_large_k", "fused_banded_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:1075", objective_wide_launches,
               objective_wide_row),
+        entry("neighbor_sum", "cd_block_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:56",
+              ns_launches + job["neighbor_sum"] + multicard["neighbor_sum"],
+              ns_row),
     ]}), flush=True)
     log(card())
     print(json.dumps({"ok": True, "device": {

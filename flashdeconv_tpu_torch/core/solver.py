@@ -523,9 +523,9 @@ class BCDProblem:
                 )
                 overflow = None
                 if ov_src.size:
-                    overflow = tuple(
-                        self._to_dev(a, torch.int64)
-                        for a in overflow_table(ov_src, ov_dst, n_spots))
+                    rows, table = overflow_table(ov_src, ov_dst, n_spots)
+                    overflow = (self._to_dev(rows, torch.int64),
+                                self._to_dev(table, torch.int32))
                 tier = self._tier(GatherTier,
                                   nbr=self._to_dev(nbr.T, torch.int32),
                                   overflow=overflow, **common)

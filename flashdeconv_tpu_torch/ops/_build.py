@@ -116,6 +116,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.fdt_cd_block_sweep.restype = i
         lib.fdt_cd_block_sweep_blocks.argtypes = [ll, i]
         lib.fdt_cd_block_sweep_blocks.restype = ll
+        lib.fdt_neighbor_sum.argtypes = [p, ll, p, i, ll, i, p, p]
+        lib.fdt_neighbor_sum.restype = i
     elif name == "countsketch_project":
         lib.fdt_countsketch_project.argtypes = [p, ll, i, p, p, p, i, p, p]
         lib.fdt_countsketch_project.restype = i

@@ -14,10 +14,13 @@ coordinates of each spot) with the per-solve reciprocal denominator
   refreshed in plain PyTorch before each launch at the touched columns
   only (:func:`build_fused_rest_tables`, :func:`rest_ns_update`);
 - the unfused banded tier (:func:`bcd_sweep_banded`) and the gather tier
-  (:func:`bcd_sweep`) form the neighbour sums in plain PyTorch — shifted
-  slices times masks plus a rest table, or a padded neighbour table with a
-  zero sentinel column and an overflow table for degree-capped hubs — and
-  then run their Gauss-Seidel pass (:func:`gs_pass_fn`): at f32 with
+  (:func:`bcd_sweep`) form the neighbour sums first — shifted slices times
+  masks in plain PyTorch plus a rest table, or a padded neighbour table
+  (sentinel n) and an overflow table for degree-capped hubs; each table's
+  sums are one launch of ``neighbor_sum_kernel`` of
+  ``csrc/cd_block_sweep.cu`` on a CUDA f32 carry (:func:`neighbor_sum`),
+  the plain loop otherwise — and then run their Gauss-Seidel pass
+  (:func:`gs_pass_fn`): at f32 with
   K <= 256 a launch of ``csrc/cd_block_sweep.cu``
   (:func:`coordinate_descent_block`), otherwise :func:`coordinate_descent`,
   the JAX package's XLA tier (f64 at any K, and K > 256): one coordinate
@@ -34,7 +37,7 @@ Both kernels run one Gauss-Seidel device function — ``csrc/gs_pass.cuh``
 at K <= 32, the panel pass of ``csrc/gs_pass_panel.cuh`` at 32 < K <= 256
 — so the fused and unfused banded sweeps are bitwise equal on the card, as
 their plain versions are on the CPU. Every function here is plain PyTorch
-on tensors of an explicit device, except the two kernel wrappers: a CUDA
+on tensors of an explicit device, except the kernel wrappers: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs the plain
 version beside it. :func:`fused_solve` is the one solve loop of all three
 tiers. The solve has no gradient; none of its tensors requires one.
@@ -526,7 +529,8 @@ def sweep_stats(beta_out: torch.Tensor, beta_in: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# The unfused tiers: neighbour sums in plain PyTorch, then the GS kernel.
+# The unfused tiers: neighbour sums (a kernel on the card), then the GS
+# kernel.
 # ---------------------------------------------------------------------------
 
 def with_sentinel(beta_t: torch.Tensor) -> torch.Tensor:
@@ -535,19 +539,91 @@ def with_sentinel(beta_t: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(beta_t, (0, 1))
 
 
-def neighbor_sum(beta_ext_t: torch.Tensor, nbr_t: torch.Tensor
-                 ) -> torch.Tensor:
-    """Sum of beta columns over each spot's padded neighbour list.
-
-    ``beta_ext_t``: (K, n + 1) with the zero sentinel column (see
-    :func:`with_sentinel`); ``nbr_t``: (D, n) indices, one row per degree
-    slot, padding == n. The sum runs one slot at a time, slot 0 first, as
-    the JAX ``neighbor_sum`` does. Returns (K, n).
-    """
-    acc = torch.index_select(beta_ext_t, 1, nbr_t[0])
+def neighbor_sum_reference(src_t: torch.Tensor, nbr_t: torch.Tensor
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`neighbor_sum`, under its index rule:
+    one ``index_select`` a slot over :func:`with_sentinel`'s copy of
+    ``src_t`` (so an index of n_cols reads +0.0), slot 0 first, each later
+    slot added in place, as the JAX ``neighbor_sum`` does. An index
+    outside [0, n_cols] raises."""
+    src_ext_t = with_sentinel(src_t)
+    acc = torch.index_select(src_ext_t, 1, nbr_t[0])
     for d in range(1, nbr_t.shape[0]):
-        acc += torch.index_select(beta_ext_t, 1, nbr_t[d])
+        acc += torch.index_select(src_ext_t, 1, nbr_t[d])
     return acc
+
+
+def neighbor_sum_kernel_takes(beta_t: torch.Tensor) -> bool:
+    """Whether :func:`neighbor_sum` launches the kernel on this carry: a
+    CUDA f32 one. A CPU or f64 carry runs the plain loop (the XLA tier's,
+    as in the JAX package)."""
+    return beta_t.device.type == "cuda" and beta_t.dtype == torch.float32
+
+
+def neighbor_sum_launch(lib, stream: int, src_t: torch.Tensor,
+                        nbr_t: torch.Tensor, out: torch.Tensor
+                        ) -> torch.Tensor:
+    """One call of ``fdt_neighbor_sum`` of ``lib`` on ``stream``: the sums
+    of the (D, n) int32 table ``nbr_t`` over the (K, n_cols) f32 source
+    ``src_t`` into the (K, n) f32 ``out``, all contiguous on one device
+    (checked here; raises ValueError otherwise, and RuntimeError when the
+    launch fails). Every index must lie in [0, n_cols] (not checked: the
+    table is on the card). Returns ``out``."""
+    K, n_cols = src_t.shape
+    if nbr_t.dim() != 2 or nbr_t.shape[0] < 1:
+        raise ValueError(f"nbr_t: expected a (D, n) table with D >= 1, got "
+                         f"shape {tuple(nbr_t.shape)}")
+    n = nbr_t.shape[1]
+    _check_layout({
+        "src_t": (src_t, (K, n_cols), torch.float32),
+        "nbr_t": (nbr_t, (nbr_t.shape[0], n), torch.int32),
+        "out": (out, (K, n), torch.float32),
+    }, src_t.device)
+    err = lib.fdt_neighbor_sum(src_t.data_ptr(), n_cols, nbr_t.data_ptr(),
+                               nbr_t.shape[0], n, K, out.data_ptr(), stream)
+    _raise_on_launch_error(lib, err, "neighbor_sum")
+    return out
+
+
+def neighbor_sum(src_t: torch.Tensor, nbr_t: torch.Tensor) -> torch.Tensor:
+    """Sum of source columns over each spot's padded neighbour list.
+
+    ``src_t``: (K, n_cols); ``nbr_t``: (D, n) indices, one row per degree
+    slot. An index below n_cols reads that column and an index of n_cols
+    reads +0.0, so a (K, n) carry with padding n needs no copy, and a
+    buffer that carries its own zero column reads it. The sum runs one
+    slot at a time, slot 0 first, as the JAX ``neighbor_sum`` does.
+    Returns (K, n). On a CUDA f32 carry (:func:`neighbor_sum_kernel_takes`)
+    this is one launch of the hand-written ``neighbor_sum_kernel``
+    (``csrc/cd_block_sweep.cu``), bitwise the plain loop; ``nbr_t`` must
+    be int32 and contiguous, and it raises if it cannot launch. Every
+    other carry runs :func:`neighbor_sum_reference`.
+    ``neighbor_sum.launches`` counts the launches, ``.card_launches`` them
+    by the card's index.
+    """
+    if not neighbor_sum_kernel_takes(src_t):
+        return neighbor_sum_reference(src_t, nbr_t)
+    from flashdeconv_tpu_torch.ops import _build
+
+    out = src_t.new_empty((src_t.shape[0], nbr_t.shape[-1]))
+    with _build.launch_stream(src_t, nbr_t, out) as stream:
+        neighbor_sum_launch(_build.load("cd_block_sweep"), stream, src_t,
+                            nbr_t, out)
+    neighbor_sum.launches += 1
+    neighbor_sum.card_launches[src_t.device.index] += 1
+    return out
+
+
+neighbor_sum.launches = 0
+neighbor_sum.card_launches = collections.Counter()
+
+
+def gather_neighbor_sums(beta_t: torch.Tensor, nbr_t: torch.Tensor,
+                         overflow=None) -> torch.Tensor:
+    """The neighbour sums of the (D, n) table ``nbr_t`` (padding == n) over
+    the (K, n) carry ``beta_t``, plus the overflow hubs' sums
+    (:func:`add_overflow`; the same padding), (K, n)."""
+    return add_overflow(neighbor_sum(beta_t, nbr_t), beta_t, overflow)
 
 
 def overflow_table(ov_src: np.ndarray, ov_dst: np.ndarray, n_spots: int
@@ -572,20 +648,21 @@ def overflow_table(ov_src: np.ndarray, ov_dst: np.ndarray, n_spots: int
     return rows.astype(np.int64), table
 
 
-def overflow_sum(beta_ext_t: torch.Tensor, ov_table_t: torch.Tensor
+def overflow_sum(beta_t: torch.Tensor, ov_table_t: torch.Tensor
                  ) -> torch.Tensor:
     """Neighbour sums over the overflow edges of the hub spots, (K, H):
-    the (S, H) table of :func:`overflow_table` summed slot by slot."""
-    return neighbor_sum(beta_ext_t, ov_table_t)
+    the (S, H) table of :func:`overflow_table` summed slot by slot by
+    :func:`neighbor_sum` (on the card an int32 table)."""
+    return neighbor_sum(beta_t, ov_table_t)
 
 
-def add_overflow(ns_t, beta_ext_t, overflow) -> torch.Tensor:
+def add_overflow(ns_t, beta_t, overflow) -> torch.Tensor:
     """``ns_t`` plus the overflow sums in the hub spots' columns, each
     column written once."""
     if overflow is None:
         return ns_t
     rows, table = overflow
-    ns_t[:, rows] = ns_t[:, rows] + overflow_sum(beta_ext_t, table)
+    ns_t[:, rows] = ns_t[:, rows] + overflow_sum(beta_t, table)
     return ns_t
 
 
@@ -608,7 +685,7 @@ def neighbor_sum_banded(beta_t: torch.Tensor, offsets: Tuple[int, ...],
         if lo < hi:
             ns[:, lo:hi] += masks[u, lo:hi] * beta_t[:, lo + off:hi + off]
     if rest_t.shape[0]:
-        ns += neighbor_sum(with_sentinel(beta_t), rest_t)
+        ns += neighbor_sum(beta_t, rest_t)
     return ns
 
 
@@ -857,8 +934,7 @@ def bcd_sweep(beta_t, Xty_t, nbr_t, gs: Callable, overflow=None, out=None):
     overflow hubs' sums), then the pass ``gs`` of :func:`gs_pass_fn`.
     ``overflow``: None or the ``(rows, table)`` of :func:`overflow_table`
     as tensors. Returns ``(beta, max_diff, max_abs)``."""
-    beta_ext_t = with_sentinel(beta_t)
-    ns = add_overflow(neighbor_sum(beta_ext_t, nbr_t), beta_ext_t, overflow)
+    ns = gather_neighbor_sums(beta_t, nbr_t, overflow)
     return gs(beta_t, Xty_t, ns, out)
 
 
@@ -1073,9 +1149,7 @@ def objective_terms_banded_fused(
 def objective_terms(beta_t, Xty_t, XtX, YtY, nbr_t, nnb, lambda_, rho,
                     overflow=None):
     """Objective of the gather tier (padded table and overflow hubs)."""
-    beta_ext_t = with_sentinel(beta_t)
-    ns_t = add_overflow(neighbor_sum(beta_ext_t, nbr_t), beta_ext_t,
-                         overflow)
+    ns_t = gather_neighbor_sums(beta_t, nbr_t, overflow)
     return _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho)
 
 
@@ -1238,19 +1312,20 @@ class FusedBandedTier(Tier):
 
     def unfused(self) -> "BandedTier":
         """The unfused banded tier on the same operands and decomposition:
-        f32 masks, and the rest table (R, n_solve) rebuilt from the rest
-        stream's tables (sentinel n_solve, the zero column
-        :func:`with_sentinel` appends). Its sweeps are bitwise this tier's.
+        f32 masks, and the int32 rest table (R, n_solve) rebuilt from the
+        rest stream's tables (sentinel n_solve, as :func:`neighbor_sum`
+        takes it). Its sweeps are bitwise this tier's.
         """
         n_solve = self.Xty_t.shape[1]
-        rest = torch.full((0, n_solve), n_solve, dtype=torch.int64,
+        rest = torch.full((0, n_solve), n_solve, dtype=torch.int32,
                           device=self.Xty_t.device)
         if self.rest_touched is not None:
             cols = self.rest_slot_cols
             rest = torch.full((cols.shape[0], n_solve), n_solve,
-                              dtype=torch.int64, device=cols.device)
+                              dtype=torch.int32, device=cols.device)
             rest[:, self.rest_touched] = torch.where(
-                cols == 0, n_solve, cols - self.h * self.block)
+                cols == 0, n_solve, cols - self.h * self.block).to(
+                    torch.int32)
         return BandedTier(Xty_t=self.Xty_t, XtX=self.XtX, nnb=self.nnb,
                           YtY=self.YtY, masks=self.masks.float(),
                           offsets=self.offsets, rest=rest)
@@ -1259,7 +1334,8 @@ class FusedBandedTier(Tier):
 @dataclasses.dataclass
 class BandedTier(Tier):
     """Banded graph the fused tier does not take: f32 masks (U, n),
-    offsets, and the remainder's padded table ``rest`` (R, n), R >= 0."""
+    offsets, and the remainder's padded int32 table ``rest`` (R, n), R >=
+    0, sentinel n."""
 
     masks: torch.Tensor
     offsets: Tuple[int, ...]
@@ -1280,8 +1356,9 @@ class BandedTier(Tier):
 
 @dataclasses.dataclass
 class GatherTier(Tier):
-    """Any graph: the padded neighbour table ``nbr`` (D, n) and, when the
-    degree cap binds, the ``overflow`` ``(rows, table)`` of the hubs."""
+    """Any graph: the padded int32 neighbour table ``nbr`` (D, n),
+    sentinel n, and, when the degree cap binds, the ``overflow`` ``(rows,
+    table)`` of the hubs (int64 rows, an int32 table)."""
 
     nbr: torch.Tensor
     overflow: Optional[Tuple[torch.Tensor, torch.Tensor]] = None

@@ -236,3 +236,101 @@ extern "C" int fdt_cd_block_sweep(
                                              partials, s);
     });
 }
+
+// ---------------------------------------------------------------------------
+// The gather tier's neighbour sums, in one launch.
+//
+// Replaces no Pallas kernel: the JAX package forms these sums in XLA
+// (neighbor_sum in flashdeconv_tpu/ops/bcd.py, a gather and an add per
+// degree slot), and so did the port in plain PyTorch until this kernel
+// (flashdeconv_tpu_torch/ops/bcd.py:neighbor_sum_reference, still the path
+// of a CPU or f64 carry). It writes ns[k, j] = sum over the slots d of
+// src[k, nbr[d, j]] for a (K, n_cols) f32 source and a (D, n) int32
+// slot-major table, in that path's order bit for bit: ns = src[:, slot 0],
+// then one round-to-nearest add a slot, slot 1 first, no reassociation and
+// no atomics. An index of n_cols (the sentinel of an unpadded carry) reads
+// +0.0, as the plain path's zero column does, so a padding slot still adds
+// +0.0 (which turns a -0.0 sum into +0.0, as there); an index below n_cols
+// reads its column, so a source that carries its own zero column works too.
+// Precondition: every index lies in [0, n_cols]. The table lives on the
+// card and is not checked; the plain path raises on any other index.
+//
+// What bounds it: bytes. The tissue cell (417,768 spots, K = 20, D = 10)
+// reads the table (16.7 MB) and the source (33.4 MB) and writes the sums
+// (33.4 MB): 83.6 MB, 0.0249 ms at 3.35 TB/s (a derived count). The plain
+// path moved ~1.6 GB in 20 launches for the same sums (a padded copy, D
+// gathers, D - 1 adds). What the design does about it: one thread a spot,
+// so a warp's load of one slot's indices is one coalesced 128-byte row of
+// the slot-major table, and its writes of one row of ns are coalesced; the
+// gathers of a row k land on neighbouring columns (kNN neighbours of a
+// row-major section lie within about a row), so the source is read from
+// L2 after its first touch; the K rows run in register chunks of NK
+// (fdt_register_dispatch's 8, 16, 24 or 32: K rounded up to 8 at K <= 32,
+// chunks of 32 above, so K has no limit), all NK loads of a slot issued
+// together, and the next slot's index is loaded before this slot's values
+// are summed.
+template <int NK>
+__global__ void __launch_bounds__(FDT_THREADS)
+neighbor_sum_kernel(const float* __restrict__ src, const long long n_cols,
+                    const int* __restrict__ nbr, const int D,
+                    const long long n, const int K, float* __restrict__ out)
+{
+    const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    for (int k0 = 0; k0 < K; k0 += NK) {
+        const float* rows = src + (long long)k0 * n_cols;
+        const int rows_left = K - k0;
+        float acc[NK];
+        int c = __ldg(nbr + j);
+        for (int d = 0; d < D; ++d) {
+            const int c_next = d + 1 < D ? __ldg(nbr + (d + 1) * n + j) : 0;
+            const bool in = c != n_cols;
+            const float* p = rows + (in ? c : 0);
+            float v[NK];
+#pragma unroll
+            for (int i = 0; i < NK; ++i, p += n_cols)
+                v[i] = in && i < rows_left ? __ldg(p) : 0.f;
+            if (d == 0) {
+#pragma unroll
+                for (int i = 0; i < NK; ++i) acc[i] = v[i];
+            } else {
+#pragma unroll
+                for (int i = 0; i < NK; ++i) acc[i] = __fadd_rn(acc[i], v[i]);
+            }
+            c = c_next;
+        }
+        float* o = out + (long long)k0 * n + j;
+#pragma unroll
+        for (int i = 0; i < NK; ++i, o += n)
+            if (i < rows_left) *o = acc[i];
+    }
+}
+
+template <int NK>
+static int launch_neighbor_sum(const float* src, long long n_cols,
+                               const int* nbr, int D, long long n, int K,
+                               float* out, cudaStream_t stream)
+{
+    const unsigned blocks = (unsigned)fdt_blocks(n);
+    const size_t smem = 0;
+    neighbor_sum_kernel<NK><<<blocks, FDT_THREADS, smem, stream>>>(
+        src, n_cols, nbr, D, n, K, out);
+    return (int)cudaGetLastError();
+}
+
+// Launches the neighbour sums of `nbr` (D, n) int32 over `src` (K, n_cols)
+// f32 into `out` (K, n) f32, all contiguous, on `stream`. Refuses (as
+// cudaErrorInvalidValue) K, D, n or n_cols below 1, and n_cols past the
+// int32 range of the table's indices. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int fdt_neighbor_sum(const float* src, long long n_cols,
+                                const int* nbr, int D, long long n, int K,
+                                float* out, void* stream)
+{
+    if (K < 1 || D < 1 || n < 1 || n_cols < 1 || n_cols > 2147483647LL)
+        return (int)cudaErrorInvalidValue;
+    return fdt_register_dispatch(K, [&](auto nk) {
+        return launch_neighbor_sum<decltype(nk)::value>(
+            src, n_cols, nbr, D, n, K, out, (cudaStream_t)stream);
+    });
+}

@@ -14,8 +14,9 @@ spots owned by other shards:
 2. the shards' send sets are pooled into one boundary buffer of
    ``n_shards * halo_width`` rows;
 3. each shard's neighbour table is pre-remapped so remote-neighbour entries
-   index directly into ``[local | pooled | zero-sentinel]``, and the sweep
-   kernel itself is unchanged.
+   index directly into ``[local | pooled]`` (padding slots hold its
+   width, which the neighbour sums read as zero), and the sweep kernel
+   itself is unchanged.
 
 All index remapping happens once on the host.
 """

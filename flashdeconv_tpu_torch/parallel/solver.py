@@ -113,9 +113,9 @@ def _halo_exchange(mesh: Mesh, betas, sends) -> dict:
 
 
 def _shard_ns(beta, pool, nbr):
-    """Neighbour sums of one shard over ``[local | pool | zero]``."""
-    zero = beta.new_zeros((beta.shape[0], 1))
-    return neighbor_sum(torch.cat([beta, pool, zero], dim=1), nbr)
+    """Neighbour sums of one shard over ``[local | pool]``; the plan's
+    padding index is its width, which :func:`neighbor_sum` reads as +0.0."""
+    return neighbor_sum(torch.cat([beta, pool], dim=1), nbr)
 
 
 def _sharded_sweep(mesh: Mesh, betas, spares, ops):
@@ -272,7 +272,7 @@ class HaloShardedProblem:
 
         self._ops = {
             "Xty_t": cols(Xty, tdtype),
-            "nbr": cols(plan.nbr_idx, torch.int64),
+            "nbr": cols(plan.nbr_idx, torch.int32),
             "nnb": cols(plan.n_nbrs, tdtype),
             "send": mesh.per_shard(lambda s: torch.from_numpy(
                 plan.send_idx[s * hw:(s + 1) * hw].astype(np.int64)

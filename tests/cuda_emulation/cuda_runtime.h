@@ -78,6 +78,13 @@ inline cudaError_t cudaGetLastError()
     return err;
 }
 
+// A read through the read-only data cache: a plain load on the host.
+template <class T>
+inline T __ldg(const T* p)
+{
+    return *p;
+}
+
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }

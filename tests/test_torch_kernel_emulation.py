@@ -27,7 +27,11 @@ The objective kernel of ``fused_banded_sweep.cu`` runs through the same
 library (its C entry and the wrapper's launch and reduction code) within
 rtol 1e-5 of the plain path, each of its five sums within rtol 1e-6 of
 the plain path's, bitwise against itself; the C entry's refusals are run
-too, and a CPU carry is held to the plain path.
+too, and a CPU carry is held to the plain path. The gather tier's
+neighbour-sum kernel of ``cd_block_sweep.cu`` runs through its C entry and
+the wrapper's launch code (``ops/bcd.neighbor_sum_launch``), bit for bit
+the plain loop (f32 bit patterns, so -0.0 counts), and a whole gather-tier
+solve loop through it bit for bit the plain one.
 """
 
 import ctypes
@@ -43,6 +47,7 @@ import torch
 
 from flashdeconv_tpu_torch.ops import _build
 from flashdeconv_tpu_torch.ops import bcd as tbcd
+from flashdeconv_tpu_torch.utils.graph import build_knn_graph
 from torch_problems import fused_problem, gather_problem, with_rest
 
 EMULATION = Path(__file__).resolve().with_name("cuda_emulation")
@@ -548,3 +553,203 @@ def test_objective_on_the_cpu_is_the_plain_path(rest):
         tbcd.fused_banded_objective(
             t["carry"], t["Xty_t"], t["XtX"], 5e3, t["masks"], t["nnb"], 0.5,
             0.1, p["offsets"], p["h"], p["block"])
+
+
+# -- the gather tier's neighbour-sum kernel -----------------------------------
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The f32 bit patterns of ``t``: -0.0 and +0.0 differ here, where
+    ``torch.equal`` holds them equal."""
+    return t.contiguous().view(torch.int32)
+
+
+def emulated_neighbor_sum(emulator, src_t, nbr_t):
+    """The emulated kernel through the wrapper's launch code, into a sums
+    buffer that starts as 7.0 everywhere."""
+    out = torch.full((src_t.shape[0], nbr_t.shape[1]), 7.0)
+    return tbcd.neighbor_sum_launch(emulator["cd"], 0, src_t, nbr_t, out)
+
+
+def _slot_table(n, D, seed):
+    """A (D, n) int32 table, sentinel n: spot j has ``j % (D + 1)``
+    neighbours, drawn at random (repeats allowed, as hubs' tables have),
+    in its first slots, so every degree 0..D occurs; padding slots hold n."""
+    rng = np.random.RandomState(seed)
+    table = np.full((D, n), n, dtype=np.int32)
+    for j in range(n):
+        deg = j % (D + 1)
+        table[:deg, j] = rng.randint(0, n, deg)
+    return torch.from_numpy(table)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("D", [1, 4, 10])
+@pytest.mark.parametrize("K", [1, 6, 20, 34, 96])
+def test_emulated_neighbor_sum_is_bitwise_the_plain_loop(emulator, K, D,
+                                                        padded):
+    """Every K chunking (8, 24, 24 and chunks of 32 with a ragged last
+    one at K = 34 and 96), D = 1, 4 and 10 with padding slots, 300 spots
+    (a ragged last block): the kernel's sums, from the unpadded carry with
+    sentinel n (no copy) or from :func:`with_sentinel`'s buffer, whose
+    zero column it reads, are the plain loop's bit for bit."""
+    rng = np.random.RandomState(K * 10 + D)
+    beta = torch.from_numpy(rng.randn(K, 300).astype(np.float32))
+    nbr = _slot_table(300, D, seed=K + D)
+    ref = tbcd.neighbor_sum_reference(beta, nbr)
+    src = tbcd.with_sentinel(beta) if padded else beta
+    got = emulated_neighbor_sum(emulator, src, nbr)
+    assert got.shape == (K, 300)
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+def test_emulated_neighbor_sum_keeps_the_sign_of_zero(emulator):
+    """A sum of -0.0s stays -0.0 where every slot is a neighbour, and a
+    padding slot's +0.0 turns it into +0.0, as in the plain loop."""
+    nbr = _slot_table(64, 4, seed=3)
+    beta = torch.full((6, 64), -0.0)
+    beta[:, ::3] = 1.5
+    ref = tbcd.neighbor_sum_reference(beta, nbr)
+    got = emulated_neighbor_sum(emulator, beta, nbr)
+    assert torch.equal(_bits(got), _bits(ref))
+    negative_zero = _bits(torch.tensor(-0.0)).item()
+    assert (_bits(ref) == negative_zero).any()
+    assert (_bits(ref) == 0).any()
+
+
+@pytest.mark.parametrize("index", [41, 1000, -3])
+def test_neighbor_sum_reference_refuses_an_index_off_the_source(index):
+    """The plain path's index rule is the kernel's precondition: every
+    index lies in [0, n_cols], n_cols reading +0.0; any other raises."""
+    beta = torch.rand(8, 40)
+    nbr = _slot_table(40, 3, seed=6)
+    assert (nbr == 40).any()
+    tbcd.neighbor_sum_reference(beta, nbr)
+    nbr[0, 7] = index
+    with pytest.raises((IndexError, RuntimeError)):
+        tbcd.neighbor_sum_reference(beta, nbr)
+
+
+@pytest.mark.parametrize("K", [6, 20, 34])
+def test_emulated_overflow_sums_are_bitwise_the_plain_path(emulator, K,
+                                                            monkeypatch):
+    """A degree-capped table (cap 4) and its overflow hubs' (S, H) int32
+    table (:func:`overflow_table`): the kernel's hub sums from the
+    unpadded carry are the plain loop's bit for bit, and so is
+    :func:`gather_neighbor_sums` (table, then hubs) taking the kernel's
+    route."""
+    from flashdeconv_tpu_torch.utils.graph import adjacency_to_padded_capped
+
+    p = gather_problem(n=400, n_types=K, seed=K + 80)
+    A = build_knn_graph(p["coords"], k=8)
+    nbr, _, ov_src, ov_dst = adjacency_to_padded_capped(A, max_degree=4)
+    assert ov_src.size
+    rows, table = tbcd.overflow_table(ov_src, ov_dst, 400)
+    beta = torch.from_numpy(p["beta_t"])
+    nbr_t = torch.from_numpy(np.ascontiguousarray(nbr.T, dtype=np.int32))
+    overflow = (torch.from_numpy(rows),
+                torch.from_numpy(table.astype(np.int32)))
+    hubs = emulated_neighbor_sum(emulator, beta, overflow[1])
+    assert torch.equal(_bits(hubs), _bits(tbcd.overflow_sum(
+        beta, overflow[1])))
+    ref = tbcd.gather_neighbor_sums(beta, nbr_t, overflow)
+    monkeypatch.setattr(tbcd, "neighbor_sum_kernel_takes", lambda t: True)
+    monkeypatch.setattr(tbcd, "neighbor_sum", lambda src, nbr_: (
+        emulated_neighbor_sum(emulator, src, nbr_)))
+    got = tbcd.gather_neighbor_sums(beta, nbr_t, overflow)
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+def test_emulated_neighbor_sums_give_the_plain_gather_solve(emulator,
+                                                            monkeypatch):
+    """A whole gather-tier solve loop (``bcd_iterate``, K = 20) whose
+    neighbour sums take the kernel's route, from the unpadded carry: the
+    same beta bits, sweeps and stopping ratio as the plain loop's, and one
+    kernel call a sweep and one for the objective."""
+    p = gather_problem(n=500, n_types=20, seed=91)
+    t = {k: torch.from_numpy(v) for k, v in p.items() if k != "coords"}
+    args = (t["Xty_t"], t["XtX"], t["nbr_t"], t["nnb"], 0.5, 0.05, 1e-4, 40)
+    ref, it_r, rel_r = tbcd.bcd_iterate(t["beta_t"].clone(), *args)
+    obj_r = tbcd.objective_terms(ref, t["Xty_t"], t["XtX"], 5e3, t["nbr_t"],
+                                 t["nnb"], 0.5, 0.05)
+    calls = []
+
+    def kernel_route(src, nbr_):
+        calls.append(src.shape)
+        return emulated_neighbor_sum(emulator, src, nbr_)
+
+    monkeypatch.setattr(tbcd, "neighbor_sum_kernel_takes", lambda t: True)
+    monkeypatch.setattr(tbcd, "neighbor_sum", kernel_route)
+    got, it_g, rel_g = tbcd.bcd_iterate(t["beta_t"].clone(), *args)
+    obj_g = tbcd.objective_terms(got, t["Xty_t"], t["XtX"], 5e3,
+                                 t["nbr_t"], t["nnb"], 0.5, 0.05)
+    assert it_r > 2 and (it_g, rel_g) == (it_r, rel_r)
+    assert torch.equal(_bits(got), _bits(ref))
+    assert torch.equal(obj_g, obj_r)
+    assert calls == [(20, 500)] * (it_g + 1)
+
+
+@pytest.mark.parametrize("case", ["f64 source", "int64 table", "f64 out",
+                                  "strided source", "strided table",
+                                  "out shape", "no slot", "1-d table"])
+def test_neighbor_sum_launch_refuses(emulator, case):
+    """The wrapper's checks before the C entry: f32 source and sums, an
+    int32 (D, n) table with D >= 1, every operand contiguous, the sums
+    (K, n)."""
+    beta = torch.rand(6, 50)
+    nbr = _slot_table(50, 3, seed=2)
+    out = torch.empty(6, 50)
+    if case == "f64 source":
+        beta = beta.double()
+    if case == "int64 table":
+        nbr = nbr.long()
+    if case == "f64 out":
+        out = out.double()
+    if case == "strided source":
+        beta = torch.rand(50, 6).T
+    if case == "strided table":
+        nbr = _slot_table(100, 3, seed=2)[:, ::2]
+    if case == "out shape":
+        out = torch.empty(6, 51)
+    if case == "no slot":
+        nbr = nbr[:0]
+    if case == "1-d table":
+        nbr = nbr[0]
+    with pytest.raises(ValueError):
+        tbcd.neighbor_sum_launch(emulator["cd"], 0, beta, nbr, out)
+
+
+@pytest.mark.parametrize("case", ["K", "D", "n", "n_cols", "n_cols int32"])
+def test_emulated_neighbor_sum_entry_refuses(emulator, case):
+    """The C entry's own checks (the wrapper's are bypassed here): K, D, n
+    and n_cols below 1, and n_cols past the table's int32 range, are
+    refused with cudaErrorInvalidValue, launching nothing."""
+    beta = torch.rand(6, 50)
+    nbr = _slot_table(50, 3, seed=2)
+    out = torch.full((6, 50), 7.0)
+    dims = dict(n_cols=50, D=3, n=50, K=6)
+    dims.update({"K": {"K": 0}, "D": {"D": 0}, "n": {"n": 0},
+                 "n_cols": {"n_cols": 0},
+                 "n_cols int32": {"n_cols": 1 << 31}}[case])
+    lib = emulator["cd"]
+    assert lib.fdt_neighbor_sum(beta.data_ptr(), dims["n_cols"],
+                                nbr.data_ptr(), dims["D"], dims["n"],
+                                dims["K"], out.data_ptr(), None) == 1
+    assert (out == 7.0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_neighbor_sum_on_the_cpu_is_the_plain_loop(dtype):
+    """A CPU carry, f32 or f64, runs the plain loop bit for bit and
+    launches nothing, from the carry or from a buffer with its own zero
+    column; so does an int64 table, which the kernel's route refuses."""
+    beta = torch.rand(6, 50, dtype=dtype)
+    nbr = _slot_table(50, 3, seed=4)
+    before = tbcd.neighbor_sum.launches
+    ref = tbcd.neighbor_sum_reference(beta, nbr)
+    assert not tbcd.neighbor_sum_kernel_takes(beta)
+    assert torch.equal(tbcd.neighbor_sum(beta, nbr), ref)
+    assert torch.equal(tbcd.neighbor_sum(tbcd.with_sentinel(beta), nbr), ref)
+    assert torch.equal(tbcd.gather_neighbor_sums(beta, nbr), ref)
+    assert torch.equal(tbcd.gather_neighbor_sums(beta, nbr.long()), ref)
+    assert tbcd.neighbor_sum.launches == before
+    assert not tbcd.neighbor_sum.card_launches

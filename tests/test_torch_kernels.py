@@ -28,8 +28,17 @@ objective kernel is held within rtol 1e-5 of the plain path on the card
 (with and without the rest stream), each of its five sums within
 ``OBJECTIVE_SUM_RTOL``, and bitwise against itself, at K <= 32 and in
 the panel pass's range (33 <= K <= 56, its large-K form); a whole
-fused-tier solve launches it once at K <= 56 and never at K = 57.
+fused-tier solve launches it once at K <= 56 and never at K = 57. The
+gather tier's neighbour-sum kernel is held bit for bit against the plain
+loop at the benchmark's tissue shape (417,768 spots, D = 10) at K = 20
+and 96, and a gather-tier solve through it bit for bit against the same
+solve on the plain loop, with one launch a sweep and one for the
+objective; a fused-tier solve launches none.
 """
+
+import json
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,7 +46,11 @@ import torch
 
 from flashdeconv_tpu_torch.core import solver as tsolver
 from flashdeconv_tpu_torch.ops import bcd as tbcd
-from flashdeconv_tpu_torch.utils.graph import build_knn_graph, grid_coords
+from flashdeconv_tpu_torch.utils.graph import (
+    adjacency_to_padded,
+    build_knn_graph,
+    grid_coords,
+)
 from torch_problems import (
     as_torch,
     dropped_grid_coords,
@@ -757,3 +770,89 @@ def test_large_k_dominant_on_the_card_is_int32(cuda_device):
     assert torch.int32 in wire and torch.uint8 not in wire
     np.testing.assert_array_equal(model.dominant_,
                                   np.argmax(model.proportions_, axis=1))
+
+
+# -- the gather tier's neighbour-sum kernel ----------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _tissue_table(device):
+    """The (D, n) int32 neighbour table, sentinel n, of the benchmark's
+    tissue section (``portbench/configs/vhd8um_tissue_k20.json``: its
+    layout and kNN graph), on ``device``."""
+    sys.path.insert(0, str(ROOT))
+    from portbench.inputs import knn_graph, layout_coords
+
+    cfg = json.loads((ROOT / "portbench" / "configs"
+                      / "vhd8um_tissue_k20.json").read_text())
+    coords = layout_coords(cfg["layout"])
+    nbr = adjacency_to_padded(knn_graph(coords, cfg["k_neighbors"]))[0]
+    return torch.from_numpy(np.ascontiguousarray(nbr.T, dtype=np.int32)
+                            ).to(device)
+
+
+def _f32_bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("K", [20, 96])
+def test_neighbor_sum_kernel_is_bitwise_the_plain_loop(cuda_device, K):
+    """At the tissue's shape (417,768 spots, D = 10): the kernel's sums
+    from the unpadded carry (sentinel n) and from the padded copy are the
+    plain loop's bit for bit, one launch each."""
+    nbr = _tissue_table(cuda_device)
+    assert tuple(nbr.shape) == (10, 417_768)
+    gen = torch.Generator(device=cuda_device).manual_seed(K)
+    beta = torch.randn((K, nbr.shape[1]), generator=gen,
+                       device=cuda_device)
+    ext = tbcd.with_sentinel(beta)
+    ref = tbcd.neighbor_sum_reference(beta, nbr)
+    before = tbcd.neighbor_sum.launches
+    got = tbcd.neighbor_sum(beta, nbr)
+    padded = tbcd.neighbor_sum(ext, nbr)
+    torch.cuda.synchronize()
+    assert tbcd.neighbor_sum.launches == before + 2
+    assert torch.equal(_f32_bits(got), _f32_bits(ref))
+    assert torch.equal(_f32_bits(padded), _f32_bits(ref))
+
+
+@pytest.mark.parametrize("hubs", [False, True])
+def test_gather_solve_through_the_kernel_is_the_plain_loop(cuda_device,
+                                                           hubs,
+                                                           monkeypatch):
+    """A gather-tier ``BCDProblem.solve`` (5,000 irregular spots, K = 12;
+    with ``hubs``, a degree cap of 6 and its overflow table) gives the
+    same beta bits and sweeps through the neighbour-sum kernel as through
+    the plain loop, and launches it once a sweep and once for the
+    objective (twice each with the hubs' table); the plain route launches
+    nothing."""
+    p = gather_problem(n=5000, n_types=12, seed=4)
+    rng = np.random.RandomState(5)
+    X = rng.randn(12, 48)
+    Y = np.abs(rng.randn(5000, 12)) @ X + 0.05 * rng.randn(5000, 48)
+    A = build_knn_graph(p["coords"], k=6)
+    prob = tsolver.prepare_bcd(Y, X, A, coords=p["coords"],
+                               max_degree=6 if hubs else None,
+                               device=cuda_device)
+    assert type(prob.tier).__name__ == "GatherTier"
+    assert (prob.tier.overflow is not None) == hubs
+    before = tbcd.neighbor_sum.launches
+    beta, info = prob.solve()
+    launched = tbcd.neighbor_sum.launches - before
+    monkeypatch.setattr(tbcd, "neighbor_sum_kernel_takes", lambda t: False)
+    beta_p, info_p = prob.solve()
+    assert tbcd.neighbor_sum.launches - before == launched
+    assert launched == (2 if hubs else 1) * (info["n_iterations"] + 1)
+    assert info["n_iterations"] == info_p["n_iterations"]
+    assert info["final_objective"] == info_p["final_objective"]
+    np.testing.assert_array_equal(beta, beta_p)
+
+
+def test_fused_solve_launches_no_neighbor_sum(cuda_device):
+    """The fused tier's sweeps and objective never call the gather
+    tier's neighbour sums."""
+    prob = _grid_problem(20)
+    before = tbcd.neighbor_sum.launches
+    prob.solve()
+    assert tbcd.neighbor_sum.launches == before

@@ -52,9 +52,9 @@ def as_torch(p, device="cpu"):
 
 def with_rest(p, n_edges=200, seed=0):
     """``p`` (a :func:`fused_problem`) plus ``n_edges`` random symmetric
-    rest edges off its bands: the padded rest table ``rest_t`` (R, n),
-    sentinel n, the fused rest stream's ``touched`` (T,) and ``slot_cols``
-    (R, T) int64 tables, and the degree ``nnb`` grown by the rest edges."""
+    rest edges off its bands: the padded int32 rest table ``rest_t`` (R,
+    n), sentinel n, as the port's own, the fused rest stream's ``touched``
+    (T,) and ``slot_cols`` (R, T) int64 tables, and the degree ``nnb`` grown by the rest edges."""
     n = p["Xty_t"].shape[1]
     rng = np.random.RandomState(seed)
     src, dst = rng.randint(0, n, n_edges), rng.randint(0, n, n_edges)
@@ -64,7 +64,7 @@ def with_rest(p, n_edges=200, seed=0):
     table, counts = adjacency_to_padded(A_rest)
     touched, slot_cols = build_fused_rest_tables(table, n, p["h"],
                                                  p["block"])
-    return dict(p, rest_t=np.ascontiguousarray(table.T.astype(np.int64)),
+    return dict(p, rest_t=np.ascontiguousarray(table.T.astype(np.int32)),
                 touched=touched.astype(np.int64),
                 slot_cols=slot_cols.astype(np.int64),
                 nnb=(p["nnb"] + counts).astype(np.float32))
