@@ -290,6 +290,23 @@ def _degenerate_result(n_spots: int, n_types: int) -> Tuple[np.ndarray, dict]:
     }
 
 
+def info_dict(n_iter: int, rel: float, converged: bool, objectives: list,
+              verbose: bool, **extra) -> dict:
+    """The ``info`` of a solve that ran sweeps, on a device or a mesh, from
+    :func:`flashdeconv_tpu_torch.ops.bcd.run_prepared_solve`'s results:
+    the final objective is ``objectives[-1]``, and the objectives are
+    listed on the verbose cadence only, as in the JAX solver; ``extra``
+    (a mesh's keys) follows."""
+    return {
+        "converged": converged,
+        "n_iterations": int(n_iter),
+        "final_objective": objectives[-1],
+        "objectives": objectives if verbose else [],
+        "final_change": float(rel),
+        **extra,
+    }
+
+
 def normalize_proportions(beta: np.ndarray) -> np.ndarray:
     """Row-normalize abundances to proportions; all-zero rows become uniform."""
     beta = np.asarray(beta, dtype=np.float64)
@@ -618,14 +635,8 @@ class BCDProblem:
             # A contiguous copy: the fused tier's beta is a view of its carry.
             beta = (beta_d.contiguous() if return_device
                     else fetch_to_host(beta_d))
-            return beta, {
-                "converged": converged,
-                "n_iterations": int(n_iter),
-                "final_objective": objectives[-1],
-                # sampled on the verbose cadence only, as in the JAX solver
-                "objectives": objectives if verbose else [],
-                "final_change": float(rel),
-            }
+            return beta, info_dict(n_iter, rel, converged, objectives,
+                                   verbose)
 
 
 def problem_from_arrays(

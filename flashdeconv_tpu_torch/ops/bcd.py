@@ -39,8 +39,10 @@ at K <= 32, the panel pass of ``csrc/gs_pass_panel.cuh`` at 32 < K <= 256
 their plain versions are on the CPU. Every function here is plain PyTorch
 on tensors of an explicit device, except the kernel wrappers: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs the plain
-version beside it. :func:`fused_solve` is the one solve loop of all three
-tiers. The solve has no gradient; none of its tensors requires one.
+version beside it. :func:`fused_solve` is the one solve of all three
+tiers; its stopping rule (:func:`converge`) and chunked loop
+(:func:`run_prepared_solve`) are the meshes' too. The solve has no
+gradient; none of its tensors requires one.
 """
 
 from __future__ import annotations
@@ -229,11 +231,24 @@ def from_fused_carry(beta_ext_t: torch.Tensor, h: int, block: int
     return beta_ext_t[:, pad:beta_ext_t.shape[1] - pad].T
 
 
-def _banded_ns(beta_ext_t, masksf, offsets, pad: int, n_solve: int):
-    """Banded neighbour sum, bands accumulated in ``offsets`` order."""
-    ns = beta_ext_t.new_zeros((beta_ext_t.shape[0], n_solve))
+def _banded_neighbor_sum(src: torch.Tensor, masks: torch.Tensor,
+                         offsets: Tuple[int, ...], pad: int) -> torch.Tensor:
+    """The banded neighbour sums (K, n) of the ``n = masks.shape[1]`` data
+    columns of ``src``, which holds ``pad`` columns before them: each band
+    ``off`` adds ``masks[u] * src[:, pad + j + off]`` over the columns
+    ``j`` whose source column ``src`` holds, bands in ``offsets`` order
+    from a zero start, in the masks' dtype as given. The one banded sum of
+    the unfused tier (``pad`` 0), the fused tier's plain sums (the carry,
+    ``pad = h * block``) and the banded mesh (a halo window); a pad as wide
+    as the largest offset clips no band."""
+    K, n_src = src.shape
+    n = masks.shape[1]
+    ns = src.new_zeros((K, n))
     for u, off in enumerate(offsets):
-        ns = ns + masksf[u:u + 1] * beta_ext_t[:, pad + off:pad + off + n_solve]
+        lo, hi = max(0, -pad - off), min(n, n_src - pad - off)
+        if lo < hi:
+            ns[:, lo:hi] += (masks[u, lo:hi]
+                             * src[:, pad + lo + off:pad + hi + off])
     return ns
 
 
@@ -313,8 +328,8 @@ def fused_banded_sweep_reference(
                       and sub is not None)
     n, d0 = rng.n_sub, rng.data0
     win = beta_ext_t[:, rng.in_col0:rng.in_col0 + n + 2 * pad]
-    ns = _banded_ns(win, masks[:, d0:d0 + n].to(beta_ext_t.dtype), offsets,
-                    pad, n)
+    ns = _banded_neighbor_sum(win, masks[:, d0:d0 + n].to(beta_ext_t.dtype),
+                              offsets, pad)
     if ns_rest_t is not None:
         ns = ns + ns_rest_t[:, d0:d0 + n]
     beta_old = win[:, pad:pad + n].contiguous()
@@ -678,12 +693,7 @@ def neighbor_sum_banded(beta_t: torch.Tensor, offsets: Tuple[int, ...],
     table ``rest_t`` (R, n), R possibly 0, adds after the bands.
     ``masks``: (U, n) f32 0/1.
     """
-    K, n = beta_t.shape
-    ns = beta_t.new_zeros((K, n))
-    for u, off in enumerate(offsets):
-        lo, hi = max(0, -off), min(n, n - off)
-        if lo < hi:
-            ns[:, lo:hi] += masks[u, lo:hi] * beta_t[:, lo + off:hi + off]
+    ns = _banded_neighbor_sum(beta_t, masks, offsets, 0)
     if rest_t.shape[0]:
         ns += neighbor_sum(beta_t, rest_t)
     return ns
@@ -948,7 +958,8 @@ def bcd_sweep_banded(beta_t, Xty_t, offsets, masks, rest_t, gs: Callable,
 
 
 # ---------------------------------------------------------------------------
-# Objective, convergence loop and the one solve of all tiers.
+# Objective, the stopping rule, the chunked loop and the one solve of all
+# tiers.
 # ---------------------------------------------------------------------------
 
 def objective_sums(beta_t, Xty_t, ns_t, nnb):
@@ -1092,13 +1103,13 @@ def fused_banded_objective_sums_reference(
 ) -> torch.Tensor:
     """Plain PyTorch sums ``(cross, deg, adj, l1, quad)`` of the objective
     on the fused carry, a (5,) tensor on the carry's device: the banded
-    neighbour sums (:func:`_banded_ns`, masks cast to the carry's dtype),
-    the rest edges' sums added after the bands, then
+    neighbour sums (:func:`_banded_neighbor_sum`, masks cast to the
+    carry's dtype), the rest edges' sums added after the bands, then
     :func:`objective_sums` and ``quad = sum(BtB * XtX)``."""
     pad = h * block
     n_solve = Xty_t.shape[1]
-    ns_t = _banded_ns(beta_ext_t, masks.to(Xty_t.dtype), offsets, pad,
-                      n_solve)
+    ns_t = _banded_neighbor_sum(beta_ext_t, masks.to(Xty_t.dtype), offsets,
+                                pad)
     if rest_touched is not None:
         ns_t = ns_t + rest_ns_update(torch.zeros_like(ns_t), beta_ext_t,
                                      rest_touched, rest_slot_cols)
@@ -1160,36 +1171,88 @@ def objective_terms_banded(beta_t, Xty_t, XtX, YtY, offsets, masks, rest_t,
     return _objective(beta_t, Xty_t, XtX, YtY, ns_t, nnb, lambda_, rho)
 
 
-def converge_loop(
-    sweep_fn: Callable, carry: torch.Tensor, tol: float, max_iter: int,
-) -> Tuple[torch.Tensor, int, float]:
-    """Host loop of sweeps until ``max_diff / (max_abs + 1e-10) < tol``.
-
-    ``sweep_fn(carry, out) -> (new carry, max_diff, max_abs)``; each call
-    and its statistic's read is the span ``flashdeconv.solve.sweep``. The
-    sweep that meets the rule is still applied. The loop ping-pongs between
-    ``carry`` and one second buffer allocated here, so ``carry`` is
-    overwritten from the second sweep on (it saves a carry-sized buffer).
-    The ratio is formed in the statistics' dtype and compared with ``tol``
-    in the carry's dtype, as the JAX loop does. Returns ``(carry,
-    n_iterations, rel_change)``.
-    """
-    tol_c = scalar(tol, carry.dtype)
-    spare = torch.empty_like(carry)
+def converge(sweep: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
+             tol: float, max_iter: int, dtype: torch.dtype
+             ) -> Tuple[int, float]:
+    """The one stopping rule of every tier and mesh: ``sweep()`` (one
+    sweep, returning its ``(max_diff, max_abs)``) until ``max_diff /
+    (max_abs + 1e-10) < tol`` in the solve ``dtype``, as the JAX loop
+    does, or ``max_iter`` sweeps; the sweep that meets the rule counts.
+    Each sweep and its one host read is the span
+    ``flashdeconv.solve.sweep``. Returns ``(n_iterations, rel_change)``."""
+    tol_c = scalar(tol, dtype)
     it, rel = 0, float("inf")
     while it < max_iter and rel >= tol_c:
         with span("flashdeconv.solve.sweep"):
-            new, max_diff, max_abs = sweep_fn(carry, spare)
-            rel = rel_change(max_diff, max_abs)
-        carry, spare = new, carry
+            rel = rel_change(*sweep())
         it += 1
-    return carry, it, rel
+    return it, rel
+
+
+def converge_loop(
+    sweep_fn: Callable, carry: torch.Tensor, tol: float, max_iter: int,
+) -> Tuple[torch.Tensor, int, float]:
+    """Sweeps of ``sweep_fn(carry, out) -> (new carry, max_diff, max_abs)``
+    under :func:`converge`'s rule, in the carry's dtype. The loop
+    ping-pongs between ``carry`` and one second buffer allocated here, so
+    ``carry`` is overwritten from the second sweep on (it saves a
+    carry-sized buffer). Returns ``(carry, n_iterations, rel_change)``.
+    """
+    state = [carry, torch.empty_like(carry)]
+
+    def sweep():
+        new, max_diff, max_abs = sweep_fn(*state)
+        state[0], state[1] = new, state[0]
+        return max_diff, max_abs
+
+    it, rel = converge(sweep, tol, max_iter, carry.dtype)
+    return state[0], it, rel
 
 
 def rel_change(max_diff: torch.Tensor, max_abs: torch.Tensor) -> float:
     """The stopping statistic ``max_diff / (max_abs + 1e-10)``, formed in
     the statistics' dtype on their device, as a Python float (one read)."""
     return (max_diff / (max_abs + 1e-10)).item()
+
+
+def run_prepared_solve(
+    run_chunk: Callable[[int], Tuple[int, float]],
+    eval_objective: Callable[[], torch.Tensor],
+    max_iter: int,
+    tol: float,
+    verbose: bool,
+    dtype: torch.dtype,
+) -> Tuple[int, float, bool, List[float]]:
+    """The one chunked solve loop of every tier and mesh.
+
+    ``run_chunk(n)`` runs up to ``n`` sweeps (:func:`converge`) and returns
+    ``(sweeps run, rel_change)``; ``eval_objective()`` is the objective of
+    the current state, each call the span ``flashdeconv.solve.objective``.
+    Without ``verbose`` the sweeps run as one chunk (a NaN statistic ends
+    it, as it ends the JAX one-program loop), then the objective; with it
+    in chunks that end after sweeps 0, 10, 20, ... (the reference's
+    cadence) and at the converged sweep, each objective printed. Returns
+    ``(n_iterations, rel_change, converged, objectives)``,
+    ``objectives[-1]`` the final objective.
+    """
+    tol_c = scalar(tol, dtype)
+    objectives: List[float] = []
+    n_iter, rel = 0, float("inf")
+    chunk = 1 if verbose else max_iter
+    while n_iter < max_iter and not rel < tol_c:
+        done, rel = run_chunk(min(chunk, max_iter - n_iter))
+        n_iter += done
+        chunk = 10
+        with span("flashdeconv.solve.objective"):
+            objectives.append(float(eval_objective()))
+        if not verbose:
+            break
+        print(f"Iteration {n_iter - 1}: objective = {objectives[-1]:.6f}, "
+              f"rel_change = {rel:.6e}")
+    converged = bool(rel < tol_c)
+    if verbose and converged:
+        print(f"Converged at iteration {n_iter - 1}")
+    return n_iter, rel, converged, objectives
 
 
 def bcd_iterate_banded_fused(
@@ -1380,47 +1443,30 @@ def fused_solve(
     beta0: Optional[torch.Tensor], tier: Tier, inv_perm, lambda_, rho, tol,
     max_iter: int, n_spots: int, verbose: bool = False,
 ):
-    """The whole solve of any tier: init, converge loop, objective, un-pad
-    and un-permute — the counterpart of the JAX ``fused_solve_program``
-    (fused tier) and ``solve_program`` (gather and unfused banded tiers)
-    and, with ``verbose``, of their chunked verbose loop.
-
-    The sweeps run as one chunk of ``max_iter``, which ends at the
-    converged sweep, at ``max_iter`` or after a sweep whose statistic is
-    NaN (a NaN state: the JAX one-program loop stops there too); with
-    ``verbose`` they run in chunks that end after sweeps 0, 10, 20, ...
-    (the reference's cadence) and at the converged sweep, and the
-    objective after each chunk is printed (on a NaN state each chunk is
-    one sweep, as in the JAX chunked verbose loop). ``beta0`` is None
-    (uniform 1/K over the first ``n_spots`` columns) or an (n_solve, K)
-    tensor; ``inv_perm`` is None (identity) or an (n_spots,) index tensor.
+    """The whole solve of any tier: init, :func:`run_prepared_solve` over
+    the tier's sweeps and objective, un-pad and un-permute — the
+    counterpart of the JAX ``fused_solve_program`` (fused tier) and
+    ``solve_program`` (gather and unfused banded tiers) and, with
+    ``verbose``, of their chunked verbose loop. ``beta0`` is None (uniform
+    1/K over the first ``n_spots`` columns) or an (n_solve, K) tensor;
+    ``inv_perm`` is None (identity) or an (n_spots,) index tensor.
     Returns ``(beta (n_spots, K), n_iterations, rel_change, converged,
     objectives)``, beta on the operands' device and ``objectives[-1]`` the
     final objective.
     """
-    tol_c = scalar(tol, tier.Xty_t.dtype)
-    objectives: List[float] = []
-    n_iter, rel = 0, float("inf")
-    chunk = 1 if verbose else max_iter
     with full_f32_matmul():
         if beta0 is None:
             beta0 = uniform_beta0(tier.Xty_t, n_spots)
         carry = tier.carry(beta0)
-        while n_iter < max_iter and not rel < tol_c:
-            carry, done, rel = tier.iterate(carry, lambda_, rho, tol,
-                                            min(chunk, max_iter - n_iter))
-            n_iter += done
-            chunk = 10
-            with span("flashdeconv.solve.objective"):
-                objectives.append(float(tier.objective(carry, lambda_,
-                                                       rho)))
-            if not verbose:
-                break
-            print(f"Iteration {n_iter - 1}: objective = "
-                  f"{objectives[-1]:.6f}, rel_change = {rel:.6e}")
-    converged = bool(rel < tol_c)
-    if verbose and converged:
-        print(f"Converged at iteration {n_iter - 1}")
+
+        def run_chunk(n):
+            nonlocal carry
+            carry, done, rel = tier.iterate(carry, lambda_, rho, tol, n)
+            return done, rel
+
+        n_iter, rel, converged, objectives = run_prepared_solve(
+            run_chunk, lambda: tier.objective(carry, lambda_, rho),
+            max_iter, tol, verbose, tier.Xty_t.dtype)
     beta = tier.beta(carry)[:n_spots]
     if inv_perm is not None:
         beta = beta.index_select(0, inv_perm)

@@ -1,4 +1,5 @@
-"""The mesh and the shared solve tail of the port's sharded solvers.
+"""The mesh and the one solve of the port's sharded solvers
+(:class:`MeshProblem`).
 
 Counterpart of :mod:`flashdeconv_tpu.parallel._runner`. A :class:`Mesh` is
 an ordered tuple of torch devices, one per shard; a device may appear more
@@ -8,8 +9,9 @@ stream, and a second one for the halo copies of the banded mesh's overlap
 split. A sweep forks from the main device's current stream, and from each
 other card's, where that card's operands were made (:meth:`Mesh.fork`),
 queues each shard's work on its own streams (:meth:`Mesh.on`) and joins
-back (:meth:`Mesh.join_max`); the solve loop reads one pair of statistics
-per sweep on the host, as the single-device loop does. Within a sweep the
+back (:meth:`Mesh.join_max`); the solve loop is the single-device one
+(``ops.bcd.converge`` under ``ops.bcd.run_prepared_solve``) and reads one
+pair of statistics per sweep on the host. Within a sweep the
 shards write only their own buffers, and read other shards' buffers only
 where no shard of that sweep writes. A tensor that moves between two
 cards goes through :meth:`Mesh.copy`, which orders the copy on the
@@ -38,8 +40,20 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from flashdeconv_tpu_torch.core.solver import fetch_to_host, resolve_device
-from flashdeconv_tpu_torch.ops.bcd import rel_change, scalar
+from flashdeconv_tpu_torch.core.solver import (
+    _degenerate_result,
+    fetch_to_host,
+    info_dict,
+    resolve_device,
+)
+from flashdeconv_tpu_torch.ops.bcd import (
+    full_f32_matmul,
+    objective_from_sums,
+    objective_sums,
+    run_prepared_solve,
+    scalar,
+)
+from flashdeconv_tpu_torch.utils.timing import span
 
 
 def process_count() -> int:
@@ -327,28 +341,6 @@ def validate_beta_init(beta_init, n_spots: int, n_types: int) -> None:
         )
 
 
-def check_return_device(mesh: Mesh, return_device: bool) -> None:
-    """``return_device=True`` needs a mesh within one process."""
-    if return_device and mesh.spans_processes:
-        raise ValueError(
-            "return_device=True is not available on a mesh whose shards span "
-            "processes: the device beta of the other processes' shards lies "
-            "in their memory (the JAX package cannot fetch it from one "
-            "process either); solve() returns the whole beta on the host on "
-            "every process"
-        )
-
-
-def fetched(result, return_device: bool):
-    """``(beta, info)`` of a prepared problem's ``_solve``: a device beta
-    made contiguous with ``return_device``, else fetched to host f64; a host
-    (zero-sweep) beta as it is."""
-    beta, info = result
-    if isinstance(beta, torch.Tensor):
-        beta = beta.contiguous() if return_device else fetch_to_host(beta)
-    return beta, info
-
-
 def sanitize_xty_rows(xty: np.ndarray, dtype) -> Tuple[np.ndarray, int]:
     """A copy of ``xty`` in ``dtype`` with its non-finite rows zeroed, and
     their count: a poisoned spot becomes a zero observation, as on the
@@ -372,81 +364,121 @@ def device_unpermute(obj, beta_d: torch.Tensor, perm: np.ndarray,
     return beta_d.index_select(0, inv)
 
 
-def converge(sweep: Callable[[], Tuple[torch.Tensor, torch.Tensor]],
-             tol: float, max_iter: int, dtype: torch.dtype
-             ) -> Tuple[int, float]:
-    """Run ``sweep()`` (every shard's sweep; returns the max over shards of
-    ``(max|delta|, max|beta_old|)``) until ``max_diff / (max_abs + 1e-10)
-    < tol``, formed and compared in the solve ``dtype``, or ``max_iter``
-    sweeps: the rule and the one host read per sweep of
-    ``ops.bcd.converge_loop``. Returns ``(n_iterations, rel_change)``."""
-    tol_c = scalar(tol, dtype)
-    it, rel = 0, float("inf")
-    while it < max_iter and rel >= tol_c:
-        rel = rel_change(*sweep())
-        it += 1
-    return it, rel
-
-
-def run_prepared_solve(
-    run_chunk: Callable[[int], Tuple[int, float]],
-    eval_objective: Callable[[], torch.Tensor],
-    max_iter: int,
-    tol: float,
-    verbose: bool,
-    dtype: torch.dtype,
-) -> Tuple[int, float, float, bool, list]:
-    """The sweeps and the objective of a prepared sharded solve.
-
-    ``run_chunk(n)`` runs up to ``n`` sweeps on the problem's state and
-    returns ``(sweeps run, rel_change)``; ``eval_objective()`` the objective
-    of the current state. Without ``verbose`` the sweeps run as one chunk
-    (which a NaN statistic ends, as it ends the single-device loops) and
-    the objective is evaluated once; with it they run in chunks that end
-    after sweeps 0, 10, 20, ... and at the converged sweep, each followed
-    by the objective, printed (the JAX ``chunked_verbose_solve`` cadence).
-    Returns ``(n_iterations, rel_change, final_objective, converged,
-    objectives)``; ``objectives`` is empty without ``verbose``. ``tol`` is
-    compared in the solve ``dtype``.
-    """
-    tol_c = scalar(tol, dtype)
-    objectives: list = []
-    n_iter, rel = 0, float("inf")
-    chunk = 1 if verbose else max_iter
-    while n_iter < max_iter and not rel < tol_c:
-        done, rel = run_chunk(min(chunk, max_iter - n_iter))
-        n_iter += done
-        chunk = 10
-        if not verbose:
-            break
-        objectives.append(float(eval_objective()))
-        print(f"Iteration {n_iter - 1}: objective = {objectives[-1]:.6f}, "
-              f"rel_change = {rel:.6e}")
-    converged = bool(rel < tol_c)
-    if verbose and converged:
-        print(f"Converged at iteration {n_iter - 1}")
-    final = objectives[-1] if verbose else float(eval_objective())
-    return n_iter, float(rel), final, converged, objectives
-
-
-def info_dict(n_iter, rel, final_obj, converged, objectives, **extra):
-    """The ``info`` contract of the sharded solves."""
-    return {
-        "converged": converged,
-        "n_iterations": int(n_iter),
-        "final_objective": final_obj,
-        "objectives": objectives,
-        "final_change": float(rel),
-        **extra,
-    }
-
-
 def uniform_result(n_spots: int, n_types: int,
                    converged: Optional[bool] = None, **extra):
-    """The degenerate / zero-iteration result: uniform beta (empty for an
-    empty problem) and the info contract with zero sweeps."""
-    empty = n_spots == 0 or n_types == 0
-    beta = (np.empty((n_spots, n_types)) if empty
-            else np.full((n_spots, n_types), 1.0 / n_types))
-    return beta, info_dict(0, 0.0, 0.0, empty if converged is None
-                           else converged, [], **extra)
+    """The degenerate / zero-iteration result of a mesh: the single-device
+    one (``core.solver._degenerate_result``), ``converged`` overridden
+    when given, and the mesh's ``extra`` keys."""
+    beta, info = _degenerate_result(n_spots, n_types)
+    if converged is not None:
+        info["converged"] = converged
+    return beta, {**info, **extra}
+
+
+class MeshProblem:
+    """The solve of a prepared problem of the halo plan or the banded mesh.
+
+    A subclass holds ``mesh``, ``dtype``, ``n_spots``, ``n_types``,
+    ``n_shards``, ``YtY``, ``rho_scale`` and the per-shard ``Xty_t``,
+    ``XtX`` and ``nnb``, and gives its state (``_beta0``, ``_sweep_ops``;
+    it may override :meth:`_state` and :meth:`_data`), its chunk of sweeps
+    (``_iterate``, under ``ops.bcd.converge``), each shard's neighbour
+    sums (``_neighbor_sums``) and its ``info`` keys (``_info_keys``).
+    """
+
+    def solve(
+        self,
+        lambda_: float = 0.1,
+        rho: float = 0.01,
+        max_iter: int = 100,
+        tol: float = 1e-4,
+        verbose: bool = False,
+        beta_init: Optional[np.ndarray] = None,
+        return_device: bool = False,
+    ) -> Tuple[np.ndarray, dict]:
+        """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``,
+        beta in the original spot order, or with ``return_device`` a
+        contiguous (n_spots, K) tensor in the solve dtype on the mesh's
+        main device, un-permuted there (not on a mesh that spans
+        processes, where every process gets the host beta). The call is
+        the span ``flashdeconv.solve``."""
+        with span("flashdeconv.solve"):
+            if return_device and self.mesh.spans_processes:
+                raise ValueError(
+                    "return_device=True is not available on a mesh whose "
+                    "shards span processes: the device beta of the other "
+                    "processes' shards lies in their memory (the JAX package "
+                    "cannot fetch it from one process either); solve() "
+                    "returns the whole beta on the host on every process")
+            beta, info = self._solve(lambda_, rho, max_iter, tol, verbose,
+                                     beta_init)
+            # A zero-sweep solve returns its host beta as it is.
+            if isinstance(beta, torch.Tensor):
+                beta = (beta.contiguous() if return_device
+                        else fetch_to_host(beta))
+            return beta, info
+
+    def _scalars(self, lambda_, rho):
+        """``(lambda, rho * mean diag(XtX))`` in the solve dtype."""
+        return (scalar(lambda_, self.dtype),
+                scalar(rho * self.rho_scale, self.dtype))
+
+    def _solve(self, lambda_, rho, max_iter, tol, verbose, beta_init):
+        """The sweeps; beta on the main device (every shard's, on every
+        process), or the zero-sweep host result."""
+        if max_iter == 0:
+            return uniform_result(self.n_spots, self.n_types,
+                                  converged=False,
+                                  **self._info_keys(solved=False))
+        validate_beta_init(beta_init, self.n_spots, self.n_types)
+        lam, rho_eff = self._scalars(lambda_, rho)
+        state = self._state(self._beta0(beta_init))
+        with full_f32_matmul():
+            sweep_ops = self._sweep_ops(lam, rho_eff)
+
+            def run_chunk(n):
+                cur, spare, it, rel = self._iterate(state, lam, rho_eff, tol,
+                                                    n, sweep_ops)
+                state[:] = [cur, spare]
+                return it, rel
+
+            n_iter, rel, converged, objectives = run_prepared_solve(
+                run_chunk,
+                lambda: self._objective(self._data(state[0]), lam, rho_eff),
+                max_iter, tol, verbose, self.dtype)
+            beta_d = self._beta(self._data(state[0]))
+        return beta_d, info_dict(n_iter, rel, converged, objectives, verbose,
+                                 **self._info_keys(solved=True))
+
+    def _state(self, betas) -> list:
+        """The loop state of ``betas``: ``[current, spare]`` per-shard
+        buffers."""
+        return [betas, self.mesh.per_shard(
+            lambda s: torch.empty_like(betas[s]))]
+
+    def _data(self, current) -> list:
+        """Each shard's (K, n_local) beta of the loop's current buffers."""
+        return current
+
+    def _beta(self, betas) -> torch.Tensor:
+        """The shards' ``betas`` gathered on the main device, (n_spots,
+        K)."""
+        return torch.cat(self.mesh.gather_all(betas),
+                         dim=1)[:, :self.n_spots].T
+
+    def _objective(self, betas, lam, rho) -> torch.Tensor:
+        """The objective: each shard's sums over its own columns, added on
+        the main device in shard order (every process, on a mesh that spans
+        processes)."""
+        mesh = self.mesh
+        shard_ns = self._neighbor_sums(betas)
+        sums, btbs = [None] * len(mesh), [None] * len(mesh)
+        for s in mesh.local:
+            with mesh.on(s):
+                sums[s], btbs[s] = objective_sums(
+                    betas[s], self.Xty_t[s], shard_ns(s), self.nnb[s])
+        sums, btbs = mesh.gather_all(sums), mesh.gather_all(btbs)
+        return objective_from_sums(torch.stack(sums).sum(0),
+                                   torch.stack(btbs).sum(0),
+                                   self.XtX[mesh.local[0]], self.YtY, lam,
+                                   rho)

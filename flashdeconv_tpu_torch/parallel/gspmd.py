@@ -47,25 +47,19 @@ from flashdeconv_tpu_torch.core.solver import (
 )
 from flashdeconv_tpu_torch.ops.bcd import (
     KERNEL_MAX_BANDS,
+    _banded_neighbor_sum,
+    converge,
     full_f32_matmul,
     fused_banded_sweep,
     gs_inv_den,
     gs_pass_fn,
     kernel_takes,
-    objective_from_sums,
-    objective_sums,
-    scalar,
 )
 from flashdeconv_tpu_torch.parallel._runner import (
     Mesh,
+    MeshProblem,
     as_mesh,
-    check_return_device,
-    converge,
-    fetched,
-    info_dict,
-    run_prepared_solve,
     uniform_result,
-    validate_beta_init,
 )
 from flashdeconv_tpu_torch.parallel.solver import (
     _prepared_xty,
@@ -103,8 +97,11 @@ def _window_edges(mesh: Mesh, edges, s: int, halo: int, n_local: int):
 def _halo_window(own: torch.Tensor, window) -> torch.Tensor:
     """A shard's beta ``own`` (K, n_local) with ``halo`` columns of the
     global beta each side, (K, halo + n_local + halo) on its device, from
-    its :func:`_window_edges`: zero beyond the global ends."""
+    its :func:`_window_edges`: zero beyond the global ends; ``own`` itself
+    where the halo is 0 (a graph without edges)."""
     left, right, zeros_left, zeros_right = window
+    if not any(window):
+        return own
     K = own.shape[0]
     if zeros_left:
         left = [own.new_zeros((K, zeros_left)), *left]
@@ -129,22 +126,6 @@ def _shard_edges(mesh: Mesh, betas, halo: int) -> list:
             else (r[:, :w], r[:, w:]) for b, r in zip(betas, remote)]
 
 
-def _banded_ns_window(own, window, offsets, masks, halo: int):
-    """A shard's banded neighbour sums (K, n_local) of its beta ``own``:
-    bands in ``offsets`` order from zero, ``masks[u] * beta[j + off]`` over
-    a window of ``halo`` neighbour columns each side (its
-    :func:`_window_edges`; the masks are 0 where ``j + off`` leaves the
-    problem), as ``ops.bcd.neighbor_sum_banded`` sums."""
-    n_local = own.shape[1]
-    ns = torch.zeros_like(own)
-    if not offsets:
-        return ns
-    ext = _halo_window(own, window)
-    for u, off in enumerate(offsets):
-        ns += masks[u] * ext[:, halo + off:halo + off + n_local]
-    return ns
-
-
 def _gspmd_iterate(betas, spares, Xty_t, masks, gs, tol, max_iter: int,
                    offsets: Tuple[int, ...], halo: int, mesh: Mesh):
     """Sharded solve loop of the unfused banded mesh: per sweep and shard,
@@ -166,8 +147,8 @@ def _gspmd_iterate(betas, spares, Xty_t, masks, gs, tol, max_iter: int,
         stats = []
         for s in mesh.local:
             with mesh.on(s):
-                ns = _banded_ns_window(cur[s], windows[s], offsets, masks[s],
-                                       halo)
+                ns = _banded_neighbor_sum(_halo_window(cur[s], windows[s]),
+                                          masks[s], offsets, halo)
                 stats += gs[s](cur[s], Xty_t[s], ns, nxt[s])[1:]
         state.reverse()
         return mesh.join_max(stats)
@@ -275,7 +256,7 @@ def _gspmd_iterate_fused(carries, spares, Xty_t, XtX, masks, inv_den, lam,
     return state[0], state[1], n_iter, rel
 
 
-class GspmdBandedProblem:
+class GspmdBandedProblem(MeshProblem):
     """A prepared banded-mesh problem: the banded analysis, the host
     precompute (XtX, YtY, Xty) and each shard's operands on its device,
     built once; :meth:`solve` runs only the sweeps. Parameters as the JAX
@@ -288,7 +269,8 @@ class GspmdBandedProblem:
     halo in blocks, rounded up; the halo must lie in one neighbour shard),
     with the spot axis padded to a multiple of ``n_shards * block``;
     otherwise the unfused loop runs on shards padded to a multiple of
-    ``n_shards``. ``use_fused`` says which.
+    ``n_shards``. ``use_fused`` says which. ``info`` adds ``n_shards``,
+    ``n_bands``, ``halo_width`` and, after sweeps, ``fused_kernel``.
     Raises ``ValueError`` if the graph is not wholly banded within 32
     offsets: use the halo plan then.
     """
@@ -395,15 +377,15 @@ class GspmdBandedProblem:
         ).to(self.mesh[s], self.dtype))
 
     def _state(self, betas) -> list:
-        """The loop state of ``betas``: ``[current, spare]`` per-shard
-        buffers (the fused loop's carries, the spares' pads zero)."""
-        per_shard = self.mesh.per_shard
+        """The loop state of ``betas``; the fused loop's are carries, the
+        spares' pads zero."""
         if not self.use_fused:
-            return [betas, per_shard(lambda s: torch.empty_like(betas[s]))]
+            return super()._state(betas)
         pad = self._fused_h * self._fused_block
-        carries = per_shard(lambda s: torch.nn.functional.pad(betas[s],
-                                                              (pad, pad)))
-        return [carries, per_shard(lambda s: torch.zeros_like(carries[s]))]
+        carries = self.mesh.per_shard(
+            lambda s: torch.nn.functional.pad(betas[s], (pad, pad)))
+        return [carries,
+                self.mesh.per_shard(lambda s: torch.zeros_like(carries[s]))]
 
     def _data(self, state) -> list:
         """Each shard's (K, n_local) beta of a loop state (views; None
@@ -432,11 +414,6 @@ class GspmdBandedProblem:
             *state, self.Xty_t, self.masks, sweep_ops, tol, n, self.offsets,
             self.halo, self.mesh)
 
-    def _scalars(self, lambda_, rho):
-        """``(lambda, rho * mean diag(XtX))`` in the solve dtype."""
-        return (scalar(lambda_, self.dtype),
-                scalar(rho * self.rho_scale, self.dtype))
-
     def _run(self, lambda_, rho, tol, max_iter: int, overlap="auto"):
         """The sweeps alone from the uniform start, with the fused loop's
         ``overlap`` forced (tests and ``chip_smoke.py`` hold the split
@@ -449,83 +426,23 @@ class GspmdBandedProblem:
                                             max_iter,
                                             self._sweep_ops(lam, rho_eff),
                                             overlap=overlap)
-        beta = torch.cat(self.mesh.gather_all(self._data(cur)), dim=1)
-        return beta[:, :self.n_spots].T, it, rel
+        return self._beta(self._data(cur)), it, rel
 
-    def _objective(self, betas, lam, rho) -> torch.Tensor:
-        """The objective: each shard's sums over its own columns, added on
-        the main device in shard order (every process, on a mesh that spans
-        processes)."""
+    def _neighbor_sums(self, betas):
+        """After the edges' exchange, each shard's sums (a function of it)."""
         mesh = self.mesh
         edges = _shard_edges(mesh, betas, self.halo)
         mesh.fork()
         windows = {s: _window_edges(mesh, edges, s, self.halo, self.n_local)
                    for s in mesh.local}
-        sums, btbs = [None] * self.n_shards, [None] * self.n_shards
-        for s in mesh.local:
-            with mesh.on(s):
-                ns = _banded_ns_window(betas[s], windows[s], self.offsets,
-                                       self.masks[s].to(self.dtype),
-                                       self.halo)
-                sums[s], btbs[s] = objective_sums(betas[s], self.Xty_t[s],
-                                                  ns, self.nnb[s])
-        sums, btbs = mesh.gather_all(sums), mesh.gather_all(btbs)
-        return objective_from_sums(torch.stack(sums).sum(0),
-                                   torch.stack(btbs).sum(0),
-                                   self.XtX[mesh.local[0]], self.YtY, lam,
-                                   rho)
+        return lambda s: _banded_neighbor_sum(
+            _halo_window(betas[s], windows[s]), self.masks[s].to(self.dtype),
+            self.offsets, self.halo)
 
-    def solve(
-        self,
-        lambda_: float = 0.1,
-        rho: float = 0.01,
-        max_iter: int = 100,
-        tol: float = 1e-4,
-        verbose: bool = False,
-        beta_init: Optional[np.ndarray] = None,
-        return_device: bool = False,
-    ) -> Tuple[np.ndarray, dict]:
-        """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``
-        with ``n_shards``, ``n_bands``, ``halo_width`` and
-        ``fused_kernel``; with ``return_device`` beta is a contiguous
-        (n_spots, K) tensor in the solve dtype on the mesh's main device
-        (not on a mesh that spans processes, where every process gets the
-        host beta)."""
-        check_return_device(self.mesh, return_device)
-        return fetched(self._solve(lambda_, rho, max_iter, tol, verbose,
-                                   beta_init), return_device)
-
-    def _solve(self, lambda_, rho, max_iter, tol, verbose, beta_init):
-        """The sweeps; beta on the main device (every shard's, on every
-        process), or the zero-sweep host result."""
-        extra = dict(n_shards=self.n_shards, n_bands=len(self.offsets),
-                     halo_width=self.halo)
-        if max_iter == 0:
-            return uniform_result(self.n_spots, self.n_types,
-                                  converged=False, **extra)
-        validate_beta_init(beta_init, self.n_spots, self.n_types)
-        lam, rho_eff = self._scalars(lambda_, rho)
-        state = self._state(self._beta0(beta_init))
-        with full_f32_matmul():
-            sweep_ops = self._sweep_ops(lam, rho_eff)
-
-            def run_chunk(n):
-                cur, spare, it, rel = self._iterate(state, lam, rho_eff, tol,
-                                                    n, sweep_ops)
-                state[:] = [cur, spare]
-                return it, rel
-
-            n_iter, rel, final_obj, converged, objectives = (
-                run_prepared_solve(
-                    run_chunk,
-                    lambda: self._objective(self._data(state[0]), lam,
-                                            rho_eff),
-                    max_iter, tol, verbose, self.dtype))
-            beta_d = torch.cat(self.mesh.gather_all(self._data(state[0])),
-                               dim=1)[:, :self.n_spots].T
-        return beta_d, info_dict(n_iter, rel, final_obj, converged,
-                                 objectives, fused_kernel=self.use_fused,
-                                 **extra)
+    def _info_keys(self, solved: bool) -> dict:
+        keys = dict(n_shards=self.n_shards, n_bands=len(self.offsets),
+                    halo_width=self.halo)
+        return dict(fused_kernel=self.use_fused, **keys) if solved else keys
 
 
 def gspmd_banded_solve(

@@ -36,23 +36,16 @@ from flashdeconv_tpu_torch.core.solver import (
     solve_dtype,
 )
 from flashdeconv_tpu_torch.ops.bcd import (
-    full_f32_matmul,
+    converge,
     gs_pass_fn,
     neighbor_sum,
-    objective_from_sums,
-    objective_sums,
-    scalar,
     with_sentinel,
 )
 from flashdeconv_tpu_torch.parallel._runner import (
     Mesh,
+    MeshProblem,
     as_mesh,
-    check_return_device,
-    converge,
     device_unpermute,
-    fetched,
-    info_dict,
-    run_prepared_solve,
     sanitize_xty_rows,
     uniform_result,
     validate_beta_init,
@@ -140,24 +133,6 @@ def _sharded_sweep(mesh: Mesh, betas, spares, ops):
     return mesh.join_max(stats)
 
 
-def _sharded_objective(mesh: Mesh, betas, ops, YtY, lam, rho):
-    """The objective: each shard's sums over its own columns (its
-    neighbour sums after a halo exchange), added on the main device in
-    shard order (every process, on a mesh that spans processes)."""
-    pools = _halo_exchange(mesh, betas, ops["send"])
-    mesh.fork()
-    sums, btbs = [None] * len(mesh), [None] * len(mesh)
-    for s in mesh.local:
-        with mesh.on(s):
-            ns = _shard_ns(betas[s], pools[mesh[s]], ops["nbr"][s])
-            sums[s], btbs[s] = objective_sums(betas[s], ops["Xty_t"][s], ns,
-                                              ops["nnb"][s])
-    sums, btbs = mesh.gather_all(sums), mesh.gather_all(btbs)
-    return objective_from_sums(torch.stack(sums).sum(0),
-                               torch.stack(btbs).sum(0),
-                               ops["XtX"][mesh.local[0]], YtY, lam, rho)
-
-
 def sharded_bcd_solve(
     Y_sketch: np.ndarray,
     X_sketch: np.ndarray,
@@ -208,10 +183,11 @@ def sharded_bcd_solve(
     )
 
 
-class HaloShardedProblem:
+class HaloShardedProblem(MeshProblem):
     """A prepared halo-plan problem: the shard plan, the host precompute
     (XtX, YtY, Xty) and each shard's operands on its device, built once;
-    :meth:`solve` runs only the sweeps. Parameters as the JAX
+    :meth:`solve` runs only the sweeps. ``info`` adds ``n_shards`` and
+    ``halo_width``. Parameters as the JAX
     ``HaloShardedProblem`` (``mesh`` a :class:`Mesh` or a sequence of
     devices), plus ``device`` for the default mesh. The plan is built
     with ``pad_shard_to=1``: kernel #2 and the XLA tier take any shard
@@ -270,14 +246,17 @@ class HaloShardedProblem:
                 np.ascontiguousarray(np.asarray(arr[s * S:(s + 1) * S]).T)
             ).to(mesh[s], dtype))
 
+        self.Xty_t = cols(Xty, tdtype)
+        self.nnb = cols(plan.n_nbrs, tdtype)
+        self.XtX = mesh.per_shard(lambda s: XtX[mesh[s]])
         self._ops = {
-            "Xty_t": cols(Xty, tdtype),
+            "Xty_t": self.Xty_t,
             "nbr": cols(plan.nbr_idx, torch.int32),
-            "nnb": cols(plan.n_nbrs, tdtype),
+            "nnb": self.nnb,
             "send": mesh.per_shard(lambda s: torch.from_numpy(
                 plan.send_idx[s * hw:(s + 1) * hw].astype(np.int64)
             ).to(mesh[s])),
-            "XtX": mesh.per_shard(lambda s: XtX[mesh[s]]),
+            "XtX": self.XtX,
             "n_valid": [int(plan.spot_mask[s * S:(s + 1) * S].sum())
                         for s in range(P)],
         }
@@ -299,58 +278,36 @@ class HaloShardedProblem:
             np.ascontiguousarray(b0[s * S:(s + 1) * S].T)
         ).to(self.mesh[s], self.dtype))
 
-    def solve(
-        self,
-        lambda_: float = 0.1,
-        rho: float = 0.01,
-        max_iter: int = 100,
-        tol: float = 1e-4,
-        verbose: bool = False,
-        beta_init: Optional[np.ndarray] = None,
-        return_device: bool = False,
-    ) -> Tuple[np.ndarray, dict]:
-        """Run the sweeps; returns ``(beta (n_spots, K) float64, info)``,
-        or with ``return_device`` beta as an (n_spots, K) tensor in the
-        solve dtype on the mesh's main device, un-permuted there (not on a
-        mesh that spans processes, where every process gets the host
-        beta)."""
-        check_return_device(self.mesh, return_device)
-        return fetched(self._solve(lambda_, rho, max_iter, tol, verbose,
-                                    beta_init), return_device)
+    def _sweep_ops(self, lam, rho) -> dict:
+        """The operands of :func:`_sharded_sweep`, each shard's pass
+        (``ops/bcd.gs_pass_fn``) included."""
+        return dict(self._ops, gs=self.mesh.per_shard(
+            lambda s: gs_pass_fn(self.XtX[s], self.nnb[s], lam, rho)))
 
-    def _solve(self, lambda_, rho, max_iter, tol, verbose, beta_init):
-        """The sweeps; beta un-permuted on the main device (every shard's,
-        on every process), or the zero-sweep host result."""
-        n_spots, n_types, plan = self.n_spots, self.n_types, self.plan
-        extra = dict(n_shards=self.n_shards, halo_width=plan.halo_width)
-        if max_iter == 0:
-            return uniform_result(n_spots, n_types, converged=False, **extra)
-        validate_beta_init(beta_init, n_spots, n_types)
-        lam = scalar(lambda_, self.dtype)
-        rho_eff = scalar(rho * self.rho_scale, self.dtype)
-        mesh, ops = self.mesh, dict(self._ops)
-        state = [self._beta0(beta_init)]
-        state.append(mesh.per_shard(lambda s: torch.empty_like(state[0][s])))
-
+    def _iterate(self, state, lam, rho, tol, max_iter: int, ops):
+        """Sweeps of :func:`_sharded_sweep`, ``state`` swapped in place."""
         def sweep():
-            d, a = _sharded_sweep(mesh, state[0], state[1], ops)
+            stats = _sharded_sweep(self.mesh, state[0], state[1], ops)
             state.reverse()
-            return d, a
+            return stats
 
-        with full_f32_matmul():
-            ops["gs"] = mesh.per_shard(lambda s: gs_pass_fn(
-                ops["XtX"][s], ops["nnb"][s], lam, rho_eff))
-            n_iter, rel, final_obj, converged, objectives = (
-                run_prepared_solve(
-                    lambda n: converge(sweep, tol, n, self.dtype),
-                    lambda: _sharded_objective(mesh, state[0], ops,
-                                               self.YtY, lam, rho_eff),
-                    max_iter, tol, verbose, self.dtype))
-            beta_pad = torch.cat(mesh.gather_all(state[0]), dim=1).T
-            beta_d = device_unpermute(self, beta_pad[:n_spots], plan.perm,
-                                      n_spots)
-        return beta_d, info_dict(n_iter, rel, final_obj, converged,
-                                 objectives, **extra)
+        n_iter, rel = converge(sweep, tol, max_iter, self.dtype)
+        return state[0], state[1], n_iter, rel
+
+    def _neighbor_sums(self, betas):
+        """After a halo exchange, each shard's sums (a function of it)."""
+        pools = _halo_exchange(self.mesh, betas, self._ops["send"])
+        self.mesh.fork()
+        return lambda s: _shard_ns(betas[s], pools[self.mesh[s]],
+                                   self._ops["nbr"][s])
+
+    def _beta(self, betas) -> torch.Tensor:
+        return device_unpermute(self, super()._beta(betas), self.plan.perm,
+                                self.n_spots)
+
+    def _info_keys(self, solved: bool) -> dict:
+        return dict(n_shards=self.n_shards,
+                    halo_width=self.plan.halo_width)
 
 
 def _prepared_xty(Y_sketch, X_sketch, A, xty, yty, dtype):
@@ -376,8 +333,8 @@ class ShardedBCDProblem:
     :class:`~flashdeconv_tpu_torch.parallel.gspmd.GspmdBandedProblem` or a
     :class:`HaloShardedProblem`, plus the scrambled-grid re-sort
     permutation applied at prepare time — beta enters and leaves
-    :meth:`solve` in the original spot order. Built by
-    :func:`prepare_sharded_bcd`."""
+    :meth:`solve` (the inner problems' :meth:`MeshProblem.solve`) in the
+    original spot order. Built by :func:`prepare_sharded_bcd`."""
 
     def __init__(self, inner, perm: Optional[np.ndarray] = None):
         self._inner = inner
@@ -398,21 +355,15 @@ class ShardedBCDProblem:
     def n_types(self) -> int:
         return self._inner.n_types
 
-    def solve(
-        self,
-        lambda_: float = 0.1,
-        rho: float = 0.01,
-        max_iter: int = 100,
-        tol: float = 1e-4,
-        verbose: bool = False,
-        beta_init: Optional[np.ndarray] = None,
-        return_device: bool = False,
-    ) -> Tuple[np.ndarray, dict]:
-        """The inner problem's solve, beta in the original spot order: on
-        the device with ``return_device`` (un-permuted there; not on a mesh
-        that spans processes), else host f64 fetched after the
-        un-permute."""
-        check_return_device(self._inner.mesh, return_device)
+    @property
+    def mesh(self) -> Mesh:
+        return self._inner.mesh
+
+    solve = MeshProblem.solve
+
+    def _solve(self, lambda_, rho, max_iter, tol, verbose, beta_init):
+        """The inner problem's sweeps, beta in the original spot order (on
+        the device, un-permuted there), or its zero-sweep host result."""
         perm = self._perm
         validate_beta_init(beta_init, self.n_spots, self.n_types)
         if beta_init is not None and perm is not None:
@@ -422,7 +373,7 @@ class ShardedBCDProblem:
         # A zero-sweep solve returns uniform host rows: nothing to permute.
         if isinstance(beta, torch.Tensor) and perm is not None:
             beta = device_unpermute(self, beta, perm, self.n_spots)
-        return fetched((beta, info), return_device)
+        return beta, info
 
 
 def _check_strategy(strategy: str, plan) -> None:

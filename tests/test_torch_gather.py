@@ -79,6 +79,38 @@ def test_neighbor_sum_banded_matches_jax_bitwise():
     np.testing.assert_array_equal(out.numpy().T, np.asarray(ref))
 
 
+@pytest.mark.parametrize("pad, past_n, nan", [
+    (0, False, False),      # the unfused tier: the edge bands clipped
+    (6, False, False),      # the banded mesh's window: pad = halo
+    (2 * 8, False, False),  # the fused carry: pad = h * block
+    (0, True, False),       # one offset reaching past n
+    (6, False, True),       # a NaN in the source
+])
+def test_one_banded_sum_is_the_per_band_loop_bitwise(pad, past_n, nan):
+    """The one banded neighbour sum against a per-band loop over each data
+    column: from +0.0, bands in ``offsets`` order, ``masks[u, j] *
+    src[:, pad + j + off]`` added where the source holds that column."""
+    rng = np.random.RandomState(4)
+    K, n = 5, 37
+    offsets = (-6, -1, 1, 6) + ((n + 3,) if past_n else ())
+    src = rng.randn(K, n + 2 * pad).astype(np.float32)
+    if nan:
+        src[2, pad + 10] = np.nan
+    masks = (rng.rand(len(offsets), n) < 0.7).astype(np.float32)
+    got = tbcd._banded_neighbor_sum(torch.from_numpy(src),
+                                    torch.from_numpy(masks), offsets,
+                                    pad).numpy()
+    ref = np.zeros((K, n), np.float32)
+    for u, off in enumerate(offsets):
+        for j in range(n):
+            if 0 <= pad + j + off < src.shape[1]:
+                ref[:, j] = ref[:, j] + masks[u, j] * src[:, pad + j + off]
+    assert np.isnan(ref).any() == nan
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_array_equal(got.view(np.uint32)[~np.isnan(ref)],
+                                  ref.view(np.uint32)[~np.isnan(ref)])
+
+
 def test_overflow_sum_matches_jax_segment_sum():
     coords = _irregular(1200, seed=3)
     A = build_radius_graph(coords, radius=2.5)

@@ -95,14 +95,14 @@ COUNTERPARTS = {
         f"{_PORT}.ops.countsketch:kernel_route",
     ("flashdeconv_tpu.ops.countsketch", "_round_up"):
         f"{_PORT}.ops.countsketch:kernel_route",
-    # The one-program solves and the chunked verbose loop: the one solve
-    # loop of every tier.
+    # The one-program solves: the one solve of every tier; the chunked
+    # verbose loop: the one chunked solve loop of every tier and mesh.
     ("flashdeconv_tpu.ops.bcd", "fused_solve_program"):
         f"{_PORT}.ops.bcd:fused_solve",
     ("flashdeconv_tpu.ops.bcd", "solve_program"):
         f"{_PORT}.ops.bcd:fused_solve",
     ("flashdeconv_tpu.ops.bcd", "chunked_verbose_solve"):
-        f"{_PORT}.ops.bcd:fused_solve",
+        f"{_PORT}.ops.bcd:run_prepared_solve",
     # shard_map programs and sharded placement: per-shard work on the Mesh.
     ("flashdeconv_tpu.parallel._runner", "put_addressable"):
         f"{_PORT}.parallel._runner:Mesh.per_shard",
@@ -110,8 +110,11 @@ COUNTERPARTS = {
         f"{_PORT}.parallel.solver:_sharded_sweep",
     ("flashdeconv_tpu.parallel.solver", "_sharded_solve_jit"):
         f"{_PORT}.parallel.solver:HaloShardedProblem",
+    # The mesh objective's reduction: the one of both meshes.
+    ("flashdeconv_tpu.parallel.solver", "_sharded_objective"):
+        f"{_PORT}.parallel._runner:MeshProblem._objective",
     ("flashdeconv_tpu.parallel.solver", "_sharded_objective_jit"):
-        f"{_PORT}.parallel.solver:_sharded_objective",
+        f"{_PORT}.parallel._runner:MeshProblem._objective",
     # The JAX key bridge.
     ("flashdeconv_tpu.utils.random", "as_jax_key"):
         f"{_PORT}.utils.random:as_torch_generator",

@@ -3,7 +3,8 @@
 Under ``torch.profiler`` (CPU activity) the solve and the fit open the
 program's ``flashdeconv.*`` spans at their layer boundaries: every
 ``flashdeconv.solve`` holds one ``flashdeconv.solve.sweep`` a sweep and one
-``flashdeconv.solve.objective``, on each tier a small problem reaches; a
+``flashdeconv.solve.objective``, on each tier a small problem reaches and
+on the halo plan and the banded mesh of a two-shard CPU mesh; a
 fit opens each stage, prepare and output span once, nested as the layers
 are, and each stage span lasts as long as its ``timings_`` entry, whose
 keys stay as they were. With no profiler running, neither a solve nor a
@@ -20,6 +21,7 @@ from torch.profiler import ProfilerActivity, profile
 import flashdeconv_tpu_torch
 from conftest import make_synthetic
 from flashdeconv_tpu_torch.core import solver as tsolver
+from flashdeconv_tpu_torch.parallel import prepare_sharded_bcd
 from flashdeconv_tpu_torch.utils.graph import build_knn_graph, grid_coords
 
 torch.set_num_threads(2)
@@ -54,15 +56,22 @@ def inside(child, parent) -> bool:
 def _problem(tier: str):
     """A 400-spot problem that takes ``tier``: a 20 x 20 grid through a
     plan built past the 8,192-spot gate (f32: the fused tier; f64: the
-    unfused banded form of the XLA tier), or irregular coordinates."""
+    unfused banded form of the XLA tier), or irregular coordinates; the
+    ``halo`` plan (irregular) or the ``banded`` mesh (the grid) of two CPU
+    shards."""
     rng = np.random.RandomState(5)
     side, K = 20, 4
     n = side * side
-    coords = (rng.rand(n, 2) * side if tier == "GatherTier"
+    coords = (rng.rand(n, 2) * side if tier in ("GatherTier", "halo")
               else grid_coords(side=side))
     A = build_knn_graph(coords, k=6)
     X = rng.rand(K, 32)
     Y = rng.dirichlet(np.ones(K), size=n) @ X + 0.01 * rng.rand(n, 32)
+    if tier in ("halo", "banded"):
+        prob = prepare_sharded_bcd(Y, X, A, coords=coords, mesh=("cpu",) * 2,
+                                   strategy=tier, device="cpu")
+        assert prob.strategy == tier
+        return prob
     plan = (None if tier == "GatherTier"
             else tsolver.GraphDecomposition(A, 8192, coords))
     dtype = np.float64 if tier == "BandedTier" else np.float32
@@ -73,7 +82,7 @@ def _problem(tier: str):
 
 
 @pytest.mark.parametrize("tier", ["FusedBandedTier", "BandedTier",
-                                  "GatherTier"])
+                                  "GatherTier", "halo", "banded"])
 def test_each_solve_holds_its_sweeps_and_one_objective(tier):
     prob = _problem(tier)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
