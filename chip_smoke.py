@@ -41,9 +41,10 @@ counts set to 0 just before it and read just after:
    fused-tier solve at K <= 56 below counts the objective kernel too (at
    32 < K <= 56 on its ``large_k_launches``); then the same objective
    check and timing on the 1M grid at K = 34 (the Allen whole-mouse-brain
-   classes: the panel pass's sweeps, the objective kernel's KMAX = 40
-   instance), and two counted solves of it, each one objective launch
-   of the large-K form;
+   classes: the objective kernel's KMAX = 40 instance), one sweep of
+   kernel #1's spot-panel pass against the plain version and timed in
+   turns with it, and two counted solves of it, each one objective launch
+   of the large-K form and one spot-panel launch a sweep;
 1a. the fit's outputs, on the same 262k counts (a second counted run of
    kernel #1): the host-path fit, and fits with device outputs (the
    default on the card), ``outputs=("dominant",)`` and
@@ -187,7 +188,9 @@ operator.
 Any failed phase raises, so the exit code is non-zero; without a card the
 script fails before it prints any result. The last three lines are one
 JSON object per kernel (each CUDA kernel's panel form at 64 < K <= 256 with
-an entry of its own, ``*_large_k``, timed at K = 128, and kernel #1's
+an entry of its own, ``*_large_k``, timed at K = 128, kernel #1's
+spot-panel pass at 32 < K <= 64, ``fused_banded_sweep_spot_panel``, timed
+at K = 34, and kernel #1's
 sub-range form, ``fused_banded_sweep_sub``, timed as the interior call of
 a split 1M x 20 sweep), the card's name and power limit, and the result
 line ``{"ok": true, "device": {...}}``; kernel #1 with the rest stream
@@ -221,19 +224,22 @@ theirs) on the same operands, printing whether the two give the same bits.
 It prints no result line.
 
 ``--small-k`` does the same for K <= 64, where both sweep kernels run the
-register pass of ``gs_pass.cuh`` up to K = 32 and the panel pass (TM = 2)
-from K = 33: ptxas's registers and spills of every register ``__global__``
-and of the panel ones of TM <= 2, and the blocks an SM holds at K = 1-64;
-then at 1M spots and K = 6, 20, 32, 48 and 64 kernel #1 on the grid (the
+register pass of ``gs_pass.cuh`` up to K = 32 and, from K = 33, kernel #1
+the spot-panel pass and kernel #2 the tile pass (TM = 2) of
+``gs_pass_panel.cuh``: ptxas's registers and spills of every register
+``__global__``, of the spot-panel ones and of the panel ones of TM <= 2,
+and the blocks an SM holds at K = 1-64 (with each pass's shared memory);
+then at 1M spots and K = 6, 20, 32, 34, 48 and 64 kernel #1 on the grid (the
 whole sweep, and the sub-range form's interior call), kernel #1 with the
 rest stream on the 1 %-dropped grid and kernel #2 on the irregular
 problem, each against its plain version and timed in turns with it, with
 ``--against DIR`` each of those four forms against DIR's build, bitwise
 and in turns; and the 1M grid at K = 20 solved through the fused and the
-unfused banded tier, bitwise equal; at K = 48 and 64 the grid is also
+unfused banded tier, bitwise equal; at K = 34, 48 and 64 the grid is also
 solved twice (``[solve]``, against the plain solve), counted: one
-objective launch of the large-K form a solve at K = 48, none at K = 64
-(above the objective kernel's K). It prints no result line.
+spot-panel launch a sweep, one objective launch of the large-K form a
+solve at K = 34 and 48, none at K = 64 (above the objective kernel's K).
+It prints no result line.
 
 ``--objective`` builds, prepares the 1M grid (K = 20), solves it and, on
 the solved carry, holds the fused tier's objective kernel (one launch a
@@ -283,7 +289,7 @@ sys.path.insert(0, str(ROOT))
 SPOTS = 1_000_000
 TYPES = 20
 LARGE_TYPES = (96, 128, 256)        # the large-K kernel rows at 1M spots
-SMALL_TYPES = (6, 20, 32, 48, 64)   # the K <= 64 rows at 1M spots
+SMALL_TYPES = (6, 20, 32, 34, 48, 64)  # the K <= 64 rows at 1M spots
 WIDE_OBJECTIVE_TYPES = 34           # Allen whole-mouse-brain classes
 FIT_LARGE_TYPES = 96
 ATLAS_TYPES = 338                   # Allen whole-mouse-brain subclasses
@@ -2864,12 +2870,14 @@ def ptxas_entries(log_text: str) -> dict:
 
 def pass_instance(entry: str, small: bool) -> bool:
     """Whether a ``__global__`` instance is one a mode is about: with
-    ``small`` (``--small-k``) every register sweep kernel and the panel
-    ones of TM <= 2, else (``--large-k``) the panel ones of TM >= 3."""
+    ``small`` (``--small-k``) every register sweep kernel, the spot-panel
+    ones and the panel ones of TM <= 2, else (``--large-k``) the panel ones
+    of TM >= 3."""
     tm = re.search(r"panel_kernelILi(\d+)E", entry)
     if tm:
         return (int(tm.group(1)) <= 2) == small
-    return small and re.search(r"sweep_kernelILi", entry) is not None
+    return small and re.search(r"sweep_kernelILi|panel_kernel_spotI",
+                               entry) is not None
 
 
 def pass_report(small: bool) -> None:
@@ -2886,8 +2894,8 @@ def pass_report(small: bool) -> None:
             if pass_instance(entry, small):
                 log(f"{tag} ptxas {entry}:{report}")
     fused, cd = _build.load("fused_banded_sweep"), _build.load("cd_block_sweep")
-    for K in ((1, 6, 8, 9, 16, 17, 20, 24, 25, 32, 33, 48, 64) if small
-              else (65, 80, 96, 128, 129, 160, 192, 255, 256)):
+    for K in ((1, 6, 8, 9, 16, 17, 20, 24, 25, 32, 33, 34, 48, 54, 55, 64)
+              if small else (65, 80, 96, 128, 129, 160, 192, 255, 256)):
         if K <= bcd.REGISTER_PASS_MAX_K:
             log(f"{tag} K={K}: register pass, KMAX = {(K + 7) // 8 * 8}; "
                 f"blocks an SM: fused "
@@ -2895,6 +2903,15 @@ def pass_report(small: bool) -> None:
                 f"fused with ns_rest "
                 f"{fused.fdt_fused_banded_sweep_register_occupancy(K, 1)}, cd "
                 f"{cd.fdt_cd_block_sweep_register_occupancy(K)}")
+            continue
+        if K <= bcd.SPOT_PANEL_MAX_K:
+            log(f"{tag} K={K}: kernel #1 spot-panel pass, shared memory "
+                f"{fused.fdt_spot_panel_pass_smem_bytes(K)} B, blocks an SM "
+                f"{fused.fdt_fused_banded_sweep_panel_occupancy(K, 0)}, with "
+                f"ns_rest {fused.fdt_fused_banded_sweep_panel_occupancy(K, 1)}"
+                f"; kernel #2 panel pass, TM = {(K + 31) // 32} rows a "
+                f"thread, shared memory {cd.fdt_panel_pass_smem_bytes(K)} B, "
+                f"blocks an SM {cd.fdt_cd_block_sweep_panel_occupancy(K)}")
             continue
         log(f"{tag} K={K}: panel pass, TM = {(K + 31) // 32} rows a thread; "
             f"pass shared memory {fused.fdt_panel_pass_smem_bytes(K)} B; "
@@ -3040,8 +3057,7 @@ def small_k(against, kernels) -> None:
             objective = ({"fused_banded_objective_large_k": 2}
                          if K <= bcd.OBJECTIVE_KERNEL_MAX_K else {})
             counted(kernels, lambda: {
-                "fused_banded_sweep_large_k": phase_solve(grid, grid_s,
-                                                          label),
+                **large_k_sweeps(phase_solve(grid, grid_s, label), K),
                 **objective})
         del grid
         dropped, _ = prepare_on(dropped_coords, dropped_A, K)
@@ -3061,6 +3077,17 @@ def small_k(against, kernels) -> None:
                           f"{label} against {d}")
         del irr
         torch.cuda.empty_cache()
+
+
+def large_k_sweeps(n: int, K: int) -> dict:
+    """What ``n`` whole sweeps of kernel #1 at K > 32 show in
+    :func:`counted`: ``n`` large-K launches, and as many spot-panel
+    launches where that pass runs (K <= ``SPOT_PANEL_MAX_K``)."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    spot = ({"fused_banded_sweep_spot_panel": n}
+            if K <= bcd.SPOT_PANEL_MAX_K else {})
+    return {"fused_banded_sweep_large_k": n, **spot}
 
 
 def counted(kernels, path):
@@ -3137,6 +3164,8 @@ def main() -> None:
         "fused_banded_sweep": (bcd.fused_banded_sweep, "launches"),
         "fused_banded_sweep_large_k": (bcd.fused_banded_sweep,
                                        "large_k_launches"),
+        "fused_banded_sweep_spot_panel": (bcd.fused_banded_sweep,
+                                          "spot_panel_launches"),
         "coordinate_descent_block": (bcd.coordinate_descent_block,
                                      "launches"),
         "coordinate_descent_block_large_k": (bcd.coordinate_descent_block,
@@ -3249,10 +3278,15 @@ def main() -> None:
         raise AssertionError(f"{wide_label} did not take the fused tier "
                              "without rest tables")
     objective_wide_row = phase_objective(wide, wide_label)
+    spot_row = phase_fused_kernel(wide, wide_label)
     launches = counted(kernels, lambda: {
-        "fused_banded_sweep_large_k": phase_solve(wide, wide_s, wide_label),
+        **large_k_sweeps(phase_solve(wide, wide_s, wide_label),
+                         WIDE_OBJECTIVE_TYPES),
         "fused_banded_objective_large_k": 2})
-    large_fused_launches = launches["fused_banded_sweep_large_k"]
+    # Each of these sweeps ran the spot-panel pass: its entry counts them,
+    # the tile pass's (*_large_k) counts none.
+    spot_launches = launches["fused_banded_sweep_spot_panel"]
+    large_fused_launches = 0
     objective_wide_launches = launches["fused_banded_objective_large_k"]
     del wide
     torch.cuda.empty_cache()
@@ -3459,6 +3493,10 @@ def main() -> None:
               "flashdeconv_tpu/ops/bcd.py:376",
               large_fused_launches + multicard["fused_banded_sweep_large_k"],
               large_fused_rows[128]),
+        entry("fused_banded_sweep_spot_panel", "fused_banded_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:376",
+              spot_launches + multicard["fused_banded_sweep_spot_panel"],
+              spot_row),
         entry("coordinate_descent_block_large_k", "cd_block_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:376", large_cd_launches,
               large_cd_rows[128]),

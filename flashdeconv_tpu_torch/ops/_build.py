@@ -129,8 +129,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     lib.fdt_error_string.restype = ctypes.c_char_p
     # The passes' queries (a library built from older sources may lack
     # some: the register forms' before the K <= 32 register pass, the
-    # panel pass's before the register-tiled one).
+    # panel pass's before the register-tiled one, the spot-panel pass's
+    # before it was added).
     queries = {"fdt_panel_pass_smem_bytes": ([i], ll),
+               "fdt_spot_panel_pass_smem_bytes": ([i], ll),
                "fdt_fused_banded_sweep_panel_occupancy": ([i, i], i),
                "fdt_cd_block_sweep_panel_occupancy": ([i], i),
                "fdt_fused_banded_sweep_register_occupancy": ([i, i], i),

@@ -69,6 +69,12 @@ _GS_PANEL_WIDE_K = 64
 #: arrays templated on 8, 16, 24 and 32); above it both kernels launch their
 #: panel form (``gs_pass_panel.cuh``), counted apart as ``large_k_launches``.
 REGISTER_PASS_MAX_K = 32
+#: Largest K of the fused kernel's spot-panel pass (``FDT_SPOT_PANEL_MAX_K``
+#: in ``gs_pass_panel.cuh``: one thread a spot, panels of 16 rows); above
+#: ``REGISTER_PASS_MAX_K`` and up to this K kernel #1 runs it in place of
+#: the tile pass, chosen by K alone, and counts those launches apart as
+#: ``spot_panel_launches`` too.
+SPOT_PANEL_MAX_K = 64
 #: Largest K of the fused tier's objective kernel (``csrc/
 #: fused_banded_sweep.cu``, instances KMAX = 8, 16, ..., 56): the register
 #: pass's range and most of the panel pass's TM = 2 range (a KMAX = 64
@@ -441,6 +447,8 @@ def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
             lib, stream, beta_ext_t, Xty_t, XtX, masks, inv_den_t, lambda_,
             rho, offsets, h, block, out, rng, ns_rest_t)
     fused_banded_sweep.card_launches[beta_ext_t.device.index] += 1
+    if REGISTER_PASS_MAX_K < beta_ext_t.shape[0] <= SPOT_PANEL_MAX_K:
+        fused_banded_sweep.spot_panel_launches += 1
     if sub is not None:
         fused_banded_sweep.sub_launches += 1
     elif ns_rest_t is not None:
@@ -504,7 +512,9 @@ def fused_banded_sweep(
     ``.rest_launches`` the whole-sweep launches with ``ns_rest_t`` at any
     K, ``.large_k_launches`` the other whole-sweep launches of the panel
     form (K > ``REGISTER_PASS_MAX_K`` = 32) and ``.launches`` those of the
-    register form (K <= 32); ``.card_launches`` counts every launch by the
+    register form (K <= 32); ``.spot_panel_launches`` counts, besides, every
+    launch (whole, sub-range or rest) of the spot-panel pass (32 < K <=
+    ``SPOT_PANEL_MAX_K``); ``.card_launches`` counts every launch by the
     card's index.
     """
     pad = h * block
@@ -531,6 +541,7 @@ def fused_banded_sweep(
 
 fused_banded_sweep.launches = 0
 fused_banded_sweep.large_k_launches = 0
+fused_banded_sweep.spot_panel_launches = 0
 fused_banded_sweep.sub_launches = 0
 fused_banded_sweep.rest_launches = 0
 fused_banded_sweep.card_launches = collections.Counter()

@@ -59,7 +59,7 @@
 // cudaFuncAttributeMaxDynamicSharedMemorySize first and returns that
 // call's error if it fails.
 //
-// At 32 < K <= 256 a second kernel, fused_banded_sweep_panel_kernel, runs
+// At 64 < K <= 256 a second kernel, fused_banded_sweep_panel_kernel, runs
 // the same band sums into the panel pass of gs_pass_panel.cuh (the
 // counterpart of _make_fused_banded_kernel with _gs_pass_kb_panel in
 // flashdeconv_tpu/ops/bcd.py). It is bound by operations at K = 128 and
@@ -68,11 +68,17 @@
 // K = 96. A block owns 64 spots; the pass runs its XtX products as
 // register-tiled tile products of TM rows x 8 spots a thread
 // (gs_pass_panel.cuh says why), so the kernel is templated on TM =
-// ceil(K/32), 2..8, and on REST. Its register tiles keep the registers a
+// ceil(K/32), 3..8, and on REST. Its register tiles keep the registers a
 // thread needs flat in K, where the register pass's arrays grow with it;
 // on the card it ran K = 48 and 64 faster than the old register pass of
 // KMAX = 64 (PERF.md). Its shared memory passes 48 KB above K = 80, so
 // every launch sets the attribute first, as the register kernel's.
+// At 32 < K <= 64 (the tile pass's TM = 2 range, which this kernel does
+// not build), where a sweep is bound by bytes, the sweep is
+// fused_banded_sweep_panel_kernel_spot<REST>, the spot-panel pass of
+// gs_pass_panel.cuh (one thread a spot, panels of 16 rows in registers):
+// bitwise the tile pass that kernel #2 keeps there, 2.4 times as fast at
+// K = 34 on the card (PERF.md); the choice is by K alone.
 // Launch: on the caller's stream, no allocation, no synchronisation.
 //
 // A third kernel, fused_banded_objective_kernel<KMAX, REST> (K <= 56),
@@ -261,9 +267,13 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
     store_block_partials(dmax, amax, partials);
 }
 
-// FDT_REGISTER_MAX_K < K <= 256, TM = fdt_panel_tm(K): a block of 256
-// threads sweeps FDT_TILE_SPOTS window columns, thread t column w0 + blockIdx.x *
-// FDT_TILE_SPOTS + fdt_panel_spot() (the spot layout of gs_pass_panel.cuh).
+// FDT_SPOT_PANEL_MAX_K < K <= 256, TM = fdt_panel_tm(K) >= FUSED_MIN_TM:
+// a block of 256 threads sweeps FDT_TILE_SPOTS window columns, thread t
+// column w0 + blockIdx.x * FDT_TILE_SPOTS + fdt_panel_spot() (the spot
+// layout of gs_pass_panel.cuh).
+constexpr int FUSED_MIN_TM = FDT_SPOT_PANEL_MAX_K / 32 + 1;
+static_assert(FDT_SPOT_PANEL_MAX_K % 32 == 0,
+              "the tile pass starts at a whole register tile");
 template <int TM, bool REST>
 __global__ void
 __launch_bounds__(FDT_THREADS, FDT_PANEL_MIN_BLOCKS(TM))
@@ -312,11 +322,79 @@ fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
     store_block_partials(dmax, amax, partials);
 }
 
+// FDT_REGISTER_MAX_K < K <= FDT_SPOT_PANEL_MAX_K: the spot-panel pass of
+// gs_pass_panel.cuh, one thread per window column as in the register
+// kernel. The spot's beta_old column is staged into shared memory by
+// asynchronous copies first, so its loads are in flight while the first
+// band sums run. (Its name holds the panel kernel's: both are kernel #1b.)
+template <bool REST>
+__global__ void
+__launch_bounds__(FDT_THREADS, FDT_SPOT_PANEL_MIN_BLOCKS)
+fused_banded_sweep_panel_kernel_spot(const float* __restrict__ carry_in,
+                                     const long long ld_in,
+                                     float* __restrict__ carry_out,
+                                     const long long ld_out,
+                                     const float* __restrict__ xty_t,
+                                     const uint8_t* __restrict__ masks,
+                                     const float* __restrict__ inv_den_t,
+                                     const float* __restrict__ ns_rest,
+                                     const long long ld_data,
+                                     const float* __restrict__ xtx,
+                                     const BandOffsets offs,
+                                     const int n_bands, const int K,
+                                     const long long pad,
+                                     const long long n_sub,
+                                     const long long w0,
+                                     const long long n_cols, const float lam,
+                                     const float rho,
+                                     float* __restrict__ partials)
+{
+    extern __shared__ float4 smem4[];
+    const int ldx = fdt_spot_panel_ldx(K);
+    float* xs = reinterpret_cast<float*>(smem4);      // K x ldx
+    float* bs = xs + K * ldx;                         // (K, FDT_THREADS)
+    float* ds = bs + K * FDT_THREADS;                 // (n_delta, FDT_THREADS)
+    int* off_s = reinterpret_cast<int*>(
+        ds + fdt_spot_panel_delta_rows(K) * FDT_THREADS);
+
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long w = w0 + t;                 // window column
+    const long long j = w - pad;                // data column of the range
+    const bool spot = t < n_cols && j >= 0 && j < n_sub;
+    uint32_t bits = 0u;
+    if (spot) {
+        stage_column<FDT_SPOT_PANEL_MAX_K>(bs + threadIdx.x, carry_in + w,
+                                           ld_in, K);
+        bits = band_bits(masks, ld_data, j, n_bands);
+    }
+    load_xtx_t(xtx, xs, K, ldx);
+    load_offsets(offs, n_bands, off_s);
+    __syncthreads();
+
+    float dmax = 0.f, amax = 0.f;
+    if (t < n_cols && !spot) {
+        for (int k = 0; k < K; ++k) carry_out[k * ld_out + w] = 0.f;
+    } else if (spot) {
+        const BandSum<REST> ns{carry_in + w, ld_in, bits, off_s, n_bands,
+                               ns_rest + j, ld_data};
+        gs_pass_spot_panel(bs + threadIdx.x, ds + threadIdx.x, xs,
+                           carry_out + w, ld_out, xty_t + j, inv_den_t + j,
+                           ld_data, K, lam, rho, ns, dmax, amax);
+    }
+    store_block_partials(dmax, amax, partials);
+}
+
+// Whether kernel #1 runs the spot-panel pass at K.
+static bool spot_panel_takes(int K)
+{
+    return K > FDT_REGISTER_MAX_K && K <= FDT_SPOT_PANEL_MAX_K;
+}
+
 // CUDA blocks of one launch over n_cols window columns at K: each writes
 // one partial of each statistic.
 extern "C" long long fdt_fused_banded_sweep_blocks(long long n_cols, int K)
 {
-    if (K > FDT_REGISTER_MAX_K)
+    if (K > FDT_REGISTER_MAX_K && !spot_panel_takes(K))
         return (n_cols + FDT_TILE_SPOTS - 1) / FDT_TILE_SPOTS;
     return fdt_blocks(n_cols);
 }
@@ -577,14 +655,46 @@ static size_t panel_smem(int K)
            + FDT_MAX_BANDS * sizeof(int);
 }
 
-// Blocks of the panel kernel at FDT_REGISTER_MAX_K < K <= 256 (with the
-// rest input iff rest) that one SM holds at once, by registers and shared
-// memory; a negative cudaError_t if the query fails.
+// FDT_REGISTER_MAX_K < K <= FDT_SPOT_PANEL_MAX_K: the spot-panel kernel;
+// its shared memory passes 48 KB, so the attribute is set before every
+// launch.
+template <bool REST>
+static int launch_spot_panel(FDT_SWEEP_PARAMS)
+{
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_banded_sweep_panel_kernel_spot<REST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)fdt_blocks(n_cols);
+    fused_banded_sweep_panel_kernel_spot<REST>
+        <<<blocks, FDT_THREADS, smem, stream>>>(FDT_SWEEP_ARGS);
+    return (int)cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory the spot-panel kernel takes at K (its
+// band offsets included).
+extern "C" long long fdt_spot_panel_pass_smem_bytes(int K)
+{
+    return (long long)fdt_spot_panel_smem_floats(K) * sizeof(float)
+           + FDT_MAX_BANDS * sizeof(int);
+}
+
+// Blocks of kernel #1's form at FDT_REGISTER_MAX_K < K <= 256 (with the
+// rest input iff rest), the spot-panel kernel up to FDT_SPOT_PANEL_MAX_K
+// and the panel kernel above, that one SM holds at once, by registers and
+// shared memory; a negative cudaError_t if the query fails.
 extern "C" int fdt_fused_banded_sweep_panel_occupancy(int K, int rest)
 {
     if (K <= FDT_REGISTER_MAX_K || K > FDT_PANEL_MAX_K)
         return -(int)cudaErrorInvalidValue;
-    return fdt_panel_dispatch(K, [&](auto tm) {
+    if (spot_panel_takes(K)) {
+        const size_t smem = fdt_spot_panel_pass_smem_bytes(K);
+        return rest ? fdt_occupancy(fused_banded_sweep_panel_kernel_spot<true>,
+                                    smem)
+                    : fdt_occupancy(
+                          fused_banded_sweep_panel_kernel_spot<false>, smem);
+    }
+    return fdt_panel_dispatch<FUSED_MIN_TM>(K, [&](auto tm) {
         constexpr int TM = decltype(tm)::value;
         return rest ? fdt_occupancy(
                           fused_banded_sweep_panel_kernel<TM, true>,
@@ -647,9 +757,14 @@ extern "C" int fdt_fused_banded_sweep(
     inv_den_t += data0;
     if (ns_rest) ns_rest += data0;
     cudaStream_t s = (cudaStream_t)stream;
+    if (spot_panel_takes(K)) {
+        const size_t smem = fdt_spot_panel_pass_smem_bytes(K);
+        return ns_rest ? launch_spot_panel<true>(FDT_SWEEP_ARGS, smem, s)
+                       : launch_spot_panel<false>(FDT_SWEEP_ARGS, smem, s);
+    }
     if (K > FDT_REGISTER_MAX_K) {
         const size_t smem = panel_smem(K);
-        return fdt_panel_dispatch(K, [&](auto tm) {
+        return fdt_panel_dispatch<FUSED_MIN_TM>(K, [&](auto tm) {
             constexpr int TM = decltype(tm)::value;
             return ns_rest ? launch_panel<TM, true>(FDT_SWEEP_ARGS, smem, s)
                            : launch_panel<TM, false>(FDT_SWEEP_ARGS, smem, s);

@@ -1,7 +1,9 @@
 // The Gauss-Seidel coordinate pass at 32 < K <= 256, in panels of 16
 // coordinates, shared by both sweep kernels (fused_banded_sweep.cu and
 // cd_block_sweep.cu) so that the fused and unfused banded sweeps stay
-// bitwise equal on the card at every K.
+// bitwise equal on the card at every K. Two schedules of it: the tile pass
+// (gs_pass_panel, this note) and, for kernel #1 at K <= 64, the spot-panel
+// pass (gs_pass_spot_panel, its note at the end of this file).
 //
 // Replaces the panel pass of the Pallas TPU kernels in
 // flashdeconv_tpu/ops/bcd.py (_gs_prologue, _gs_pass_kb_panel with
@@ -142,12 +144,16 @@ __host__ __device__ __forceinline__ int fdt_panel_smem_floats(int K)
 
 // f(std::integral_constant<int, TM>{}) with TM = fdt_panel_tm(K), 2..8 at
 // FDT_REGISTER_MAX_K < K <= 256: the launchers' choice of the pass's
-// instance.
-template <class F>
+// instance. A launcher whose tile pass starts at MIN_TM = 3 (kernel #1,
+// which runs the spot-panel pass below) builds no TM = 2 instance, and K
+// of that tile is refused.
+template <int MIN_TM = 2, class F>
 static int fdt_panel_dispatch(const int K, F f)
 {
     switch (fdt_panel_tm(K)) {
-    case 2: return f(std::integral_constant<int, 2>{});
+    case 2:
+        if constexpr (MIN_TM > 2) return -(int)cudaErrorInvalidValue;
+        else return f(std::integral_constant<int, 2>{});
     case 3: return f(std::integral_constant<int, 3>{});
     case 4: return f(std::integral_constant<int, 4>{});
     case 5: return f(std::integral_constant<int, 5>{});
@@ -464,5 +470,228 @@ __device__ __forceinline__ void gs_pass_panel(
         // The panel's corrections to every row below it, c ascending.
         if (b < K && row0 + TM > b && row0 < K)
             strip_product<TM, true>(acc, x, LDX, ds, row0, s0, b);
+    }
+}
+
+// The spot-panel pass: the same pass at FDT_REGISTER_MAX_K < K <=
+// FDT_SPOT_PANEL_MAX_K with one thread a spot, for kernel #1
+// (fused_banded_sweep.cu); kernel #2 keeps the tile pass above.
+//
+// What bounds it: bytes. At 1M spots and K = 34 a sweep moves about
+// 0.436 GB (0.130 ms at 3.35 TB/s) against about 0.05 ms of operations
+// (derived counts, not measurements); the tile pass above, built for the
+// operations of K = 96-256, spends that range on padding rows, two warps of
+// eight running the recurrence and about 18 block barriers a pass, with
+// few loads in flight. Here every thread runs its own spot's whole pass,
+// as the register pass does, with no block barrier after staging, and
+// keeps its register arrays at one panel (16 rows) whatever K is, where
+// the register pass's grow with K (its KMAX = 48 / 64 took 5-6 times the
+// tile pass's time, PERF.md):
+//   - staging, once a block: XtX transposed into shared memory, zero-padded
+//     to K x ldx (ldx = K rounded up to 4), so a row of XtX's column i is
+//     read as float4 broadcasts; the thread's beta_old column into shared
+//     memory by asynchronous copies, in flight during the first band sums;
+//   - per panel [a, a + W) (W = 16; a last one of 12 rows or fewer K - a
+//     rounded up to 4),
+//     left-looking, with the panel's rows in registers: Xty's loads, then
+//     the band sums (BandSum::rows<W>, each band's W loads in flight
+//     together), inv_den's loads; the prologue p_k = sum_i XtX[k,i] *
+//     beta_old_i from +0 over i ascending (beta_old_i read once for the W
+//     chains); C_k as panel_numerator forms it; the corrections of every
+//     earlier coordinate, c = 0 .. a-1 ascending, from the deltas the
+//     thread keeps in shared memory; then the recurrence within the panel
+//     as gs_pass_spot runs it, writing beta_new and the panel's deltas.
+// So every r_k takes the operations of the association above in the same
+// order, and the pass is the tile pass and the register pass bit for bit.
+// Its shared memory is ldx * K + (K + n_delta) * FDT_THREADS floats, n_delta
+// = the first row of the last panel (the last panel's deltas are never
+// read): 72,608 B at K = 34 and 91,264 B at K = 48 with the band offsets.
+// Registers, not shared memory, set the blocks an SM: at the 128 of two
+// blocks (ptxas, CUDA 12.8, sm_90a: 125 and, with REST, 128, no spill) it
+// ran K = 34 in 0.467 ms a 1M-spot sweep and K = 48 in 0.658 ms, where the
+// 80 of three spilled and took 0.492 / 0.832 ms (the tile pass: 1.113 /
+// 1.339 ms); 2 blocks fit an SM to K = 54, 1 above, and the pass still ran
+// K = 56 and 64 in 1.159 / 1.372 ms against the tile pass's 1.691 / 1.849
+// (PERF.md). Measured slower, and left out: the loads of two to four bands
+// in flight together, and the band sums of all K rows formed first into a
+// shared tile (0.530 ms at K = 34, faster only from K = 56).
+
+// Largest K of the spot-panel pass; above it kernel #1 runs the tile pass.
+#define FDT_SPOT_PANEL_MAX_K 64
+
+// Blocks an SM the spot-panel kernel asks ptxas to fit by registers.
+#define FDT_SPOT_PANEL_MIN_BLOCKS 2
+
+// Row length of the spot-panel pass's transposed XtX: K rounded up to 4.
+__host__ __device__ __forceinline__ int fdt_spot_panel_ldx(int K)
+{
+    return (K + 3) / 4 * 4;
+}
+
+// Rows whose deltas the spot-panel pass keeps: those before its last panel.
+__host__ __device__ __forceinline__ int fdt_spot_panel_delta_rows(int K)
+{
+    return (K - 1) / FDT_PANEL * FDT_PANEL;
+}
+
+// Floats of dynamic shared memory the spot-panel pass takes at K: the
+// transposed XtX (K x ldx), beta_old and the kept deltas, (K, FDT_THREADS)
+// and (n_delta, FDT_THREADS).
+__host__ __device__ __forceinline__ int fdt_spot_panel_smem_floats(int K)
+{
+    return K * fdt_spot_panel_ldx(K)
+           + (K + fdt_spot_panel_delta_rows(K)) * FDT_THREADS;
+}
+
+// XtX (K, K) transposed into shared memory for the spot-panel pass:
+// xs[i * ldx + k] = XtX[k, i], zero at k >= K. Every thread of the block
+// takes part.
+__device__ __forceinline__ void load_xtx_t(const float* __restrict__ xtx,
+                                           float* __restrict__ xs,
+                                           const int K, const int ldx)
+{
+    for (int e = threadIdx.x; e < K * ldx; e += blockDim.x) {
+        const int i = e / ldx, k = e % ldx;
+        xs[e] = k < K ? xtx[k * K + i] : 0.f;
+    }
+}
+
+// One panel [a, a + W) of the spot-panel pass (see the note above); bs and
+// ds point at the thread's column of the (K, FDT_THREADS) beta_old and
+// (n_delta, FDT_THREADS) delta tiles, beta_out at row a of its output
+// column. Rows of the panel past K (the last panel's padding) are neither
+// read nor written.
+template <int W, class NeighbourSum>
+__device__ __forceinline__ void spot_panel(
+    const int a, const float* __restrict__ bs, float* __restrict__ ds,
+    const int n_delta, const float* __restrict__ xs, const int ldx,
+    float* __restrict__ beta_out, const long long ld_out,
+    const float* __restrict__ xty, const float* __restrict__ inv_den,
+    const long long ld, const int K, const float lam, const float rho,
+    const NeighbourSum& ns, float& dmax, float& amax)
+{
+    static_assert(W % 4 == 0 && W <= FDT_PANEL, "rows read as float4");
+    constexpr int Q = W / 4, T = FDT_THREADS;
+    float r[W], y[W], inv[W];
+    {
+        const float* p = xty + a * ld;
+#pragma unroll
+        for (int q = 0; q < W; ++q, p = fdt_next(p, ld))
+            y[q] = a + q < K ? *p : 0.f;
+    }
+    ns.template rows<W>(a, 1, K, r);
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+        if (a + q < K) r[q] = __fmaf_rn(lam, r[q], y[q]);
+    {
+        const float* p = inv_den + a * ld;
+#pragma unroll
+        for (int q = 0; q < W; ++q, p = fdt_next(p, ld))
+            inv[q] = a + q < K ? *p : 0.f;
+    }
+    copy_async_wait();  // beta_old staged
+
+    // The prologue, i ascending; then C_k.
+    float p[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) p[q] = 0.f;
+    for (int i = 0; i < K; ++i) {
+        const float bi = bs[i * T];
+        const float4* x = reinterpret_cast<const float4*>(xs + i * ldx + a);
+#pragma unroll
+        for (int g = 0; g < Q; ++g) {
+            const float4 v = x[g];
+            p[4 * g] = __fmaf_rn(v.x, bi, p[4 * g]);
+            p[4 * g + 1] = __fmaf_rn(v.y, bi, p[4 * g + 1]);
+            p[4 * g + 2] = __fmaf_rn(v.z, bi, p[4 * g + 2]);
+            p[4 * g + 3] = __fmaf_rn(v.w, bi, p[4 * g + 3]);
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+        const int k = a + q;
+        if (k < K) {
+            const float c = __fsub_rn(r[q], p[q]);
+            r[q] = __fsub_rn(__fmaf_rn(xs[k * ldx + k], bs[k * T], c), rho);
+        }
+    }
+
+    // The corrections of the coordinates before the panel, c ascending.
+    for (int c = 0; c < a; ++c) {
+        const float d = ds[c * T];
+        const float4* x = reinterpret_cast<const float4*>(xs + c * ldx + a);
+#pragma unroll
+        for (int g = 0; g < Q; ++g) {
+            const float4 v = x[g];
+            r[4 * g] = __fmaf_rn(-v.x, d, r[4 * g]);
+            r[4 * g + 1] = __fmaf_rn(-v.y, d, r[4 * g + 1]);
+            r[4 * g + 2] = __fmaf_rn(-v.z, d, r[4 * g + 2]);
+            r[4 * g + 3] = __fmaf_rn(-v.w, d, r[4 * g + 3]);
+        }
+    }
+
+    // Gauss-Seidel within the panel, as gs_pass_spot runs it.
+#pragma unroll
+    for (int q = 0; q < W; ++q, beta_out = fdt_next(beta_out, ld_out)) {
+        const int k = a + q;
+        if (k >= K) break;
+        const float bk = bs[k * T];
+        const float num = nan_max(r[q], 0.f);
+        const float delta = __fmaf_rn(num, inv[q], -bk);
+        const float4* x = reinterpret_cast<const float4*>(xs + k * ldx + a);
+#pragma unroll
+        for (int g = (q + 1) / 4; g < Q; ++g) {
+            const float4 v = x[g];
+            if (4 * g > q) r[4 * g] = __fmaf_rn(-v.x, delta, r[4 * g]);
+            if (4 * g + 1 > q)
+                r[4 * g + 1] = __fmaf_rn(-v.y, delta, r[4 * g + 1]);
+            if (4 * g + 2 > q)
+                r[4 * g + 2] = __fmaf_rn(-v.z, delta, r[4 * g + 2]);
+            r[4 * g + 3] = __fmaf_rn(-v.w, delta, r[4 * g + 3]);
+        }
+        if (k < n_delta) ds[k * T] = delta;
+        const float nb = __fadd_rn(delta, bk);
+        *beta_out = nb;
+        dmax = nan_max(dmax, fabsf(__fsub_rn(nb, bk)));
+        amax = nan_max(amax, fabsf(bk));
+    }
+}
+
+// The spot-panel pass for the spot of the calling thread, at
+// FDT_REGISTER_MAX_K < K <= FDT_SPOT_PANEL_MAX_K: bs is its column of the
+// beta_old tile, whose asynchronous copies (stage_column) the pass waits
+// for, ds its column of the delta tile, xs load_xtx_t's XtX; beta_out, xty,
+// inv_den and ns as for gs_pass_spot. Folds the spot's |beta_new -
+// beta_old| and |beta_old| into dmax and amax.
+template <class NeighbourSum>
+__device__ __forceinline__ void gs_pass_spot_panel(
+    const float* __restrict__ bs, float* __restrict__ ds,
+    const float* __restrict__ xs, float* __restrict__ beta_out,
+    const long long ld_out, const float* __restrict__ xty,
+    const float* __restrict__ inv_den, const long long ld, const int K,
+    const float lam, const float rho, const NeighbourSum& ns, float& dmax,
+    float& amax)
+{
+    const int ldx = fdt_spot_panel_ldx(K);
+    const int n_delta = fdt_spot_panel_delta_rows(K);
+    // Panels of 16 while more than 12 rows are left (a last panel of 13-15
+    // rows runs as one of 16, the rows past K idle: one call site of the
+    // widest panel, which a second one made spill); then 0-12 rows.
+    int a = 0;
+    for (; K - a > 12; a += FDT_PANEL)
+        spot_panel<FDT_PANEL>(a, bs, ds, n_delta, xs, ldx,
+                              beta_out + a * ld_out, ld_out, xty, inv_den, ld,
+                              K, lam, rho, ns, dmax, amax);
+    const auto tail = [&](auto w) {
+        spot_panel<decltype(w)::value>(a, bs, ds, n_delta, xs, ldx,
+                                       beta_out + a * ld_out, ld_out, xty,
+                                       inv_den, ld, K, lam, rho, ns, dmax,
+                                       amax);
+    };
+    switch ((K - a + 3) / 4) {  // the last K - a rows, 0 to 12
+    case 0: break;                // none left
+    case 1: tail(std::integral_constant<int, 4>{}); break;
+    case 2: tail(std::integral_constant<int, 8>{}); break;
+    default: tail(std::integral_constant<int, 12>{}); break;
     }
 }

@@ -20,7 +20,10 @@ each with and without the rest stream's ``ns_rest`` input — at small
 sizes. The emulation of ``cd_block_sweep.cu`` also exports two test-only
 entries (``tests/cuda_emulation/emulate.cpp``) that run its register pass
 and its panel pass on the same operands at any K <= 64, which must agree
-bit for bit. Bounds as on the card (tests/test_torch_kernels.py): atol
+bit for bit; against both, kernel #1's spot-panel pass (32 < K <= 64) is
+held bit for bit in the whole sweep, with ``ns_rest`` and in the sub-range
+form, and the launch counters on the wrappers' launch path through the
+emulated library. Bounds as on the card (tests/test_torch_kernels.py): atol
 5e-5 / rtol 1e-4 against the plain versions, rtol 1e-4 on the statistics,
 fused == unfused banded bitwise, a split sweep == the whole sweep bitwise.
 The objective kernel of ``fused_banded_sweep.cu`` runs through the same
@@ -34,6 +37,7 @@ the plain loop (f32 bit patterns, so -0.0 counts), and a whole gather-tier
 solve loop through it bit for bit the plain one.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import re
@@ -100,16 +104,21 @@ def emulator(tmp_path_factory):
                  "fused_banded_sweep.cu", "cd_block_sweep.cu"):
         _host_copy(CSRC / name, out / name)
     shutil.copy(EMULATION / "cuda_runtime.h", out)
-    libs = {}
-    for name, flag, kernel in (("fused", "-DFUSED", "fused_banded_sweep"),
-                               ("cd", "-UFUSED", "cd_block_sweep")):
+    builds = (("fused", "-DFUSED", "fused_banded_sweep"),
+              ("cd", "-UFUSED", "cd_block_sweep"))
+    procs = {}
+    for name, flag, _ in builds:
         so = out / f"emu_{name}.so"
-        subprocess.run(
+        procs[name] = (so, subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
              "-fPIC", "-pthread", flag, f"-I{out}", "-o", str(so),
              str(EMULATION / "emulate.cpp")],
-            check=True, capture_output=True, text=True,
-        )
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, _, kernel in builds:
+        so, proc = procs[name]
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, f"g++ failed for {name}:\n{log}"
         libs[name] = ctypes.CDLL(str(so))
         _build._declare(kernel, libs[name])
     return libs
@@ -168,8 +177,8 @@ def test_emulated_cd_kernel_matches_plain_version(emulator, K):
     assert (got[0] >= 0).all()
 
 
-@pytest.mark.parametrize("K", [20, 24, 33, 48, 64, 65, 80, 96, 129, 255,
-                               256])
+@pytest.mark.parametrize("K", [20, 24, 33, 34, 40, 45, 47, 48, 56, 61, 63,
+                               64, 65, 80, 96, 129, 255, 256])
 def test_emulated_fused_kernel_matches_plain_and_unfused(emulator, K):
     """A 20 x 20 grid with a 40-spot pad, which splits a 64-spot block of
     the panel form: the plain version within the card's bounds, pad slabs
@@ -224,7 +233,8 @@ def _split_problem(K):
     return p, args
 
 
-@pytest.mark.parametrize("K", [20, 24, 33, 48, 64, 128, 256])
+@pytest.mark.parametrize("K", [20, 24, 33, 34, 40, 45, 47, 48, 56, 61, 63,
+                               64, 128, 256])
 def test_emulated_sub_range_recomposes_the_whole_sweep(emulator, K):
     """The interior and both boundary calls, each into one full carry:
     bit for bit the whole sweep's data columns, the statistics' max equal
@@ -293,7 +303,8 @@ def _rest_problem(K, seed):
     return p, t, args, nsr
 
 
-@pytest.mark.parametrize("K", [6, 20, 24, 33, 48, 64, 96, 256])
+@pytest.mark.parametrize("K", [6, 20, 24, 33, 34, 40, 47, 48, 56, 63, 64,
+                               96, 256])
 def test_emulated_fused_kernel_with_rest_matches_plain_and_unfused(emulator,
                                                                    K):
     """The kernel with ``ns_rest``: the plain version within the card's
@@ -314,7 +325,7 @@ def test_emulated_fused_kernel_with_rest_matches_plain_and_unfused(emulator,
     assert not torch.equal(no_rest[0], got[0])
 
 
-@pytest.mark.parametrize("K", [20, 48, 128])
+@pytest.mark.parametrize("K", [20, 34, 47, 48, 64, 128])
 def test_emulated_sub_range_with_rest_recomposes_the_whole_sweep(emulator,
                                                                  K):
     """The interior and both boundary calls with ``ns_rest`` (indexed by
@@ -411,6 +422,140 @@ def test_emulated_register_and_panel_passes_are_bitwise_equal(emulator, K):
     assert torch.equal(reg[0], panel[0])
     assert reg[1] == panel[1] and reg[2] == panel[2]
     _close(reg, tbcd.coordinate_descent_block_reference(*args))
+
+
+# -- kernel #1's spot-panel pass (32 < K <= 64) ------------------------------
+
+# K = 45, 47, 61 and 63 end on a last panel of 13 to 15 rows.
+SPOT_KS = [33, 34, 40, 45, 47, 48, 56, 61, 63, 64]
+
+
+@pytest.mark.parametrize("form", ["whole", "rest", "sub"])
+@pytest.mark.parametrize("K", SPOT_KS)
+def test_emulated_spot_panel_pass_is_bitwise_the_tile_pass(emulator, K,
+                                                           form):
+    """Kernel #1 on the spot-panel pass against kernel #2's tile pass and
+    its register pass (the emulation's test-only entries, which run either
+    at any K <= 64) on the unfused banded sums, on the 20 x 20 grid with 60
+    rest edges: the whole sweep, the whole sweep with ``ns_rest``, and the
+    sub-range form's three calls into one full carry give the same beta
+    and statistics bit for bit: one association under three schedules."""
+    p, t, args, nsr = _rest_problem(K, seed=K + 11)
+    pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
+    rest = form == "rest"
+    if form == "sub":
+        h, m = p["h"], n // p["block"]
+        out = torch.full_like(args[0], 7.0)
+        stats = [emulated_fused(emulator, *args, out=out, sub=sub)[1:]
+                 for sub in ((h, h, m - 2 * h), (0, 0, h),
+                             (m - h, m - h, h))]
+        spot = (out, max(s[0] for s in stats), max(s[1] for s in stats))
+    else:
+        spot = emulated_fused(emulator, *args,
+                              ns_rest_t=nsr if rest else None)
+    beta_t = t["carry"][:, pad:pad + n].contiguous()
+    table = t["rest_t"] if rest else torch.zeros((0, n), dtype=torch.int32)
+    ns = tbcd.neighbor_sum_banded(beta_t, p["offsets"], t["masks"].float(),
+                                  table)
+    for other in ("panel", "register"):
+        ref = _emulated_pass(emulator, other, beta_t, t["Xty_t"], t["XtX"],
+                             ns, args[4].contiguous(), 0.5, 0.1)
+        assert torch.equal(ref[0], spot[0][:, pad:pad + n])
+        assert ref[1] == spot[1] and ref[2] == spot[2]
+
+
+@pytest.mark.parametrize("K", [34, 47])
+@pytest.mark.parametrize("where", ["XtX", "inv_den", "lambda"])
+def test_emulated_spot_panel_pass_propagates_nan(emulator, where, K):
+    """A NaN in XtX, inv_den or lambda: NaN where the plain version has
+    it, a NaN max_diff (so the sweep cannot pass for converged), and
+    kernel #2's tile pass's output on the unfused banded sums (NaN in the
+    same places, the rest bit for bit)."""
+    p = fused_problem(side=20, n_types=K, seed=5, block=40)
+    t = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+         for k, v in p.items()}
+    lam = float("nan") if where == "lambda" else 0.5
+    if where == "XtX":
+        t["XtX"][10, 1] = float("nan")
+    inv = tbcd.gs_inv_den(t["XtX"], t["nnb"], lam).contiguous()
+    if where == "inv_den":
+        inv[7, 30] = float("nan")
+    args = (t["carry"], t["Xty_t"], t["XtX"], t["masks"], inv, lam, 0.1,
+            p["offsets"], p["h"], p["block"])
+    got = emulated_fused(emulator, *args)
+    ref = tbcd.fused_banded_sweep_reference(*args)
+    assert torch.isnan(ref[0]).any() and torch.isnan(got[1])
+    _close(got, ref)
+    pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
+    beta_t = t["carry"][:, pad:pad + n].contiguous()
+    ns = tbcd.neighbor_sum_banded(beta_t, p["offsets"], t["masks"].float(),
+                                  torch.zeros((0, n), dtype=torch.int32))
+    tile = emulated_cd(emulator, beta_t, t["Xty_t"], t["XtX"], ns, inv, lam,
+                       0.1)
+    torch.testing.assert_close(got[0][:, pad:pad + n], tile[0], atol=0.0,
+                               rtol=0.0, equal_nan=True)
+
+
+@pytest.mark.parametrize("K,nbytes", [(33, 71_440), (34, 72_608),
+                                      (48, 91_264), (64, 131_200)])
+def test_emulated_spot_panel_queries(emulator, K, nbytes):
+    """The spot-panel pass's shared memory at K (the transposed XtX, the
+    beta_old tile, the kept deltas and the band offsets: the figures of
+    the note in gs_pass_panel.cuh), an occupancy answer from its instance,
+    and one partial a 256-column block, where the tile pass (every K
+    above ``SPOT_PANEL_MAX_K``) writes one a 64-column block: the wrapper
+    sizes its partials from that."""
+    fused = emulator["fused"]
+    assert tbcd.REGISTER_PASS_MAX_K < K <= tbcd.SPOT_PANEL_MAX_K
+    assert fused.fdt_spot_panel_pass_smem_bytes(K) == nbytes
+    assert fused.fdt_fused_banded_sweep_panel_occupancy(K, 0) == 1
+    assert fused.fdt_fused_banded_sweep_panel_occupancy(K, 1) == 1
+    assert fused.fdt_fused_banded_sweep_blocks(1000, K) == 4
+    assert fused.fdt_fused_banded_sweep_blocks(
+        1000, tbcd.SPOT_PANEL_MAX_K + 1) == 16
+
+
+@pytest.mark.parametrize("K", [20, 34, 47, 64, 65, 96])
+def test_spot_panel_launches_count_the_new_pass(emulator, K, monkeypatch):
+    """The wrappers' launch path (``_fused_banded_sweep_cuda``, the
+    library the emulator's): three whole sweeps, one with ``ns_rest``, and
+    a split sweep's three calls. ``spot_panel_launches`` counts one a
+    launch of every form at 32 < K <= ``SPOT_PANEL_MAX_K`` (34, 47, 64) and
+    none at K = 20 or where the tile pass runs (65, 96);
+    ``large_k_launches`` still counts every whole sweep without ``ns_rest``
+    at K > 32, and ``launches`` those at K <= 32."""
+    monkeypatch.setattr(_build, "load", lambda name: emulator["fused"])
+    monkeypatch.setattr(_build, "launch_stream",
+                        lambda *ops: contextlib.nullcontext(0))
+    p, t, args, nsr = _rest_problem(K, seed=K + 13)
+    carry, Xty_t, XtX, masks, inv, lam, rho, offsets, h, block = args
+    fn = tbcd.fused_banded_sweep
+    names = ("launches", "large_k_launches", "rest_launches", "sub_launches",
+             "spot_panel_launches")
+    before = {a: getattr(fn, a) for a in names}
+
+    def sweep(out, sub=None, ns_rest_t=None):
+        rng = tbcd.sweep_range(carry.shape[1], Xty_t.shape[1], h, block,
+                               sub, sub is not None)
+        return tbcd._fused_banded_sweep_cuda(
+            carry, Xty_t, XtX, masks, inv.contiguous(), lam, rho, offsets,
+            h, block, out, rng, sub, ns_rest_t)
+
+    whole = [sweep(torch.empty_like(carry)) for _ in range(2)]
+    sweep(torch.empty_like(carry), ns_rest_t=nsr)
+    m = Xty_t.shape[1] // block
+    split = torch.full_like(carry, 0.0)
+    for sub in ((h, h, m - 2 * h), (0, 0, h), (m - h, m - h, h)):
+        sweep(split, sub=sub)
+    assert torch.equal(whole[0][0], whole[1][0])
+    assert torch.equal(split[:, h * block:-h * block],
+                       whole[0][0][:, h * block:-h * block])
+    spot = tbcd.REGISTER_PASS_MAX_K < K <= tbcd.SPOT_PANEL_MAX_K
+    large = K > tbcd.REGISTER_PASS_MAX_K
+    assert {a: getattr(fn, a) - before[a] for a in names} == {
+        "launches": 0 if large else 2, "large_k_launches": 2 if large else 0,
+        "rest_launches": 1, "sub_launches": 3,
+        "spot_panel_launches": 6 if spot else 0}
 
 
 def _objective_problem(K, rest, seed):

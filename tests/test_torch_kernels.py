@@ -20,7 +20,10 @@ mesh with several shards on one card bitwise against the single-device
 fused tier, and the halo plan within 1e-5 of the gather tier. Kernel #1
 with the rest stream's ``ns_rest`` input is held against its plain
 version, and the fused tier with the rest stream bitwise against the
-unfused banded tier with the same rest table. The fetch of a card tensor
+unfused banded tier with the same rest table. Kernel #1's spot-panel pass
+(32 < K <= 64) is held bitwise against kernel #2's tile pass on the
+banded sums at K = 34, 47 and 48: whole, with ``ns_rest`` and split. The
+fetch of a card tensor
 to the host (``fetch_to_host``, through pinned staging buffers) is held
 bit for bit against ``tensor.cpu()``, ``return_device`` against the host
 solve, and the streamed Xty feed against the host cast. The fused tier's
@@ -63,9 +66,12 @@ pytestmark = pytest.mark.cuda
 
 
 # The register pass at K = 6, 20, 24 (KMAX = K) and 32 (its last K); the
-# panel pass from K = 33: whole panels (48, 64, 80, 96, 128, 256) and a
-# ragged last panel and register tile (33, 65, 129, 255).
-KS = [6, 20, 24, 32, 33, 48, 64, 65, 80, 96, 128, 129, 255, 256]
+# panel pass from K = 33 (kernel #1's spot-panel pass to K = 64, the tile
+# pass above; kernel #2's tile pass throughout): whole panels (48, 64, 80,
+# 96, 128, 256) and a ragged last panel and register tile (33, 34, 65, 129,
+# 255), of 13 to 15 rows at 45, 47, 61 and 63.
+KS = [6, 20, 24, 32, 33, 34, 45, 47, 48, 61, 63, 64, 65, 80, 96, 128, 129,
+      255, 256]
 # Each sum of the objective kernel against the plain path's on the card.
 OBJECTIVE_SUM_RTOL = 1e-6
 
@@ -93,12 +99,15 @@ def test_kernel_matches_plain_version(cuda_device, K):
     args = (tp["carry"], tp["Xty_t"], tp["XtX"], tp["masks"], inv, 0.5, 0.1,
             p["offsets"], p["h"], p["block"])
     before = _launches(tbcd.fused_banded_sweep, K)
+    spot = tbcd.fused_banded_sweep.spot_panel_launches
     with tbcd.full_f32_matmul():
         ref, rd, ra = tbcd.fused_banded_sweep_reference(*args)
         out = torch.full_like(tp["carry"], float("nan"))
         got, d, a = tbcd.fused_banded_sweep(*args, out=out)
     torch.cuda.synchronize()
     assert _launches(tbcd.fused_banded_sweep, K) == before + 1
+    assert tbcd.fused_banded_sweep.spot_panel_launches == spot + (
+        tbcd.REGISTER_PASS_MAX_K < K <= tbcd.SPOT_PANEL_MAX_K)
     torch.testing.assert_close(got, ref, atol=5e-5, rtol=1e-4)
     torch.testing.assert_close(d, rd, atol=0.0, rtol=1e-4)
     torch.testing.assert_close(a, ra, atol=0.0, rtol=1e-4)
@@ -107,7 +116,7 @@ def test_kernel_matches_plain_version(cuda_device, K):
     assert (got >= 0).all()
 
 
-@pytest.mark.parametrize("K", [20, 96])
+@pytest.mark.parametrize("K", [20, 34, 96])
 @pytest.mark.parametrize("where", ["XtX", "inv_den", "lambda"])
 def test_kernel_propagates_nan_like_plain_version(cuda_device, where, K):
     """A NaN operand gives NaN in the same places as the plain version
@@ -408,7 +417,7 @@ def test_fused_and_unfused_banded_kernels_are_bitwise_equal(cuda_device, K):
                        beta_t)
 
 
-@pytest.mark.parametrize("K", [65, 80, 96, 128, 129, 255, 256])
+@pytest.mark.parametrize("K", [34, 65, 80, 96, 128, 129, 255, 256])
 def test_two_launches_are_bitwise_equal(cuda_device, K):
     """Each kernel twice on the same operands: the same bits (no atomics,
     one summation order)."""
@@ -484,7 +493,8 @@ def test_sub_range_kernel_matches_plain_version(cuda_device, K):
     assert tbcd.fused_banded_sweep.sub_launches == before + 2 * len(subs)
 
 
-@pytest.mark.parametrize("K", [6, 20, 64, 65, 80, 128, 129, 255, 256])
+@pytest.mark.parametrize("K", [6, 20, 34, 48, 64, 65, 80, 128, 129, 255,
+                               256])
 def test_split_sweep_is_bitwise_the_whole_sweep(cuda_device, K):
     """The interior and both boundary calls into one full carry give the
     whole sweep's data columns bit for bit, leave the carry's pads as they
@@ -499,6 +509,38 @@ def test_split_sweep_is_bitwise_the_whole_sweep(cuda_device, K):
     assert torch.isnan(out[:, :pad]).all() and torch.isnan(out[:, -pad:]).all()
     assert max(float(d) for d, _ in stats) == float(wd)
     assert max(float(a) for _, a in stats) == float(wa)
+
+
+@pytest.mark.parametrize("form", ["whole", "rest", "sub"])
+@pytest.mark.parametrize("K", [34, 47, 48])
+def test_spot_panel_pass_is_bitwise_the_tile_pass_on_the_card(
+        cuda_device, K, form):
+    """Kernel #1 at K = 34, 47 (a last panel of 15 rows) and 48 through
+    the spot-panel pass, against kernel #2's tile pass on the banded sums
+    (with the same rest table for ``ns_rest``): the whole sweep, the whole
+    sweep with ``ns_rest``, and a split sweep's three calls into one full
+    carry give the same data columns and statistics bit for bit."""
+    p, tp, args, nsr = _rest_args(K, cuda_device, seed=K + 31)
+    carry, Xty_t, XtX, masks, inv, lam, rho, offsets, h, block = args
+    n, pad, m = Xty_t.shape[1], h * block, Xty_t.shape[1] // block
+    spot = tbcd.fused_banded_sweep.spot_panel_launches
+    rest = nsr if form == "rest" else None
+    out = torch.full_like(carry, float("nan"))
+    stats = [tbcd.fused_banded_sweep(*args, out=out, sub=sub,
+                                     ns_rest_t=rest)[1:]
+             for sub in (((h, h, m - 2 * h), (0, 0, h), (m - h, m - h, h))
+                         if form == "sub" else (None,))]
+    beta_t = carry[:, pad:pad + n].contiguous()
+    table = tp["rest_t"] if form == "rest" else torch.zeros(
+        (0, n), dtype=torch.int32, device=cuda_device)
+    ns = tbcd.neighbor_sum_banded(beta_t, offsets, masks.float(), table)
+    tile, td, ta = tbcd.coordinate_descent_block(beta_t, Xty_t, XtX, ns, inv,
+                                                 lam, rho)
+    torch.cuda.synchronize()
+    assert tbcd.fused_banded_sweep.spot_panel_launches == spot + len(stats)
+    assert torch.equal(out[:, pad:pad + n], tile)
+    assert max(float(d) for d, _ in stats) == float(td)
+    assert max(float(a) for _, a in stats) == float(ta)
 
 
 def test_sub_range_off_the_carry_raises(cuda_device):
