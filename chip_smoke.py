@@ -4,7 +4,7 @@
     python3 chip_smoke.py --profile  # where the warm 1M solves' and the
                                      # dense sketch's time goes
     python3 chip_smoke.py --large-k [--against DIR]
-                                     # the panel kernels (64 < K <= 256)
+                                     # the panel kernels (64 < K <= 384)
                                      # alone
     python3 chip_smoke.py --small-k [--against DIR]
                                      # the sweep kernels at K <= 64 alone
@@ -161,17 +161,21 @@ counts set to 0 just before it and read just after:
    262,144-spot grid solved in f64 on the card and by the port on the
    CPU, the same sweeps and beta within 1e-12 of max|beta|; and the
    262k-grid fit with ``solver_dtype=np.float64``, Pearson > 0.9;
-7. the XLA tier at K = 338 (the Allen whole-mouse-brain atlas's
-   subclasses; no kernel takes K > 256): the 1M grid in f32, the same
-   three solves, each capped at 10 sweeps (the cap is printed when it
-   binds); a 4,096-spot irregular problem (the gather form) on the card
-   and on the CPU, the same sweeps and beta within 1e-5 of max|beta|; and
-   a 4,096-cell fit with ``outputs=("proportions", "dominant")``, whose
-   argmax is fetched as int32 and equals the host argmax. Phases 6 and 7
-   run with every launch count at 0 and must leave them there, but for
-   7's f32 gather-tier neighbour sums (that kernel takes any K); each
-   checks that its operands lie on the card and that its tier runs no
-   sweep kernel;
+7. K = 338 (the Allen whole-mouse-brain atlas's subclasses), where the
+   tile pass runs its one-block instances (256 < K <= 384): the 1M grid
+   in f32 on the fused tier, kernel #1 against plain (its entry
+   ``fused_banded_sweep_wide``), then the same three solves, converged,
+   each sweep one launch counted on ``.large_k_launches`` and
+   ``.wide_launches``; the XLA tier at K = 385 (above the kernels' K) on
+   the 262,144-spot grid, the three solves capped at 10 sweeps (the cap
+   is printed when it binds); a 4,096-spot irregular problem (the gather
+   tier, kernel #2a) on the card and on the CPU, the same sweeps and beta
+   within 1e-5 of max|beta|; and a 4,096-cell fit (kernel #2a) with
+   ``outputs=("proportions", "dominant")``, whose argmax is fetched as
+   int32 and equals the host argmax. Phase 6 runs with every launch
+   count at 0 and must leave them there, and checks that its operands lie
+   on the card and that its tier runs no sweep kernel; phase 7 must show
+   each of its kernel launches and no other;
 8. the host arena (``utils/hostmem``), after every other phase, since
    ``mallopt`` changes the allocator for the rest of the process: on a
    freshly prepared 1M grid (K = 20), five warm rounds of a host-path
@@ -187,8 +191,10 @@ operator.
 
 Any failed phase raises, so the exit code is non-zero; without a card the
 script fails before it prints any result. The last three lines are one
-JSON object per kernel (each CUDA kernel's panel form at 64 < K <= 256 with
+JSON object per kernel (each CUDA kernel's panel form at 64 < K <= 384 with
 an entry of its own, ``*_large_k``, timed at K = 128, kernel #1's
+one-block tile pass at 256 < K <= 384, ``fused_banded_sweep_wide``, timed
+at K = 338, kernel #1's
 spot-panel pass at 32 < K <= 64, ``fused_banded_sweep_spot_panel``, timed
 at K = 34, and kernel #1's
 sub-range form, ``fused_banded_sweep_sub``, timed as the interior call of
@@ -211,12 +217,15 @@ prints no result line.
 ``--large-k`` runs the panel kernels alone, a few minutes where the smoke
 run takes most of its limit: it builds, prints ptxas's registers, spills
 and shared memory of every instance of both panel ``__global__``s and the
-blocks an SM holds of each at K = 65-256
+blocks an SM holds of each at K = 65-384
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); holds each panel
 kernel against its plain version, timed in turns with it, on the 1M grid
-(kernel #1) and the 1M irregular problem (kernel #2) at K = 96, 128 and
-256 and on the small shapes at K = 65; and solves the 1M grid at K = 128
-through the fused and the unfused banded tier, bitwise equal. With
+(kernel #1) and the 1M irregular problem (kernel #2) at K = 96, 128, 256,
+288, 338 and 384 and on the small shapes at K = 65; solves the 1M grid at
+K = 128 and 338 through the fused and the unfused banded tier, bitwise
+equal; and at K = 338 times the XLA tier's sweep (the banded neighbour
+sums and ``ops/bcd.coordinate_descent``, what K = 338 ran before the tile
+pass took K > 256) on the same operands beside kernel #1. With
 ``--against DIR`` it also builds the two sweep kernels from the sources
 of the checkout at DIR (into DIR's own build directory) and, on each 1M
 problem, times them in turns with this checkout's (theirs, ours, ours,
@@ -289,6 +298,7 @@ sys.path.insert(0, str(ROOT))
 SPOTS = 1_000_000
 TYPES = 20
 LARGE_TYPES = (96, 128, 256)        # the large-K kernel rows at 1M spots
+WIDE_TYPES = (288, 338, 384)        # --large-k's rows past K = 256
 SMALL_TYPES = (6, 20, 32, 34, 48, 64)  # the K <= 64 rows at 1M spots
 WIDE_OBJECTIVE_TYPES = 34           # Allen whole-mouse-brain classes
 FIT_LARGE_TYPES = 96
@@ -2699,7 +2709,7 @@ def phase_multicard(children: dict) -> dict:
     return want
 
 
-# -- the XLA tier: f64 at any K, and K > 256 ------------------------------------
+# -- the XLA tier: f64 at any K, and K > 384 ------------------------------------
 
 def xla_tier(prob, label: str) -> None:
     """``prob`` must lie on the card and have taken the XLA tier (no
@@ -2745,10 +2755,12 @@ def timed_solves(prob, label: str, **solve) -> dict:
     return info
 
 
-def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str) -> int:
+def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str,
+                check=xla_tier):
     """The same problem solved on the card and by the port on the CPU: the
-    same sweeps and beta within ``bound`` of max|beta|. Returns the
-    neighbour-sum launches of the card's solve."""
+    same sweeps and beta within ``bound`` of max|beta|; ``check(prob,
+    label)`` vets the card's problem (by default: the XLA tier). Returns
+    (the neighbour-sum launches of the card's solve, its sweeps)."""
     from flashdeconv_tpu_torch.core.solver import prepare_bcd
 
     out = {}
@@ -2756,7 +2768,7 @@ def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str) -> int:
         t0 = time.perf_counter()
         prob = prepare_bcd(Y, X, A, coords=coords, dtype=dtype, device=dev)
         if dev == "cuda":
-            xla_tier(prob, f"{label} on the card")
+            check(prob, f"{label} on the card")
             calls = neighbor_sum_calls(prob)
         beta, info = prob.solve(**SOLVE)
         out[dev] = (beta, info["n_iterations"], time.perf_counter() - t0)
@@ -2767,7 +2779,7 @@ def card_vs_cpu(Y, X, A, coords, dtype, bound: float, label: str) -> int:
         f"prepare + solve {tc:.2f} s on the card, {th:.2f} s on the CPU")
     if ic != ih or not err <= bound:
         raise AssertionError(f"{label}: the card disagrees with the CPU")
-    return calls * (ic + 1)
+    return calls * (ic + 1), ic
 
 
 def phase_f64() -> dict:
@@ -2794,33 +2806,77 @@ def phase_f64() -> dict:
     return {}
 
 
-def phase_atlas_k() -> dict:
-    """K = 338 on the card (see the module docstring, item 7). Returns the
-    launches the path must show: no sweep kernel takes K = 338, and the
-    neighbour-sum kernel (any K) launches for each f32 gather-tier solve."""
-    from flashdeconv_tpu_torch import FlashDeconv
-    from flashdeconv_tpu_torch.core import deconv
-    from flashdeconv_tpu_torch.utils import build_knn_graph
+def kernel_tier(tier_name: str):
+    """A ``card_vs_cpu`` check: the card's problem took ``tier_name`` and
+    its sweeps launch a kernel."""
+    def check(prob, label: str) -> None:
+        t = prob.tier
+        if type(t).__name__ != tier_name or not t.uses_kernel:
+            raise AssertionError(f"{label}: took the {type(t).__name__}, "
+                                 f"uses_kernel {t.uses_kernel}")
+        log(f"[large K] {label}: {tier_name}, {prob.n_spots} spots, "
+            f"K={prob.n_types}, a kernel's sweeps")
+    return check
 
-    t_phase = time.perf_counter()
+
+def atlas_grid():
+    """The 1M grid at K = 338, prepared on the card; it must take the
+    fused tier, whose sweeps launch kernel #1. Returns (problem, prepare
+    seconds)."""
     coords, A = knn_graph(SPOTS, False)
     prob, prob_s = prepare_on(coords, A, ATLAS_TYPES, grid=True)
-    xla_tier(prob, f"1M grid K={ATLAS_TYPES}")
-    log(f"[large K] 1M grid K={ATLAS_TYPES} prepare {prob_s:.3f} s; "
-        f"(K, N) f32 buffer {4 * ATLAS_TYPES * SPOTS} B")
-    info = timed_solves(prob, "large K", **dict(SOLVE, max_iter=XLA_CAP))
-    ns = 3 * neighbor_sum_calls(prob) * (info["n_iterations"] + 1)
-    log(f"[large K] 1M grid K={ATLAS_TYPES}: "
+    if not (prob.use_fused_banded and prob.tier.uses_kernel):
+        raise AssertionError(f"the 1M grid at K = {ATLAS_TYPES} did not "
+                             "take the fused tier")
+    log(f"[large K] 1000x1000 K={ATLAS_TYPES}: FusedBandedTier, prepare "
+        f"{prob_s:.3f} s; (K, N) f32 buffer {4 * ATLAS_TYPES * SPOTS} B")
+    return prob, prob_s
+
+
+def phase_atlas_k(grid) -> dict:
+    """K = 338 on the card and the XLA tier at K = 385 (see the module
+    docstring, item 7); ``grid`` is :func:`atlas_grid`'s problem. Returns
+    the launches the path must show: kernel #1's tile pass (its one-block
+    instances, counted as wide too) for each sweep of the grid's three
+    solves, kernel #2a's for each sweep of the 4,096-spot gather solve and
+    fit, and the neighbour-sum kernel's (any K) for each f32 gather-tier
+    solve; none at K = 385."""
+    from flashdeconv_tpu_torch import FlashDeconv
+    from flashdeconv_tpu_torch.core import deconv
+    from flashdeconv_tpu_torch.ops import bcd
+    from flashdeconv_tpu_torch.utils import build_knn_graph, grid_coords
+
+    t_phase = time.perf_counter()
+    info = timed_solves(grid, "large K", **SOLVE)
+    grid_sweeps = 3 * info["n_iterations"]
+    if not info["converged"]:
+        raise AssertionError(f"the 1M grid at K = {ATLAS_TYPES} did not "
+                             "converge")
+
+    # The XLA tier above the kernels' K, on a grid small enough for the
+    # run's limit.
+    c262 = grid_coords(side=FIT_SIDE)
+    xprob, xprob_s = prepare_on(c262, build_knn_graph(c262, k=6),
+                                bcd.KERNEL_MAX_K + 1, grid=True)
+    xla_tier(xprob, f"262k grid K={bcd.KERNEL_MAX_K + 1}")
+    log(f"[large K] 262k grid K={bcd.KERNEL_MAX_K + 1} prepare "
+        f"{xprob_s:.3f} s")
+    info = timed_solves(xprob, "xla K", **dict(SOLVE, max_iter=XLA_CAP))
+    ns = 3 * neighbor_sum_calls(xprob) * (info["n_iterations"] + 1)
+    log(f"[large K] 262k grid K={bcd.KERNEL_MAX_K + 1}: "
         + ("converged" if info["converged"] else
            f"capped at max_iter={XLA_CAP} sweeps (rel "
            f"{info['final_change']:.3e} > tol {SOLVE['tol']})"))
-    del prob
+    del xprob
     torch.cuda.empty_cache()
 
     c4k = irregular_coords(4096)
     A4k = build_knn_graph(c4k, k=6)
     Y, X, _ = make_problem(4096, ATLAS_TYPES, SKETCH, coords=c4k)
-    ns += card_vs_cpu(Y, X, A4k, c4k, np.float32, 1e-5, "large K")
+    calls, gather_sweeps = card_vs_cpu(Y, X, A4k, c4k, np.float32, 1e-5,
+                                       "large K", check=kernel_tier(
+                                           "GatherTier"))
+    ns += calls
 
     Yc, Xc, truth = synthetic_counts(c4k, 64.0, FIT_GENES, ATLAS_TYPES,
                                      width=0.1, depth=6000.0)
@@ -2848,8 +2904,13 @@ def phase_atlas_k() -> dict:
                              "disagrees with the host argmax")
     # The fit's 4,096 cells take the gather tier, with no degree cap.
     ns += model.info_["n_iterations"] + 1
+    gather_sweeps += model.info_["n_iterations"]
     log(f"[large K] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"neighbor_sum": ns}
+    return {"fused_banded_sweep_large_k": grid_sweeps,
+            "fused_banded_sweep_wide": grid_sweeps,
+            "coordinate_descent_block_large_k": gather_sweeps,
+            "coordinate_descent_block_wide": gather_sweeps,
+            "neighbor_sum": ns}
 
 
 # -- the panel kernels alone (--large-k) -----------------------------------------
@@ -2884,7 +2945,7 @@ def pass_report(small: bool) -> None:
     """ptxas's report (registers, spills) of the instances a mode is about
     (:func:`pass_instance`), then the blocks an SM holds at each K: with
     ``small`` each K's form at K = 1-64; else the panel pass's shared
-    memory and blocks an SM at K = 65-256."""
+    memory and blocks an SM at K = 65-384."""
     from flashdeconv_tpu_torch.ops import _build, bcd
 
     tag = "[small-k]" if small else "[large-k]"
@@ -2895,7 +2956,8 @@ def pass_report(small: bool) -> None:
                 log(f"{tag} ptxas {entry}:{report}")
     fused, cd = _build.load("fused_banded_sweep"), _build.load("cd_block_sweep")
     for K in ((1, 6, 8, 9, 16, 17, 20, 24, 25, 32, 33, 34, 48, 54, 55, 64)
-              if small else (65, 80, 96, 128, 129, 160, 192, 255, 256)):
+              if small else (65, 80, 96, 128, 129, 160, 192, 255, 256, 257,
+                             288, 300, 320, 338, 352, 384)):
         if K <= bcd.REGISTER_PASS_MAX_K:
             log(f"{tag} K={K}: register pass, KMAX = {(K + 7) // 8 * 8}; "
                 f"blocks an SM: fused "
@@ -3007,6 +3069,43 @@ def phase_against(prob, name: str, other: dict, label: str,
         f"{ms['ours']}, theirs {ms['theirs']} (theirs, ours, ours, theirs)")
 
 
+def panel_occupancy(lib, K: int) -> int:
+    """Blocks an SM of the panel pass of a sweep kernel's library ``lib``
+    at K (kernel #1's without the rest input); negative where the library
+    does not take K."""
+    if hasattr(lib, "fdt_fused_banded_sweep_panel_occupancy"):
+        return lib.fdt_fused_banded_sweep_panel_occupancy(K, 0)
+    return lib.fdt_cd_block_sweep_panel_occupancy(K)
+
+
+def phase_xla_sweep(prob, label: str, kernel_ms: float,
+                    reps: int = 3) -> None:
+    """The XLA tier's sweep on a fused-tier problem's operands: the banded
+    neighbour sums of a seeded carry and one ``ops/bcd.coordinate_descent``
+    pass (what the unfused banded tier runs where no kernel takes the
+    solve), timed by CUDA events beside kernel #1's ``kernel_ms``."""
+    from flashdeconv_tpu_torch.ops import bcd
+
+    t = prob.tier
+    lam, rho = 0.1, 0.01 * prob.mean_diag
+    beta_t = seeded_beta(prob).T.contiguous()
+    masks = t.masks.float()
+    rest = torch.zeros((0, beta_t.shape[1]), dtype=torch.int32,
+                       device=beta_t.device)
+    out = torch.empty_like(beta_t)
+
+    def sweep():
+        ns = bcd.neighbor_sum_banded(beta_t, t.offsets, masks, rest)
+        bcd.coordinate_descent(beta_t, t.Xty_t, t.XtX, ns, t.nnb, lam, rho,
+                               out=out)
+
+    with bcd.full_f32_matmul():
+        ms = event_ms(sweep, reps=reps)
+    log(f"[xla sweep] {label}: K={prob.n_types} the XLA tier's sweep "
+        f"{ms:.3f} ms (mean of {reps}), kernel #1 {kernel_ms:.4f} ms: "
+        f"{ms / kernel_ms:.1f} times")
+
+
 def large_k(against) -> None:
     """The ``--large-k`` mode (see the module docstring); ``against``
     maps each ``--against`` DIR to the future of its
@@ -3019,13 +3118,18 @@ def large_k(against) -> None:
             (False, "fused_banded_sweep", phase_fused_kernel),
             (True, "cd_block_sweep", phase_cd_kernel)):
         label = "1M irregular" if irregular else "1000x1000"
-        for K in LARGE_TYPES:
+        for K in LARGE_TYPES + WIDE_TYPES:
             prob, _ = prepare(SPOTS, K, irregular)
-            phase(prob, f"{label} K={K}")
+            row = phase(prob, f"{label} K={K}")
             for d, other in others.items():
+                if panel_occupancy(other[lib], K) < 0:
+                    log(f"[against] {d} {lib}: K={K} is not taken")
+                    continue
                 phase_against(prob, lib, other, f"{label} K={K} against {d}")
-            if K == 128 and not irregular:
+            if K in (128, ATLAS_TYPES) and not irregular:
                 phase_fused_vs_unfused(prob)
+            if K == ATLAS_TYPES and not irregular:
+                phase_xla_sweep(prob, f"{label} K={K}", row["ms"])
             del prob
             torch.cuda.empty_cache()
         knn_graph.cache_clear()
@@ -3166,10 +3270,14 @@ def main() -> None:
                                        "large_k_launches"),
         "fused_banded_sweep_spot_panel": (bcd.fused_banded_sweep,
                                           "spot_panel_launches"),
+        "fused_banded_sweep_wide": (bcd.fused_banded_sweep,
+                                    "wide_launches"),
         "coordinate_descent_block": (bcd.coordinate_descent_block,
                                      "launches"),
         "coordinate_descent_block_large_k": (bcd.coordinate_descent_block,
                                              "large_k_launches"),
+        "coordinate_descent_block_wide": (bcd.coordinate_descent_block,
+                                          "wide_launches"),
         "countsketch_project": (cs.countsketch_project_kernel, "launches"),
         "fused_banded_sweep_sub": (bcd.fused_banded_sweep, "sub_launches"),
         "fused_banded_sweep_rest": (bcd.fused_banded_sweep, "rest_launches"),
@@ -3445,10 +3553,19 @@ def main() -> None:
     else:
         log(f"[multicard] not run: {torch.cuda.device_count()} card visible")
 
-    # The XLA tier (f64, and K > 256): no sweep kernel launches; the
-    # neighbour sums of K = 338's f32 gather-tier solves do.
+    # The XLA tier (f64, and K > 384): no sweep kernel launches; at
+    # K = 338 the tile pass's one-block instances do (kernel #1 on the 1M
+    # grid, #2a and the neighbour sums on the 4,096-spot gather problems).
     counted(kernels, phase_f64)
-    ns_launches += counted(kernels, phase_atlas_k)["neighbor_sum"]
+    atlas, _ = atlas_grid()
+    wide_row = phase_fused_kernel(atlas, f"1000x1000 K={ATLAS_TYPES}")
+    launches = counted(kernels, lambda: phase_atlas_k(atlas))
+    del atlas
+    torch.cuda.empty_cache()
+    ns_launches += launches["neighbor_sum"]
+    wide_launches = launches["fused_banded_sweep_wide"]
+    large_fused_launches += launches["fused_banded_sweep_large_k"]
+    large_cd_launches += launches["coordinate_descent_block_large_k"]
     knn_graph.cache_clear()
     grid_fit_counts.cache_clear()
     job_operands.cache_clear()
@@ -3497,6 +3614,8 @@ def main() -> None:
               "flashdeconv_tpu/ops/bcd.py:376",
               spot_launches + multicard["fused_banded_sweep_spot_panel"],
               spot_row),
+        entry("fused_banded_sweep_wide", "fused_banded_sweep.cu",
+              "flashdeconv_tpu/ops/bcd.py:376", wide_launches, wide_row),
         entry("coordinate_descent_block_large_k", "cd_block_sweep.cu",
               "flashdeconv_tpu/ops/bcd.py:376", large_cd_launches,
               large_cd_rows[128]),

@@ -2,10 +2,10 @@
 
 A port of :mod:`flashdeconv_tpu` to NVIDIA Hopper cards (``sm_90a``): the
 single-device fit on any spatial graph and the spot-sharded fit over a
-mesh of torch devices. At f32 with up to 256 cell types each BCD sweep is
+mesh of torch devices. At f32 with up to 384 cell types each BCD sweep is
 one launch of a hand-written CUDA kernel — the fused banded sweep on
 banded grids, the coordinate-descent pass after plain-PyTorch neighbour
-sums on every other graph; an f64 solve, or one of more than 256 types,
+sums on every other graph; an f64 solve, or one of more than 384 types,
 runs the JAX package's XLA coordinate-descent tier in plain PyTorch, as
 the JAX package does. Dense counts are sketched by a CUDA CountSketch
 kernel. On the card the fit keeps beta there and fetches only the

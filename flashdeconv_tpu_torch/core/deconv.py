@@ -19,7 +19,7 @@ dominant type is a device argmax, and ``beta_`` / ``proportions_`` fetch
 lazily. Besides :meth:`FlashDeconv.fit` the class has ``warm_start``,
 :meth:`~FlashDeconv.fit_lambda_path`, the getters, ``summary`` and
 ``save`` / ``load`` (the JAX package's ``.npz`` keys). ``solver_dtype``
-float64, or more than 256 cell types, solves on the JAX package's XLA
+float64, or more than 384 cell types, solves on the JAX package's XLA
 tier. :meth:`~FlashDeconv.fit_distributed` is the multi-process fit: each
 process of a ``torch.distributed`` job passes only its slice of the spots,
 and stage 6 runs on a mesh whose shards span the processes

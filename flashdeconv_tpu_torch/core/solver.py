@@ -22,16 +22,18 @@ on an explicit torch device:
   degree-capped padded neighbour table with an overflow list for hubs,
   then the coordinate-descent kernel.
 
-At f32 with 1 <= K <= 256 every tier launches its kernel, which runs the
-register Gauss-Seidel pass at K <= 32 and the panel pass above, with the
-fused tier's 4096-spot block and halo rule at every K. An f64 solve, or
-one of K > 256, runs the JAX package's XLA tier instead
-(:func:`flashdeconv_tpu_torch.ops.bcd.coordinate_descent`), as the JAX
-solver does wherever its Pallas kernels do not take the problem: the
+At f32 with 1 <= K <= 384 (``ops/bcd.KERNEL_MAX_K``) every tier launches
+its kernel, which runs the register Gauss-Seidel pass at K <= 32 and the
+panel pass above, with the fused tier's 4096-spot block and halo rule at
+every K. An f64 solve, or one of K > 384, runs the JAX package's XLA tier
+instead (:func:`flashdeconv_tpu_torch.ops.bcd.coordinate_descent`), as the
+JAX solver does wherever its Pallas kernels do not take the problem: the
 unfused banded form on a banded graph (a grid the fused tier would take
-at f32 included), the gather form on any other. The host passes (Gram
-matrix, graph decomposition, YtY) are the port's own copies of the JAX
-package's functions.
+at f32 included), the gather form on any other. The JAX solver's kernels
+stop at K = 256, so at 256 < K <= 384 the port departs from it: its
+kernels take those solves, where the JAX package runs its XLA tier. The
+host passes (Gram matrix, graph decomposition, YtY) are the port's own
+copies of the JAX package's functions.
 
 Every solve ends either on the device (``return_device=True``: the
 (n_spots, K) beta in the solve dtype, un-padded and un-permuted) or in one
@@ -471,8 +473,8 @@ class BCDProblem:
         with span("flashdeconv.prepare.tier"):
             A_solve = graph_plan.A_solve.tocsr()
             fused = None
-            # The fused tier is a kernel's: f32 with K <= 256 only (JAX plans
-            # it only on its Pallas tier).
+            # The fused tier is a kernel's: f32 with K <= KERNEL_MAX_K only
+            # (JAX plans it only on its Pallas tier, to K = 256).
             if graph_plan.use_banded and kernel_takes(tdtype, n_types):
                 fused = fused_decomposition(
                     graph_plan.offsets, graph_plan.masks, graph_plan.A_rest,

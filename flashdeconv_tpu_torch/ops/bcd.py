@@ -21,9 +21,9 @@ coordinates of each spot) with the per-solve reciprocal denominator
   ``csrc/cd_block_sweep.cu`` on a CUDA f32 carry (:func:`neighbor_sum`),
   the plain loop otherwise — and then run their Gauss-Seidel pass
   (:func:`gs_pass_fn`): at f32 with
-  K <= 256 a launch of ``csrc/cd_block_sweep.cu``
+  K <= 384 a launch of ``csrc/cd_block_sweep.cu``
   (:func:`coordinate_descent_block`), otherwise :func:`coordinate_descent`,
-  the JAX package's XLA tier (f64 at any K, and K > 256): one coordinate
+  the JAX package's XLA tier (f64 at any K, and K > 384): one coordinate
   at a time for all spots, a maintained residual ``r = XtX^T beta`` with a
   rank-1 refresh, its denominator formed inside the sweep.
 
@@ -34,7 +34,7 @@ kernels' band loader; every other carry runs the plain version
 (:func:`objective_terms_banded_fused_reference`).
 
 Both kernels run one Gauss-Seidel device function — ``csrc/gs_pass.cuh``
-at K <= 32, the panel pass of ``csrc/gs_pass_panel.cuh`` at 32 < K <= 256
+at K <= 32, the panel pass of ``csrc/gs_pass_panel.cuh`` at 32 < K <= 384
 — so the fused and unfused banded sweeps are bitwise equal on the card, as
 their plain versions are on the CPU. Every function here is plain PyTorch
 on tensors of an explicit device, except the kernel wrappers: a CUDA
@@ -83,8 +83,14 @@ SPOT_PANEL_MAX_K = 64
 #: f64, the objective takes the plain path.
 OBJECTIVE_KERNEL_MAX_K = 56
 #: Largest K the CUDA kernels take (the panel form's shared-memory tiles
-#: are sized for it); the wrappers raise above it.
-KERNEL_MAX_K = 256
+#: are sized for it); the wrappers raise above it. A departure from the
+#: JAX package, which runs its XLA tier above K = 256 on the TPU: here only
+#: f64 and K > 384 run :func:`coordinate_descent`.
+KERNEL_MAX_K = 384
+#: Largest K of the tile pass's two-blocks-an-SM instances (TM <= 8);
+#: above it (TM = 9 to 12, one block an SM) both sweep kernels count their
+#: launches apart as ``wide_launches`` too.
+WIDE_ABOVE_K = 256
 #: Largest band count the fused kernel takes (one bit per band per spot).
 KERNEL_MAX_BANDS = 32
 
@@ -449,6 +455,8 @@ def _fused_banded_sweep_cuda(beta_ext_t, Xty_t, XtX, masks, inv_den_t,
     fused_banded_sweep.card_launches[beta_ext_t.device.index] += 1
     if REGISTER_PASS_MAX_K < beta_ext_t.shape[0] <= SPOT_PANEL_MAX_K:
         fused_banded_sweep.spot_panel_launches += 1
+    if beta_ext_t.shape[0] > WIDE_ABOVE_K:
+        fused_banded_sweep.wide_launches += 1
     if sub is not None:
         fused_banded_sweep.sub_launches += 1
     elif ns_rest_t is not None:
@@ -514,8 +522,9 @@ def fused_banded_sweep(
     form (K > ``REGISTER_PASS_MAX_K`` = 32) and ``.launches`` those of the
     register form (K <= 32); ``.spot_panel_launches`` counts, besides, every
     launch (whole, sub-range or rest) of the spot-panel pass (32 < K <=
-    ``SPOT_PANEL_MAX_K``); ``.card_launches`` counts every launch by the
-    card's index.
+    ``SPOT_PANEL_MAX_K``), ``.wide_launches`` every launch of the tile
+    pass's one-block-an-SM instances (K > ``WIDE_ABOVE_K`` = 256);
+    ``.card_launches`` counts every launch by the card's index.
     """
     pad = h * block
     rng = sweep_range(beta_ext_t.shape[1], Xty_t.shape[1], h, block, sub,
@@ -542,6 +551,7 @@ def fused_banded_sweep(
 fused_banded_sweep.launches = 0
 fused_banded_sweep.large_k_launches = 0
 fused_banded_sweep.spot_panel_launches = 0
+fused_banded_sweep.wide_launches = 0
 fused_banded_sweep.sub_launches = 0
 fused_banded_sweep.rest_launches = 0
 fused_banded_sweep.card_launches = collections.Counter()
@@ -828,6 +838,8 @@ def _coordinate_descent_block_cuda(beta_t, Xty_t, XtX, ns_t, inv_den_t,
         coordinate_descent_block.large_k_launches += 1
     else:
         coordinate_descent_block.launches += 1
+    if beta_t.shape[0] > WIDE_ABOVE_K:
+        coordinate_descent_block.wide_launches += 1
     stats = torch.amax(partials, dim=1)
     return out, stats[0], stats[1]
 
@@ -854,8 +866,10 @@ def coordinate_descent_block(
     :func:`coordinate_descent_block_reference`.
     ``coordinate_descent_block.launches`` counts the launches of the
     kernel's register form (K <= ``REGISTER_PASS_MAX_K`` = 32),
-    ``.large_k_launches`` those of its panel form above, ``.card_launches``
-    all of them by the card's index.
+    ``.large_k_launches`` those of its panel form above,
+    ``.wide_launches``, besides, those at K > ``WIDE_ABOVE_K`` = 256 (the
+    tile pass's one-block-an-SM instances), ``.card_launches`` all of them
+    by the card's index.
     """
     if out is None:
         out = torch.empty_like(beta_t)
@@ -874,6 +888,7 @@ def coordinate_descent_block(
 
 coordinate_descent_block.launches = 0
 coordinate_descent_block.large_k_launches = 0
+coordinate_descent_block.wide_launches = 0
 coordinate_descent_block.card_launches = collections.Counter()
 
 
@@ -911,7 +926,8 @@ def coordinate_descent(beta_t, Xty_t, XtX, ns_t, nnb, lambda_, rho,
     old)``. One loop over K (the JAX unrolled / ``fori_loop`` split is an
     XLA compile-time device, one rule). Returns the new beta, written into
     ``out`` (distinct from ``beta_t``) when given. Plain PyTorch: no kernel
-    takes f64 or K > 256, as no Pallas kernel does in the JAX package.
+    takes f64 or K > ``KERNEL_MAX_K`` (the JAX package's Pallas kernels
+    take no f64 and no K > 256).
     """
     if out is None:
         out = torch.empty_like(beta_t)
@@ -929,7 +945,7 @@ def gs_pass_fn(XtX: torch.Tensor, nnb: torch.Tensor, lambda_, rho
     """The Gauss-Seidel pass of the unfused sweeps on these operands, as
     ``fn(beta_t, Xty_t, ns_t, out) -> (beta, max_diff, max_abs)``.
 
-    Where :func:`kernel_takes` the solve (f32, K <= 256) it is kernel #2,
+    Where :func:`kernel_takes` the solve (f32, K <= 384) it is kernel #2,
     :func:`coordinate_descent_block`, with the per-solve
     :func:`gs_inv_den` computed here; otherwise :func:`coordinate_descent`,
     whose denominator is formed inside the sweep, as the JAX XLA tier's.
@@ -1326,7 +1342,7 @@ class Tier:
     and the objective's constant ``YtY``, all in the solve's dtype. A tier
     adds its graph and says how beta is carried; :func:`fused_solve`
     drives any of them. ``uses_kernel``: whether its sweeps launch a kernel
-    (f32, K <= 256) or run :func:`coordinate_descent` (the unfused tiers
+    (f32, K <= 384) or run :func:`coordinate_descent` (the unfused tiers
     take both; the fused tier only the first)."""
 
     Xty_t: torch.Tensor

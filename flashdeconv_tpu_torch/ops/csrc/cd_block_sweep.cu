@@ -32,7 +32,7 @@
 // returns that call's error if it fails. The pass is Jacobi across spots:
 // it reads one beta and writes another, never in place.
 //
-// At 32 < K <= 256 a second kernel, cd_block_sweep_panel_kernel, runs the
+// At 32 < K <= 384 a second kernel, cd_block_sweep_panel_kernel, runs the
 // panel pass of gs_pass_panel.cuh on the same operands (the counterpart of
 // _cd_block_kernel with _gs_pass_kb_panel in flashdeconv_tpu/ops/bcd.py;
 // the JAX package runs it there to K = 128 and its XLA pass above). It is
@@ -41,8 +41,9 @@
 // not measured) and by bytes below K = 96. A block owns 64 spots; the pass
 // runs its XtX products as register-tiled tile products of TM rows x 8
 // spots a thread (gs_pass_panel.cuh says why), so the kernel is templated
-// on TM = ceil(K/32), 2..8. Its shared memory passes 48 KB above K = 80,
-// so every launch sets the attribute first, as the register kernel's.
+// on TM = ceil(K/32), 2..12 (one block an SM above TM = 8, K > 256). Its
+// shared memory passes 48 KB above K = 80, so every launch sets the
+// attribute first, as the register kernel's.
 // Launch: on the caller's stream, no allocation, no synchronisation.
 
 #include "gs_pass_panel.cuh"
@@ -104,9 +105,10 @@ cd_block_sweep_kernel(const float* __restrict__ beta_in,
     store_block_partials(dmax, amax, partials);
 }
 
-// FDT_REGISTER_MAX_K < K <= 256, TM = fdt_panel_tm(K): a block of 256
-// threads passes over FDT_TILE_SPOTS spots, thread t spot blockIdx.x * FDT_TILE_SPOTS +
-// fdt_panel_spot() (the spot layout of gs_pass_panel.cuh).
+// FDT_REGISTER_MAX_K < K <= FDT_PANEL_MAX_K, TM = fdt_panel_tm(K): a
+// block of 256 threads passes over FDT_TILE_SPOTS spots, thread t spot
+// blockIdx.x * FDT_TILE_SPOTS + fdt_panel_spot() (the spot layout of
+// gs_pass_panel.cuh).
 template <int TM>
 __global__ void
 __launch_bounds__(FDT_THREADS, FDT_PANEL_MIN_BLOCKS(TM))
@@ -141,9 +143,9 @@ extern "C" long long fdt_cd_block_sweep_blocks(long long n, int K)
     return fdt_blocks(n);
 }
 
-// Blocks of the panel kernel at FDT_REGISTER_MAX_K < K <= 256 that one SM
-// holds at once, by registers and shared memory; a negative cudaError_t if
-// the query fails.
+// Blocks of the panel kernel at FDT_REGISTER_MAX_K < K <= FDT_PANEL_MAX_K
+// that one SM holds at once, by registers and shared memory; a negative
+// cudaError_t if the query fails.
 extern "C" int fdt_cd_block_sweep_panel_occupancy(int K)
 {
     if (K <= FDT_REGISTER_MAX_K || K > FDT_PANEL_MAX_K)
@@ -155,8 +157,9 @@ extern "C" int fdt_cd_block_sweep_panel_occupancy(int K)
     });
 }
 
-// FDT_REGISTER_MAX_K < K <= 256: the panel kernel of TM; its shared
-// memory may pass 48 KB, so the attribute is set before every launch.
+// FDT_REGISTER_MAX_K < K <= FDT_PANEL_MAX_K: the panel kernel of TM; its
+// shared memory may pass 48 KB, so the attribute is set before every
+// launch.
 template <int TM>
 static int launch_panel(const float* beta_in, float* beta_out,
                         const float* xty_t, const float* ns_t,

@@ -59,7 +59,7 @@
 // cudaFuncAttributeMaxDynamicSharedMemorySize first and returns that
 // call's error if it fails.
 //
-// At 64 < K <= 256 a second kernel, fused_banded_sweep_panel_kernel, runs
+// At 64 < K <= 384 a second kernel, fused_banded_sweep_panel_kernel, runs
 // the same band sums into the panel pass of gs_pass_panel.cuh (the
 // counterpart of _make_fused_banded_kernel with _gs_pass_kb_panel in
 // flashdeconv_tpu/ops/bcd.py). It is bound by operations at K = 128 and
@@ -68,7 +68,9 @@
 // K = 96. A block owns 64 spots; the pass runs its XtX products as
 // register-tiled tile products of TM rows x 8 spots a thread
 // (gs_pass_panel.cuh says why), so the kernel is templated on TM =
-// ceil(K/32), 3..8, and on REST. Its register tiles keep the registers a
+// ceil(K/32), 3..12 (one block an SM above TM = 8, K > 256), and on REST;
+// every instance keeps the name fused_banded_sweep_panel_kernel, which
+// the benchmark's trace reads. Its register tiles keep the registers a
 // thread needs flat in K, where the register pass's arrays grow with it;
 // on the card it ran K = 48 and 64 faster than the old register pass of
 // KMAX = 64 (PERF.md). Its shared memory passes 48 KB above K = 80, so
@@ -267,10 +269,10 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
     store_block_partials(dmax, amax, partials);
 }
 
-// FDT_SPOT_PANEL_MAX_K < K <= 256, TM = fdt_panel_tm(K) >= FUSED_MIN_TM:
-// a block of 256 threads sweeps FDT_TILE_SPOTS window columns, thread t
-// column w0 + blockIdx.x * FDT_TILE_SPOTS + fdt_panel_spot() (the spot
-// layout of gs_pass_panel.cuh).
+// FDT_SPOT_PANEL_MAX_K < K <= FDT_PANEL_MAX_K, TM = fdt_panel_tm(K) >=
+// FUSED_MIN_TM: a block of 256 threads sweeps FDT_TILE_SPOTS window
+// columns, thread t column w0 + blockIdx.x * FDT_TILE_SPOTS +
+// fdt_panel_spot() (the spot layout of gs_pass_panel.cuh).
 constexpr int FUSED_MIN_TM = FDT_SPOT_PANEL_MAX_K / 32 + 1;
 static_assert(FDT_SPOT_PANEL_MAX_K % 32 == 0,
               "the tile pass starts at a whole register tile");
@@ -632,8 +634,9 @@ static int launch(FDT_SWEEP_PARAMS)
     return (int)cudaGetLastError();
 }
 
-// FDT_REGISTER_MAX_K < K <= 256: the panel kernel of TM; its shared
-// memory may pass 48 KB, so the attribute is set before every launch.
+// FDT_SPOT_PANEL_MAX_K < K <= FDT_PANEL_MAX_K: the panel kernel of TM;
+// its shared memory may pass 48 KB, so the attribute is set before every
+// launch.
 template <int TM, bool REST>
 static int launch_panel(FDT_SWEEP_PARAMS)
 {
@@ -679,10 +682,11 @@ extern "C" long long fdt_spot_panel_pass_smem_bytes(int K)
            + FDT_MAX_BANDS * sizeof(int);
 }
 
-// Blocks of kernel #1's form at FDT_REGISTER_MAX_K < K <= 256 (with the
-// rest input iff rest), the spot-panel kernel up to FDT_SPOT_PANEL_MAX_K
-// and the panel kernel above, that one SM holds at once, by registers and
-// shared memory; a negative cudaError_t if the query fails.
+// Blocks of kernel #1's form at FDT_REGISTER_MAX_K < K <= FDT_PANEL_MAX_K
+// (with the rest input iff rest), the spot-panel kernel up to
+// FDT_SPOT_PANEL_MAX_K and the panel kernel above, that one SM holds at
+// once, by registers and shared memory; a negative cudaError_t if the
+// query fails.
 extern "C" int fdt_fused_banded_sweep_panel_occupancy(int K, int rest)
 {
     if (K <= FDT_REGISTER_MAX_K || K > FDT_PANEL_MAX_K)

@@ -1,4 +1,4 @@
-// The Gauss-Seidel coordinate pass at 32 < K <= 256, in panels of 16
+// The Gauss-Seidel coordinate pass at 32 < K <= 384, in panels of 16
 // coordinates, shared by both sweep kernels (fused_banded_sweep.cu and
 // cd_block_sweep.cu) so that the fused and unfused banded sweeps stay
 // bitwise equal on the card at every K. Two schedules of it: the tile pass
@@ -40,8 +40,8 @@
 //     the recurrence run there. In the tile layout thread t owns a
 //     register tile of TM rows x 8 spots of the (RP, 64) numerator matrix
 //     R, rows TM*(t/8) .. +TM-1, spots 8*(t%8) .. +7, RP = 32*TM >= K
-//     (TM = ceil(K/32): 2 at K = 33-64, 3 at 96, 4 at 128, 8 at 256); the
-//     two tile products run there.
+//     (TM = ceil(K/32): 2 at K = 33-64, 3 at 96, 4 at 128, 8 at 256, 11 at
+//     338, 12 at 384); the two tile products run there.
 //   - (1) The prologue is one tile product over all rows at once,
 //     P = XtX[:RP, :kp] . B_old (kp = K rounded up to 16). XtX is streamed
 //     through shared memory in strips of 16 columns, stored transposed so
@@ -82,6 +82,13 @@
 //     K = 256 (2 blocks an SM), 61,952 B at K = 128 and 49,664 B at K = 96
 //     (3 blocks an SM, the registers' limit: 80 a thread). The launchers
 //     set cudaFuncAttributeMaxDynamicSharedMemorySize before every launch.
+//   - Above K = 256 (TM = 9..12, to FDT_PANEL_MAX_K = 384) the same code
+//     runs one block an SM: 119,296 B at K = 257, 147,968 B at K = 338 and
+//     160,256 B at K = 384 leave no room for a second block under the
+//     H100's 227 KB, so ptxas may give a thread up to 255 registers, which
+//     hold the 72- to 96-float register tile (ptxas, CUDA 12.8: 168 / 193 /
+//     207 / 223 registers at TM = 9 / 10 / 11 / 12, no spill; a 1M-spot
+//     sweep at K = 338 took 33.3 ms against a 5.2 ms bound, PERF.md).
 //   - Every sum has one fixed order and every operation is an explicit
 //     __fmaf_rn / __fadd_rn / __fsub_rn, with no atomics, so two launches
 //     are bitwise equal and both kernels give the same bits on the same
@@ -98,7 +105,7 @@
 #define FDT_TILE_TN (FDT_TILE_SPOTS / 8)     // spots of a register tile
 #define FDT_SPOT_WARPS (FDT_TILE_SPOTS / 32) // warps of a spot-layout row
 #define FDT_SPOT_ROWS (FDT_THREADS / 32 / FDT_SPOT_WARPS)  // rows a pass
-#define FDT_PANEL_MAX_K 256
+#define FDT_PANEL_MAX_K 384
 
 static_assert(FDT_THREADS == 256 && FDT_TILE_TN % 4 == 0 &&
               FDT_TILE_SPOTS % 32 == 0,
@@ -116,9 +123,10 @@ __device__ __forceinline__ int fdt_panel_spot_row()
 }
 
 // Blocks an SM the panel kernel of TM asks ptxas to fit by registers
-// (__launch_bounds__): 3 (80 registers) at TM <= 4, 2 (128) above, where
-// shared memory holds 2-3 blocks at K = 161-256 anyway.
-#define FDT_PANEL_MIN_BLOCKS(TM) ((TM) <= 4 ? 3 : 2)
+// (__launch_bounds__): 3 (80 registers) at TM <= 4, 2 (128) to TM = 8,
+// where shared memory holds 2-3 blocks at K = 161-256 anyway, and 1 (255)
+// above, where shared memory holds one.
+#define FDT_PANEL_MIN_BLOCKS(TM) ((TM) <= 4 ? 3 : (TM) <= 8 ? 2 : 1)
 
 // K rounded up to a whole panel.
 __host__ __device__ __forceinline__ int fdt_panel_kp(int K)
@@ -142,11 +150,11 @@ __host__ __device__ __forceinline__ int fdt_panel_smem_floats(int K)
            + 3 * FDT_PANEL * FDT_TILE_SPOTS;
 }
 
-// f(std::integral_constant<int, TM>{}) with TM = fdt_panel_tm(K), 2..8 at
-// FDT_REGISTER_MAX_K < K <= 256: the launchers' choice of the pass's
-// instance. A launcher whose tile pass starts at MIN_TM = 3 (kernel #1,
-// which runs the spot-panel pass below) builds no TM = 2 instance, and K
-// of that tile is refused.
+// f(std::integral_constant<int, TM>{}) with TM = fdt_panel_tm(K), 2..12
+// at FDT_REGISTER_MAX_K < K <= FDT_PANEL_MAX_K: the launchers' choice of
+// the pass's instance. A launcher whose tile pass starts at MIN_TM = 3
+// (kernel #1, which runs the spot-panel pass below) builds no TM = 2
+// instance, and K of that tile is refused.
 template <int MIN_TM = 2, class F>
 static int fdt_panel_dispatch(const int K, F f)
 {
@@ -159,7 +167,11 @@ static int fdt_panel_dispatch(const int K, F f)
     case 5: return f(std::integral_constant<int, 5>{});
     case 6: return f(std::integral_constant<int, 6>{});
     case 7: return f(std::integral_constant<int, 7>{});
-    default: return f(std::integral_constant<int, 8>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 9: return f(std::integral_constant<int, 9>{});
+    case 10: return f(std::integral_constant<int, 10>{});
+    case 11: return f(std::integral_constant<int, 11>{});
+    default: return f(std::integral_constant<int, 12>{});
     }
 }
 

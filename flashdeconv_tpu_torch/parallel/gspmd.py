@@ -21,12 +21,12 @@ data column sees the same window and the same per-column arithmetic as in
 the single-device fused tier, so the mesh's iterate and sweeps are bitwise
 equal to it at any shard count, split or not.
 
-Where the fused kernel does not take the problem (an f64 or K > 256
+Where the fused kernel does not take the problem (an f64 or K > 384
 solve, or a halo wider than ``FUSED_MAX_H`` blocks or than a shard),
 :func:`_gspmd_iterate` forms each shard's banded neighbour sums in plain
 PyTorch over a window of its neighbours' columns and runs the pass of
 ``ops/bcd.gs_pass_fn``: kernel #2 (``coordinate_descent_block``) at f32
-with K <= 256, else the XLA tier's ``coordinate_descent``, as the JAX
+with K <= 384, else the XLA tier's ``coordinate_descent``, as the JAX
 mesh runs ``coordinate_descent`` off its Pallas tier.
 """
 
@@ -265,7 +265,7 @@ class GspmdBandedProblem(MeshProblem):
     default), plus ``device`` for the default mesh.
 
     The fused loop takes the problem when the kernels take it (f32, K <=
-    256), ``1 <= h <= FUSED_MAX_H`` and ``h * block <= n_local`` (h = the
+    384), ``1 <= h <= FUSED_MAX_H`` and ``h * block <= n_local`` (h = the
     halo in blocks, rounded up; the halo must lie in one neighbour shard),
     with the spot axis padded to a multiple of ``n_shards * block``;
     otherwise the unfused loop runs on shards padded to a multiple of

@@ -9,8 +9,8 @@ pools every shard's boundary rows (the JAX ``all_gather``,
 :func:`_halo_exchange`), forms each shard's neighbour sums over ``[local |
 pool | zero]`` in plain PyTorch and runs the Gauss-Seidel pass of
 ``ops/bcd.gs_pass_fn`` on the shard — the coordinate-descent kernel
-(kernel #2) at f32 with K <= 256, the XLA tier's
-``ops/bcd.coordinate_descent`` on an f64 or K > 256 solve, as the JAX plan
+(kernel #2) at f32 with K <= 384, the XLA tier's
+``ops/bcd.coordinate_descent`` on an f64 or K > 384 solve, as the JAX plan
 runs it; the convergence statistics are the max over shards (the JAX
 ``pmax``). The halo plan takes any graph; a wholly banded one goes to the
 banded mesh of :mod:`flashdeconv_tpu_torch.parallel.gspmd` when the

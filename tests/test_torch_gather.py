@@ -193,9 +193,10 @@ def test_wrapper_runs_plain_version_on_cpu():
     with pytest.raises(ValueError, match="contiguous"):
         tbcd.coordinate_descent_block(beta, xty, XtX, ns.T.contiguous().T,
                                       inv, 0.3, 0.05)
-    with pytest.raises(ValueError, match="K <= 256"):
-        big = torch.zeros((257, 4))
-        tbcd.coordinate_descent_block(big, big, torch.zeros((257, 257)), big,
+    K = tbcd.KERNEL_MAX_K + 1
+    with pytest.raises(ValueError, match=f"K <= {tbcd.KERNEL_MAX_K}"):
+        big = torch.zeros((K, 4))
+        tbcd.coordinate_descent_block(big, big, torch.zeros((K, K)), big,
                                       big, 0.3, 0.05)
 
 

@@ -23,7 +23,11 @@ and its panel pass on the same operands at any K <= 64, which must agree
 bit for bit; against both, kernel #1's spot-panel pass (32 < K <= 64) is
 held bit for bit in the whole sweep, with ``ns_rest`` and in the sub-range
 form, and the launch counters on the wrappers' launch path through the
-emulated library. Bounds as on the card (tests/test_torch_kernels.py): atol
+emulated library; so is the tile pass's one-block range (256 < K <= 384,
+TM = 9 to 12: kernel #1 whole, with ``ns_rest`` and split, against kernel
+#2 on the banded sums), and the TM <= 8 instances' outputs at K = 96 and
+256 are held to digests of what the sources gave before the pass took
+K > 256. Bounds as on the card (tests/test_torch_kernels.py): atol
 5e-5 / rtol 1e-4 against the plain versions, rtol 1e-4 on the statistics,
 fused == unfused banded bitwise, a split sweep == the whole sweep bitwise.
 The objective kernel of ``fused_banded_sweep.cu`` runs through the same
@@ -351,7 +355,9 @@ def test_emulated_sub_range_with_rest_recomposes_the_whole_sweep(emulator,
 
 @pytest.mark.parametrize("K,nbytes", [(33, 33_280), (64, 37_376),
                                       (65, 45_568), (96, 49_664),
-                                      (128, 61_952), (256, 111_104)])
+                                      (128, 61_952), (256, 111_104),
+                                      (257, 119_296), (300, 131_584),
+                                      (338, 147_968), (384, 160_256)])
 def test_emulated_panel_queries(emulator, K, nbytes):
     """The C entries ``chip_smoke.py --large-k`` reads: the panel pass's
     shared memory at K (the figures the note at the head of
@@ -515,13 +521,14 @@ def test_emulated_spot_panel_queries(emulator, K, nbytes):
         1000, tbcd.SPOT_PANEL_MAX_K + 1) == 16
 
 
-@pytest.mark.parametrize("K", [20, 34, 47, 64, 65, 96])
+@pytest.mark.parametrize("K", [20, 34, 47, 64, 65, 96, 256, 257, 384])
 def test_spot_panel_launches_count_the_new_pass(emulator, K, monkeypatch):
     """The wrappers' launch path (``_fused_banded_sweep_cuda``, the
     library the emulator's): three whole sweeps, one with ``ns_rest``, and
     a split sweep's three calls. ``spot_panel_launches`` counts one a
     launch of every form at 32 < K <= ``SPOT_PANEL_MAX_K`` (34, 47, 64) and
-    none at K = 20 or where the tile pass runs (65, 96);
+    none at K = 20 or where the tile pass runs (65, 96, 256, 257, 384);
+    ``wide_launches`` one a launch of every form at K > 256 (257, 384);
     ``large_k_launches`` still counts every whole sweep without ``ns_rest``
     at K > 32, and ``launches`` those at K <= 32."""
     monkeypatch.setattr(_build, "load", lambda name: emulator["fused"])
@@ -531,7 +538,7 @@ def test_spot_panel_launches_count_the_new_pass(emulator, K, monkeypatch):
     carry, Xty_t, XtX, masks, inv, lam, rho, offsets, h, block = args
     fn = tbcd.fused_banded_sweep
     names = ("launches", "large_k_launches", "rest_launches", "sub_launches",
-             "spot_panel_launches")
+             "spot_panel_launches", "wide_launches")
     before = {a: getattr(fn, a) for a in names}
 
     def sweep(out, sub=None, ns_rest_t=None):
@@ -555,7 +562,94 @@ def test_spot_panel_launches_count_the_new_pass(emulator, K, monkeypatch):
     assert {a: getattr(fn, a) - before[a] for a in names} == {
         "launches": 0 if large else 2, "large_k_launches": 2 if large else 0,
         "rest_launches": 1, "sub_launches": 3,
-        "spot_panel_launches": 6 if spot else 0}
+        "spot_panel_launches": 6 if spot else 0,
+        "wide_launches": 6 if K > tbcd.WIDE_ABOVE_K else 0}
+
+
+# -- the tile pass above K = 256 (kernels #1b and #2a, TM = 9 to 12) ---------
+
+# TM = 9, 10, 11 and 12: a ragged last panel and register tile (257, 300,
+# 338) and a whole one (384 = KERNEL_MAX_K).
+WIDE_KS = [257, 300, 338, tbcd.KERNEL_MAX_K]
+
+
+@pytest.mark.parametrize("form", ["whole", "rest", "sub"])
+@pytest.mark.parametrize("K", WIDE_KS)
+def test_emulated_wide_tile_pass_is_bitwise_fused_and_unfused(emulator, K,
+                                                             form):
+    """Kernel #1's tile pass at 256 < K <= ``KERNEL_MAX_K`` against kernel
+    #2's on the plain twin's banded sums (``neighbor_sum_banded``), on the
+    20 x 20 grid with 60 rest edges: the whole sweep, the whole sweep with
+    ``ns_rest`` and the sub-range form's three calls into one full carry
+    give the same beta and statistics bit for bit; kernel #1 is within the
+    card's bounds of the plain twin (``fused_banded_sweep_reference``), its
+    pad slabs zero."""
+    assert 256 < K <= tbcd.KERNEL_MAX_K
+    p, t, args, nsr = _rest_problem(K, seed=K + 17)
+    pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
+    rest = form == "rest"
+    if form == "sub":
+        h, m = p["h"], n // p["block"]
+        out = torch.full_like(args[0], 7.0)
+        stats = [emulated_fused(emulator, *args, out=out, sub=sub)[1:]
+                 for sub in ((h, h, m - 2 * h), (0, 0, h),
+                             (m - h, m - h, h))]
+        got = (out, max(s[0] for s in stats), max(s[1] for s in stats))
+        assert (out[:, :pad] == 7.0).all() and (out[:, -pad:] == 7.0).all()
+    else:
+        got = emulated_fused(emulator, *args,
+                             ns_rest_t=nsr if rest else None)
+        _close(got, tbcd.fused_banded_sweep_reference(
+            *args, ns_rest_t=nsr if rest else None))
+        assert (got[0][:, :pad] == 0).all() and (got[0][:, -pad:] == 0).all()
+    beta_t = t["carry"][:, pad:pad + n].contiguous()
+    table = t["rest_t"] if rest else torch.zeros((0, n), dtype=torch.int32)
+    ns = tbcd.neighbor_sum_banded(beta_t, p["offsets"], t["masks"].float(),
+                                  table)
+    unfused = emulated_cd(emulator, beta_t, t["Xty_t"], t["XtX"], ns,
+                          args[4].contiguous(), 0.5, 0.1)
+    assert torch.equal(unfused[0], got[0][:, pad:pad + n])
+    assert unfused[1] == got[1] and unfused[2] == got[2]
+    _close(unfused, tbcd.coordinate_descent_block_reference(
+        beta_t, t["Xty_t"], t["XtX"], ns, args[4], 0.5, 0.1))
+
+
+def _digest(*tensors) -> str:
+    """SHA-256 (first 16 hex digits) of the tensors' bytes, in order."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# Digests of the emulated tile pass's outputs (new carry, then the two
+# statistics) at K = 96 (TM = 3) and 256 (TM = 8), as the sources gave them
+# before the pass took K > 256: kernel #1 whole and with ns_rest, kernel #2
+# on the same carry's banded sums.
+TILE_K_DIGESTS = {
+    (96, "whole"): "173da0da4afe9e52", (96, "rest"): "2bbbb70ab535d0b4",
+    (96, "cd"): "0babbfe8d780cead",
+    (256, "whole"): "30e51de64bc61aeb", (256, "rest"): "2716667bd2f653ae",
+    (256, "cd"): "9f79165aaff2fbf3",
+}
+
+
+@pytest.mark.parametrize("K,form", sorted(TILE_K_DIGESTS))
+def test_emulated_tile_pass_at_k_up_to_256_is_unchanged(emulator, K, form):
+    """The TM <= 8 instances give bit for bit what they gave before the
+    tile pass was carried past K = 256."""
+    p, t, args, nsr = _rest_problem(K, seed=K + 19)
+    if form == "cd":
+        pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
+        beta_t = t["carry"][:, pad:pad + n].contiguous()
+        ns = tbcd.neighbor_sum_banded(beta_t, p["offsets"],
+                                      t["masks"].float(), t["rest_t"])
+        got = emulated_cd(emulator, beta_t, t["Xty_t"], t["XtX"], ns,
+                          args[4].contiguous(), 0.5, 0.1)
+    else:
+        got = emulated_fused(emulator, *args,
+                             ns_rest_t=nsr if form == "rest" else None)
+    assert _digest(*got) == TILE_K_DIGESTS[(K, form)]
 
 
 def _objective_problem(K, rest, seed):

@@ -9,7 +9,7 @@ the plain versions: atol 5e-5 / rtol 1e-4 on beta and rtol 1e-4 on the
 statistics — the kernels contract multiply-adds into FMAs and sum the
 XtX @ beta product in their own order, so they are not bitwise equal to
 them. The two kernels run one Gauss-Seidel device function (the register
-pass at K <= 32, the panel pass of 16 coordinates at 32 < K <= 256), so
+pass at K <= 32, the panel pass of 16 coordinates at 32 < K <= 384), so
 the fused and unfused banded sweeps are bitwise equal to each other, and
 two launches on the same operands are bitwise equal. The
 CountSketch kernel is held to 2e-5 * max(max|ref|, 1) against its plain
@@ -22,7 +22,9 @@ with the rest stream's ``ns_rest`` input is held against its plain
 version, and the fused tier with the rest stream bitwise against the
 unfused banded tier with the same rest table. Kernel #1's spot-panel pass
 (32 < K <= 64) is held bitwise against kernel #2's tile pass on the
-banded sums at K = 34, 47 and 48: whole, with ``ns_rest`` and split. The
+banded sums at K = 34, 47 and 48: whole, with ``ns_rest`` and split, and
+so is the tile pass's one-block range (256 < K <= 384, K = 257, 300, 338
+and 384), each launch counted on ``.wide_launches``. The
 fetch of a card tensor
 to the host (``fetch_to_host``, through pinned staging buffers) is held
 bit for bit against ``tensor.cpu()``, ``return_device`` against the host
@@ -68,10 +70,12 @@ pytestmark = pytest.mark.cuda
 # The register pass at K = 6, 20, 24 (KMAX = K) and 32 (its last K); the
 # panel pass from K = 33 (kernel #1's spot-panel pass to K = 64, the tile
 # pass above; kernel #2's tile pass throughout): whole panels (48, 64, 80,
-# 96, 128, 256) and a ragged last panel and register tile (33, 34, 65, 129,
-# 255), of 13 to 15 rows at 45, 47, 61 and 63.
+# 96, 128, 256, 384) and a ragged last panel and register tile (33, 34, 65,
+# 129, 255, 257, 300, 338), of 13 to 15 rows at 45, 47, 61 and 63; above
+# K = 256 the tile pass's one-block instances (TM = 9 to 12).
+WIDE_KS = [257, 300, 338, tbcd.KERNEL_MAX_K]
 KS = [6, 20, 24, 32, 33, 34, 45, 47, 48, 61, 63, 64, 65, 80, 96, 128, 129,
-      255, 256]
+      255, 256] + WIDE_KS
 # Each sum of the objective kernel against the plain path's on the card.
 OBJECTIVE_SUM_RTOL = 1e-6
 
@@ -494,7 +498,7 @@ def test_sub_range_kernel_matches_plain_version(cuda_device, K):
 
 
 @pytest.mark.parametrize("K", [6, 20, 34, 48, 64, 65, 80, 128, 129, 255,
-                               256])
+                               256, 338, 384])
 def test_split_sweep_is_bitwise_the_whole_sweep(cuda_device, K):
     """The interior and both boundary calls into one full carry give the
     whole sweep's data columns bit for bit, leave the carry's pads as they
@@ -538,6 +542,42 @@ def test_spot_panel_pass_is_bitwise_the_tile_pass_on_the_card(
                                                  lam, rho)
     torch.cuda.synchronize()
     assert tbcd.fused_banded_sweep.spot_panel_launches == spot + len(stats)
+    assert torch.equal(out[:, pad:pad + n], tile)
+    assert max(float(d) for d, _ in stats) == float(td)
+    assert max(float(a) for _, a in stats) == float(ta)
+
+
+@pytest.mark.parametrize("form", ["whole", "rest", "sub"])
+@pytest.mark.parametrize("K", WIDE_KS)
+def test_wide_tile_pass_is_bitwise_fused_and_unfused_on_the_card(
+        cuda_device, K, form):
+    """Kernel #1 at 256 < K <= ``KERNEL_MAX_K`` (the tile pass's one-block
+    instances) against kernel #2 on the banded sums (with the same rest
+    table for ``ns_rest``): the whole sweep, the whole sweep with
+    ``ns_rest``, and a split sweep's three calls into one full carry give
+    the same data columns and statistics bit for bit; each launch of
+    either kernel counts on ``.wide_launches``."""
+    p, tp, args, nsr = _rest_args(K, cuda_device, seed=K + 37)
+    carry, Xty_t, XtX, masks, inv, lam, rho, offsets, h, block = args
+    n, pad, m = Xty_t.shape[1], h * block, Xty_t.shape[1] // block
+    wide = (tbcd.fused_banded_sweep.wide_launches,
+            tbcd.coordinate_descent_block.wide_launches)
+    rest = nsr if form == "rest" else None
+    out = torch.full_like(carry, float("nan"))
+    stats = [tbcd.fused_banded_sweep(*args, out=out, sub=sub,
+                                     ns_rest_t=rest)[1:]
+             for sub in (((h, h, m - 2 * h), (0, 0, h), (m - h, m - h, h))
+                         if form == "sub" else (None,))]
+    beta_t = carry[:, pad:pad + n].contiguous()
+    table = tp["rest_t"] if form == "rest" else torch.zeros(
+        (0, n), dtype=torch.int32, device=cuda_device)
+    ns = tbcd.neighbor_sum_banded(beta_t, offsets, masks.float(), table)
+    tile, td, ta = tbcd.coordinate_descent_block(beta_t, Xty_t, XtX, ns, inv,
+                                                 lam, rho)
+    torch.cuda.synchronize()
+    assert (tbcd.fused_banded_sweep.wide_launches,
+            tbcd.coordinate_descent_block.wide_launches) == (
+                wide[0] + len(stats), wide[1] + 1)
     assert torch.equal(out[:, pad:pad + n], tile)
     assert max(float(d) for d, _ in stats) == float(td)
     assert max(float(a) for _, a in stats) == float(ta)
@@ -751,11 +791,13 @@ def _kernel_counts():
                            "rest_launches") if hasattr(w, c))
 
 
-@pytest.mark.parametrize("dtype,K", [(np.float64, 20), (np.float32, 257),
-                                     (np.float64, 257)])
+@pytest.mark.parametrize("dtype,K", [(np.float64, 20),
+                                     (np.float32, tbcd.KERNEL_MAX_K + 1),
+                                     (np.float64, tbcd.KERNEL_MAX_K + 1)])
 @pytest.mark.parametrize("grid", [True, False])
 def test_xla_tier_on_the_card_matches_the_cpu(cuda_device, grid, dtype, K):
-    """f64, and K > 256, take the XLA tier on the card (the unfused banded
+    """f64, and K > ``KERNEL_MAX_K`` (257 while the kernels stopped at
+    256), take the XLA tier on the card (the unfused banded
     form on a 96 x 96 grid, the gather form on irregular coordinates),
     launch no kernel, and give the CPU solve's sweeps with beta within
     1e-12 (f64) or 1e-5 (f32) of max|beta|: only the FMA contraction of
@@ -785,8 +827,9 @@ def test_xla_tier_on_the_card_matches_the_cpu(cuda_device, grid, dtype, K):
 
 
 def test_large_k_dominant_on_the_card_is_int32(cuda_device):
-    """A K = 257 fit on the card takes the XLA tier and fetches its argmax
-    as int32, equal to the host argmax of its proportions."""
+    """A K = 257 fit on the card (the gather tier's kernel #2a since the
+    kernels take K to 384; the XLA tier before) fetches its argmax as
+    int32, equal to the host argmax of its proportions."""
     from flashdeconv_tpu_torch import FlashDeconv
     from flashdeconv_tpu_torch.core import deconv as tdeconv
 

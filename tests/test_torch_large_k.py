@@ -1,4 +1,4 @@
-"""The port at 64 < K <= 256 against the JAX package, on the CPU.
+"""The port at 64 < K <= 384 against the JAX package, on the CPU.
 
 Above K = 64 both packages run the Gauss-Seidel pass in panels of 16
 coordinates. The pass and the two sweep kernels' plain versions are held
@@ -15,10 +15,17 @@ and tests/test_torch_gather.py (their K lists reach 256 and 128). Here:
   tiers): the same sweeps and max |delta beta| <= 1e-4
   (``benchmarks/hw_parity.py`` check 5);
 - a whole fit at K = 96 against the JAX fit;
-- the wrappers' bounds (K = 256 is taken, K = 257 raises) and a solve at
-  K = 256.
+- the wrappers' bounds (K = 256 and ``KERNEL_MAX_K`` = 384 are taken,
+  ``KERNEL_MAX_K + 1`` raises; 257 did while the kernels stopped at 256),
+  the one-block range's launch counters (``.wide_launches``), a solve at
+  K = 256, and a fused-tier solve of a 9,216-spot grid at K = 338 (the
+  Allen whole-mouse-brain subclasses) against the benchmark's plain
+  reference in f64 (``portbench/reference/solve.py``) and the JAX
+  package's XLA-tier solve in f32.
 """
 
+import contextlib
+import json
 import sys
 from pathlib import Path
 
@@ -123,8 +130,9 @@ def test_large_k_fit_matches_jax():
 
 @pytest.mark.parametrize("kernel", ["fused", "cd"])
 def test_wrappers_take_k256_and_refuse_k257(kernel):
-    """K = 256 runs the plain version on a CPU tensor and launches
-    nothing; K = 257 raises before any launch."""
+    """K = 256 and ``KERNEL_MAX_K`` run the plain version on a CPU tensor
+    and launch nothing; ``KERNEL_MAX_K + 1`` raises before any launch (the
+    case's name is from when the kernels stopped at 256)."""
     def call(K):
         z = torch.zeros((K, 64))
         xtx = torch.eye(K)
@@ -137,17 +145,19 @@ def test_wrappers_take_k256_and_refuse_k257(kernel):
 
     fn = (tbcd.coordinate_descent_block if kernel == "cd"
           else tbcd.fused_banded_sweep)
-    before = (fn.launches, fn.large_k_launches)
-    out, d, a = call(256)
-    assert out.shape[0] == 256 and float(d) == 0.0 and float(a) == 0.0
-    assert (fn.launches, fn.large_k_launches) == before
-    with pytest.raises(ValueError, match="K <= 256"):
-        call(257)
+    before = (fn.launches, fn.large_k_launches, fn.wide_launches)
+    for K in (256, tbcd.KERNEL_MAX_K):
+        out, d, a = call(K)
+        assert out.shape[0] == K and float(d) == 0.0 and float(a) == 0.0
+    assert (fn.launches, fn.large_k_launches, fn.wide_launches) == before
+    with pytest.raises(ValueError, match=f"K <= {tbcd.KERNEL_MAX_K}"):
+        call(tbcd.KERNEL_MAX_K + 1)
 
 
 def test_solver_takes_k256_on_the_cpu():
-    """K = 256 prepares and solves (the gather tier, 500 spots; K = 257
-    and above take the XLA tier, tests/test_torch_xla_tier.py)."""
+    """K = 256 prepares and solves (the gather tier, 500 spots; above
+    ``KERNEL_MAX_K`` the XLA tier takes the solve,
+    tests/test_torch_xla_tier.py)."""
     rng = np.random.RandomState(7)
     coords = rng.rand(500, 2) * 22.0
     A = build_knn_graph(coords, k=6)
@@ -157,3 +167,87 @@ def test_solver_takes_k256_on_the_cpu():
                                    device="cpu")
     assert beta.shape == (500, 256) and np.isfinite(beta).all()
     assert info["n_iterations"] == 3
+
+
+# -- the Allen whole-mouse-brain subclasses (K = 338) -------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+K338 = json.loads((ROOT / "portbench" / "configs"
+                   / "stereoseq_bin20_k338.json").read_text())
+
+
+def test_k338_fused_tier_solve_matches_the_references():
+    """The configuration ``stereoseq_bin20_k338`` on a 96 x 96 grid (9,216
+    bins, past the fused tier's gate), made by ``portbench.inputs`` from
+    its own file: ``prepare_bcd`` takes the fused tier in f32 (the tile
+    pass's plain twin on the CPU); ``solve`` takes the sweeps of the
+    benchmark's plain reference in f64 with beta within its ``beta_gap``
+    limit (2e-5 of max|beta_ref|), and lies within 1e-4 of the JAX
+    package's f32 solve (its XLA tier at K > 256), the same sweeps."""
+    from portbench import inputs
+    from portbench.reference import solve as ref_solve
+
+    cfg = dict(K338, layout=dict(K338["layout"], side=96))
+    coords = inputs.layout_coords(cfg["layout"])
+    A = inputs.knn_graph(coords, int(cfg["k_neighbors"]))
+    Y, X = (a.numpy() for a in inputs.sketch_problem(cfg, coords,
+                                                     2**31 + 338, "cpu"))
+    s = cfg["solve"]
+    kw = dict(lambda_=s["lambda"], rho=s["rho"], tol=s["tol"],
+              max_iter=s["max_iter"])
+    prob = tsolver.prepare_bcd(Y, X, A, coords=coords, dtype=np.float32,
+                               device="cpu")
+    assert type(prob.tier).__name__ == "FusedBandedTier"
+    assert prob.tier.uses_kernel and prob.n_types == 338
+    beta, info = prob.solve(**kw)
+    X64 = X.astype(np.float64)
+    ref = ref_solve.bcd(ref_solve.xty_from_sketch(Y, X, "f64", "cpu"),
+                        X64 @ X64.T, A, s["lambda"], s["rho"], s["tol"],
+                        s["max_iter"], "f64")
+    assert info["n_iterations"] == ref.n_iterations
+    assert ref_solve.max_gap(torch.as_tensor(beta), ref.beta) <= 2e-5
+    jbeta, jinfo = jsolver.prepare_bcd(Y, X, A, coords=coords,
+                                       dtype=np.float32).solve(**kw)
+    assert jinfo["n_iterations"] == info["n_iterations"]
+    assert np.abs(beta - np.asarray(jbeta)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("K", [256, 257, 338, tbcd.KERNEL_MAX_K])
+def test_wide_launches_count_the_one_block_range(K, monkeypatch):
+    """The wrappers' launch path with the library stood in (a call that
+    returns 0, no launch): each launch of either sweep kernel at K > 256
+    counts on ``.wide_launches`` besides ``.large_k_launches``; at
+    K = 256 it counts on ``.large_k_launches`` alone."""
+    from flashdeconv_tpu_torch.ops import _build
+
+    class Lib:
+        def fdt_fused_banded_sweep_blocks(self, n_cols, K):
+            return 1
+
+        def fdt_cd_block_sweep_blocks(self, n, K):
+            return 1
+
+        def fdt_fused_banded_sweep(self, *args):
+            return 0
+
+        def fdt_cd_block_sweep(self, *args):
+            return 0
+
+    monkeypatch.setattr(_build, "load", lambda name: Lib())
+    monkeypatch.setattr(_build, "launch_stream",
+                        lambda *ops: contextlib.nullcontext(0))
+    z = torch.zeros((K, 64))
+    carry = torch.zeros((K, 64 + 2 * 32))
+    masks = torch.ones((1, 64), dtype=torch.uint8)
+    rng = tbcd.sweep_range(carry.shape[1], 64, 1, 32, None, False)
+    fused, cd = tbcd.fused_banded_sweep, tbcd.coordinate_descent_block
+    names = ("launches", "large_k_launches", "wide_launches")
+    before = [getattr(fn, a) for fn in (fused, cd) for a in names]
+    tbcd._fused_banded_sweep_cuda(carry, z, torch.eye(K), masks, z, 0.1,
+                                  0.0, (1,), 1, 32, torch.empty_like(carry),
+                                  rng, None, None)
+    tbcd._coordinate_descent_block_cuda(z, z, torch.eye(K), z, z, 0.1, 0.0,
+                                        torch.empty_like(z))
+    after = [getattr(fn, a) for fn in (fused, cd) for a in names]
+    wide = int(K > tbcd.WIDE_ABOVE_K)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, wide] * 2

@@ -10,7 +10,8 @@ banded mesh and the halo plan), ``fit_distributed`` on a 2-shard
 ``global_spot_mesh`` without a process group (``parallel/multihost.py``;
 tests/test_torch_multihost.py runs it in jobs of 2 and 4 processes that
 refuse the same imports), two solves on the XLA tier (an f64 grid
-and a K = 257 gather problem), then imports ``chip_smoke.py`` and fits
+and a K = 385 gather problem, the first K above the kernels'; it was 257
+while they stopped at 256), then imports ``chip_smoke.py`` and fits
 its dense counts through the dense sketch route (``ops/countsketch.py``),
 runs ``tl.deconvolve`` (``tl/`` and ``io/``) on those counts through
 tests/fake_anndata.py, imports every name the subpackages export and draws
@@ -92,12 +93,14 @@ model.fit_distributed(counts, np.abs(X), coords)
 assert model.host_rows_ == (0, 400) and model.info_["n_shards"] == 2
 print("multihost", model.info_["n_iterations"])
 
-# The XLA tier: f64 on a grid (the unfused banded form) and K = 257 on an
-# irregular graph (the gather form).
+# The XLA tier: f64 on a grid (the unfused banded form) and K above the
+# kernels' on an irregular graph (the gather form).
+from flashdeconv_tpu_torch.ops.bcd import KERNEL_MAX_K
+
 for coords, K, dtype, tier in ((grid_coords(side=96), 8, np.float64,
                                 "BandedTier"),
-                               (rng.random((300, 2)) * 17, 257, np.float32,
-                                "GatherTier")):
+                               (rng.random((300, 2)) * 17, KERNEL_MAX_K + 1,
+                                np.float32, "GatherTier")):
     Xk = rng.standard_normal((K, K + 32))
     Y = rng.dirichlet(np.ones(K), size=coords.shape[0]) @ Xk
     prob = prepare_bcd(Y, Xk, build_knn_graph(coords, k=6), coords=coords,

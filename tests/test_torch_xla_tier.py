@@ -4,8 +4,10 @@ CPU.
 Wherever the JAX package's Pallas kernels do not take a problem — f64 at
 any K, and K > 128 off the TPU or K > 256 on it — it runs its XLA tier,
 ``coordinate_descent``; so does the port wherever its CUDA kernels do not
-(f64, and K > 256). On the CPU the JAX solver runs that tier on every
-problem (x64 on, as tests/conftest.py sets), so it is the reference here:
+(f64, and K > ``KERNEL_MAX_K`` = 384: the port's kernels take 256 < K <=
+384, where the JAX package runs this tier). On the CPU the JAX solver runs
+that tier on every problem (x64 on, as tests/conftest.py sets), so it is
+the reference here:
 
 - one ``coordinate_descent`` sweep in f64 against the JAX one, within
   1e-13, at a K the JAX package unrolls and one it loops over;
@@ -14,19 +16,23 @@ problem (x64 on, as tests/conftest.py sets), so it is the reference here:
   whose degree cap binds (the gather form with its overflow table) — cold,
   verbose and warm: the same sweeps and ``converged``, beta within rtol
   1e-10 / atol 1e-12, the objectives within rtol 1e-10;
-- f32 solves at K = 257 and 300 on the same three graphs at 400 spots (the
+- f32 solves at K = 385 and 428 on the same three graphs at 400 spots (the
   banded forms through a plan built past the 8,192-spot gate): the same
   sweeps, beta within 1e-5 of max|beta| (``benchmarks/hw_parity.py``'s
   bound for the XLA tier);
 - the halo plan and the banded mesh on two CPU shards against the
-  single-device solve: f64 within 1e-12, f32 at K = 257 within 1e-5, the
+  single-device solve: f64 within 1e-12, f32 at K = 385 within 1e-5, the
   same sweeps;
 - ``FlashDeconv(solver_dtype=np.float64)`` against the JAX f64 fit within
   1e-10, its device outputs (f64 on the device, the fetch, ``fetch_dtype``,
   ``save`` / ``load``), the device argmax of a K = 257 fit fetched as
-  int32, and ``tl.deconvolve`` with a 257-type reference against JAX's;
+  int32, and ``tl.deconvolve`` with a 385-type reference against JAX's;
 - the problems that raised before this tier was ported (f64, and K = 257
-  on each tier), now solved against JAX, under their old case names.
+  on each tier; K = 385 since the kernels take K to 384), now solved
+  against JAX, under their old case names.
+
+The cases above K = 256 ran at K = 257 and 300 while the kernels stopped at
+256; they keep their names and run at ``KERNEL_MAX_K + 1`` and above.
 """
 
 import sys
@@ -158,7 +164,8 @@ def test_f64_solve_matches_jax(graph, mode, capsys):
         assert "Converged at iteration" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("K", [257, 300])
+@pytest.mark.parametrize("K", [tbcd.KERNEL_MAX_K + 1,
+                               tbcd.KERNEL_MAX_K + 44])
 @pytest.mark.parametrize("graph", GRAPHS)
 def test_f32_large_k_solve_matches_jax(graph, K):
     Y, X, A, kw, plans = _problem(graph, 400, K, K + 64)
@@ -173,7 +180,8 @@ def test_f32_large_k_solve_matches_jax(graph, K):
 
 @pytest.mark.parametrize("strategy", ["halo", "banded"])
 @pytest.mark.parametrize("dtype,K,bound", [(np.float64, 8, 1e-12),
-                                           (np.float32, 257, 1e-5)])
+                                           (np.float32,
+                                            tbcd.KERNEL_MAX_K + 1, 1e-5)])
 def test_sharded_solves_match_the_single_device_solve(strategy, dtype, K,
                                                       bound):
     n = 1600 if dtype == np.float64 else 400
@@ -273,10 +281,12 @@ def test_large_k_dominant_is_fetched_as_int32(monkeypatch):
 
 
 def test_deconvolve_at_k257_matches_jax():
-    """``tl.deconvolve`` with a 257-type reference (fake AnnData) takes the
-    XLA tier in both packages: the same parameters and sweeps, proportions
+    """``tl.deconvolve`` with a ``KERNEL_MAX_K + 1``-type reference (fake
+    AnnData; 257 types while the kernels stopped at 256) takes the XLA
+    tier in both packages: the same parameters and sweeps, proportions
     within 1e-5."""
-    Y, X, coords, _ = make_synthetic(n_spots=300, n_genes=1200, n_types=257,
+    K = tbcd.KERNEL_MAX_K + 1
+    Y, X, coords, _ = make_synthetic(n_spots=300, n_genes=1200, n_types=K,
                                      seed=4)
     genes = [f"g{i}" for i in range(Y.shape[1])]
     rng = np.random.RandomState(5)
@@ -295,23 +305,24 @@ def test_deconvolve_at_k257_matches_jax():
     ref_st, st = out
     assert st.uns["flashdeconv_params"] == ref_st.uns["flashdeconv_params"]
     P = st.obsm["flashdeconv"].to_numpy()
-    assert P.shape == (300, 257)
+    assert P.shape == (300, K)
     np.testing.assert_allclose(P, ref_st.obsm["flashdeconv"].to_numpy(),
                                atol=1e-5)
 
 
 # The problems that raised NotImplementedError before this tier was ported
 # (f64, and K = 257 on each of the three tiers: a grid the fused tier takes
-# at f32 with K <= 256, a grid whose remainder takes the unfused banded
-# tier, irregular coordinates) and the f64 constructor value: each now
-# solves, against JAX.
+# at f32 with K <= KERNEL_MAX_K, a grid whose remainder takes the unfused
+# banded tier, irregular coordinates) and the f64 constructor value: each
+# now solves, against JAX; the large-K cases run at KERNEL_MAX_K + 1, the
+# first K the kernels do not take.
 @pytest.mark.parametrize("case", [
     "float64", "large_k_fused", "large_k_banded", "large_k_gather",
 ])
 def test_once_unported_tiers_solve(case):
     rng = np.random.RandomState(3)
     side = 96 if case == "float64" else 20
-    n, K, dtype = side * side, 257, np.float32
+    n, K, dtype = side * side, tbcd.KERNEL_MAX_K + 1, np.float32
     coords = grid_coords(side=side)
     if case == "float64":
         K, dtype = 8, np.float64
