@@ -89,7 +89,9 @@ OBJECTIVE_KERNEL_MAX_K = 56
 KERNEL_MAX_K = 384
 #: Largest K of the tile pass's two-blocks-an-SM instances (TM <= 8);
 #: above it (TM = 9 to 12, one block an SM) both sweep kernels count their
-#: launches apart as ``wide_launches`` too.
+#: launches apart as ``wide_launches`` too, and kernel #1 runs the pass's
+#: WIDE form (``csrc/gs_pass_panel.cuh``: the same operations, more of its
+#: loads in flight).
 WIDE_ABOVE_K = 256
 #: Largest band count the fused kernel takes (one bit per band per spot).
 KERNEL_MAX_BANDS = 32
@@ -522,8 +524,9 @@ def fused_banded_sweep(
     form (K > ``REGISTER_PASS_MAX_K`` = 32) and ``.launches`` those of the
     register form (K <= 32); ``.spot_panel_launches`` counts, besides, every
     launch (whole, sub-range or rest) of the spot-panel pass (32 < K <=
-    ``SPOT_PANEL_MAX_K``), ``.wide_launches`` every launch of the tile
-    pass's one-block-an-SM instances (K > ``WIDE_ABOVE_K`` = 256);
+    ``SPOT_PANEL_MAX_K``), ``.wide_launches`` every launch (whole,
+    sub-range or rest) of the tile pass's WIDE form, which runs K >
+    ``WIDE_ABOVE_K`` = 256 one block an SM;
     ``.card_launches`` counts every launch by the card's index.
     """
     pad = h * block

@@ -68,7 +68,9 @@
 // K = 96. A block owns 64 spots; the pass runs its XtX products as
 // register-tiled tile products of TM rows x 8 spots a thread
 // (gs_pass_panel.cuh says why), so the kernel is templated on TM =
-// ceil(K/32), 3..12 (one block an SM above TM = 8, K > 256), and on REST;
+// ceil(K/32), 3..8, and above K = 256, one block an SM, on TM = 10 and 12
+// (fused_panel_dispatch), where the pass's WIDE form hides more of its
+// waits on memory; and on REST;
 // every instance keeps the name fused_banded_sweep_panel_kernel, which
 // the benchmark's trace reads. Its register tiles keep the registers a
 // thread needs flat in K, where the register pass's arrays grow with it;
@@ -173,12 +175,55 @@ struct BandSum {
                             s[j] = __fadd_rn(s[j], c[(k0 + j * step) * ld]);
                 }
             }
+        add_rest(k0, step, lim, s);
+    }
+
+    // With REST, the rows' rest-stream sums added once, after the bands.
+    template <int N>
+    __device__ __forceinline__ void add_rest(int k0, int step, int lim,
+                                             float (&s)[N]) const
+    {
         if (REST) {
             const float* c = rest + k0 * ld_rest;
 #pragma unroll
             for (int j = 0; j < N; ++j, c = fdt_next(c, step * ld_rest))
                 if (k0 + j * step < lim) s[j] = __fadd_rn(s[j], *c);
         }
+    }
+
+    // The same sums for the tile pass's one-block-an-SM instances (WIDE in
+    // gs_pass_panel.cuh), whose registers are not short: the N rows' loads
+    // of BANDS bands at a time in flight together (a band whose bit is
+    // clear loads nothing), then each row's set bands added in band order
+    // from +0, as rows() adds them; so the bits are rows()'.
+    template <int N>
+    __device__ __forceinline__ void rows_wide(int k0, int step, int lim,
+                                              float (&s)[N]) const
+    {
+        constexpr int BANDS = 8;
+#pragma unroll
+        for (int j = 0; j < N; ++j) s[j] = 0.f;
+        for (int u0 = 0; u0 < n_bands; u0 += BANDS) {
+            float v[BANDS][N];
+#pragma unroll
+            for (int q = 0; q < BANDS; ++q) {
+                const int u = u0 + q;
+                const bool on = u < n_bands && ((bits >> u) & 1u);
+                const float* c = col + (on ? off_s[u] : 0);
+#pragma unroll
+                for (int j = 0; j < N; ++j)
+                    v[q][j] = on && k0 + j * step < lim
+                                  ? c[(k0 + j * step) * ld] : 0.f;
+            }
+#pragma unroll
+            for (int q = 0; q < BANDS; ++q)
+                if (u0 + q < n_bands && ((bits >> (u0 + q)) & 1u))
+#pragma unroll
+                    for (int j = 0; j < N; ++j)
+                        if (k0 + j * step < lim)
+                            s[j] = __fadd_rn(s[j], v[q][j]);
+        }
+        add_rest(k0, step, lim, s);
     }
 };
 
@@ -276,6 +321,7 @@ fused_banded_sweep_kernel(const float* __restrict__ carry_in,
 constexpr int FUSED_MIN_TM = FDT_SPOT_PANEL_MAX_K / 32 + 1;
 static_assert(FDT_SPOT_PANEL_MAX_K % 32 == 0,
               "the tile pass starts at a whole register tile");
+
 template <int TM, bool REST>
 __global__ void
 __launch_bounds__(FDT_THREADS, FDT_PANEL_MIN_BLOCKS(TM))
@@ -297,7 +343,8 @@ fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
 {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
-    int* off_s = reinterpret_cast<int*>(smem + fdt_panel_smem_floats(K));
+    int* off_s =
+        reinterpret_cast<int*>(smem + fdt_panel_smem_floats_tm(K, TM));
     for (int i = threadIdx.x; i < n_bands; i += blockDim.x)
         off_s[i] = offs.v[i];
     __syncthreads();
@@ -318,9 +365,10 @@ fused_banded_sweep_panel_kernel(const float* __restrict__ carry_in,
     const BandSum<REST> ns{carry_in + c, ld_in, bits, off_s, n_bands,
                            ns_rest + jj, ld_data};
     float dmax = 0.f, amax = 0.f;
-    gs_pass_panel<TM>(carry_in + c, ld_in, carry_out + c, ld_out,
-                      xty_t + jj, inv_den_t + jj, ld_data, xtx, K, lam, rho,
-                      ns, valid, smem, dmax, amax);
+    gs_pass_panel<TM, FDT_PANEL_MIN_BLOCKS(TM) == 1>(
+        carry_in + c, ld_in, carry_out + c, ld_out, xty_t + jj,
+        inv_den_t + jj, ld_data, xtx, K, lam, rho, ns, valid, smem, dmax,
+        amax);
     store_block_partials(dmax, amax, partials);
 }
 
@@ -651,11 +699,28 @@ static int launch_panel(FDT_SWEEP_PARAMS)
     return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the panel kernel at K, in bytes.
-static size_t panel_smem(int K)
+// Dynamic shared memory of the panel kernel of TM at K, in bytes.
+static size_t panel_smem(int K, int TM)
 {
-    return fdt_panel_smem_floats(K) * sizeof(float)
+    return fdt_panel_smem_floats_tm(K, TM) * sizeof(float)
            + FDT_MAX_BANDS * sizeof(int);
+}
+
+// f(std::integral_constant<int, TM>{}) with kernel #1's register tile at
+// FDT_SPOT_PANEL_MAX_K < K <= FDT_PANEL_MAX_K: TM = ceil(K/32) to K = 256;
+// above, one block an SM, TM = 12 (a thread's XtX rows read as float4s),
+// but 10 at K = 289-320 (float2s, a smaller tile). On the card TM = 9 and
+// 11, which read them one by one, ran 1M x 257 / 288 / 338 10-12 % slower
+// than TM = 12, and TM = 12 ran K = 300 5 % slower than 10 (PERF.md). A
+// larger tile runs the same operations on every row below K: the same
+// bits.
+template <class F>
+static int fused_panel_dispatch(const int K, F f)
+{
+    const int tm = fdt_panel_tm(K);
+    if (tm <= 8) return fdt_panel_dispatch<FUSED_MIN_TM, 8>(K, f);
+    if (tm == 10) return f(std::integral_constant<int, 10>{});
+    return f(std::integral_constant<int, 12>{});
 }
 
 // FDT_REGISTER_MAX_K < K <= FDT_SPOT_PANEL_MAX_K: the spot-panel kernel;
@@ -698,14 +763,14 @@ extern "C" int fdt_fused_banded_sweep_panel_occupancy(int K, int rest)
                     : fdt_occupancy(
                           fused_banded_sweep_panel_kernel_spot<false>, smem);
     }
-    return fdt_panel_dispatch<FUSED_MIN_TM>(K, [&](auto tm) {
+    return fused_panel_dispatch(K, [&](auto tm) {
         constexpr int TM = decltype(tm)::value;
         return rest ? fdt_occupancy(
                           fused_banded_sweep_panel_kernel<TM, true>,
-                          panel_smem(K))
+                          panel_smem(K, TM))
                     : fdt_occupancy(
                           fused_banded_sweep_panel_kernel<TM, false>,
-                          panel_smem(K));
+                          panel_smem(K, TM));
     });
 }
 
@@ -767,9 +832,9 @@ extern "C" int fdt_fused_banded_sweep(
                        : launch_spot_panel<false>(FDT_SWEEP_ARGS, smem, s);
     }
     if (K > FDT_REGISTER_MAX_K) {
-        const size_t smem = panel_smem(K);
-        return fdt_panel_dispatch<FUSED_MIN_TM>(K, [&](auto tm) {
+        return fused_panel_dispatch(K, [&](auto tm) {
             constexpr int TM = decltype(tm)::value;
+            const size_t smem = panel_smem(K, TM);
             return ns_rest ? launch_panel<TM, true>(FDT_SWEEP_ARGS, smem, s)
                            : launch_panel<TM, false>(FDT_SWEEP_ARGS, smem, s);
         });

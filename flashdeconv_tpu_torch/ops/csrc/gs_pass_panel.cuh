@@ -89,6 +89,21 @@
 //     hold the 72- to 96-float register tile (ptxas, CUDA 12.8: 168 / 193 /
 //     207 / 223 registers at TM = 9 / 10 / 11 / 12, no spill; a 1M-spot
 //     sweep at K = 338 took 33.3 ms against a 5.2 ms bound, PERF.md).
+//     There nothing covers the pass's waits on memory, and clock64 sums of
+//     its phases on the card put a third of a block's time at K = 338 in
+//     the numerators, where each band's loads of 4 rows waited on L2 in
+//     turn and each row's Xty came from device memory, and each strip's
+//     loads from L2 were waited on before its barrier. So kernel #1's
+//     instances there (WIDE, the registers being no longer short) issue
+//     the loads of 8 bands together (the functor's rows_wide), prefetch
+//     the Xty and inv_den rows of the thread's numerators and panels into
+//     L2 during the prologue, load each next panel's inv_den on every warp
+//     before the recurrence, and load each next strip into registers while
+//     the products run (measured slower at two blocks an SM, whose
+//     registers are short); the operations and their order are the same,
+//     so the bits are. Kernel #1 runs those K on TM = 10 and 12 only
+//     (fused_panel_dispatch): 26.1 ms a sweep at 1M x 338. Kernel #2 keeps
+//     the code above at every TM.
 //   - Every sum has one fixed order and every operation is an explicit
 //     __fmaf_rn / __fadd_rn / __fsub_rn, with no atomics, so two launches
 //     are bitwise equal and both kernels give the same bits on the same
@@ -140,38 +155,49 @@ __host__ __device__ __forceinline__ int fdt_panel_tm(int K)
     return (K + 31) / 32;
 }
 
-// Floats of dynamic shared memory gs_pass_panel takes at K: the beta_old
-// tile (kp x 32), two strips (16 x (RP + 4) each), the panel's r, delta
-// and reciprocal denominators (16 x 32 each).
-__host__ __device__ __forceinline__ int fdt_panel_smem_floats(int K)
+// Floats of dynamic shared memory gs_pass_panel<tm> takes at K: the
+// beta_old tile (kp x 32), two strips (16 x (RP + 4) each), the panel's
+// r, delta and reciprocal denominators (16 x 32 each); with tm =
+// fdt_panel_tm(K) unless a launcher picks a larger register tile.
+__host__ __device__ __forceinline__ int fdt_panel_smem_floats_tm(int K,
+                                                                 int tm)
 {
-    const int rp = 32 * fdt_panel_tm(K);
+    const int rp = 32 * tm;
     return fdt_panel_kp(K) * FDT_TILE_SPOTS + 2 * FDT_PANEL * (rp + 4)
            + 3 * FDT_PANEL * FDT_TILE_SPOTS;
+}
+__host__ __device__ __forceinline__ int fdt_panel_smem_floats(int K)
+{
+    return fdt_panel_smem_floats_tm(K, fdt_panel_tm(K));
 }
 
 // f(std::integral_constant<int, TM>{}) with TM = fdt_panel_tm(K), 2..12
 // at FDT_REGISTER_MAX_K < K <= FDT_PANEL_MAX_K: the launchers' choice of
-// the pass's instance. A launcher whose tile pass starts at MIN_TM = 3
-// (kernel #1, which runs the spot-panel pass below) builds no TM = 2
-// instance, and K of that tile is refused.
-template <int MIN_TM = 2, class F>
+// the pass's instance. A launcher builds only MIN_TM <= TM <= MAX_TM and
+// refuses K of the others: kernel #1, which runs the spot-panel pass below
+// TM = 3 and picks its own tiles above TM = 8 (fused_banded_sweep.cu).
+template <int MIN_TM = 2, int MAX_TM = 12, class F>
 static int fdt_panel_dispatch(const int K, F f)
 {
+    const auto take = [&](auto tm) -> int {
+        constexpr int TM = decltype(tm)::value;
+        if constexpr (TM < MIN_TM || TM > MAX_TM)
+            return -(int)cudaErrorInvalidValue;
+        else
+            return f(tm);
+    };
     switch (fdt_panel_tm(K)) {
-    case 2:
-        if constexpr (MIN_TM > 2) return -(int)cudaErrorInvalidValue;
-        else return f(std::integral_constant<int, 2>{});
-    case 3: return f(std::integral_constant<int, 3>{});
-    case 4: return f(std::integral_constant<int, 4>{});
-    case 5: return f(std::integral_constant<int, 5>{});
-    case 6: return f(std::integral_constant<int, 6>{});
-    case 7: return f(std::integral_constant<int, 7>{});
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 9: return f(std::integral_constant<int, 9>{});
-    case 10: return f(std::integral_constant<int, 10>{});
-    case 11: return f(std::integral_constant<int, 11>{});
-    default: return f(std::integral_constant<int, 12>{});
+    case 2: return take(std::integral_constant<int, 2>{});
+    case 3: return take(std::integral_constant<int, 3>{});
+    case 4: return take(std::integral_constant<int, 4>{});
+    case 5: return take(std::integral_constant<int, 5>{});
+    case 6: return take(std::integral_constant<int, 6>{});
+    case 7: return take(std::integral_constant<int, 7>{});
+    case 8: return take(std::integral_constant<int, 8>{});
+    case 9: return take(std::integral_constant<int, 9>{});
+    case 10: return take(std::integral_constant<int, 10>{});
+    case 11: return take(std::integral_constant<int, 11>{});
+    default: return take(std::integral_constant<int, 12>{});
     }
 }
 
@@ -194,6 +220,13 @@ static int fdt_occupancy(Kernel kernel, const size_t smem)
 extern "C" long long fdt_panel_pass_smem_bytes(int K)
 {
     return (long long)fdt_panel_smem_floats(K) * sizeof(float);
+}
+
+// A hint to bring the line of device memory at p into L2 (PTX
+// prefetch.global.L2): it takes no register and nothing waits for it.
+__device__ __forceinline__ void prefetch_l2(const float* p)
+{
+    asm volatile("prefetch.global.L2 [%0];" : : "l"(p));
 }
 
 // C_k of the thread's spot, given p = sum_i XtX[k,i]*beta_old_i and its
@@ -304,7 +337,34 @@ __device__ __forceinline__ void tile_rows(float (&acc)[TM][FDT_TILE_TN],
 // Strip XtX[row_lo:RP, col0:col0+16] (zero outside XtX) into a strip
 // buffer, transposed (rows contiguous per column, row length ldx): element
 // e = row * 16 + c, thread t takes e = row_lo * 16 + t + 256 * u, all its
-// loads issued before its stores.
+// loads issued (strip_load, into v) before its stores (strip_store).
+template <int TM>
+__device__ __forceinline__ void strip_load(float (&v)[2 * TM],
+                                           const float* __restrict__ xtx,
+                                           const int K, const int col0,
+                                           const int row_lo)
+{
+    constexpr int RP = 32 * TM;
+#pragma unroll
+    for (int u = 0; u < 2 * TM; ++u) {
+        const int e = row_lo * FDT_PANEL + threadIdx.x + FDT_THREADS * u;
+        const int row = e >> 4, col = col0 + (e & 15);
+        v[u] = (row < K && col < K && row < RP) ? xtx[row * K + col] : 0.f;
+    }
+}
+template <int TM>
+__device__ __forceinline__ void strip_store(float* __restrict__ xs,
+                                            const int ldx,
+                                            const float (&v)[2 * TM],
+                                            const int row_lo)
+{
+    constexpr int RP = 32 * TM;
+#pragma unroll
+    for (int u = 0; u < 2 * TM; ++u) {
+        const int e = row_lo * FDT_PANEL + threadIdx.x + FDT_THREADS * u;
+        if (e < RP * FDT_PANEL) xs[(e & 15) * ldx + (e >> 4)] = v[u];
+    }
+}
 template <int TM>
 __device__ __forceinline__ void stage_strip(float* __restrict__ xs,
                                             const int ldx,
@@ -312,19 +372,9 @@ __device__ __forceinline__ void stage_strip(float* __restrict__ xs,
                                             const int K, const int col0,
                                             const int row_lo)
 {
-    constexpr int RP = 32 * TM;
     float v[2 * TM];
-#pragma unroll
-    for (int u = 0; u < 2 * TM; ++u) {
-        const int e = row_lo * FDT_PANEL + threadIdx.x + FDT_THREADS * u;
-        const int row = e >> 4, col = col0 + (e & 15);
-        v[u] = (row < K && col < K && row < RP) ? xtx[row * K + col] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < 2 * TM; ++u) {
-        const int e = row_lo * FDT_PANEL + threadIdx.x + FDT_THREADS * u;
-        if (e < RP * FDT_PANEL) xs[(e & 15) * ldx + (e >> 4)] = v[u];
-    }
+    strip_load<TM>(v, xtx, K, col0, row_lo);
+    strip_store<TM>(xs, ldx, v, row_lo);
 }
 
 // The pass for the FDT_TILE_SPOTS spots of the calling block; every
@@ -336,8 +386,10 @@ __device__ __forceinline__ void stage_strip(float* __restrict__ xs,
 // false has no spot: it reads and writes nothing. xtx is XtX (K, K) in
 // device memory; smem holds fdt_panel_smem_floats(K) floats, 16-byte
 // aligned. The warps of spot-layout row 0 fold their spots'
-// |beta_new - beta_old| and |beta_old| into dmax and amax.
-template <int TM, class NeighbourSum>
+// |beta_new - beta_old| and |beta_old| into dmax and amax. WIDE (kernel
+// #1's one-block-an-SM instances; ns then has rows_wide) hides the waits
+// the note above names; it changes no operation.
+template <int TM, bool WIDE = false, class NeighbourSum>
 __device__ __forceinline__ void gs_pass_panel(
     const float* __restrict__ beta_in, const long long ld_in,
     float* __restrict__ beta_out, const long long ld_out,
@@ -373,16 +425,36 @@ __device__ __forceinline__ void gs_pass_panel(
     for (int k = wr; k < kp; k += ROWS)
         bs[k * S + sp] = (valid && k < K) ? beta_in[k * ld_in] : 0.f;
 
-    // The prologue, P = XtX . B_old over all rows, i ascending.
+    // The prologue, P = XtX . B_old over all rows, i ascending. WIDE loads
+    // each next strip into sv while the products run.
     float acc[TM][TN];
 #pragma unroll
     for (int m = 0; m < TM; ++m)
 #pragma unroll
         for (int n = 0; n < TN; ++n) acc[m][n] = 0.f;
+    float sv[2 * TM];
+    if (WIDE) strip_load<TM>(sv, xtx, K, 0, 0);
     for (int i0 = 0, j = 0; i0 < kp; i0 += FDT_PANEL, ++j) {
         float* x = xs + (j & 1) * FDT_PANEL * LDX;
-        stage_strip<TM>(x, LDX, xtx, K, i0, 0);
+        if (WIDE)
+            strip_store<TM>(x, LDX, sv, 0);
+        else
+            stage_strip<TM>(x, LDX, xtx, K, i0, 0);
         __syncthreads();  // the strip (and at j = 0 bs) stored
+        if (WIDE) {
+            // This strip's 16 rows of Xty and inv_den into L2, then the
+            // next strip.
+#pragma unroll
+            for (int u = 0; u < NI; ++u) {
+                const int k = wr + ROWS * (NI * j + u);
+                if (valid && k < K) {
+                    prefetch_l2(xty + k * ld);
+                    prefetch_l2(inv_den + k * ld);
+                }
+            }
+            if (i0 + FDT_PANEL < kp)
+                strip_load<TM>(sv, xtx, K, i0 + FDT_PANEL, 0);
+        }
         if (row0 < K)
             strip_product<TM, false>(acc, x, LDX, bs + i0 * S, row0, s0, 0);
     }
@@ -407,7 +479,10 @@ __device__ __forceinline__ void gs_pass_panel(
         const int lim = K < r0 + RR ? K : r0 + RR;
         for (int k = r0 + wr; k < lim; k += NB * ROWS) {
             float nsk[NB];
-            ns.template rows<NB>(k, ROWS, lim, nsk);
+            if constexpr (WIDE)
+                ns.template rows_wide<NB>(k, ROWS, lim, nsk);
+            else
+                ns.template rows<NB>(k, ROWS, lim, nsk);
 #pragma unroll
             for (int j = 0; j < NB; ++j) {
                 const int kj = k + j * ROWS;
@@ -422,9 +497,13 @@ __device__ __forceinline__ void gs_pass_panel(
     }
     __syncthreads();  // the R tile read: strips over it again
 
+    if (WIDE) strip_load<TM>(sv, xtx, K, 0, 0);
     for (int a = 0, j = 0; a < K; a += FDT_PANEL, ++j) {
         float* x = xs + (j & 1) * FDT_PANEL * LDX;
-        stage_strip<TM>(x, LDX, xtx, K, a, a);
+        if (WIDE)
+            strip_store<TM>(x, LDX, sv, a);
+        else
+            stage_strip<TM>(x, LDX, xtx, K, a, a);
 #pragma unroll
         for (int u = 0; u < NI; ++u) is[(wr + ROWS * u) * S + sp] = inv[u];
 #pragma unroll
@@ -441,7 +520,7 @@ __device__ __forceinline__ void gs_pass_panel(
         const int b = a + FDT_PANEL;  // the first row below the panel
         // The next panel's inv_den: loaded before the recurrence by the
         // other warps, after it by the recurrence's, whose registers hold
-        // the panel's r meanwhile.
+        // the panel's r meanwhile (before it too where WIDE).
         const auto next_inv = [&] {
 #pragma unroll
             for (int u = 0; u < NI; ++u) {
@@ -449,7 +528,7 @@ __device__ __forceinline__ void gs_pass_panel(
                 inv[u] = (valid && k < K) ? inv_den[k * ld] : 0.f;
             }
         };
-        if (!rec) next_inv();
+        if (WIDE || !rec) next_inv();
 
         if (rec) {
             float r[FDT_PANEL];
@@ -475,9 +554,10 @@ __device__ __forceinline__ void gs_pass_panel(
                     }
                 }
             }
-            next_inv();
+            if (!WIDE) next_inv();
         }
         __syncthreads();  // the panel's deltas written
+        if (WIDE && b < K) strip_load<TM>(sv, xtx, K, b, b);
 
         // The panel's corrections to every row below it, c ascending.
         if (b < K && row0 + TM > b && row0 < K)

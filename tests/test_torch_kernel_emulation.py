@@ -24,10 +24,10 @@ bit for bit; against both, kernel #1's spot-panel pass (32 < K <= 64) is
 held bit for bit in the whole sweep, with ``ns_rest`` and in the sub-range
 form, and the launch counters on the wrappers' launch path through the
 emulated library; so is the tile pass's one-block range (256 < K <= 384,
-TM = 9 to 12: kernel #1 whole, with ``ns_rest`` and split, against kernel
-#2 on the banded sums), and the TM <= 8 instances' outputs at K = 96 and
-256 are held to digests of what the sources gave before the pass took
-K > 256. Bounds as on the card (tests/test_torch_kernels.py): atol
+kernel #1's WIDE form on TM = 10 / 12: whole, with ``ns_rest`` and split,
+with a ragged last block and with a NaN, against kernel #2 on the banded
+sums), and the TM <= 8 instances' outputs at K = 96 and 256 are held to
+digests of what the sources gave before the pass took K > 256. Bounds as on the card (tests/test_torch_kernels.py): atol
 5e-5 / rtol 1e-4 against the plain versions, rtol 1e-4 on the statistics,
 fused == unfused banded bitwise, a split sweep == the whole sweep bitwise.
 The objective kernel of ``fused_banded_sweep.cu`` runs through the same
@@ -71,6 +71,9 @@ HOST_EDITS = {
          "    *dst = *src;"),
         ('asm volatile("cp.async.wait_all;" : : : "memory");', ""),
         ('asm volatile("" : "+l"(p));', ""),
+    ],
+    "gs_pass_panel.cuh": [
+        ('asm volatile("prefetch.global.L2 [%0];" : : "l"(p));', "(void)p;"),
     ],
     "fused_banded_sweep.cu": [
         ("extern __shared__ float4 smem4[];", "float4* smem4 = fdt_emu_smem;"),
@@ -568,22 +571,23 @@ def test_spot_panel_launches_count_the_new_pass(emulator, K, monkeypatch):
 
 # -- the tile pass above K = 256 (kernels #1b and #2a, TM = 9 to 12) ---------
 
-# TM = 9, 10, 11 and 12: a ragged last panel and register tile (257, 300,
-# 338) and a whole one (384 = KERNEL_MAX_K).
-WIDE_KS = [257, 300, 338, tbcd.KERNEL_MAX_K]
+# TM = 9, 10, 11 and 12: a ragged last panel and register tile (257, 288,
+# 300, 338, 352) and a whole one (384 = KERNEL_MAX_K).
+WIDE_KS = [257, 288, 300, 338, 352, tbcd.KERNEL_MAX_K]
 
 
 @pytest.mark.parametrize("form", ["whole", "rest", "sub"])
 @pytest.mark.parametrize("K", WIDE_KS)
 def test_emulated_wide_tile_pass_is_bitwise_fused_and_unfused(emulator, K,
                                                              form):
-    """Kernel #1's tile pass at 256 < K <= ``KERNEL_MAX_K`` against kernel
-    #2's on the plain twin's banded sums (``neighbor_sum_banded``), on the
-    20 x 20 grid with 60 rest edges: the whole sweep, the whole sweep with
-    ``ns_rest`` and the sub-range form's three calls into one full carry
-    give the same beta and statistics bit for bit; kernel #1 is within the
-    card's bounds of the plain twin (``fused_banded_sweep_reference``), its
-    pad slabs zero."""
+    """Kernel #1's tile pass at 256 < K <= ``KERNEL_MAX_K`` (its WIDE
+    form, on a register tile of 12 rows, or 10 at K = 289-320) against
+    kernel #2's (ceil(K/32) rows) on the plain twin's banded sums
+    (``neighbor_sum_banded``), on the 20 x 20 grid with 60 rest edges: the
+    whole sweep, the whole sweep with ``ns_rest`` and the sub-range form's
+    three calls into one full carry give the same beta and statistics bit
+    for bit; kernel #1 is within the card's bounds of the plain twin
+    (``fused_banded_sweep_reference``), its pad slabs zero."""
     assert 256 < K <= tbcd.KERNEL_MAX_K
     p, t, args, nsr = _rest_problem(K, seed=K + 17)
     pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
@@ -612,6 +616,77 @@ def test_emulated_wide_tile_pass_is_bitwise_fused_and_unfused(emulator, K,
     assert unfused[1] == got[1] and unfused[2] == got[2]
     _close(unfused, tbcd.coordinate_descent_block_reference(
         beta_t, t["Xty_t"], t["XtX"], ns, args[4], 0.5, 0.1))
+
+
+def _wide_problem(K, side, seed, where=None):
+    """A side x side grid in blocks of 2 * side spots (h = 1) at K, as the
+    sweep's arguments; ``where`` puts a NaN in XtX, inv_den or lambda."""
+    p = fused_problem(side=side, n_types=K, seed=seed, block=2 * side)
+    t = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+         for k, v in p.items()}
+    lam = float("nan") if where == "lambda" else 0.5
+    if where == "XtX":
+        t["XtX"][10, 1] = float("nan")
+    inv = tbcd.gs_inv_den(t["XtX"], t["nnb"], lam).contiguous()
+    if where == "inv_den":
+        inv[7, 30] = float("nan")
+    return p, t, (t["carry"], t["Xty_t"], t["XtX"], t["masks"], inv, lam,
+                  0.1, p["offsets"], p["h"], p["block"])
+
+
+def _tile_pass_of(emulator, p, t, args):
+    """Kernel #2's tile pass on the banded sums of the fused problem's
+    carry: (new beta, max_diff, max_abs)."""
+    pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
+    beta_t = t["carry"][:, pad:pad + n].contiguous()
+    ns = tbcd.neighbor_sum_banded(beta_t, p["offsets"], t["masks"].float(),
+                                  torch.zeros((0, n), dtype=torch.int32))
+    return emulated_cd(emulator, beta_t, t["Xty_t"], t["XtX"], ns, args[4],
+                       args[5], 0.1)
+
+
+# Grid sides whose carries (side^2 + 4 * h * side columns) end on a ragged
+# last block of 64 columns, by the columns left in it: 20 (18, h = 2: the
+# first warp of each spot-layout row partly filled, the second empty), 32
+# (20: the second empty) and 60 (22: the second partly filled).
+RAGGED_SIDES = {18: 20, 20: 32, 22: 60}
+
+
+@pytest.mark.parametrize("side", sorted(RAGGED_SIDES))
+@pytest.mark.parametrize("K", [288, 338])
+def test_emulated_wide_tile_pass_with_a_ragged_last_block(emulator, K,
+                                                         side):
+    """Kernel #1's tile pass above K = 256 on a carry whose last block is
+    ragged: its data columns and statistics bit for bit kernel #2's tile
+    pass on the banded sums, within the card's bounds of the plain twin,
+    the pad columns zero."""
+    p, t, args = _wide_problem(K, side, seed=K + side)
+    pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
+    assert (n + 2 * pad) % 64 == RAGGED_SIDES[side]
+    got = emulated_fused(emulator, *args)
+    _close(got, tbcd.fused_banded_sweep_reference(*args))
+    assert (got[0][:, :pad] == 0).all() and (got[0][:, -pad:] == 0).all()
+    tile = _tile_pass_of(emulator, p, t, args)
+    assert torch.equal(tile[0], got[0][:, pad:pad + n])
+    assert tile[1] == got[1] and tile[2] == got[2]
+
+
+@pytest.mark.parametrize("K", [288, 338])
+@pytest.mark.parametrize("where", ["XtX", "inv_den", "lambda"])
+def test_emulated_wide_tile_pass_propagates_nan(emulator, where, K):
+    """A NaN in XtX, inv_den or lambda: NaN where the plain version has
+    it, a NaN max_diff (so the sweep cannot pass for converged), and
+    kernel #2's tile pass's output on the unfused banded sums (NaN in the
+    same places, the rest bit for bit)."""
+    p, t, args = _wide_problem(K, 20, seed=5, where=where)
+    got = emulated_fused(emulator, *args)
+    ref = tbcd.fused_banded_sweep_reference(*args)
+    assert torch.isnan(ref[0]).any() and torch.isnan(got[1])
+    _close(got, ref)
+    pad, n = p["h"] * p["block"], t["Xty_t"].shape[1]
+    tile = _tile_pass_of(emulator, p, t, args)
+    torch.testing.assert_close(got[0][:, pad:pad + n], tile[0], atol=0.0,
+                               rtol=0.0, equal_nan=True)
 
 
 def _digest(*tensors) -> str:

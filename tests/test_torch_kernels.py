@@ -24,7 +24,9 @@ unfused banded tier with the same rest table. Kernel #1's spot-panel pass
 (32 < K <= 64) is held bitwise against kernel #2's tile pass on the
 banded sums at K = 34, 47 and 48: whole, with ``ns_rest`` and split, and
 so is the tile pass's one-block range (256 < K <= 384, K = 257, 300, 338
-and 384), each launch counted on ``.wide_launches``. The
+and 384 and 288 and 352, kernel #1's WIDE form), each launch counted on
+``.wide_launches``, and on grids whose last block of 64 columns is ragged.
+The
 fetch of a card tensor
 to the host (``fetch_to_host``, through pinned staging buffers) is held
 bit for bit against ``tensor.cpu()``, ``return_device`` against the host
@@ -71,9 +73,10 @@ pytestmark = pytest.mark.cuda
 # panel pass from K = 33 (kernel #1's spot-panel pass to K = 64, the tile
 # pass above; kernel #2's tile pass throughout): whole panels (48, 64, 80,
 # 96, 128, 256, 384) and a ragged last panel and register tile (33, 34, 65,
-# 129, 255, 257, 300, 338), of 13 to 15 rows at 45, 47, 61 and 63; above
-# K = 256 the tile pass's one-block instances (TM = 9 to 12).
-WIDE_KS = [257, 300, 338, tbcd.KERNEL_MAX_K]
+# 129, 255, 257, 288, 300, 338, 352), of 13 to 15 rows at 45, 47, 61 and
+# 63; above K = 256 the tile pass's one-block instances (TM = 9 to 12,
+# kernel #1's WIDE form).
+WIDE_KS = [257, 288, 300, 338, 352, tbcd.KERNEL_MAX_K]
 KS = [6, 20, 24, 32, 33, 34, 45, 47, 48, 61, 63, 64, 65, 80, 96, 128, 129,
       255, 256] + WIDE_KS
 # Each sum of the objective kernel against the plain path's on the card.
@@ -581,6 +584,37 @@ def test_wide_tile_pass_is_bitwise_fused_and_unfused_on_the_card(
     assert torch.equal(out[:, pad:pad + n], tile)
     assert max(float(d) for d, _ in stats) == float(td)
     assert max(float(a) for _, a in stats) == float(ta)
+
+
+@pytest.mark.parametrize("side", [18, 20, 22])
+def test_wide_tile_pass_with_a_ragged_last_block_on_the_card(cuda_device,
+                                                             side):
+    """Kernel #1 at K = 338 on grids whose carry ends on a ragged block of
+    64 columns (20, 32 and 60 columns left): its data columns and
+    statistics bit for bit kernel #2's tile pass on the banded sums, the
+    pad columns zero, one launch on ``.wide_launches``."""
+    K = 338
+    p = fused_problem(side=side, n_types=K, seed=side, block=2 * side)
+    tp = as_torch(p, cuda_device)
+    inv = tbcd.gs_inv_den(tp["XtX"], tp["nnb"], 0.5).contiguous()
+    n, pad = tp["Xty_t"].shape[1], p["h"] * p["block"]
+    assert (n + 2 * pad) % 64 == {18: 20, 20: 32, 22: 60}[side]
+    wide = tbcd.fused_banded_sweep.wide_launches
+    out, d, a = tbcd.fused_banded_sweep(
+        tp["carry"], tp["Xty_t"], tp["XtX"], tp["masks"], inv, 0.5, 0.1,
+        p["offsets"], p["h"], p["block"])
+    beta_t = tp["carry"][:, pad:pad + n].contiguous()
+    ns = tbcd.neighbor_sum_banded(
+        beta_t, p["offsets"], tp["masks"].float(),
+        torch.zeros((0, n), dtype=torch.int32, device=cuda_device))
+    tile, td, ta = tbcd.coordinate_descent_block(beta_t, tp["Xty_t"],
+                                                 tp["XtX"], ns, inv, 0.5,
+                                                 0.1)
+    torch.cuda.synchronize()
+    assert tbcd.fused_banded_sweep.wide_launches == wide + 1
+    assert torch.equal(out[:, pad:pad + n], tile)
+    assert (out[:, :pad] == 0).all() and (out[:, -pad:] == 0).all()
+    assert float(d) == float(td) and float(a) == float(ta)
 
 
 def test_sub_range_off_the_carry_raises(cuda_device):
